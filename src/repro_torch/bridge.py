@@ -12,6 +12,11 @@ packed container into its four arrays plus its static fields.
   projection leaf is a dict with the keys of :func:`packed_from_jax`.
 * :func:`packed_from_jax` turns a JAX ``PackedDSBPWeight``'s children and
   static fields into the port's container.
+* :func:`cache_from_jax` turns a JAX KV cache tree ``{"units": [...],
+  "tail": [...]}`` into the port's per-layer ``{'k', 'v'}`` list; a packed
+  leaf (a JAX ``PackedKVBlock``) arrives as a dict of its ``qm``/``scale``
+  children and static ``bits``/``fmt`` and becomes a
+  :class:`~repro_torch.kvq.PackedKVBlock`.
 """
 from __future__ import annotations
 
@@ -21,9 +26,10 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core.packed import LAYOUT_VERSION, PackedDSBPWeight
 from repro_torch.core.quantized import PRESETS, QuantizedMatmulConfig
+from repro_torch.kvq import PackedKVBlock
 from repro_torch.models.model import Model
 
-__all__ = ["model_from_jax", "packed_from_jax"]
+__all__ = ["model_from_jax", "packed_from_jax", "cache_from_jax"]
 
 _PACKED_KEYS = ("ka", "kscale", "tscale", "bits")
 
@@ -94,3 +100,33 @@ def model_from_jax(params: dict, cfg: ArchConfig, *, device) -> Model:
         for i, tree in enumerate(params["tail"]):
             _fill_layer(model.layers[base + i], tree, None, device)
     return model
+
+
+def _kv_leaf(value, index, device):
+    """One layer's K or V cache leaf: a float tensor, or a packed block
+    from a dict of the JAX container's children and static fields."""
+    if isinstance(value, dict) and "qm" in value:
+        qm, scale = (np.asarray(value[key]) for key in ("qm", "scale"))
+        if index is not None:
+            qm, scale = qm[index], scale[index]
+        return PackedKVBlock(torch.tensor(qm, device=device),
+                             torch.tensor(scale, device=device),
+                             bits=int(value["bits"]), fmt=str(value["fmt"]))
+    a = np.asarray(value)
+    return torch.tensor(a if index is None else a[index], device=device)
+
+
+def cache_from_jax(cache: dict, cfg: ArchConfig, *, device) -> list[dict]:
+    """The port's per-layer KV cache holding a JAX cache tree's contents
+    (unit leaves carry the stacked ``R`` axis, split per layer as the
+    weights are)."""
+    device = torch.device(device)
+    p_len = len(cfg.pattern)
+    base = cfg.n_units * p_len
+    out: list = [None] * (base + len(cfg.tail))
+    for p, unit in enumerate(cache["units"]):
+        for r in range(cfg.n_units):
+            out[r * p_len + p] = {n: _kv_leaf(unit[n], r, device) for n in ("k", "v")}
+    for i, entry in enumerate(cache["tail"]):
+        out[base + i] = {n: _kv_leaf(entry[n], None, device) for n in ("k", "v")}
+    return out

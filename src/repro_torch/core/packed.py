@@ -18,6 +18,8 @@ The registry decides how ``models.layers.dense`` executes a projection:
 
   dense_bf16   plain matmul, no quantization
   dsbp_ref     reference DSBP numerics (torch grouped int contraction)
+  dsbp_kernel  the two-kernel DSBP GEMM: the input path (B3), then the
+               grouped integer GEMM (B4) off the stored operands
   dsbp_fused   the one-pass fused DSBP GEMM (CUDA kernel on the card,
                its plain PyTorch version on the CPU) — the serving default
 """
@@ -177,6 +179,26 @@ class DSBPRefMethod(QuantMethod):
         from . import quantized as Q
 
         return Q.dsbp_matmul_ref(x, w, cfg).to(x.dtype)
+
+
+@register_quant_method
+class DSBPKernelMethod(QuantMethod):
+    """The two-kernel DSBP GEMM (``kernels.ops.dsbp_matmul_packed``): the
+    int8 aligned mantissas of a packed weight feed the grouped GEMM
+    directly, under the *active* config's input path.  Raw weights pack
+    per call (forward only)."""
+
+    name = "dsbp_kernel"
+
+    def _apply_packed(self, pw, x, cfg):
+        from repro_torch.kernels import ops
+
+        return ops.dsbp_matmul_packed(x, pw, input_cfg=cfg.input_cfg).to(x.dtype)
+
+    def _apply_raw(self, w, x, cfg):
+        from repro_torch.kernels import ops
+
+        return ops.dsbp_matmul(x, w, cfg).to(x.dtype)
 
 
 @register_quant_method

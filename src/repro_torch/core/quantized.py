@@ -30,6 +30,7 @@ __all__ = [
     "pack_weights",
     "packed_matmul",
     "dsbp_matmul_ref",
+    "dsbp_matmul",
 ]
 
 
@@ -127,3 +128,13 @@ def dsbp_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     qx = quantize_inputs(x.reshape(-1, x.shape[-1]), cfg.input_cfg)
     qw = quantize_weights(w, cfg.weight_cfg)
     return grouped_int_matmul(qx, qw).reshape(*batch_shape, w.shape[-1])
+
+
+def dsbp_matmul(x: torch.Tensor, w: torch.Tensor, cfg: QuantizedMatmulConfig,
+                use_kernel: bool = False) -> torch.Tensor:
+    """DSBP GEMM; ``use_kernel=True`` routes to the two kernels (B3, B4)."""
+    if use_kernel:
+        from repro_torch.kernels import ops
+
+        return ops.dsbp_matmul(x, w, cfg)
+    return dsbp_matmul_ref(x, w, cfg)

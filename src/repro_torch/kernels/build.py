@@ -2,15 +2,17 @@
 
 Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
 with a plain C interface under ``build/repro_torch/`` at the checkout's root
-(a directory ``.gitignore`` lists).  The file name carries a hash of the
-sources and flags, so an edited kernel rebuilds and an unchanged one loads
-as it is.  All sources build at once, one ``nvcc`` process each.
+(a directory ``.gitignore`` lists); a library may export several launch
+functions.  The file name carries a hash of the sources and flags, so an
+edited kernel rebuilds and an unchanged one loads as it is.  All sources
+build at once, one ``nvcc`` process each.
 
 The flags never include ``--use_fast_math``: it approximates division and
 flushes subnormals, which would break the DSBP exactness argument.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "SIGNATURES", "build_all", "load",
+           "plain_body", "in_plain_body"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -29,15 +32,27 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-# C signature of each library's launch function: (name, argtypes)
+# each kernel's launch function: name -> (library = csrc/<library>.cu,
+# C symbol, argtypes)
 SIGNATURES = {
-    "dsbp_fused": ("dsbp_fused_launch",
+    "dsbp_fused": ("dsbp_fused", "dsbp_fused_launch",
                    [P, P, P, P, P, P, I, I, I, I, I, I, F, I, F, I, I, P]),
-    "flash_attention": ("flash_attention_launch",
+    "flash_attention": ("flash_attention", "flash_attention_launch",
                         [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
+    "packed_flash_attention": ("flash_attention", "packed_flash_attention_launch",
+                               [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
+    "fp8_quant_align": ("fp8_quant_align", "fp8_quant_align_launch",
+                        [P, P, P, P, I, I, I, I, I, F, I, F, I, I, P]),
+    "dsbp_matmul": ("dsbp_matmul", "dsbp_matmul_launch",
+                    [P, P, P, P, P, I, I, I, I, P]),
 }
+LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+# depth of kernels' plain versions running in place of their kernels (CPU
+# tensors): the dispatch counters of kernels/ops.py skip the ops inside
+# them, as the JAX counters skip the bodies of Pallas kernels
+_plain_depth = [0]
 # nvcc's ptxas report (registers, shared memory, spills) of each library
 # built in this process
 reports: dict[str, str] = {}
@@ -63,7 +78,7 @@ def build_all() -> dict[str, Path]:
     """Compile every library that is not built yet, all in parallel;
     returns name -> library path.  Raises with nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SIGNATURES}
+    paths = {name: _lib_path(name) for name in LIBRARIES}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if todo:
         nvcc = _nvcc()
@@ -87,13 +102,27 @@ def build_all() -> dict[str, Path]:
     return paths
 
 
+@contextlib.contextmanager
+def plain_body():
+    """Marks a wrapper's call of its kernel's plain version."""
+    _plain_depth[0] += 1
+    try:
+        yield
+    finally:
+        _plain_depth[0] -= 1
+
+
+def in_plain_body() -> bool:
+    return _plain_depth[0] > 0
+
+
 def load(name: str):
-    """The launch function of library ``name``, building it first if
-    needed.  Every pointer and the stream pass as ``c_void_p``."""
+    """The launch function of kernel ``name``, building its library first
+    if needed.  Every pointer and the stream pass as ``c_void_p``."""
     fn = _loaded.get(name)
     if fn is None:
-        path = build_all()[name]
-        sym, argtypes = SIGNATURES[name]
+        lib, sym, argtypes = SIGNATURES[name]
+        path = build_all()[lib]
         fn = getattr(ctypes.CDLL(str(path)), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -136,7 +136,8 @@ def dsbp_fused(x: torch.Tensor, ts: torch.Tensor, ka: torch.Tensor,
     int8, kscale (K'/64, N) f32, tw (N,) f32 -> y (M, N) f32."""
     _check(x, ts, ka, kscale, tw)
     if not x.is_cuda:
-        return dsbp_fused_plain(x, ts, ka, kscale, tw, cfg)
+        with build.plain_body():
+            return dsbp_fused_plain(x, ts, ka, kscale, tw, cfg)
     m, kp = x.shape
     n = ka.shape[1]
     f = get_format(cfg.fmt)

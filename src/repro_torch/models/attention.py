@@ -1,17 +1,22 @@
-"""Attention for prefill and decode, through the flash-attention kernel.
+"""Attention for prefill and decode, through the flash-attention kernels.
 
 Port of ``repro.models.attention``: :func:`blockwise_attention` (:116) and
 :func:`decode_attention` (:220) keep their JAX masks, and both route to
-``kernels.flash_attention`` — the CUDA kernel for tensors on the card, its
-plain PyTorch version for tensors on the CPU.  The JAX GQA wrapper
-(``kernels/ops.py:333``) only vmapped a single-head kernel over heads; the
-port's kernel indexes heads itself.
+``kernels.flash_attention`` — the CUDA kernels for tensors on the card,
+their plain PyTorch versions for tensors on the CPU.  A decode cache of
+:class:`~repro_torch.kvq.PackedKVBlock` leaves goes to the packed-KV kernel
+(B5), which folds the scales as the JAX ``qk_logits`` / ``pv_out`` packed
+branches (:36-63) do; a float cache to B2.  Prefill attends over the fresh
+float K/V (B2), as in JAX.  The JAX GQA wrapper (``kernels/ops.py:333``)
+only vmapped a single-head kernel over heads; the port's kernels index
+heads themselves.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, packed_flash_attention
+from repro_torch.kvq import PackedKVBlock
 
 __all__ = ["blockwise_attention", "decode_attention"]
 
@@ -32,8 +37,12 @@ def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
-    """q (B, Hq, 1, D) over caches (B, Hkv, S, D): tokens < pos (scalar or
-    (B,), per row) are valid, and the query sits at position pos - 1."""
+    """q (B, Hq, 1, D) over caches (B, Hkv, S, D), float tensors or
+    :class:`PackedKVBlock` leaves: tokens < pos (scalar or (B,), per row)
+    are valid, and the query sits at position pos - 1."""
     b = q.shape[0]
     pos = _rows(pos, b, q.device)
+    if isinstance(k_cache, PackedKVBlock):
+        return packed_flash_attention(q, k_cache.qm, k_cache.scale, v_cache.qm,
+                                      v_cache.scale, pos, pos - 1, causal=True)
     return flash_attention(q, k_cache, v_cache, pos, pos - 1, causal=True)

@@ -3,14 +3,21 @@
 Port of the ``attn_full`` / dense-FFN pieces of ``repro.models.blocks``:
 ``_ffn`` (:91), ``_qkv`` (:107), ``_attn_seq`` (:118), ``layer_seq``
 (:131), ``init_layer_cache`` (:182), ``fill_kv_cache`` (:221),
-``_attn_decode`` (:344) and ``layer_decode`` (:604).  A layer's weights
+``_attn_decode`` (:344) and ``layer_decode`` (:604), with the packed-KV
+entries of ``_kv_entry`` (:174).  A layer's weights
 live in :class:`Layer` (parameter names as in the JAX tree); the cache of
-a layer is ``{'k', 'v'}`` tensors (B, Hkv, S_c, D), updated in place.
+a layer is ``{'k', 'v'}``, each a float tensor (B, Hkv, S_c, D) or a
+:class:`~repro_torch.kvq.PackedKVBlock` (int8 ``qm`` (B, Hkv, S_c, D) and
+f32 ``scale`` (B, Hkv, S_c, 1)), updated in place.  Every write quantizes
+its fresh K/V with :func:`~repro_torch.kvq.quantize_like` first, then
+writes the same slots of every child.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.kvq import PackedKVBlock, init_packed_kv, quantize_like
 
 from .attention import blockwise_attention, decode_attention
 from .layers import dense, rms_norm, rope
@@ -108,10 +115,22 @@ def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
 
 # ---------------- caches ----------------
 
-def init_layer_cache(cfg, batch: int, max_len: int, device) -> dict:
+def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None) -> dict:
+    """One {'k', 'v'} cache entry: float tensors, or packed blocks when a
+    resolved ``kv`` spec (:class:`~repro_torch.kvq.KVQuantConfig`) is set."""
     shp = (batch, cfg.n_kv_heads, max_len, cfg.d_head)
+    if kv is not None:
+        return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
     return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
             "v": torch.zeros(shp, dtype=torch.float32, device=device)}
+
+
+def _leaf_pairs(entry, fresh):
+    """(cache tensor, fresh tensor) pairs of one cache leaf: the two
+    children of a packed leaf, or the float tensor itself."""
+    if isinstance(entry, PackedKVBlock):
+        return ((entry.qm, fresh.qm), (entry.scale, fresh.scale))
+    return ((entry, fresh),)
 
 
 def _fill_slot_sources(lengths: torch.Tensor, s: int):
@@ -123,23 +142,32 @@ def _fill_slot_sources(lengths: torch.Tensor, s: int):
     return src, src >= 0
 
 
-def fill_kv_cache(cache: dict, k, v, lengths, slots=None) -> dict:
+def fill_kv_cache(cache: dict, k, v, lengths, slots=None, rows=None) -> dict:
     """Write prefill K/V (B, H, L, D) into the cache in place: all rows, or
-    cache rows ``slots`` (one per prefill row).  ``lengths`` is an int or a
-    (B,) vector of right-padded prompt lengths; slots that hold no valid
-    token are zeroed, as a fresh cache holds them."""
-    b, h, l, d = k.shape
+    fresh rows ``rows`` into cache rows ``slots`` (one each).  ``lengths``
+    is an int or a vector of right-padded prompt lengths of the rows
+    written; slots that hold no valid token are zeroed, as a fresh cache
+    holds them.  The fresh K/V quantize as a whole before rows are taken,
+    so the per-tensor scale spans every row of the prefill, as in JAX's
+    fresh cache."""
+    _, h, l, _ = k.shape
+    b = k.shape[0] if rows is None else len(rows)
     s = cache["k"].shape[2]
-    lengths = torch.as_tensor(lengths, device=k.device).expand(b)
+    lengths = torch.as_tensor(lengths, device=cache["k"].device).expand(b)
     src, ok = _fill_slot_sources(lengths, s)
-    idx = src.clamp(0, l - 1)[:, None, :, None].expand(b, h, s, d)
     keep = ok[:, None, :, None]
     for name, fresh in (("k", k), ("v", v)):
-        vals = torch.where(keep, torch.gather(fresh, 2, idx), 0.0).to(cache[name].dtype)
-        if slots is None:
-            cache[name].copy_(vals)
-        else:
-            cache[name][torch.as_tensor(slots, device=k.device)] = vals
+        fresh = quantize_like(cache[name], fresh)
+        for leaf, fl in _leaf_pairs(cache[name], fresh):
+            if rows is not None:
+                fl = fl[torch.as_tensor(rows, device=fl.device)]
+            idx = src.clamp(0, l - 1)[:, None, :, None].expand(b, h, s, fl.shape[-1])
+            zero = torch.zeros((), dtype=fl.dtype, device=fl.device)
+            vals = torch.where(keep, torch.gather(fl, 2, idx), zero).to(leaf.dtype)
+            if slots is None:
+                leaf.copy_(vals)
+            else:
+                leaf[torch.as_tensor(slots, device=leaf.device)] = vals
     return cache
 
 
@@ -155,8 +183,11 @@ def _attn_decode(layer: Layer, x, cfg, quant, cache: dict, pos: torch.Tensor):
     s_c = cache["k"].shape[2]
     slot = (pos % s_c).to(torch.int64)
     bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, :, slot] = k[:, :, 0]
-    cache["v"][bidx, :, slot] = v[:, :, 0]
+    for name, fresh in (("k", k), ("v", v)):
+        # every lane's token quantizes together (idle lanes included)
+        fresh = quantize_like(cache[name], fresh)
+        for leaf, fl in _leaf_pairs(cache[name], fresh):
+            leaf[bidx, :, slot] = fl[:, :, 0]
     o = decode_attention(q, cache["k"], cache["v"], pos + 1)
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.d_head)
     return x + dense(layer.attn.wo, o.to(x.dtype), quant)

@@ -1,11 +1,11 @@
 """LM assembly: embedding -> decoder layers -> final norm -> head.
 
 Port of the dense main path of ``repro.models.model``: :func:`init` (:46),
-``embed_tokens`` (:76), ``_head`` (:94), ``forward`` (:125), ``init_cache``
-(:182), ``_prefill_trunk`` / ``prefill(lengths=)`` (:206, :242) and
-``decode_step`` (:370, per-row ``pos``).  The JAX ``lax.scan`` over stacked
-units becomes a loop over ``Model.layers`` (layer i is unit i // P at
-pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
+``embed_tokens`` (:76), ``_head`` (:94), ``forward`` (:125),
+``init_cache(kv=)`` (:182), ``_prefill_trunk`` / ``prefill(lengths=, kv=)``
+(:206, :242) and ``decode_step`` (:370, per-row ``pos``).  The JAX
+``lax.scan`` over stacked units becomes a loop over ``Model.layers``
+(layer i is unit i // P at pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
 knobs and have no counterpart here.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig
+from repro_torch.kvq import kv_policy_cfg
 
 from . import blocks
 from .layers import Quant, rms_norm
@@ -102,16 +103,27 @@ class Model(nn.Module):
 
     # ---------------- caches / serving ----------------
 
-    def init_cache(self, batch: int, max_len: int) -> list[dict]:
-        return [blocks.init_layer_cache(self.cfg, batch, max_len, self.device)
-                for _ in self.layers]
+    def cache_entry_name(self, i: int) -> str:
+        """The JAX cache-tree name of layer i's entry (``units.<pattern
+        position>`` or ``tail.<j>``), the key of a per-entry KV spec."""
+        p = len(self.cfg.pattern)
+        base = self.cfg.n_units * p
+        return f"units.{i % p}" if i < base else f"tail.{i - base}"
+
+    def init_cache(self, batch: int, max_len: int, kv=None) -> list[dict]:
+        """Per-layer ``{'k', 'v'}`` caches; ``kv`` an optional KV-quant spec
+        (preset name / bits / config, or a mapping keyed ``units.<i>`` /
+        ``tail.<i>`` with a ``default``) makes them packed."""
+        return [blocks.init_layer_cache(self.cfg, batch, max_len, self.device,
+                                        kv=kv_policy_cfg(kv, self.cache_entry_name(i)))
+                for i in range(len(self.layers))]
 
     def prefill(self, tokens: torch.Tensor, max_len: int, lengths=None,
-                quant: Quant | None = None):
+                quant: Quant | None = None, kv=None):
         """Run the prompt; returns (last-valid-position logits, a fresh
         cache of ``max_len`` slots holding each row's prefix, fill_len)."""
         logits, kvs, fill_len = self.prefill_trunk(tokens, lengths, quant)
-        cache = self.init_cache(tokens.shape[0], max_len)
+        cache = self.init_cache(tokens.shape[0], max_len, kv=kv)
         for c, (k, v) in zip(cache, kvs):
             blocks.fill_kv_cache(c, k, v, fill_len)
         return logits, cache, fill_len

@@ -1,10 +1,11 @@
 """Serving engine: pack-once DSBP weights and length-aware batching.
 
 Port of the dense main path of ``repro.serve.engine``: ``ServeConfig``
-(main-path fields), ``Request``, ``PROJ_NAMES``, ``pack_weights_int8``
-(:229), ``sample_tokens`` (:287) and ``Engine`` with ``__init__`` (pack
-once, ``pack_report``), ``generate`` (:867) and the dense ``serve`` slot
-scheduler (:951) with ``_admit`` (:1175).
+(main-path fields and the DSBP-quantized KV cache's ``kv_quant`` /
+``kv_bits``), ``Request``, ``PROJ_NAMES``, ``pack_weights_int8`` (:229),
+``sample_tokens`` (:287) and ``Engine`` with ``__init__`` (pack once,
+``pack_report``, ``_norm_kv`` :667), ``generate`` (:867) and the dense
+``serve`` slot scheduler (:951) with ``_admit`` (:1175).
 
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
@@ -13,13 +14,15 @@ one-pass DSBP GEMM (``quant_method='dsbp_fused'``).  The engine takes the
 model over: its projections are replaced by the packed containers, and it
 moves to the engine's device.  Where the JAX engine donates its cache to a
 jitted step, this one keeps a preallocated KV pool and updates it in
-place.
+place.  With ``kv_quant`` every cache write quantizes K/V into int8
+aligned mantissas + pow2 scales, and decode attention reads them packed.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -27,6 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.packed import PackedDSBPWeight
 from repro_torch.core.quantized import PRESETS, pack_weights
+from repro_torch.kvq import kv_cache_nbytes, resolve_kv_spec, tree_has_packed_kv
 from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
@@ -56,6 +60,12 @@ class ServeConfig:
     quant_method: str | None = None
     eos_id: int | None = None    # serve(): a slot frees when this is sampled
     prefill_bucket: int = 16     # admission prompts pad up to a multiple
+    # DSBP-quantized KV cache: a preset name ('kv8'/'kv6'/'kv4'), an int
+    # total bitwidth in [2, 8], a repro_torch.kvq.KVQuantConfig, True (kv8)
+    # or a per-entry mapping {'units.<i>': spec, 'tail.<i>': spec,
+    # 'default': spec}; None serves the float cache
+    kv_quant: object = None
+    kv_bits: int | None = None   # uniform shorthand for kv_quant (exclusive)
 
 
 @dataclasses.dataclass
@@ -128,6 +138,7 @@ class Engine:
             cfg = cfg.replace(quant_method=scfg.quant_method)
         self.cfg = cfg
         self.scfg = scfg
+        self.kv_spec = self._norm_kv(scfg)
         self.quant = Quant(cfg.quant, cfg.quant_method)
         self.model = model.to(self.device)
         self.pack_report = None
@@ -139,6 +150,20 @@ class Engine:
             self.pack_report = {"preset": preset, "raw_nbytes": raw,
                                 "packed_nbytes": _nbytes(self.model), **stats}
         self.last_stats: dict | None = None
+
+    @staticmethod
+    def _norm_kv(scfg: ServeConfig):
+        """``kv_quant``/``kv_bits`` -> None, a KVQuantConfig, or a mapping
+        of resolved configs; spec errors surface at construction."""
+        kv = scfg.kv_quant
+        if scfg.kv_bits is not None:
+            if kv is not None:
+                raise ValueError("kv_bits is a uniform shorthand for kv_quant: "
+                                 "set one, not both")
+            kv = int(scfg.kv_bits)
+        if isinstance(kv, Mapping):
+            return {str(k): resolve_kv_spec(v) for k, v in kv.items()}
+        return resolve_kv_spec(kv)
 
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.scfg.seed)
@@ -165,7 +190,7 @@ class Engine:
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=dev)
         t0 = time.perf_counter()
         logits, cache, length = self.model.prefill(
-            toks, scfg.max_len, lengths=lengths, quant=self.quant)
+            toks, scfg.max_len, lengths=lengths, quant=self.quant, kv=self.kv_spec)
         b = toks.shape[0]
         pos = torch.as_tensor(length, dtype=torch.int32, device=dev).expand(b).clone()
         gen = self._generator()
@@ -198,7 +223,9 @@ class Engine:
         queue = self._build_queue(requests, max_new_tokens)
         nreq = len(queue)
         B = scfg.batch_size
-        pool = self.model.init_cache(B, scfg.max_len)
+        pool = self.model.init_cache(B, scfg.max_len, kv=self.kv_spec)
+        # KV bytes one slot's token pins, from the leaves' actual dtypes
+        kv_bpt = kv_cache_nbytes(pool) / max(B * scfg.max_len, 1)
         active: list[Request | None] = [None] * B
         tok = np.zeros(B, np.int64)        # last sampled token per slot
         pos = np.zeros(B, np.int32)        # next absolute position per slot
@@ -237,7 +264,8 @@ class Engine:
         self.last_stats = dict(
             stats, requests=nreq,
             occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
-            decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9))
+            decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
+            kv_bytes_per_token=kv_bpt, kv_packed=tree_has_packed_kv(pool))
         return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
 
     def _admit(self, pool, queue, free, active, tok, pos, out, stats, gen):
@@ -275,8 +303,7 @@ class Engine:
         if rows:
             rows_t = torch.as_tensor(rows, device=self.device)
             for c, (k, v) in zip(pool, kvs):
-                blocks.fill_kv_cache(c, k[rows_t], v[rows_t], lens_t[rows_t],
-                                     slots=slots)
+                blocks.fill_kv_cache(c, k, v, lens_t[rows_t], slots=slots, rows=rows_t)
 
     def _build_queue(self, requests, max_new_tokens: int) -> deque:
         reqs = [self._norm_request(r, i, max_new_tokens)
