@@ -37,7 +37,28 @@ Phases (each raises on failure; nothing falls back to the CPU):
   10. the full-width model of phase 5 with kv8 + dsbp_kernel (generate +
      serve, launch counts of B2-B5 per step and prefill, bytes per token,
      zero weight relayouts and zero KV dequantizes dispatched by a decode
-     step), then serve with kv8 + the default dsbp_fused.
+     step), then serve with kv8 + the default dsbp_fused;
+  11. B6 and B7, paged flash attention over a float / packed block pool,
+     against B2 / B5 over the gathered dense view (bit-equal: one source,
+     only a key row's address changes) and their plain versions (1e-5), at
+     phase 13's shape (8 lanes, H=32, D=128, bs=16, 32 blocks per table,
+     shared prompt blocks, idle all-scratch lanes and a chunk lane at
+     kv_len 1), at decode (B=4, ragged lengths up to 2,048, shuffled
+     tables with and without shared blocks) and a 16-query chunk at
+     q_pos0 > 0 with a partial last block; times beside the gather + SDPA
+     yardstick, bounds from the distinct key rows read;
+  12. the 2-layer models of phase 4 served paged (a shared-prefix group and
+     a chunked prompt), float pool and kv8 pool, on the CPU (plain
+     versions) and on the card (kernels): greedy tokens equal under the
+     near-tie rule of phase 9;
+  13. the full-width model of phase 5 served paged: 8 requests sharing a
+     192-token system prompt plus 2 chunked 320-token prompts, 8 lanes on
+     the KV blocks of 4 dense slots (129 blocks of 16), float pool and then
+     kv8; tokens and the logits they were drawn from held against a dense
+     serve of the same requests at batch 8 (phase 9's rule), and exactly
+     against a dense serve where the batches match; scheduler stats, B6/B7
+     launched 32 times per decode step, and 0 KV-sized gathers and 0 KV
+     dequantizes dispatched by a paged decode step.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -71,8 +92,10 @@ TIE = 1e-3  # logit tolerance, relative to max|logit|
 # their plain versions in the last bits (sum order, expf), and such a bit
 # can move one projection input across an FP8 rounding boundary, which the
 # following layers compound (phase 9's kv8 run does so at its second decode
-# step: 4.7% of max|logit| over 2 full-width layers, PERF.md); a kernel
-# fault gives differences of the order of max|logit| itself
+# step: 4.7% of max|logit| over 2 full-width layers, PERF.md); so can a
+# batch of other rows on one device (phase 13: they move the per-tensor
+# input scale, which changes how the smallest inputs round); a kernel or
+# cache fault gives differences of the order of max|logit| itself
 KV_TIE = 0.1
 
 
@@ -624,6 +647,468 @@ def phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels, model, cfg,
     return launches, fl
 
 
+def _distinct_keys(table, kv_len, bs: int) -> int:
+    """Key rows a paged read must load: key j < kv_len[b] of row b lives in
+    pool slot (table[b, j // bs], j % bs), and a slot that several rows
+    reach through shared blocks is loaded once."""
+    import numpy as np
+
+    tab, lens = table.cpu().numpy().astype(np.int64), kv_len.cpu().numpy()
+    slots = [tab[b, np.arange(n) // bs] * bs + np.arange(n) % bs
+             for b, n in enumerate(lens.tolist())]
+    return int(np.unique(np.concatenate(slots)).size)
+
+
+def _serve_table(torch, gen, rows, mb: int, nb: int):
+    """A table like the ones phase 13 hands B6/B7: ``rows`` of (kv_len,
+    blocks held, leading blocks shared with row 0); a row holding no
+    block is all scratch (block 0), as idle lanes are."""
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+    table = torch.zeros(len(rows), mb, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, (_, held, shared) in enumerate(rows):
+        table[b, :shared] = table[0, :shared]
+        table[b, shared:held] = perm[used: used + held - shared]
+        used += held - shared
+    kv_len = torch.tensor([n for n, _, _ in rows], dtype=torch.int32, device="cuda")
+    return table, kv_len
+
+
+def phase_b6_b7(torch, FA, KVQ):
+    print("== phase 11: B6 / B7 paged flash attention vs B2 / B5 over the gathered "
+          "view and plain")
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h, d, bs = 32, 128, 16
+    kv8 = KVQ.KV_PRESETS["kv8"]
+
+    def pools(nb):
+        pk = torch.randn(nb, h, bs, d, generator=gen, device="cuda")
+        pv = torch.randn(nb, h, bs, d, generator=gen, device="cuda")
+        return pk, pv, KVQ.quantize_kv(pk, kv8), KVQ.quantize_kv(pv, kv8)
+
+    # B=4 rows over 2,048 keys each: shuffled tables over blocks 1..512, one
+    # where no block is shared and one where rows 1-3 share row 0's first
+    # 20 blocks
+    big = pools(4 * 128 + 1)
+    perm = (torch.randperm(4 * 128, generator=gen, device="cuda") + 1).to(torch.int32)
+    own = perm.reshape(4, 128).clone()
+    shared = own.clone()
+    shared[1:, :20] = shared[0, :20]
+    ragged = torch.tensor([2048, 1501, 700, 37], dtype=torch.int32, device="cuda")
+    # the main path's shape (phase 13): 8 lanes, max_len 512 (MB 32), 129
+    # blocks; lanes 1 and 6 share lane 0's 12 system-prompt blocks, lanes 2
+    # and 5 are idle (all scratch, kv_len 1), lane 3 is mid chunked prefill
+    # (its own blocks, stale position 0)
+    lanes = ((209, 14, 0), (215, 14, 12), (1, 0, 0), (1, 21, 0), (330, 21, 0),
+             (1, 0, 0), (223, 14, 12), (512, 32, 0))
+    serve_table, serve_len = _serve_table(torch, gen, lanes, 32, 129)
+    cases = (("serve", pools(129), serve_table, 1, serve_len),
+             ("decode", big, shared, 1, ragged),
+             ("decode-unshared", big, own, 1, ragged),
+             ("chunk", big, shared, 16,
+              torch.tensor([1000, 537, 250, 77], dtype=torch.int32, device="cuda")))
+    out = {}
+    for name, (pk, pv, kq, vq), table, sq, kv_len in cases:
+        b, mb = table.shape
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        q0 = kv_len - sq
+        gk, gv = FA.gather_blocks(pk, table), FA.gather_blocks(pv, table)
+        gq = [FA.gather_blocks(t, table) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+        mask = FA.attention_mask(kv_len, q0, sq, mb * bs, causal=True, window=0)
+        visible = float(mask.sum())
+        keys = _distinct_keys(table, kv_len, bs)
+        am = mask[:, None]
+        for kname, fn, args, dense, dargs, plain, kvb in (
+                ("B6", FA.paged_flash_attention, (q, pk, pv, table, kv_len, q0),
+                 FA.flash_attention, (q, gk, gv, kv_len, q0),
+                 FA.paged_flash_attention_plain, 4 * d),
+                ("B7", FA.paged_packed_flash_attention,
+                 (q, kq.qm, kq.scale, vq.qm, vq.scale, table, kv_len, q0),
+                 FA.packed_flash_attention, (q, *gq, kv_len, q0),
+                 FA.paged_packed_flash_attention_plain, d + 4)):
+            o = fn(*args)
+            ref = dense(*dargs)
+            pl = plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(o, ref):
+                raise AssertionError(f"{kname} {name} != its dense kernel over the gathered "
+                                     f"view: max |diff| {float((o - ref).abs().max())}")
+            err = float((o - pl).abs().max())
+            if not torch.allclose(o, pl, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{kname} {name}: kernel vs plain max |diff| {err}")
+            ms = cuda_ms(fn, [args], iters=20)
+            dense_ms = cuda_ms(dense, [dargs], iters=20)
+            plain_ms = cuda_ms(plain, [args], iters=5)
+            if kname == "B6":
+                def yard():
+                    return F.scaled_dot_product_attention(
+                        q, FA.gather_blocks(pk, table), FA.gather_blocks(pv, table),
+                        attn_mask=am)
+            else:
+                def yard():
+                    k_ = FA.gather_blocks(kq.qm, table) * FA.gather_blocks(kq.scale, table)
+                    v_ = FA.gather_blocks(vq.qm, table) * FA.gather_blocks(vq.scale, table)
+                    return F.scaled_dot_product_attention(q, k_, v_, attn_mask=am)
+            yard_ms = cuda_ms(yard, [()], iters=10)
+            # every distinct key row it needs once, the queries, the output,
+            # its table rows and the lengths
+            nbytes = (2 * q.numel() * 4 + 2 * keys * h * kvb + table.numel() * 4 + 8 * b)
+            b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
+            out[(kname, name)] = {"ms": ms, "dense_ms": dense_ms, "plain_ms": plain_ms,
+                                  "gather_sdpa_ms": yard_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by, "max_abs_err": err, "keys": keys}
+            print(f"  {kname} {name:15s} B={b} H={h} Sq={sq} bs={bs} MB={mb} keys "
+                  f"{int(kv_len.sum())} ({keys} distinct): bit-equal to "
+                  f"{'B2' if kname == 'B6' else 'B5'} over the gathered view, |diff| to "
+                  f"plain {err:.3g}; kernel {ms:.4f} ms, dense over gathered "
+                  f"{dense_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}), gather + sdpa {yard_ms:.4f} ms (yardstick)")
+    del big, cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def forced_logits(torch, eng, prompt, toks, kv):
+    """(len(toks), Vp) logits of a stream teacher-forced through the dense
+    path of ``eng`` at batch 1: row 0 from the prompt's prefill, row i from
+    decoding toks[i - 1]."""
+    with torch.inference_mode():
+        dev = eng.device
+        lg, cache, _ = eng.model.prefill(torch.as_tensor(prompt[None], device=dev),
+                                         eng.scfg.max_len, quant=eng.quant, kv=kv)
+        rows = [lg[0, -1].float().cpu()]
+        for i, t in enumerate(toks[:-1]):
+            lg, cache = eng.model.decode_step(torch.as_tensor([[int(t)]], device=dev), cache,
+                                              len(prompt) + i, eng.quant)
+            rows.append(lg[0, -1].float().cpu())
+    return torch.stack(rows)
+
+
+def check_streams(torch, ref, got, prompts, ref_eng, other_eng, kv=None):
+    """Every stream of ``got`` equals ``ref``'s, except from a step where
+    the reference's own top-2 logit gap (teacher-forced) is below TIE *
+    max|logit| or twice the two devices' logit difference there (phase 9's
+    rule).  Returns the near ties taken."""
+    ties = []
+    for uid, want in ref.items():
+        have = got[uid]
+        bad = [i for i in range(min(len(want), len(have))) if want[i] != have[i]]
+        if not bad:
+            if len(want) != len(have):
+                raise AssertionError(f"request {uid}: {len(have)} tokens vs {len(want)}")
+            continue
+        t = bad[0]
+        lg = forced_logits(torch, ref_eng, prompts[uid], want[:t + 1], kv)[t]
+        top2 = torch.topk(lg, 2).values
+        gap, top = float(top2[0] - top2[1]), float(lg.abs().max())
+        lo = forced_logits(torch, other_eng, prompts[uid], want[:t + 1], kv)[t]
+        delta = float((lg - lo).abs().max())
+        if delta > KV_TIE * top:
+            raise AssertionError(f"request {uid}: step {t} logits differ by {delta} "
+                                 f"> {KV_TIE} * {top}")
+        limit = max(TIE * top, 2 * delta)
+        if gap >= limit:
+            raise AssertionError(f"request {uid} diverges at step {t}: {want} vs {have} "
+                                 f"(top-2 gap {gap}, limit {limit})")
+        ties.append((uid, t, gap))
+        print(f"  request {uid}: near tie at step {t} (top-2 gap {gap:.3g} < {limit:.3g}), "
+              f"compared up to it")
+    return ties
+
+
+class LogitTape:
+    """Keeps, for every token a serve emits, the logit row it was drawn
+    from: ``rows[uid]`` lists them in emission order.  It wraps the
+    engine's own sampling (one call per sampled batch) and completion test
+    (one call per emitted token, in the batch's row order).  A decode
+    step's emitting rows are its live lanes, read from the step's
+    ``write_len`` (paged) or the serve's slot list (dense); every other
+    sampled batch emits all its rows.  Copying the rows to the host costs
+    a 1 MB transfer per step, against steps of 100 ms or more."""
+
+    def __init__(self, eng, vocab: int):
+        import numpy as np
+
+        self.rows: dict = {}
+        emit, batch, slots = [], [], []
+        model, sample, done, admit = eng.model, eng._sample, eng._done, eng._admit
+        self._undo = [(eng, "_sample"), (eng, "_done"), (eng, "_admit")]
+
+        def take_sample(logits, gen):
+            tok = sample(logits, gen)
+            batch[:] = [logits[:, :vocab].float().cpu()]
+            if not emit:  # not a decode step: every row emits
+                emit.extend(range(logits.shape[0]))
+            return tok
+
+        def take_done(t, emitted, r):
+            row = batch[0][emit.pop(0)]
+            if int(row.argmax()) != t:
+                raise AssertionError(f"logit tape out of step at request {r.uid}")
+            self.rows.setdefault(r.uid, []).append(row)
+            return done(t, emitted, r)
+
+        def take_admit(pool, queue, free, active, *rest):
+            slots[:] = [active]
+            return admit(pool, queue, free, active, *rest)
+
+        def decode_live(name, live):
+            step = getattr(model, name)
+
+            def wrapped(*args, **kw):
+                emit[:] = live(args)
+                return step(*args, **kw)
+            setattr(model, name, wrapped)
+            self._undo.append((model, name))
+
+        eng._sample, eng._done, eng._admit = take_sample, take_done, take_admit
+        decode_live("decode_step_paged", lambda a: np.flatnonzero(a[4]).tolist())
+        decode_live("decode_step", lambda a: [i for i, r in enumerate(slots[0])
+                                              if r is not None])
+
+    def close(self):
+        for obj, name in self._undo:
+            delattr(obj, name)
+
+
+def check_recorded(torch, ref, got, ref_rows, got_rows):
+    """Phase 9's rule on logits the two serves computed: each stream of
+    ``got`` equals ``ref``'s up to its first differing token t; at every
+    step up to t (the same context in both) the two rows differ by at most
+    KV_TIE * max|logit|, and at t the reference's top-2 gap is below
+    max(TIE * max|logit|, twice the difference there).  Returns the near
+    ties taken and each stream's largest difference relative to
+    max|logit|."""
+    import numpy as np
+
+    ties, worst = [], {}
+    for uid, want in ref.items():
+        have = got[uid]
+        if len(want) != len(have):
+            raise AssertionError(f"request {uid}: {len(have)} tokens vs {len(want)}")
+        bad = np.flatnonzero(want != have)
+        t = int(bad[0]) if bad.size else len(want) - 1
+        for step in range(t + 1):
+            a, b = ref_rows[uid][step], got_rows[uid][step]
+            top, delta = float(a.abs().max()), float((a - b).abs().max())
+            worst[uid] = max(worst.get(uid, 0.0), delta / top)
+            if delta > KV_TIE * top:
+                raise AssertionError(f"request {uid}: step {step} logits differ by {delta} "
+                                     f"> {KV_TIE} * {top}")
+        if bad.size:
+            top2 = torch.topk(ref_rows[uid][t], 2).values
+            gap = float(top2[0] - top2[1])
+            limit = max(TIE * top, 2 * delta)
+            if gap >= limit:
+                raise AssertionError(f"request {uid} diverges at step {t}: {want} vs {have} "
+                                     f"(top-2 gap {gap}, limit {limit})")
+            ties.append((uid, t, gap, delta))
+            print(f"  request {uid}: near tie at step {t} (top-2 gap {gap:.3g} < twice the "
+                  f"logit difference {delta:.3g}), compared up to it")
+    return ties, worst
+
+
+def _shared_requests(Request, vocab, n_shared, sys_len, tail, n_long, long_len, new, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sys_prompt = rng.integers(0, vocab, sys_len)
+    toks = [rng.integers(0, vocab, long_len) for _ in range(n_long)]
+    toks += [np.concatenate([sys_prompt, rng.integers(0, vocab, tail)])
+             for _ in range(n_shared)]
+    return [Request(uid=i, tokens=t, max_new_tokens=new) for i, t in enumerate(toks)]
+
+
+def phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cfg):
+    print("== phase 12: 2-layer full width, paged serve (shared prefix + chunked prompt), "
+          "CPU (plain) vs card (kernels), float pool and kv8 pool")
+    gpu_model, cpu_model = models
+    reqs = _shared_requests(Request, cfg.vocab_size, n_shared=3, sys_len=32, tail=7,
+                            n_long=1, long_len=48, new=6, seed=12)
+    prompts = {r.uid: r.tokens for r in reqs}
+    for kv in (None, "kv8"):
+        scfg = ServeConfig(max_len=128, batch_size=2, max_active=4, paged=True,
+                           kv_block_size=16, chunk_prefill_tokens=40, kv_quant=kv)
+        cpu = Engine(cpu_model, scfg, device="cpu")
+        gpu = Engine(gpu_model, scfg, device="cuda")
+        t_cpu = cpu.serve(reqs)
+        cst = dict(cpu.last_stats)
+        b6, b7 = FA.paged_flash_attention.launches, FA.paged_packed_flash_attention.launches
+        t_gpu = gpu.serve(reqs)
+        gst = dict(gpu.last_stats)
+        fired = (FA.paged_flash_attention.launches - b6,
+                 FA.paged_packed_flash_attention.launches - b7)
+        if fired != ((2 * gst["decode_steps"], 0) if kv is None
+                     else (0, 2 * gst["decode_steps"])):
+            raise AssertionError(f"paged {kv or 'float'}: B6/B7 launches {fired} for "
+                                 f"{gst['decode_steps']} decode steps of 2 layers")
+        if not (gst["prefix_hit_blocks"] > 0 and gst["chunked_requests"] == 1
+                and gst["stalled_decode_steps"] == 0):
+            raise AssertionError(f"paged {kv or 'float'} stats {gst}")
+        # phase 9's rule for both pools: the chunked prompt's verify pass
+        # runs PyTorch attention, whose sum order differs on the two devices
+        check_streams(torch, t_cpu, t_gpu, prompts, cpu, gpu, kv=kv)
+        print(f"  {kv or 'float'} pool: tokens CPU vs card equal (near ties above excepted): "
+              f"{ {u: t.tolist() for u, t in t_gpu.items()} }; prefix hits "
+              f"{gst['prefix_hit_blocks']}, chunk steps {gst['chunk_steps']}, decode steps "
+              f"{gst['decode_steps']} (CPU {cst['decode_steps']}), B6/B7 launches {fired}")
+        del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels, model,
+                      cfg):
+    print("== phase 13: full-width llama-7b-paper served paged: 8 requests sharing a "
+          "192-token system prompt + 2 chunked 320-token prompts, 8 lanes on 129 blocks")
+    import numpy as np
+
+    n_layers = cfg.n_layers
+    reqs = _shared_requests(Request, cfg.vocab_size, n_shared=8, sys_len=192, tail=16,
+                            n_long=2, long_len=320, new=16, seed=13)
+    chunk = 256  # the 320-token prompts prefill in chunks
+    results = {}
+    for kv in (None, "kv8"):
+        name = "float" if kv is None else "kv8"
+        eng = Engine(model, ServeConfig(max_len=512, batch_size=4, max_active=8, paged=True,
+                                        kv_block_size=16, chunk_prefill_tokens=chunk,
+                                        kv_quant=kv), device="cuda")
+        if eng.kv_blocks != 4 * 32 + 1:
+            raise AssertionError(f"kv_blocks {eng.kv_blocks}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- this slice's main path: counts from 0 over exactly this run ----
+        tape = LogitTape(eng, cfg.vocab_size)
+        _reset_launches(kernels)
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        st = dict(eng.last_stats)
+        peak = torch.cuda.max_memory_allocated()
+        tape.close()
+
+        if sorted(out) != list(range(10)) or any(len(t) != 16 for t in out.values()):
+            raise AssertionError(f"paged {name} serve did not return 16 tokens each")
+        steps = st["decode_steps"]
+        paged_k, other = (("paged_flash_attention", "paged_packed_flash_attention")
+                          if kv is None else
+                          ("paged_packed_flash_attention", "paged_flash_attention"))
+        if (launches[paged_k] != n_layers * steps or launches[other]
+                or launches["packed_flash_attention"] or launches["dsbp_fused"] <= 0
+                or launches["flash_attention"] % n_layers or not launches["flash_attention"]):
+            raise AssertionError(f"paged {name} launches {launches} for {steps} decode steps")
+        if not (st["max_concurrent"] > 4 and st["stalled_decode_steps"] == 0
+                and st["chunked_requests"] == 2 and st["prefix_hit_blocks"] >= 7 * 12
+                and st["interleaved_decode_steps"] > 0 and st["completed"]):
+            raise AssertionError(f"paged {name} stats {st}")
+        if st["blocks_in_use_at_exit"]:
+            raise AssertionError(f"paged {name}: {st['blocks_in_use_at_exit']} blocks not "
+                                 f"returned")
+        bpt = st["kv_bytes_per_token"]
+        want_bpt = 2 * n_layers * cfg.n_kv_heads * (cfg.d_head * 4 if kv is None
+                                                     else cfg.d_head + 4)
+        if bpt != want_bpt or st["kv_packed"] != (kv is not None):
+            raise AssertionError(f"paged {name} KV bytes per token {bpt} != {want_bpt}")
+
+        # ---- the dense engine on the same requests, 8 slots ----
+        dense = Engine(model, ServeConfig(max_len=512, batch_size=8, kv_quant=kv),
+                       device="cuda")
+        dense_tape = LogitTape(dense, cfg.vocab_size)
+        ref = dense.serve(reqs)
+        dense_tape.close()
+        dst = dict(dense.last_stats)
+        ref_rows = dict(dense_tape.rows)
+        if kv is not None:
+            # a chunked prompt's prefill attends its K/V as the pool stores
+            # them, quantized (JAX's chunked prefill), where the dense
+            # prefill attends the fresh float K/V; its reference is a dense
+            # serve whose prefill attention reads quantize-dequantized K/V
+            # (the two agree bit for bit on the CPU)
+            real, spec = blocks.blockwise_attention, KVQ.KV_PRESETS[kv]
+
+            def qdq_attention(q, k, v, **kw):
+                return real(q, KVQ.quantize_kv(k, spec).dequantize(),
+                            KVQ.quantize_kv(v, spec).dequantize(), **kw)
+
+            blocks.blockwise_attention = qdq_attention
+            qdq_tape = LogitTape(dense, cfg.vocab_size)
+            try:
+                ref.update(dense.serve([r for r in reqs if len(r.tokens) > chunk]))
+            finally:
+                blocks.blockwise_attention = real
+                qdq_tape.close()
+            ref_rows.update(qdq_tape.rows)
+        ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows)
+        # with the same rows in every step (one admission group, no chunks,
+        # no sharing, all lanes busy to the end), paged and dense compute
+        # the same numbers: B6/B7 equal B2/B5 over the same keys bit for bit
+        same = _shared_requests(Request, cfg.vocab_size, n_shared=0, sys_len=0, tail=0,
+                                n_long=4, long_len=128, new=16, seed=14)
+        exact = {}
+        for paged in (True, False):
+            e = Engine(model, ServeConfig(max_len=512, batch_size=4, paged=paged,
+                                          kv_block_size=16, chunk_prefill_tokens=512,
+                                          prefix_sharing=False, kv_quant=kv), device="cuda")
+            exact[paged] = e.serve(same)
+            del e
+        for uid in exact[False]:
+            if not np.array_equal(exact[True][uid], exact[False][uid]):
+                raise AssertionError(f"matched batches, request {uid}: paged "
+                                     f"{exact[True][uid]} != dense {exact[False][uid]}")
+
+        # ---- one paged decode step: no KV-sized gather, no KV dequantize ----
+        with torch.inference_mode():
+            cache = model.init_paged_cache(eng.kv_blocks, 16, kv=eng.kv_spec)
+            tables = np.arange(1, 1 + 4 * 32, dtype=np.int32).reshape(4, 32)
+            toks = np.stack([r.tokens[:200] for r in reqs[2:6]])
+            lens = np.asarray([200, 180, 150, 120], np.int32)
+            model.prefill_paged(torch.as_tensor(toks, device="cuda"), cache, tables, 512,
+                                lengths=lens, quant=eng.quant)
+            step = torch.as_tensor(toks[:, :1], device="cuda")
+            live = np.ones(4, np.int32)
+
+            def decode():
+                return model.decode_step_paged(step, cache, tables, lens, live, 512, eng.quant)
+
+            view = cfg.n_kv_heads * 512 * cfg.d_head  # one lane's gathered view
+            gathers = TO.count_kv_gathers(decode, min_size=view)
+            dequants = TO.count_kv_dequants(decode, min_size=view)
+        if gathers or dequants:
+            raise AssertionError(f"a paged {name} decode step dispatched {gathers} KV-sized "
+                                 f"gathers and {dequants} KV-sized dequantizes")
+        del cache
+        print(f"  {name} pool: {steps} decode steps, {st['chunk_steps']} chunk steps, "
+              f"{1e3 * st['decode_time_s'] / steps:.2f} ms/step, decode "
+              f"{st['decode_tps']:.1f} tok/s, prefill {st['prefill_time_s']:.3f} s, peak "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+        print(f"  {name} pool: max_concurrent {st['max_concurrent']}, prefix_hit_blocks "
+              f"{st['prefix_hit_blocks']}, cow_splits {st['cow_splits']}, chunk_steps "
+              f"{st['chunk_steps']}, interleaved_decode_steps {st['interleaved_decode_steps']}, "
+              f"stalled_decode_steps {st['stalled_decode_steps']}, block_peak_used "
+              f"{st['block_peak_used']}/128, admission_blocked {st['admission_blocked']}, KV "
+              f"bytes per token {bpt:.0f}")
+        print(f"  {name} pool launches: {launches} (per decode step: B6/B7 {n_layers}; "
+              f"B2 {n_layers} per admission prefill)")
+        print(f"  dense batch-8 serve of the same requests: {dst['decode_steps']} steps, "
+              f"{1e3 * dst['decode_time_s'] / dst['decode_steps']:.2f} ms/step, prefill "
+              f"{dst['prefill_time_s']:.3f} s; tokens equal to paged up to near ties in "
+              f"{len(ties)} of {len(reqs)} streams (top-2 gaps "
+              f"{sorted(round(g, 4) for _, _, g, _ in ties)})")
+        print(f"  served logits, paged vs dense{' (chunked streams: qdq prefill)' if kv else ''}"
+              f", largest difference up to each stream's first differing token, of "
+              f"max|logit|: { {u: round(w, 4) for u, w in worst.items()} }")
+        print(f"  matched batches (4 x 128-token prompts, 16 tokens, one group, no chunks, "
+              f"no sharing): paged == dense token for token")
+        print(f"  one paged decode step dispatches 0 KV-sized gathers and 0 KV-sized "
+              f"int8->float conversions outside the kernels")
+        results[name] = {"launches": launches, "stats": st, "peak": peak}
+        del eng, dense
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -672,6 +1157,12 @@ def main() -> int:
                "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul}
     kv_launches, _ = phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels,
                                     model, cfg, float_bpt)
+    b67 = phase_b6_b7(torch, FA, KVQ)
+    phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cfg)
+    kernels.update(paged_flash_attention=FA.paged_flash_attention,
+                   paged_packed_flash_attention=FA.paged_packed_flash_attention)
+    paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
+                              model, cfg)
 
     b1 = next(r for r in b1_rows if (r["M"], r["K"], r["N"]) == (4, 4096, 11008))
     b3 = next(r for r in b3_rows if (r["M"], r["K"]) == (4, 4096))
@@ -719,6 +1210,25 @@ def main() -> int:
          "library_ms": None, "sdpa_dequantized_ms": b5["decode"]["sdpa_dequantized_ms"],
          "shape": "decode B=4 H=32 S=2048 D=128, ragged", "path": "phase 10 (kv8, dsbp_kernel)"},
     ]
+    for name, kname, line, pool in (("paged_flash_attention", "B6", 264, "float"),
+                                    ("paged_packed_flash_attention", "B7", 378, "kv8")):
+        rows = {case: b67[(kname, case)]
+                for case in ("serve", "decode", "decode-unshared", "chunk")}
+        main = rows["serve"]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+             "launches": paged[pool]["launches"][name],
+             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None,
+             "dense_over_gathered_ms": main["dense_ms"],
+             "gather_sdpa_ms": main["gather_sdpa_ms"],
+             "others": {case: {k: r[k] for k in ("ms", "dense_ms", "bound_ms", "keys")}
+                        for case, r in rows.items() if case != "serve"},
+             "shape": "decode, 8 lanes H=32 D=128 bs=16 MB=32 (phase 13's)",
+             "path": f"phase 13 (paged, {pool} pool, dsbp_fused)"})
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,11 @@ SIGNATURES = {
                         [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
     "packed_flash_attention": ("flash_attention", "packed_flash_attention_launch",
                                [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
+    "paged_flash_attention": ("flash_attention", "paged_flash_attention_launch",
+                              [P] * 7 + [I] * 9 + [F, P]),
+    "paged_packed_flash_attention": ("flash_attention",
+                                     "paged_packed_flash_attention_launch",
+                                     [P] * 9 + [I] * 9 + [F, P]),
     "fp8_quant_align": ("fp8_quant_align", "fp8_quant_align_launch",
                         [P, P, P, P, I, I, I, I, I, F, I, F, I, I, P]),
     "dsbp_matmul": ("dsbp_matmul", "dsbp_matmul_launch",

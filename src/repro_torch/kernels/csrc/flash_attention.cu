@@ -23,6 +23,23 @@
 // f32 rounding, so B5 on the card equals B2 over dequantize() bit for bit;
 // the f32 instantiation is B2's code unchanged.
 //
+// Replaces (B6) paged_flash_attention_kernel_call (:264, body
+// _paged_kernel :214) and (B7) paged_packed_flash_attention_kernel_call
+// (:378, body _paged_packed_kernel :324) with the same source again: a
+// third KV-load policy (template PAGED) reads K/V out of a block pool
+// (NB,Hkv,bs,D) through a block table (B,MB) int32 instead of a dense
+// (B,Hkv,S,D) cache: key j of batch row b, KV head hk lives at pool row
+// (table[b*MB + j/bs] * Hkv + hk) * bs + j % bs.  The TPU kernel's scalar
+// prefetch, its one-lane-one-head grid and its static kv_len have no
+// counterpart: at the start of every 32-key tile the block's threads turn
+// the tile's keys into pool row offsets in shared memory (a tile may span
+// several blocks; any bs >= 1), and the loads read through them.  Only the
+// address of a key's row changes, never the order or the arithmetic of a
+// sum, so B6 over (pool, table) equals B2 over the gathered dense view bit
+// for bit, and B7 equals B5 over the gathered packed view.  Table entries
+// of keys past a row's last visible key are never read; the wrapper checks
+// the others on the CPU only (a check on the card would sync).
+//
 // Bound on this card: K/V bytes at decode (one query row per head; B5
 // reads a quarter of B2's bytes); f32 operations at prefill.  Design of
 // this first version: one 128-thread block per (16-query tile, head, batch
@@ -63,15 +80,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool PACKED>
+// PAGED: k/v (and the scales) are pools with the block axis first, S is
+// the logical length MB * bs, and table (B, MB) maps logical blocks to
+// pool blocks; otherwise table is null and bs unused.
+template <bool PACKED, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
                  const float* __restrict__ k_scale,
                  const void* __restrict__ v_in,
                  const float* __restrict__ v_scale,
+                 const int* __restrict__ table,
                  const int* __restrict__ kv_len,
                  const int* __restrict__ q_pos0, float* __restrict__ o, int Hq,
-                 int Hkv, int Sq, int S, int D, int causal, int window,
+                 int Hkv, int Sq, int S, int D, int bs, int causal, int window,
                  float scale) {
   using KV = typename std::conditional<PACKED, int8_t, float>::type;
   const KV* k = (const KV*)k_in;
@@ -84,6 +105,7 @@ attention_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   __shared__ float Lrow[BQ];
   __shared__ float Ksc[PACKED ? BKV : 1];  // the tile's pow2 K/V scales
   __shared__ float Vsc[PACKED ? BKV : 1];
+  __shared__ long long Row[PAGED ? BKV : 1];  // the tile's pool rows
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -93,10 +115,13 @@ attention_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const float* qb = q + ((size_t)b * Hq + h) * (size_t)Sq * D;
-  const KV* kb = k + ((size_t)b * Hkv + hk) * (size_t)S * D;
-  const KV* vb = v + ((size_t)b * Hkv + hk) * (size_t)S * D;
-  const float* ksb = PACKED ? k_scale + ((size_t)b * Hkv + hk) * (size_t)S : nullptr;
-  const float* vsb = PACKED ? v_scale + ((size_t)b * Hkv + hk) * (size_t)S : nullptr;
+  // dense: this (row, head)'s cache; paged: the pool base, rows from Row
+  const size_t base = PAGED ? 0 : ((size_t)b * Hkv + hk) * (size_t)S;
+  const KV* kb = k + base * D;
+  const KV* vb = v + base * D;
+  const float* ksb = PACKED ? k_scale + base : nullptr;
+  const float* vsb = PACKED ? v_scale + base : nullptr;
+  const int* tb = PAGED ? table + (size_t)b * (S / bs) : nullptr;
   float* ob = o + ((size_t)b * Hq + h) * (size_t)Sq * D;
   const int len = min(kv_len[b], S);
   const int p0 = q_pos0[b];
@@ -123,17 +148,26 @@ attention_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
 
   for (int t0 = 0; t0 < kv_end; t0 += BKV) {
     __syncthreads();  // the previous tile's readers are done
+    if (PAGED) {
+      if (tid < BKV) {
+        const int j = t0 + tid;
+        Row[tid] = j < kv_end ? ((long long)tb[j / bs] * Hkv + hk) * bs + j % bs : 0;
+      }
+      __syncthreads();
+    }
     for (int i = tid; i < BKV * D; i += THREADS) {
       const int j = i / D;
       const int d = i - j * D;
       const bool ok = t0 + j < kv_end;
-      Ks[j][d] = ok ? (float)kb[(size_t)(t0 + j) * D + d] : 0.f;
-      Vs[j][d] = ok ? (float)vb[(size_t)(t0 + j) * D + d] : 0.f;
+      const size_t row = PAGED ? (size_t)Row[PAGED ? j : 0] : (size_t)(t0 + j);
+      Ks[j][d] = ok ? (float)kb[row * D + d] : 0.f;
+      Vs[j][d] = ok ? (float)vb[row * D + d] : 0.f;
     }
     if (PACKED && tid < BKV) {
       const bool ok = t0 + tid < kv_end;
-      Ksc[tid] = ok ? ksb[t0 + tid] : 0.f;
-      Vsc[tid] = ok ? vsb[t0 + tid] : 0.f;
+      const size_t row = PAGED ? (size_t)Row[PAGED ? tid : 0] : (size_t)(t0 + tid);
+      Ksc[tid] = ok ? ksb[row] : 0.f;
+      Vsc[tid] = ok ? vsb[row] : 0.f;
     }
     __syncthreads();
 
@@ -198,9 +232,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (bad_shape(B, Hq, Hkv, Sq, S, D)) return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  attention_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)q, k, nullptr, v, nullptr, (const int*)kv_len,
-      (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, S, D, causal, window, scale);
+  attention_kernel<false, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)q, k, nullptr, v, nullptr, nullptr, (const int*)kv_len,
+      (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, S, D, 1, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -211,9 +246,42 @@ extern "C" int packed_flash_attention_launch(
     float scale, void* stream) {
   if (bad_shape(B, Hq, Hkv, Sq, S, D)) return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  attention_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  attention_kernel<true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)q, k_qm, (const float*)k_scale, v_qm,
-      (const float*)v_scale, (const int*)kv_len, (const int*)q_pos0,
-      (float*)o, Hq, Hkv, Sq, S, D, causal, window, scale);
+      (const float*)v_scale, nullptr, (const int*)kv_len, (const int*)q_pos0,
+      (float*)o, Hq, Hkv, Sq, S, D, 1, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// B6: pools (NB,Hkv,bs,D) f32, table (B,MB) int32
+extern "C" int paged_flash_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* kv_len, const void* q_pos0, void* o, int B, int Hq, int Hkv,
+    int Sq, int MB, int bs, int D, int causal, int window, float scale,
+    void* stream) {
+  if (bad_shape(B, Hq, Hkv, Sq, MB, D) || bs <= 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  attention_kernel<false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)q, k_pool, nullptr, v_pool, nullptr, (const int*)table,
+      (const int*)kv_len, (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, MB * bs,
+      D, bs, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// B7: pools qm (NB,Hkv,bs,D) int8 and scale (NB,Hkv,bs,1) f32
+extern "C" int paged_packed_flash_attention_launch(
+    const void* q, const void* k_qm, const void* k_scale, const void* v_qm,
+    const void* v_scale, const void* table, const void* kv_len,
+    const void* q_pos0, void* o, int B, int Hq, int Hkv, int Sq, int MB,
+    int bs, int D, int causal, int window, float scale, void* stream) {
+  if (bad_shape(B, Hq, Hkv, Sq, MB, D) || bs <= 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  attention_kernel<true, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)q, k_qm, (const float*)k_scale, v_qm,
+      (const float*)v_scale, (const int*)table, (const int*)kv_len,
+      (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, MB * bs, D, bs, causal,
+      window, scale);
   return (int)cudaGetLastError();
 }

@@ -18,10 +18,22 @@ scales (B, Hkv, S, 1).  The K scale multiplies the logits after the dot,
 the V scale the probabilities before PV; both are exact, so it equals
 ``flash_attention`` over ``qm * scale`` bit for bit.
 
+``paged_flash_attention(q, k_pool, v_pool, table, kv_len, q_pos0, ...)``
+(B6) and ``paged_packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale,
+table, ...)`` (B7) read K/V out of a block pool (NB, Hkv, bs, D) through
+a block table (B, MB) int32: key j of row b is row ``j % bs`` of pool
+block ``table[b, j // bs]``, so the logical length is MB * bs.  They equal
+``flash_attention`` / ``packed_flash_attention`` over the gathered dense
+view (:func:`gather_blocks`) bit for bit: the kernel changes only the
+address of a key's row.  Their plain versions are exactly that, gather
+then the dense plain version.
+
 On a CUDA tensor each launches ``csrc/flash_attention.cu`` (or raises); on
 a CPU tensor it runs its plain version.  Replaces
 ``src/repro/kernels/flash_attention.py::flash_attention_kernel_call`` (:70)
-and ``packed_flash_attention_kernel_call`` (:166), and the jnp mirrors
+``packed_flash_attention_kernel_call`` (:166),
+``paged_flash_attention_kernel_call`` (:264) and
+``paged_packed_flash_attention_kernel_call`` (:378), and the jnp mirrors
 ``models/attention.py`` :116 / :220 (with the packed ``qk_logits`` /
 ``pv_out`` branches, :36-63).
 """
@@ -34,7 +46,9 @@ from . import build
 NEG_INF = -1e30
 
 __all__ = ["flash_attention", "flash_attention_plain", "packed_flash_attention",
-           "packed_flash_attention_plain", "attention_mask"]
+           "packed_flash_attention_plain", "paged_flash_attention",
+           "paged_flash_attention_plain", "paged_packed_flash_attention",
+           "paged_packed_flash_attention_plain", "gather_blocks", "attention_mask"]
 
 
 def attention_mask(kv_len, q_pos0, sq: int, s: int, *, causal: bool,
@@ -133,17 +147,22 @@ def flash_attention(q, k, v, kv_len, q_pos0, *, causal: bool = True,
 flash_attention.launches = 0
 
 
-def _check_packed(q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0):
-    _check(q, k_qm, v_qm, kv_len, q_pos0)
+def _check_children(fn: str, q, k_qm, k_scale, v_qm, v_scale):
+    """Packed K/V operands: int8 mantissas (..., D) and f32 scales (..., 1)
+    sharing every leading axis, on q's device."""
     want = (*k_qm.shape[:3], 1)
     for name, t, dt, shape in (("k_qm", k_qm, torch.int8, k_qm.shape),
                                ("v_qm", v_qm, torch.int8, k_qm.shape),
                                ("k_scale", k_scale, torch.float32, want),
                                ("v_scale", v_scale, torch.float32, want)):
         if t.dtype != dt or t.shape != shape or t.device != q.device:
-            raise ValueError(f"packed_flash_attention: {name} must be {dt} "
-                             f"{tuple(shape)} on {q.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{fn}: {name} must be {dt} {tuple(shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_packed(q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0):
+    _check(q, k_qm, v_qm, kv_len, q_pos0)
+    _check_children("packed_flash_attention", q, k_qm, k_scale, v_qm, v_scale)
 
 
 def packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0, *,
@@ -176,3 +195,128 @@ def packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0, *,
 
 
 packed_flash_attention.launches = 0
+
+
+# ---------------- paged: K/V through a block table (B6, B7) ----------------
+
+def gather_blocks(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The dense view (B, Hkv, MB * bs, D) of a pool (NB, Hkv, bs, D)
+    through a table (B, MB): a KV-sized copy, which the kernels never
+    make."""
+    view = pool[table.to(torch.int64)]          # (B, MB, Hkv, bs, D)
+    b, mb, h, bs, d = view.shape
+    return view.permute(0, 2, 1, 3, 4).reshape(b, h, mb * bs, d)
+
+
+def paged_flash_attention_plain(q, k_pool, v_pool, table, kv_len, q_pos0, *,
+                                causal: bool = True, window: int = 0) -> torch.Tensor:
+    """:func:`flash_attention_plain` over the gathered view: the oracle B6
+    equals bit for bit on the card (B2 over ``gather_kv_view``)."""
+    return flash_attention_plain(q, gather_blocks(k_pool, table),
+                                 gather_blocks(v_pool, table), kv_len, q_pos0,
+                                 causal=causal, window=window)
+
+
+def paged_packed_flash_attention_plain(q, k_qm, k_scale, v_qm, v_scale, table, kv_len,
+                                       q_pos0, *, causal: bool = True,
+                                       window: int = 0) -> torch.Tensor:
+    """:func:`packed_flash_attention_plain` over the gathered packed view
+    (both children of each pool through the same table)."""
+    g = [gather_blocks(t, table) for t in (k_qm, k_scale, v_qm, v_scale)]
+    return packed_flash_attention_plain(q, *g, kv_len, q_pos0, causal=causal,
+                                        window=window)
+
+
+def _check_paged(name, q, k_pool, v_pool, table, kv_len, q_pos0):
+    b, hq, sq, d = q.shape
+    if (k_pool.ndim != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != d
+            or hq % k_pool.shape[1]):
+        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+    if table.ndim != 2 or table.shape[0] != b or table.dtype not in (torch.int32,
+                                                                     torch.int64):
+        raise ValueError(f"{name}: table must be ({b}, MB) int32, got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if kv_len.shape != (b,) or q_pos0.shape != (b,):
+        raise ValueError(f"{name}: kv_len/q_pos0 must be ({b},), got "
+                         f"{tuple(kv_len.shape)}/{tuple(q_pos0.shape)}")
+    for what, t in (("pools", k_pool), ("pools", v_pool), ("table", table),
+                    ("kv_len", kv_len), ("q_pos0", q_pos0)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {what} on {t.device}, q on {q.device}")
+    if not q.is_cuda:  # on the card these checks would sync: the host's job
+        nb, s = k_pool.shape[0], table.shape[1] * k_pool.shape[2]
+        if table.numel() and (int(table.min()) < 0 or int(table.max()) >= nb):
+            raise ValueError(f"{name}: table entries must lie in [0, {nb})")
+        if kv_len.numel() and int(kv_len.max()) > s:
+            raise ValueError(f"{name}: kv_len {int(kv_len.max())} exceeds the "
+                             f"table's {s} slots")
+
+
+def _launch_dims(q, pool, table):
+    b, hq, sq, d = q.shape
+    if d > 128:
+        raise ValueError(f"paged attention kernel takes d_head <= 128, got {d}")
+    return b, hq, pool.shape[1], sq, table.shape[1], pool.shape[2], d
+
+
+def paged_flash_attention(q, k_pool, v_pool, table, kv_len, q_pos0, *,
+                          causal: bool = True, window: int = 0) -> torch.Tensor:
+    """B6: q (B, Hq, Sq, D) f32 over f32 pools (NB, Hkv, bs, D) through
+    ``table`` (B, MB) int32."""
+    _check_paged("paged_flash_attention", q, k_pool, v_pool, table, kv_len, q_pos0)
+    if not q.is_cuda:
+        with build.plain_body():
+            return paged_flash_attention_plain(q, k_pool, v_pool, table, kv_len,
+                                               q_pos0, causal=causal, window=window)
+    if q.dtype != torch.float32 or k_pool.dtype != torch.float32 \
+            or v_pool.dtype != torch.float32:
+        raise ValueError("paged_flash_attention kernel takes float32 q and pools")
+    dims = _launch_dims(q, k_pool, table)
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
+    table, kv_len, q_pos0 = (t.to(torch.int32).contiguous() for t in (table, kv_len, q_pos0))
+    o = torch.empty_like(q)
+    launch = build.load("paged_flash_attention")
+    err = launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+                 kv_len.data_ptr(), q_pos0.data_ptr(), o.data_ptr(), *dims,
+                 int(causal), int(window), float(q.shape[3] ** -0.5),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_flash_attention kernel launch failed: CUDA error {err}")
+    paged_flash_attention.launches += 1
+    return o
+
+
+paged_flash_attention.launches = 0
+
+
+def paged_packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0,
+                                 *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """B7: B6 over packed pools, ``qm`` int8 (NB, Hkv, bs, D) and
+    ``scale`` f32 (NB, Hkv, bs, 1) for K and V."""
+    name = "paged_packed_flash_attention"
+    _check_paged(name, q, k_qm, v_qm, table, kv_len, q_pos0)
+    _check_children(name, q, k_qm, k_scale, v_qm, v_scale)
+    if not q.is_cuda:
+        with build.plain_body():
+            return paged_packed_flash_attention_plain(
+                q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0,
+                causal=causal, window=window)
+    if q.dtype != torch.float32:
+        raise ValueError(f"{name} kernel takes a float32 q")
+    dims = _launch_dims(q, k_qm, table)
+    q, k_qm, k_scale, v_qm, v_scale = (t.contiguous() for t in (q, k_qm, k_scale, v_qm, v_scale))
+    table, kv_len, q_pos0 = (t.to(torch.int32).contiguous() for t in (table, kv_len, q_pos0))
+    o = torch.empty_like(q)
+    launch = build.load(name)
+    err = launch(q.data_ptr(), k_qm.data_ptr(), k_scale.data_ptr(), v_qm.data_ptr(),
+                 v_scale.data_ptr(), table.data_ptr(), kv_len.data_ptr(),
+                 q_pos0.data_ptr(), o.data_ptr(), *dims, int(causal), int(window),
+                 float(q.shape[3] ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    paged_packed_flash_attention.launches += 1
+    return o
+
+
+paged_packed_flash_attention.launches = 0

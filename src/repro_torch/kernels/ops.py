@@ -3,7 +3,9 @@
 Port of ``repro.kernels.ops``: ``fp8_quant_align`` (:92),
 ``dsbp_matmul_packed`` (:102), ``dsbp_matmul_fused`` (:150),
 ``dsbp_matmul`` (:274), and the two dispatch contracts
-``count_weight_transposes`` (:52) and ``count_kv_dequants`` (:386).  Each
+``count_weight_transposes`` (:52) and ``count_kv_dequants`` (:386), plus
+the paged cache's ``count_kv_gathers`` (no JAX counterpart: the JAX model
+reads a paged pool through a gathered view).  Each
 wrapper dispatches by the device of its tensors: a CUDA tensor goes to the
 hand-written kernel, a CPU tensor to the kernel's plain PyTorch version.
 (The JAX GQA attention wrappers, :333 and :354, have no counterpart: the
@@ -25,7 +27,8 @@ from .dsbp_fused import dsbp_fused
 from .dsbp_matmul import dsbp_matmul as _dsbp_matmul
 
 __all__ = ["fp8_quant_align", "dsbp_matmul_packed", "dsbp_matmul_fused",
-           "dsbp_matmul", "count_weight_transposes", "count_kv_dequants"]
+           "dsbp_matmul", "count_weight_transposes", "count_kv_dequants",
+           "count_kv_gathers"]
 
 
 def _check_packed_2d(pw: PackedDSBPWeight, x: torch.Tensor, name: str) -> None:
@@ -158,5 +161,22 @@ def count_kv_dequants(fn, *args, min_size: int) -> int:
     def pred(func, ins, outs):
         return (any(t.dtype == torch.int8 and t.numel() >= min_size for t in ins)
                 and any(t.is_floating_point() for t in outs))
+
+    return _count(pred, fn, *args)
+
+
+_GATHER_OPS = {torch.ops.aten.index, torch.ops.aten.gather, torch.ops.aten.index_select,
+               torch.ops.aten.take_along_dim, torch.ops.aten.embedding}
+
+
+def count_kv_gathers(fn, *args, min_size: int) -> int:
+    """Gather/index ops producing a tensor of >= ``min_size`` elements that
+    ``fn(*args)`` dispatches: the checkable form of the paged read
+    contract — a paged decode step reads the block pool through the table
+    inside the B6/B7 kernels, never through a KV-sized gathered view.  The
+    gather-oracle path counts >= 1."""
+    def pred(func, ins, outs):
+        return (func.overloadpacket in _GATHER_OPS
+                and any(t.numel() >= min_size for t in outs))
 
     return _count(pred, fn, *args)

@@ -2,12 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b-paper \\
       --packed [--ragged] [--kv-quant kv8] [--method dsbp_kernel] \\
+      [--paged --kv-block-size 16 [--kv-blocks N] [--max-active N]] \\
       [--smoke --device cpu]
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead (use it with ``--smoke``).  ``--ragged`` draws mixed-length
 prompts (2 per slot) through the ``Engine.serve`` slot scheduler instead of
-one uniform ``generate`` batch.
+one uniform ``generate`` batch; ``--paged`` serves them from a pool of KV
+blocks through per-lane block tables (and implies ``--ragged``).
 """
 from __future__ import annotations
 
@@ -45,19 +47,41 @@ def main():
     ap.add_argument("--kv-bits", type=int, default=None,
                     help="uniform KV bitwidth shorthand in [2, 8] "
                          "(alternative to --kv-quant; set one, not both)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: block-pool storage, per-lane block "
+                         "tables, copy-on-write prefix sharing and chunked "
+                         "prefill (implies --ragged)")
+    ap.add_argument("--kv-block-size", type=int, default=16,
+                    help="ring slots per KV block (max_len rounds up to a "
+                         "multiple)")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="blocks in the pool incl. scratch (default: --batch "
+                         "dense slots' worth)")
+    ap.add_argument("--max-active", type=int, default=None,
+                    help="paged lane count; with prefix sharing it can exceed "
+                         "--batch at the same --kv-blocks budget")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
     args = ap.parse_args()
+    if args.paged:
+        args.ragged = True  # the paged scheduler lives in serve()
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(quant=args.preset if args.packed else None)
     model = M.init(cfg, seed=0, device=args.device)
     max_len = args.prompt_len + args.new_tokens + 8
+    if args.paged:  # block pools need block-aligned ring lengths
+        max_len = -(-max_len // args.kv_block_size) * args.kv_block_size
     scfg = ServeConfig(max_len=max_len, batch_size=args.batch,
                        quant_method=args.method, kv_quant=args.kv_quant,
-                       kv_bits=args.kv_bits)
+                       kv_bits=args.kv_bits, paged=args.paged,
+                       kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
+                       max_active=args.max_active)
     eng = Engine(model, scfg, device=args.device)
+    if args.paged:
+        print(f"paged KV: {eng.kv_blocks} blocks x {args.kv_block_size} slots, "
+              f"{eng.lanes} lanes, table width {eng._table_width}")
     if eng.pack_report:
         rep = eng.pack_report
         print(f"packed weights: {rep['raw_nbytes']/1e6:.1f} -> "
@@ -79,6 +103,13 @@ def main():
               f"in {dt:.2f}s ({st['decode_tps']:.1f} decode tok/s, occupancy "
               f"{st['occupancy']*100:.0f}%, {st['decode_steps']} pool steps, "
               f"{st['kv_bytes_per_token']:.0f} KV bytes/token)")
+        if args.paged:
+            print(f"block pool: peak {st['block_peak_used']}/{st['kv_blocks'] - 1} used "
+                  f"({st['block_utilization'] * 100:.0f}%), {st['shared_blocks_peak']} "
+                  f"shared at peak, {st['prefix_hit_blocks']} prefix hits, "
+                  f"{st['cow_splits']} COW splits, {st['chunk_steps']} chunk steps "
+                  f"({st['chunked_requests']} chunked requests), "
+                  f"{st['stalled_decode_steps']} stalled decode steps")
         for uid in list(out)[:2]:
             print(f"  req{uid}: {out[uid].tolist()}")
         return

@@ -4,26 +4,49 @@ Port of the ``attn_full`` / dense-FFN pieces of ``repro.models.blocks``:
 ``_ffn`` (:91), ``_qkv`` (:107), ``_attn_seq`` (:118), ``layer_seq``
 (:131), ``init_layer_cache`` (:182), ``fill_kv_cache`` (:221),
 ``_attn_decode`` (:344) and ``layer_decode`` (:604), with the packed-KV
-entries of ``_kv_entry`` (:174).  A layer's weights
-live in :class:`Layer` (parameter names as in the JAX tree); the cache of
-a layer is ``{'k', 'v'}``, each a float tensor (B, Hkv, S_c, D) or a
+entries of ``_kv_entry`` (:174); and the paged cache's
+``init_layer_cache_paged`` (:194), ``_scatter_pool`` (:248), the paged
+writes ``write_kv_blocks`` (:267), ``fill_kv_cache_paged`` (:303) and
+``rollback_kv_cache_paged`` (:563) as one :func:`write_kv_blocks` over a
+plan, ``_attn_decode_paged`` (:392) / ``layer_decode_paged`` (:625) and
+``_attn_verify_paged`` (:479) / ``layer_verify_paged`` (:507).  A layer's
+weights live in
+:class:`Layer` (parameter names as in the JAX tree); the cache of a layer
+is ``{'k', 'v'}``, each a float tensor (B, Hkv, S_c, D) or a
 :class:`~repro_torch.kvq.PackedKVBlock` (int8 ``qm`` (B, Hkv, S_c, D) and
 f32 ``scale`` (B, Hkv, S_c, 1)), updated in place.  Every write quantizes
 its fresh K/V with :func:`~repro_torch.kvq.quantize_like` first, then
 writes the same slots of every child.
+
+A paged layer's cache is a block pool ``{'k', 'v'}`` of (NB, Hkv, bs, D)
+leaves shared by every lane.  The JAX scatter routes masked entries to the
+scratch block, so its index lists hold duplicates; on the card an index
+put with duplicate indices has no defined order, so the port writes only
+the unmasked entries: a :class:`WritePlan` computed once per step on the
+host, from the block tables and positions the scheduler holds, and shared
+by every layer (they share one ring length).  The plan is what tells JAX's
+three paged writes apart: :func:`write_plan` gives decode's and
+commit-on-accept's entries, :func:`fill_plan` a prompt fill's, with its
+``write_start`` prefix skip.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.kvq import PackedKVBlock, init_packed_kv, quantize_like
 
-from .attention import blockwise_attention, decode_attention
+from .attention import (blockwise_attention, decode_attention, gather_kv_view,
+                        paged_decode_attention, verify_attention)
 from .layers import dense, rms_norm, rope
 
 __all__ = ["Layer", "layer_seq", "layer_decode", "init_layer_cache",
-           "fill_kv_cache"]
+           "fill_kv_cache", "init_layer_cache_paged", "WritePlan", "write_plan",
+           "fill_plan", "write_kv_blocks", "layer_decode_paged",
+           "layer_verify_paged"]
 
 SUPPORTED_KINDS = ("attn_full",)
 
@@ -197,3 +220,145 @@ def layer_decode(layer: Layer, x, cfg, cache: dict, pos, quant=None):
     """One decode step through one layer; the cache updates in place."""
     x = _attn_decode(layer, x, cfg, quant, cache, pos)
     return _mlp_part(layer, x, cfg, quant)
+
+
+# ---------------- paged cache: block pools through block tables ----------------
+
+def init_layer_cache_paged(cfg, num_blocks: int, block_size: int, device,
+                           kv=None) -> dict:
+    """One layer's block pool ``{'k', 'v'}`` (NB, Hkv, bs, D): no batch
+    axis; lanes address it through their block tables."""
+    shp = (num_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
+    if kv is not None:
+        return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
+    return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
+            "v": torch.zeros(shp, dtype=torch.float32, device=device)}
+
+
+def to_host(x) -> np.ndarray:
+    """A host (numpy) copy of a table, position or length vector."""
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
+class WritePlan(NamedTuple):
+    """The unmasked entries of one paged cache write, as device index
+    vectors (n,): fresh token ``tok`` of lane ``row`` goes to row ``off``
+    of pool block ``phys``."""
+    row: torch.Tensor
+    tok: torch.Tensor
+    phys: torch.Tensor
+    off: torch.Tensor
+
+
+def _plan(table, rows, toks, slots, block_size: int, device) -> WritePlan:
+    table = to_host(table)
+    phys = table[rows, slots // block_size]
+    return WritePlan(*(torch.as_tensor(np.asarray(a, np.int64), device=device)
+                       for a in (rows, toks, phys, slots % block_size)))
+
+
+def write_plan(table, pos, write_len, t: int, s_c: int, *, block_size: int,
+               device) -> WritePlan:
+    """The entries of T fresh tokens per lane (JAX ``write_kv_blocks``'
+    mask, which ``rollback_kv_cache_paged`` reuses with ``keep``): token j
+    < ``write_len[b]`` of lane b, at absolute position ``pos[b] + j`` (ring
+    slot ``(pos + j) % s_c``).  Host numpy, no device sync."""
+    b = to_host(table).shape[0]
+    posb = np.broadcast_to(to_host(pos).astype(np.int64), (b,))
+    j = np.arange(t, dtype=np.int64)[None, :]
+    abs_pos = posb[:, None] + j
+    mask = j < np.broadcast_to(to_host(write_len).astype(np.int64), (b,))[:, None]
+    rows, toks = np.nonzero(mask)
+    return _plan(table, rows, toks, abs_pos[rows, toks] % s_c, block_size, device)
+
+
+def fill_plan(table, lengths, s_c: int, *, block_size: int, device,
+              write_start=None) -> WritePlan:
+    """The entries of a prompt fill (JAX ``fill_kv_cache_paged``): ring
+    slot r of lane b receives the last valid prompt token at a position congruent to r (as
+    :func:`_fill_slot_sources`), unless that position lies below
+    ``write_start[b]``."""
+    b = to_host(table).shape[0]
+    last = np.broadcast_to(to_host(lengths).astype(np.int64), (b,))[:, None] - 1
+    r = np.arange(s_c, dtype=np.int64)[None, :]
+    src = last - np.mod(last - r, s_c)
+    ok = src >= 0
+    if write_start is not None:
+        ok &= src >= to_host(write_start).astype(np.int64)[:, None]
+    rows, slots = np.nonzero(ok)
+    return _plan(table, rows, src[rows, slots], slots, block_size, device)
+
+
+def _scatter_pool(pool_leaf, plan: WritePlan, vals) -> None:
+    """THE block-table scatter every paged cache write goes through, in
+    place: ``vals`` (B, H, T, D) fresh entries, only the plan's."""
+    pool_leaf[plan.phys, :, plan.off] = vals[plan.row, :, plan.tok].to(pool_leaf.dtype)
+
+
+def write_kv_blocks(pool: dict, k, v, plan: WritePlan) -> dict:
+    """Write the ``plan``'s fresh K/V entries through the block table, in
+    place — the one cache-write helper behind paged decode, prefill fill
+    and commit-on-accept.  ``k``/``v`` (B, H, T, D) float, or packed values
+    of the pool's spec (passed through)."""
+    for name, fresh in (("k", k), ("v", v)):
+        # the whole fresh tensor quantizes before the plan selects entries:
+        # the per-tensor scale spans every lane of the step, as in JAX
+        fresh = quantize_like(pool[name], fresh)
+        for leaf, fl in _leaf_pairs(pool[name], fresh):
+            _scatter_pool(leaf, plan, fl)
+    return pool
+
+
+def _attn_decode_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
+                       plan: WritePlan):
+    """Paged twin of :func:`_attn_decode`: the fresh K/V of every lane
+    quantize together, the plan's entries go through the block table, and
+    attention reads the pool through ``table`` (B, MB) on the device with
+    B6/B7 (no gathered view).  Lanes the plan leaves out (idle, or mid
+    chunked prefill) write nothing; their output is discarded."""
+    b = x.shape[0]
+    y = rms_norm(layer.norm1, x, cfg.norm_eps)
+    q, k, v = _qkv(layer.attn, y, cfg, quant, posb[:, None])
+    write_kv_blocks(pool, k, v, plan)
+    o = paged_decode_attention(q, pool["k"], pool["v"], table, posb)
+    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.d_head)
+    return x + dense(layer.attn.wo, o.to(x.dtype), quant)
+
+
+def layer_decode_paged(layer: Layer, x, cfg, pool: dict, table, pos,
+                       plan: WritePlan, quant=None):
+    """One paged decode step through one layer; the pool updates in place.
+    ``table`` (B, MB) and ``pos`` (B,) on the device, ``plan`` the step's
+    :func:`write_plan`."""
+    x = _attn_decode_paged(layer, x, cfg, quant, pool, table, pos, plan)
+    return _mlp_part(layer, x, cfg, quant)
+
+
+def _attn_verify_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
+                       s_c: int):
+    """Paged verify attention with deferred writes: the T queries attend
+    the pool's gathered view plus the T fresh K/V; nothing is written, and
+    the fresh K/V come back (already quantized, so a later commit replays
+    this pass's exact values) for a later :func:`write_kv_blocks`."""
+    b, t, _ = x.shape
+    positions = posb[:, None] + torch.arange(t, device=x.device)[None, :]
+    y = rms_norm(layer.norm1, x, cfg.norm_eps)
+    q, k, v = _qkv(layer.attn, y, cfg, quant, positions)
+    ck = gather_kv_view(pool["k"], table, s_c)  # both children of a packed pool
+    cv = gather_kv_view(pool["v"], table, s_c)
+    kq = quantize_like(pool["k"], k)
+    vq = quantize_like(pool["v"], v)
+    o = verify_attention(q, kq, vq, ck, cv, posb)
+    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.d_head)
+    x = x + dense(layer.attn.wo, o.to(x.dtype), quant)
+    return x, {"k": kq, "v": vq}
+
+
+def layer_verify_paged(layer: Layer, x, cfg, pool: dict, table, pos, quant=None,
+                       s_c: int = 0):
+    """T tokens through one layer in paged verify mode (chunked prefill
+    rides this path): returns (x, steps) with the fresh per-layer K/V in
+    ``steps``; :func:`write_kv_blocks` commits what is kept."""
+    x, steps = _attn_verify_paged(layer, x, cfg, quant, pool, table, pos, s_c)
+    return _mlp_part(layer, x, cfg, quant), steps
+

@@ -3,13 +3,17 @@
 Port of the dense main path of ``repro.models.model``: :func:`init` (:46),
 ``embed_tokens`` (:76), ``_head`` (:94), ``forward`` (:125),
 ``init_cache(kv=)`` (:182), ``_prefill_trunk`` / ``prefill(lengths=, kv=)``
-(:206, :242) and ``decode_step`` (:370, per-row ``pos``).  The JAX
+(:206, :242) and ``decode_step`` (:370, per-row ``pos``), and the paged
+cache's ``init_paged_cache`` (:286), ``prefill_paged`` (:314),
+``decode_step_paged`` (:405), ``verify_step_paged`` (:539) and
+``rollback_cache_paged`` (:581).  The JAX
 ``lax.scan`` over stacked units becomes a loop over ``Model.layers``
 (layer i is unit i // P at pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
 knobs and have no counterpart here.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,6 +27,21 @@ from .layers import Quant, rms_norm
 __all__ = ["Model", "init"]
 
 NEG_INF = -1e30
+
+
+def _step_inputs(table, pos, max_len: int, block_size: int, device):
+    """A paged step's device inputs, uploaded once for every layer: the
+    block table cut to the ring's ``max_len // block_size`` entries and
+    the (B,) positions."""
+    nb = max_len // block_size
+    if nb * block_size != max_len:
+        raise ValueError(f"cache length {max_len} not a multiple of block size "
+                         f"{block_size}")
+    tab = blocks.to_host(table)
+    b = tab.shape[0]
+    posb = np.broadcast_to(blocks.to_host(pos).astype(np.int32), (b,))
+    return (torch.as_tensor(np.ascontiguousarray(tab[:, :nb], np.int32), device=device),
+            torch.as_tensor(np.array(posb), device=device), posb)
 
 
 class Model(nn.Module):
@@ -140,6 +159,79 @@ class Model(nn.Module):
         for layer, c in zip(self.layers, cache):
             x = blocks.layer_decode(layer, x, self.cfg, c, pos, quant)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), cache
+
+    # ---------------- paged cache ----------------
+
+    def init_paged_cache(self, num_blocks: int, block_size: int, kv=None) -> list[dict]:
+        """Per-layer block pools ``{'k', 'v'}`` (NB, Hkv, bs, D), shared by
+        every lane and addressed through per-lane block tables; one block
+        id spans ``block_size`` ring slots of every layer at once."""
+        return [blocks.init_layer_cache_paged(
+                    self.cfg, num_blocks, block_size, self.device,
+                    kv=kv_policy_cfg(kv, self.cache_entry_name(i)))
+                for i in range(len(self.layers))]
+
+    def prefill_paged(self, tokens: torch.Tensor, cache: list[dict], table, max_len: int,
+                      lengths=None, write_start=None, quant: Quant | None = None):
+        """Prompt admission into the block pools: the same trunk as
+        :meth:`prefill` (the same logits), each layer's K/V scattered
+        through ``table`` (B_adm, MB) in place; ``write_start`` (B_adm,)
+        skips positions below it (prefix hits stay shared).  Returns
+        (logits, cache, fill_len)."""
+        logits, kvs, fill_len = self.prefill_trunk(tokens, lengths, quant)
+        bs = cache[0]["k"].shape[2]
+        # the plan from the host's lengths: no device-to-host copy
+        plan = blocks.fill_plan(table, fill_len if lengths is None else lengths, max_len,
+                                block_size=bs, device=self.device, write_start=write_start)
+        for c, (k, v) in zip(cache, kvs):
+            blocks.write_kv_blocks(c, k, v, plan)
+        return logits, cache, fill_len
+
+    def decode_step_paged(self, tokens: torch.Tensor, cache: list[dict], table, pos,
+                          write_len, max_len: int, quant: Quant | None = None):
+        """One token per lane through the block pools: ``table`` (B, MB),
+        ``pos`` and ``write_len`` (B,) as host arrays (the plan of the
+        step's writes is computed once on the host; the table and the
+        positions go to the device once for all layers).  Lanes with
+        ``write_len`` 0 write nothing and their logits are to be ignored.
+        Returns (logits (B, 1, Vp), cache)."""
+        quant = self.default_quant() if quant is None else quant
+        bs = cache[0]["k"].shape[2]
+        tab, posd, posb = _step_inputs(table, pos, max_len, bs, self.device)
+        plan = blocks.write_plan(table, posb, write_len, 1, max_len, block_size=bs,
+                                 device=self.device)
+        x = self.embed[tokens]
+        for layer, c in zip(self.layers, cache):
+            x = blocks.layer_decode_paged(layer, x, self.cfg, c, tab, posd, plan, quant)
+        return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), cache
+
+    def verify_step_paged(self, tokens: torch.Tensor, cache: list[dict], table, pos,
+                          max_len: int, quant: Quant | None = None):
+        """T tokens per lane (token j of lane b at position pos[b] + j) in
+        one forward with deferred commit: returns (logits (B, T, Vp),
+        steps), ``steps`` the per-layer fresh K/V for
+        :meth:`rollback_cache_paged`.  Nothing is written."""
+        quant = self.default_quant() if quant is None else quant
+        bs = cache[0]["k"].shape[2]
+        tab, posd, _ = _step_inputs(table, pos, max_len, bs, self.device)
+        x = self.embed[tokens]
+        steps = []
+        for layer, c in zip(self.layers, cache):
+            x, st = blocks.layer_verify_paged(layer, x, self.cfg, c, tab, posd, quant,
+                                              s_c=max_len)
+            steps.append(st)
+        return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), steps
+
+    def rollback_cache_paged(self, cache: list[dict], table, steps, keep, pos,
+                             max_len: int) -> list[dict]:
+        """Commit the first ``keep[b]`` fresh entries of each lane of a
+        :meth:`verify_step_paged` pass (0 freezes a lane), in place."""
+        bs = cache[0]["k"].shape[2]
+        plan = blocks.write_plan(table, pos, keep, steps[0]["k"].shape[2], max_len,
+                                 block_size=bs, device=self.device)
+        for c, st in zip(cache, steps):
+            blocks.write_kv_blocks(c, st["k"], st["v"], plan)
+        return cache
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Model:

@@ -4,8 +4,16 @@ Port of the dense main path of ``repro.serve.engine``: ``ServeConfig``
 (main-path fields and the DSBP-quantized KV cache's ``kv_quant`` /
 ``kv_bits``), ``Request``, ``PROJ_NAMES``, ``pack_weights_int8`` (:229),
 ``sample_tokens`` (:287) and ``Engine`` with ``__init__`` (pack once,
-``pack_report``, ``_norm_kv`` :667), ``generate`` (:867) and the dense
-``serve`` slot scheduler (:951) with ``_admit`` (:1175).
+``pack_report``, ``_norm_kv`` :667), ``generate`` (:867), the dense
+``serve`` slot scheduler (:951) with ``_admit`` (:1175), the
+priority-ordered ``_build_queue`` (:721), and the paged scheduler
+(``paged=True``): ``_init_paged`` (:514), ``_serve_paged`` (:1237),
+``_reserve_blocks`` (:1475), ``_admit_paged`` (:1515), ``_pick_victim``
+(:1636), ``_preempt_lane`` (:1646), ``_release_lane`` (:1675),
+``_cow_writable`` (:1683), ``_chunk_step`` (:1755) and ``_requeue``
+(:851).  The JAX scheduler's fault plans, deadlines, cancellation,
+numeric guards, observability hooks and speculative rounds are not
+ported yet; the paged scheduler here has none of them.
 
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
@@ -16,6 +24,15 @@ moves to the engine's device.  Where the JAX engine donates its cache to a
 jitted step, this one keeps a preallocated KV pool and updates it in
 place.  With ``kv_quant`` every cache write quantizes K/V into int8
 aligned mantissas + pow2 scales, and decode attention reads them packed.
+
+With ``paged=True``, ``serve`` keeps K/V in one pool of ``kv_block_size``
+-token blocks per layer, addressed through a block table per lane:
+admission waits for free blocks instead of free slots, requests that share
+a prompt prefix share refcounted blocks (split copy-on-write on the first
+divergent write), long prompts prefill in chunks between decode steps, and
+a higher-priority request preempts a lower one, which is recomputed when
+it resumes.  Paged decode attention reads the pool through the tables with
+the B6/B7 kernels.
 """
 from __future__ import annotations
 
@@ -34,6 +51,7 @@ from repro_torch.kvq import kv_cache_nbytes, resolve_kv_spec, tree_has_packed_kv
 from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
+from repro_torch.serve import blocks as SB
 
 __all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES",
            "pack_weights_int8", "sample_tokens"]
@@ -66,6 +84,26 @@ class ServeConfig:
     # 'default': spec}; None serves the float cache
     kv_quant: object = None
     kv_bits: int | None = None   # uniform shorthand for kv_quant (exclusive)
+    # --- paged KV cache ---
+    # paged=True swaps serve()'s dense per-slot caches for a pool of
+    # kv_block_size-token blocks addressed through per-lane block tables:
+    # admission is gated on free blocks, requests sharing a prompt prefix
+    # share refcounted blocks (copy-on-write on the first divergent
+    # write), long prompts prefill in prefill_bucket-sized chunks
+    # interleaved with decode steps, and a reservation or COW split the pool
+    # cannot meet preempts a lower-priority lane (recomputed on resume)
+    paged: bool = False
+    kv_block_size: int = 16      # ring slots per block; must divide max_len
+    # blocks in the pool INCLUDING the reserved scratch block 0; None sizes
+    # it to the dense engine's KV budget: batch_size * max_len / bs + 1
+    kv_blocks: int | None = None
+    # concurrent lanes of the paged scheduler (None = batch_size); blocks
+    # are the real budget, so prefix sharing can serve more lanes
+    max_active: int | None = None
+    # prompts STRICTLY longer than this admit via chunked prefill (None:
+    # 4 * prefill_bucket); chunked admissions skip prefix sharing
+    chunk_prefill_tokens: int | None = None
+    prefix_sharing: bool = True  # hash-chained prefix cache + COW splits
 
 
 @dataclasses.dataclass
@@ -74,6 +112,9 @@ class Request:
     uid: object
     tokens: np.ndarray           # (L,) prompt token ids
     max_new_tokens: int = 32
+    # higher admits first and is never preempted by a lower value; the
+    # paged scheduler only evicts a victim strictly below the contender
+    priority: int = 0
 
 
 def pack_weights_int8(model: Model, preset="precise") -> dict:
@@ -140,6 +181,8 @@ class Engine:
         self.scfg = scfg
         self.kv_spec = self._norm_kv(scfg)
         self.quant = Quant(cfg.quant, cfg.quant_method)
+        if scfg.paged:
+            self._init_paged()
         self.model = model.to(self.device)
         self.pack_report = None
         packed = any(isinstance(m, PackedDSBPWeight) for m in model.modules())
@@ -150,6 +193,33 @@ class Engine:
             self.pack_report = {"preset": preset, "raw_nbytes": raw,
                                 "packed_nbytes": _nbytes(self.model), **stats}
         self.last_stats: dict | None = None
+
+    def _init_paged(self):
+        """Pool geometry of the paged scheduler, validated at
+        construction.  Every layer the port serves is ``attn_full``, so
+        every layer's KV ring is ``max_len`` slots long (JAX takes the set
+        of ring lengths of its layer kinds)."""
+        scfg = self.scfg
+        bs = int(scfg.kv_block_size)
+        if bs < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {bs}")
+        self._s_c = s_c = scfg.max_len
+        if s_c % bs:
+            raise ValueError(
+                f"kv_block_size {bs} must divide every KV cache length; "
+                f"layer S_c {s_c} (max_len {scfg.max_len}, window "
+                f"{self.cfg.window}) is not a multiple")
+        # one table entry spans kv_block_size ring slots of EVERY layer
+        self._table_width = SB.block_span(s_c, bs)
+        self.kv_blocks = (int(scfg.kv_blocks) if scfg.kv_blocks is not None
+                          else scfg.batch_size * self._table_width + 1)
+        if self.kv_blocks < 2:
+            raise ValueError(f"kv_blocks must be >= 2, got {self.kv_blocks}")
+        self.lanes = int(scfg.max_active or scfg.batch_size)
+        self._chunk_threshold = int(scfg.chunk_prefill_tokens
+                                    or 4 * scfg.prefill_bucket)
+        # chunk width: a verify pass must keep its ring slots distinct
+        self._chunk_T = min(scfg.prefill_bucket, s_c)
 
     @staticmethod
     def _norm_kv(scfg: ServeConfig):
@@ -220,6 +290,8 @@ class Engine:
         sequences) through the slot pool; returns {uid: generated ids} and
         records scheduler stats in ``last_stats``."""
         scfg, dev = self.scfg, self.device
+        if scfg.paged:
+            return self._serve_paged(requests, max_new_tokens)
         queue = self._build_queue(requests, max_new_tokens)
         nreq = len(queue)
         B = scfg.batch_size
@@ -305,7 +377,402 @@ class Engine:
             for c, (k, v) in zip(pool, kvs):
                 blocks.fill_kv_cache(c, k, v, lens_t[rows_t], slots=slots, rows=rows_t)
 
+    # ------------------------------------------------------------------
+    # paged serving: block tables, COW prefix sharing, chunked prefill,
+    # priority preemption
+    # ------------------------------------------------------------------
+
+    def _serve_paged(self, requests, max_new_tokens: int = 32) -> dict:
+        """The paged twin of the dense serve loop: one block pool per
+        layer, one int32 block table per lane.  Per iteration: admit
+        (reserve blocks -> grouped short prefill / chunk-lane setup,
+        preempting a strictly-lower-priority victim when a reservation
+        fails) -> COW-split the shared blocks the step writes -> ONE decode
+        step over every lane -> one chunk step.  Every block returns to
+        the pool and the prefix cache drops its references on any exit."""
+        scfg, dev = self.scfg, self.device
+        queue = self._build_queue(requests, max_new_tokens)
+        nreq = len(queue)
+        B, bs = self.lanes, scfg.kv_block_size
+        # a reservation that exceeds the whole pool can never succeed
+        for r in queue:
+            span = SB.block_span(min(len(r.tokens) + r.max_new_tokens, self._s_c), bs)
+            if span > self.kv_blocks - 1:
+                raise SB.BlockError(
+                    f"request {r.uid!r} cannot be admitted even with an "
+                    f"idle pool: its reservation ({span} blocks) exceeds "
+                    f"kv_blocks={self.kv_blocks} ({self.kv_blocks - 1} "
+                    f"usable)")
+        alloc = SB.BlockAllocator(self.kv_blocks, bs)
+        prefix = SB.PrefixCache(alloc) if scfg.prefix_sharing else None
+        cache = self.model.init_paged_cache(self.kv_blocks, bs, kv=self.kv_spec)
+        # bytes one table entry pins across every layer's pool, from the
+        # leaves' actual dtypes (both children of a packed pool)
+        blk_bytes = kv_cache_nbytes(cache) // self.kv_blocks
+        tables = np.zeros((B, self._table_width), np.int32)
+        lanes: list[dict | None] = [None] * B
+        tok = np.zeros(B, np.int64)
+        pos = np.zeros(B, np.int32)
+        gen = self._generator()
+        stats = {"decode_steps": 0, "occupied_lanes": 0, "admissions": 0,
+                 "prefill_tokens": 0, "decode_tokens": 0, "prefill_time_s": 0.0,
+                 "decode_time_s": 0.0, "cow_splits": 0, "chunk_steps": 0,
+                 "chunked_requests": 0,
+                 # decode lanes advance every iteration, chunked prefills
+                 # in flight or not: 0 by construction
+                 "stalled_decode_steps": 0, "interleaved_decode_steps": 0,
+                 "max_concurrent": 0, "shared_blocks_peak": 0,
+                 "admission_blocked": 0, "preemptions": 0, "resumed": 0}
+        out: dict = {}
+        ctl = {"stats": stats, "out": out, "gen": gen}
+        idle_spins = 0
+        completed = False
+        try:
+            while queue or any(l is not None for l in lanes):
+                free = [i for i in range(B) if lanes[i] is None]
+                if queue and free:
+                    t0 = time.perf_counter()
+                    cache = self._admit_paged(cache, queue, free, lanes, tables, alloc,
+                                              prefix, tok, pos, ctl)
+                    stats["prefill_time_s"] += time.perf_counter() - t0
+                dec = [i for i, l in enumerate(lanes)
+                       if l is not None and l["phase"] == "decode"]
+                chk = [i for i, l in enumerate(lanes)
+                       if l is not None and l["phase"] == "chunk"]
+                if not dec and not chk:
+                    if queue:  # blocked admission with an idle pool must end
+                        idle_spins += 1
+                        if idle_spins > 4 * self.kv_blocks + 64:
+                            raise SB.BlockError(
+                                f"scheduler made no progress for {idle_spins} "
+                                f"iterations with an idle pool: request "
+                                f"{queue[0].uid!r} cannot reserve its blocks")
+                    continue  # every admitted request finished at token 1
+                idle_spins = 0
+                stats["max_concurrent"] = max(stats["max_concurrent"], len(dec) + len(chk))
+                stats["shared_blocks_peak"] = max(stats["shared_blocks_peak"],
+                                                  alloc.shared_blocks())
+                if dec:
+                    t_step = time.perf_counter()
+                    # every ring slot this step writes must be exclusively
+                    # owned; under pool pressure this may preempt a lane
+                    cache = self._cow_writable(
+                        cache, tables, alloc, prefix, [(i, int(pos[i]), 1) for i in dec],
+                        stats, lanes=lanes, queue=queue, ctl=ctl)
+                    dec = [i for i in dec if lanes[i] is not None]
+                    chk = [i for i in chk if lanes[i] is not None]
+                if dec:
+                    stats["decode_steps"] += 1
+                    stats["occupied_lanes"] += len(dec) + len(chk)
+                    if chk:
+                        stats["interleaved_decode_steps"] += 1
+                    live = np.zeros(B, np.int32)
+                    live[dec] = 1  # idle and chunk lanes: write_len 0
+                    logits, cache = self.model.decode_step_paged(
+                        torch.as_tensor(tok, device=dev)[:, None], cache, tables, pos,
+                        live, scfg.max_len, self.quant)
+                    nxt = self._sample(logits[:, -1], gen).cpu().numpy()  # syncs
+                    for i in dec:
+                        r = lanes[i]["req"]
+                        pos[i] += 1
+                        t = int(nxt[i])
+                        out[r.uid].append(t)
+                        tok[i] = t
+                        stats["decode_tokens"] += 1
+                        if self._done(t, out[r.uid], r):
+                            self._release_lane(i, lanes, tables, alloc)
+                    stats["decode_time_s"] += time.perf_counter() - t_step
+                if chk:
+                    t0 = time.perf_counter()
+                    cache = self._chunk_step(cache, lanes, tables, alloc, prefix, queue,
+                                             chk, tok, pos, ctl)
+                    stats["prefill_time_s"] += time.perf_counter() - t0
+            completed = True
+        finally:
+            # conservation on any exit: every live lane's block references
+            # return to the pool and the prefix cache releases its own
+            for i in range(B):
+                if lanes[i] is not None:
+                    self._release_lane(i, lanes, tables, alloc)
+            if prefix is not None:
+                prefix.drop_all()
+            usable = self.kv_blocks - 1
+            self.last_stats = dict(
+                stats, requests=nreq, paged=True, lanes=B, kv_block_size=bs,
+                kv_blocks=self.kv_blocks, completed=completed,
+                occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
+                decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
+                block_peak_used=alloc.peak_used,
+                # 0 unless a block reference leaked past the releases above
+                blocks_in_use_at_exit=alloc.used_blocks,
+                block_utilization=alloc.peak_used / usable,
+                block_bytes=blk_bytes,
+                prefix_lookups=prefix.lookups if prefix is not None else 0,
+                prefix_hit_blocks=prefix.hits if prefix is not None else 0,
+                # every prefix hit is one block of KV not re-materialized
+                bytes_saved_sharing=(prefix.hits if prefix is not None else 0) * blk_bytes,
+                kv_bytes_per_token=blk_bytes / max(bs, 1),
+                kv_packed=tree_has_packed_kv(cache))
+        return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
+
+    def _reserve_blocks(self, alloc, prefix, r, use_prefix=True, done: int = 0):
+        """Reserve the lane's whole logical span up front: blocks for
+        min(prompt + remaining budget, S_c) ring slots, minus prefix hits
+        (``done`` tokens already emitted ride inside a resumed request's
+        prompt).  Returns (block_ids, n_hit_blocks), or None when the pool
+        cannot cover it even after evicting cache-only prefix blocks."""
+        bs = self.scfg.kv_block_size
+        total = min(len(r.tokens) + max(r.max_new_tokens - done, 1), self._s_c)
+        span = SB.block_span(total, bs)
+        hits = []
+        if use_prefix and prefix is not None and len(r.tokens) <= self._s_c:
+            hits = prefix.lookup(r.tokens)
+        need = span - len(hits)
+        while need > alloc.free_blocks:
+            if prefix is None or not prefix.evict_one():
+                break
+        if need > alloc.free_blocks:
+            if hits:
+                alloc.free(hits)
+            return None
+        return hits + alloc.alloc(need), len(hits)
+
+    def _admit_paged(self, cache, queue, free, lanes, tables, alloc, prefix, tok, pos,
+                     ctl):
+        """Admit queued requests into free lanes.  Short prompts run one
+        grouped :meth:`Model.prefill_paged` (per-row ``write_start`` skips
+        prefix-hit blocks); prompts past the chunk threshold become
+        'chunk' lanes.  Priority order, FIFO among equals: a request that
+        cannot reserve its blocks parks the queue unless a strictly lower-
+        priority lane exists, which is preempted before the retry.  A
+        resumed request re-prefills prompt + emitted and appends."""
+        scfg = self.scfg
+        stats, out = ctl["stats"], ctl["out"]
+        group = []
+        while queue and free:
+            r = queue[0]
+            done = len(out.get(r.uid, []))
+            chunked = len(r.tokens) > self._chunk_threshold
+            res = self._reserve_blocks(alloc, prefix, r, use_prefix=not chunked, done=done)
+            if res is None:
+                victim = self._pick_victim(lanes, tables)
+                if victim is not None and lanes[victim]["req"].priority < r.priority:
+                    self._preempt_lane(victim, lanes, tables, alloc, prefix, queue, ctl)
+                    free.append(victim)
+                    continue  # retry the reservation with the freed blocks
+                stats["admission_blocked"] += 1
+                break
+            queue.popleft()
+            bids, n_hit = res
+            lane = free.pop(0)
+            if done:
+                stats["resumed"] += 1
+            tables[lane, :] = 0
+            tables[lane, : len(bids)] = bids
+            # 'done0' = output length at THIS admission: a later preemption
+            # re-queues prompt + out[uid][done0:]
+            if chunked:
+                lanes[lane] = {"req": r, "phase": "chunk", "done": 0, "done0": done}
+                stats["chunked_requests"] += 1
+                stats["admissions"] += 1
+                continue
+            lanes[lane] = {"req": r, "phase": "prefill", "done0": done}
+            # register at reservation time: within one grouped prefill every
+            # pool write lands before any lane's first read, so later group
+            # members already share these entries
+            if prefix is not None and len(r.tokens) <= self._s_c:
+                prefix.register(r.tokens, tables[lane])
+            group.append((lane, r, n_hit * scfg.kv_block_size))
+        if group:
+            lens = np.asarray([len(r.tokens) for _, r, _ in group], np.int32)
+            bucket = scfg.prefill_bucket
+            L = max(-(-int(lens.max()) // bucket) * bucket, bucket)
+            toks = np.zeros((len(group), L), np.int64)
+            for j, (_, r, _) in enumerate(group):
+                toks[j, : lens[j]] = r.tokens
+            starts = np.asarray([s for _, _, s in group], np.int32)
+            logits, cache, _ = self.model.prefill_paged(
+                torch.as_tensor(toks, device=self.device), cache,
+                tables[[ln for ln, _, _ in group]], scfg.max_len, lengths=lens,
+                write_start=starts, quant=self.quant)
+            first = self._sample(logits[:, -1], ctl["gen"]).cpu().numpy()
+            stats["admissions"] += len(group)
+            stats["prefill_tokens"] += int(lens.sum())
+            for j, (lane, r, _) in enumerate(group):
+                t = int(first[j])
+                out.setdefault(r.uid, []).append(t)  # a resume continues
+                if self._done(t, out[r.uid], r):
+                    self._release_lane(lane, lanes, tables, alloc)
+                    continue
+                lanes[lane] = {"req": r, "phase": "decode", "done0": lanes[lane]["done0"]}
+                tok[lane] = t
+                pos[lane] = int(lens[j])
+        return cache
+
+    def _pick_victim(self, lanes, tables):
+        """Lowest priority first, then most blocks held (one eviction frees
+        the most pool), then lowest lane id; None when no lane is live."""
+        cand = [i for i, l in enumerate(lanes) if l is not None]
+        if not cand:
+            return None
+        return min(cand, key=lambda i: (lanes[i]["req"].priority,
+                                        -int(np.count_nonzero(tables[i])), i))
+
+    def _preempt_lane(self, lane, lanes, tables, alloc, prefix, queue, ctl):
+        """Evict one lane: register its written prefix (prompt +
+        emitted[:-1]) so the resume replays it as prefix hits, release
+        every block reference, and re-queue the request with ``tokens =
+        prompt + emitted`` (recompute-on-resume: greedy decode continues
+        exactly where the lane stopped)."""
+        l = lanes[lane]
+        r = l["req"]
+        emitted = list(ctl["out"].get(r.uid, []))[int(l.get("done0", 0)):]
+        if prefix is not None and l.get("phase") == "decode" and emitted:
+            written = np.concatenate([np.asarray(r.tokens, np.int64),
+                                      np.asarray(emitted[:-1], np.int64)])
+            if len(written) <= self._s_c:
+                prefix.register(written, tables[lane])
+        self._release_lane(lane, lanes, tables, alloc)
+        toks = (np.concatenate([np.asarray(r.tokens, np.int64),
+                                np.asarray(emitted, np.int64)])
+                if emitted else np.asarray(r.tokens, np.int64))
+        self._requeue(queue, dataclasses.replace(r, tokens=toks))
+        ctl["stats"]["preemptions"] += 1
+
+    @staticmethod
+    def _requeue(queue, r: Request) -> None:
+        """Re-insert a preempted request in priority order, ahead of
+        equal-priority waiters (it was admitted first)."""
+        idx = 0
+        for idx, q in enumerate(queue):
+            if q.priority <= r.priority:
+                break
+        else:
+            idx = len(queue)
+        queue.insert(idx, r)
+
+    @staticmethod
+    def _release_lane(lane, lanes, tables, alloc):
+        """Free one reference on every block the lane's table holds (the
+        prefix cache's references keep shared blocks alive); zero the row."""
+        lanes[lane] = None
+        alloc.free(int(b) for b in tables[lane] if b)
+        tables[lane, :] = 0
+
+    def _cow_writable(self, cache, tables, alloc, prefix, writes, stats, *, lanes, queue,
+                      ctl):
+        """Copy-on-write before a step: for each (lane, start_pos,
+        n_tokens) write, split every shared block it touches and copy the
+        contents on the device in one batched call.  Under pool pressure,
+        evict cache-only prefix blocks, then un-register a block only the
+        cache shares with the writer, then preempt a
+        victim lane; the caller re-derives its lane sets afterwards."""
+        bs = self.scfg.kv_block_size
+        src_all, dst_all = [], []
+
+        def flush(cache):
+            nonlocal src_all, dst_all
+            if src_all:
+                stats["cow_splits"] += len(src_all)
+                cache = SB.copy_blocks(cache, src_all, dst_all)
+                src_all, dst_all = [], []
+            return cache
+
+        for lane, p0, n in writes:
+            if lanes[lane] is None:
+                continue  # victimized earlier in this very pass
+            ent = SB.blocks_written(p0, n, self._s_c, bs)
+            while True:
+                try:
+                    s, d = alloc.ensure_writable(tables[lane], ent)
+                    src_all += s
+                    dst_all += d
+                    break
+                except SB.BlockError:
+                    if prefix is not None and prefix.evict_one():
+                        continue
+                    forgot = False
+                    if prefix is not None:
+                        for j in ent:
+                            bid = int(tables[lane][j])
+                            if alloc.refcount(bid) == 2 and prefix.forget(bid):
+                                forgot = True
+                    if forgot:
+                        continue
+                    # flush pending copies first: the victim's blocks return
+                    # to the pool, and a deferred copy must never land in a
+                    # re-allocated block
+                    cache = flush(cache)
+                    victim = self._pick_victim(lanes, tables)
+                    if victim is None:
+                        raise  # nothing left to evict: real exhaustion
+                    self._preempt_lane(victim, lanes, tables, alloc, prefix, queue, ctl)
+                    if victim == lane:
+                        break  # the writer itself was evicted
+        return flush(cache)
+
+    def _chunk_step(self, cache, lanes, tables, alloc, prefix, queue, chk, tok, pos, ctl):
+        """Advance every chunk lane by one <= chunk_T-token slice through
+        the verify path (a teacher-forced forward over known prompt
+        tokens, every lane in the batch) and commit keep = n_valid.  The
+        final chunk's last logit samples the first token and the lane
+        turns to 'decode'."""
+        scfg = self.scfg
+        stats, out = ctl["stats"], ctl["out"]
+        B, T = self.lanes, self._chunk_T
+        toks = np.zeros((B, T), np.int64)
+        posv = np.zeros(B, np.int32)
+        keep = np.zeros(B, np.int32)  # 0 freezes idle and decode lanes
+        fin = []  # (lane, n_valid in this chunk)
+        for i in chk:
+            l = lanes[i]
+            r = l["req"]
+            start = l["done"]
+            n = min(T, len(r.tokens) - start)
+            toks[i, :n] = r.tokens[start:start + n]
+            posv[i] = start
+            keep[i] = n
+            l["done"] = start + n
+            if l["done"] == len(r.tokens):
+                fin.append((i, n))
+        cache = self._cow_writable(cache, tables, alloc, prefix,
+                                   [(i, int(posv[i]), int(keep[i])) for i in chk], stats,
+                                   lanes=lanes, queue=queue, ctl=ctl)
+        # a COW preemption may have evicted a chunk lane mid-pass: freeze it
+        for i in chk:
+            if lanes[i] is None:
+                keep[i] = 0
+        fin = [(i, n) for i, n in fin if lanes[i] is not None]
+        logits, steps = self.model.verify_step_paged(
+            torch.as_tensor(toks, device=self.device), cache, tables, posv,
+            scfg.max_len, self.quant)
+        cache = self.model.rollback_cache_paged(cache, tables, steps, keep, posv,
+                                                scfg.max_len)
+        stats["chunk_steps"] += 1
+        stats["prefill_tokens"] += int(sum(int(keep[i]) for i in chk))
+        if fin:
+            sel = logits[torch.as_tensor([i for i, _ in fin], device=self.device),
+                         torch.as_tensor([n - 1 for _, n in fin], device=self.device)]
+            first = self._sample(sel, ctl["gen"]).cpu().numpy()
+            for j, (i, _) in enumerate(fin):
+                r = lanes[i]["req"]
+                done0 = int(lanes[i].get("done0", 0))
+                t = int(first[j])
+                out.setdefault(r.uid, []).append(t)  # a resume continues
+                # register only now: the blocks filled progressively
+                if prefix is not None and len(r.tokens) <= self._s_c:
+                    prefix.register(r.tokens, tables[i])
+                if self._done(t, out[r.uid], r):
+                    self._release_lane(i, lanes, tables, alloc)
+                    continue
+                lanes[i] = {"req": r, "phase": "decode", "done0": done0}
+                tok[i] = t
+                pos[i] = len(r.tokens)
+        return cache
+
     def _build_queue(self, requests, max_new_tokens: int) -> deque:
+        """Validated admission queue: normalized Requests, unique uids,
+        max_len feasibility, stable highest-priority-first order."""
         reqs = [self._norm_request(r, i, max_new_tokens)
                 for i, r in enumerate(requests)]
         if len({r.uid for r in reqs}) != len(reqs):
@@ -315,7 +782,7 @@ class Engine:
                 raise ValueError(
                     f"request {r.uid!r}: prompt {len(r.tokens)} + budget "
                     f"{r.max_new_tokens} exceeds max_len {self.scfg.max_len}")
-        return deque(reqs)
+        return deque(sorted(reqs, key=lambda r: -r.priority))
 
     def _done(self, t: int, emitted: list, r: Request) -> bool:
         eos = self.scfg.eos_id

@@ -181,3 +181,45 @@ def test_packed_flash_attention_kernel(cuda, b, hq, hkv, sq, s, causal):
     ref = FA.packed_flash_attention_plain(q, k.qm, k.scale, v.qm, v.scale, kv_len, q0,
                                           causal=causal)
     torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,bs,mb,window", [
+    (4, 4, 4, 1, 16, 8, 0),     # decode, bs 16: whole blocks per 32-key tile
+    (3, 4, 2, 1, 4, 12, 0),     # GQA decode, bs 4: a tile spans 8 blocks
+    (2, 2, 2, 16, 16, 6, 0),    # a 16-query chunk at q_pos0 > 0
+    (2, 4, 2, 9, 3, 11, 7),     # bs 3 (tiles straddle blocks), sliding window
+    (2, 2, 1, 1, 1, 40, 0),     # bs 1: one key per block
+])
+@pytest.mark.parametrize("packed", [False, True], ids=["B6", "B7"])
+def test_paged_flash_attention_kernels(cuda, b, hq, hkv, sq, bs, mb, window, packed):
+    g = torch.Generator().manual_seed(b * 100 + bs * 10 + mb)
+    d, nb = 128, mb * b + 3
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    pk = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    pv = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    # shuffled tables that share blocks between rows
+    table = torch.stack([torch.randperm(nb, generator=g)[:mb] for _ in range(b)])
+    table[1:, 0] = table[0, 0]
+    table = table.to(cuda, torch.int32)
+    s = mb * bs
+    kv_len = torch.randint(max(sq, 1), s + 1, (b,), generator=g)  # partial last blocks
+    kv_len, q0 = kv_len.to(cuda, torch.int32), (kv_len - sq).to(cuda, torch.int32)
+    if packed:
+        kq, vq = (quantize_kv(t, KV_PRESETS["kv8"]) for t in (pk, pv))
+        args = (q, kq.qm, kq.scale, vq.qm, vq.scale, table, kv_len, q0)
+        fn, dense, plain = (FA.paged_packed_flash_attention, FA.packed_flash_attention,
+                            FA.paged_packed_flash_attention_plain)
+        gathered = [FA.gather_blocks(t, table) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+    else:
+        args = (q, pk, pv, table, kv_len, q0)
+        fn, dense, plain = (FA.paged_flash_attention, FA.flash_attention,
+                            FA.paged_flash_attention_plain)
+        gathered = [FA.gather_blocks(t, table) for t in (pk, pv)]
+    before = fn.launches
+    o = fn(*args, window=window)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    # one source with B2/B5: only the address of a key's row changes
+    ref = dense(q, *gathered, kv_len, q0, window=window)
+    assert torch.equal(o, ref), float((o - ref).abs().max())
+    torch.testing.assert_close(o, plain(*args, window=window), rtol=1e-5, atol=1e-5)
