@@ -20,7 +20,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
   5. full-width 32-layer llama-7b-paper with random weights from a seeded
      torch.Generator, packed "precise": one ragged Engine.generate of 4
      prompts and Engine.serve of 8 requests through 4 slots, with each
-     kernel's launch count over that run;
+     kernel's launch count over that run; then the same traffic again,
+     untimed, recording every sampled batch for phase 15;
   6. B3, the standalone input path, against its plain version: bit-equal at
      M in {4, 512} x K in {4096, 11008}, e5m2, fixed and trunc;
   7. B4, the grouped integer GEMM, against its plain versions at the
@@ -58,15 +59,42 @@ Phases (each raises on failure; nothing falls back to the CPU):
      serve of the same requests at batch 8 (phase 9's rule), and exactly
      against a dense serve where the batches match; scheduler stats, B6/B7
      launched 32 times per decode step, and 0 KV-sized gathers and 0 KV
-     dequantizes dispatched by a paged decode step.
+     dequantizes dispatched by a paged decode step;
+  14. B8, the sharded fused GEMM, on a (1, 2) mesh of two rank processes
+     sharing the card (gloo): at the decode (M=4) and prefill (M=512)
+     shapes of wq and w1 (column-parallel) and wo and w2 (row-parallel,
+     K=11008 for w2), each rank's output assembled and held against B8's
+     plain version (B1's over the whole weight) on the same inputs, and
+     against B1 on the whole weight (bit-equal for column-parallel;
+     bit-equal or within 4 ulps for row-parallel, the counts printed); the
+     whole call's time on rank 0, B1's on its shard, one all_reduce of the
+     output, the plain version's and the bound (the whole weight's bytes:
+     both ranks read through the one card);
+  15. full-width llama-7b-paper on a (1, 2) mesh (tensor-parallel), phase
+     5's seed and traffic through generate and serve at 4 slots: every
+     sampled batch (recorded in an untimed second pass, as phase 5's)
+     held against phase 5's: equal tokens and bit-equal logits; launches
+     per rank (B8 and B1 on every projection's shard, B2 on 16 heads per
+     rank), collectives per decode step, peak memory per rank; 15b. the
+     same at 2 layers on a (2, 2) mesh (data- and tensor-parallel, 4
+     ranks) against one device: equal tokens, logits within
+     MESH_DATA_REL * max|logit|.
+  The ranks of 14-15 time-slice the one card: their step times are not
+  multi-card numbers.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
+
+    python3 chip_smoke.py --mesh-only
+
+runs phases 1, 5 and 14-15b alone; on a machine with a card per rank the
+ranks get one each and NCCL (the ranks of phase 15b need four).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -88,6 +116,12 @@ B3_OPS_PER_ELEM = 16
 LLAMA_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (K, N): wq.., w1/w3, w2
 L2_BYTES = 50 * 2**20
 TIE = 1e-3  # logit tolerance, relative to max|logit|
+# a data-split mesh against one device (phase 15b): the split changes the
+# row count of the float lm_head GEMM (and of B2's launches), whose library
+# kernel may then sum in another order; ulp-level differences (3.4e-7 of max|logit| on an H100,
+# PERF.md), where a fault (a rank-local input scale, a wrong fold) moves
+# logits by whole percents
+MESH_DATA_REL = 1e-5
 # CPU vs card decode logits (phase 9): the attention kernels differ from
 # their plain versions in the last bits (sum order, expf), and such a bit
 # can move one projection input across an FP8 rounding boundary, which the
@@ -264,6 +298,88 @@ def phase_cross_device(torch, TM, Engine, ServeConfig, cfg):
     return gpu.model, cpu.model  # packed once; phase 9 serves them again
 
 
+def _serve_traffic(Request, vocab):
+    """Phase 5's traffic (phase 15's too): 4 ragged prompts for generate,
+    8 requests of 16 new tokens for serve."""
+    import numpy as np
+
+    toks, lens = _prompts(vocab, [16, 48, 96, 128], seed=4)
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, tokens=rng.integers(0, vocab, int(n)),
+                    max_new_tokens=16) for i, n in enumerate(rng.integers(16, 129, 8))]
+    return toks, lens, reqs
+
+
+class SampleTape:
+    """Keeps every batch an engine samples: its logit rows and the tokens
+    drawn from them, in call order (device copies while the run lasts,
+    moved to the host by :meth:`close`, so the run is not synchronised)."""
+
+    def __init__(self, eng, vocab: int):
+        self._eng, self._calls = eng, []
+        sample = eng._sample
+
+        def take(logits, gen):
+            tok = sample(logits, gen)
+            self._calls.append((logits[:, :vocab].float().clone(), tok.clone()))
+            return tok
+        eng._sample = take
+
+    def close(self) -> list:
+        del self._eng._sample
+        return [(lg.cpu(), tok.cpu()) for lg, tok in self._calls]
+
+
+def taped_rerun(eng, vocab, toks, lens, reqs, out, served) -> list:
+    """The traffic once more, untimed, with every sampled batch recorded
+    (:class:`SampleTape`); the streams must repeat the timed run's."""
+    import numpy as np
+
+    tape = SampleTape(eng, vocab)
+    again = eng.generate(toks, 16, lengths=lens)
+    again_served = eng.serve(reqs, max_new_tokens=16)
+    calls = tape.close()
+    if not np.array_equal(again, out) or any(
+            not np.array_equal(again_served[u], t) for u, t in served.items()):
+        raise AssertionError("the same traffic served twice gave other streams")
+    return calls
+
+
+def check_calls(torch, ref, got):
+    """Phase 9's rule over two runs' recorded sampled batches (same
+    traffic, so the same calls in the same order): the tokens are equal up
+    to the first batch where any differ; until then every logit row
+    differs by at most KV_TIE * max|logit|, and in that batch each
+    differing row's reference top-2 gap is below max(TIE * max|logit|,
+    twice the row's difference).  Returns (index of that batch or None,
+    batches with bit-equal logits before it, largest difference relative
+    to max|logit|)."""
+    if len(ref) != len(got):
+        raise AssertionError(f"{len(got)} sampled batches vs {len(ref)}")
+    worst, equal = 0.0, 0
+    for i, ((a, ta), (b, tb)) in enumerate(zip(ref, got)):
+        if a.shape != b.shape:
+            raise AssertionError(f"batch {i}: logits {tuple(b.shape)} vs {tuple(a.shape)}")
+        top = float(a.abs().max())
+        delta = (a - b).abs().amax(dim=1)
+        worst = max(worst, float(delta.max()) / top)
+        equal += bool(torch.equal(a, b))
+        if float(delta.max()) > KV_TIE * top:
+            raise AssertionError(f"batch {i}: logits differ by {float(delta.max())} > "
+                                 f"{KV_TIE} * {top}")
+        bad = torch.nonzero(ta != tb).flatten().tolist()
+        for r in bad:
+            top2 = torch.topk(a[r], 2).values
+            gap, limit = float(top2[0] - top2[1]), max(TIE * top, 2 * float(delta[r]))
+            if gap >= limit:
+                raise AssertionError(f"batch {i} row {r}: tokens {int(ta[r])} vs "
+                                     f"{int(tb[r])} (top-2 gap {gap}, limit {limit})")
+        if bad:
+            print(f"  batch {i}: rows {bad} diverge at near ties; later batches not compared")
+            return i, equal, worst
+    return None, equal, worst
+
+
 def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     print("== phase 5: full-width llama-7b-paper, packed 'precise', generate + serve")
     import numpy as np
@@ -282,10 +398,7 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
           f"avg W bits {rep['avg_w_bits']:.3f}, preset {rep['preset']}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    toks, lens = _prompts(cfg.vocab_size, [16, 48, 96, 128], seed=4)
-    rng = np.random.default_rng(5)
-    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, int(n)),
-                    max_new_tokens=16) for i, n in enumerate(rng.integers(16, 129, 8))]
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
 
     # ---- the main path: counts from 0 over exactly this run ----
     DF.dsbp_fused.launches = 0
@@ -296,7 +409,8 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     torch.cuda.synchronize()
     launches = {"dsbp_fused": DF.dsbp_fused.launches,
                 "flash_attention": FA.flash_attention.launches}
-    sst = eng.last_stats
+    sst = dict(eng.last_stats)
+    calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)  # phase 15's
 
     peak = torch.cuda.max_memory_allocated()
     if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
@@ -324,7 +438,9 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     print(f"  KV bytes per token (float cache): {sst['kv_bytes_per_token']:.0f}")
-    return eng.model, launches, sst['kv_bytes_per_token']
+    ref = {"generate": out, "serve": served, "calls": calls,
+           "decode_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"]}
+    return eng.model, launches, sst['kv_bytes_per_token'], ref
 
 
 def phase_b3(torch, Q, QA, per_tensor_scale):
@@ -559,10 +675,7 @@ def phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels, model, cfg,
           "then kv8 + dsbp_fused serve")
     import numpy as np
 
-    toks, lens = _prompts(cfg.vocab_size, [16, 48, 96, 128], seed=4)
-    rng = np.random.default_rng(5)
-    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, int(n)),
-                    max_new_tokens=16) for i, n in enumerate(rng.integers(16, 129, 8))]
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
     n_layers = cfg.n_layers
     eng = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant="kv8",
                                     quant_method="dsbp_kernel"), device="cuda")
@@ -1109,6 +1222,325 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: the mesh, its ranks as processes sharing the one card
+# ---------------------------------------------------------------------------
+
+B8_CASES = [(proj, m, k, n, split) for m in (4, 512) for proj, k, n, split in (
+    ("wq", 4096, 4096, "column"), ("wo", 4096, 4096, "row"),
+    ("w1", 4096, 11008, "column"), ("w2", 11008, 4096, "row"))]
+
+
+def _clone_packed(pw):
+    from repro_torch.core.packed import PackedDSBPWeight
+
+    return PackedDSBPWeight(pw.ka.clone(), pw.kscale.clone(), pw.tscale.clone(),
+                            pw.bits.clone(), k=pw.k, n=pw.n, group_size=pw.group_size,
+                            cfg=pw.cfg)
+
+
+def _b8_rank(mesh, cases):
+    """Phase 14 on one rank: each case's weight and activation drawn from
+    one seeded generator on every rank, B8 on this rank's shard, the
+    output assembled and held against B8's plain version (B1's plain
+    version on the whole weight) and against B1 on the whole weight; then
+    the whole call timed on every rank in lockstep, and B1 on the shard,
+    the plain version and one all_reduce of the output timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import quantized as Q
+    from repro_torch.core.formats import per_tensor_scale
+    from repro_torch.core.packed import pack_weights_sharded
+    from repro_torch.kernels import dsbp_fused as DF
+    from repro_torch.kernels import ops as TO
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cfg = mesh.device, Q.PRESETS["precise"]
+    icfg = cfg.input_cfg
+    msz, c = mesh.shape["model"], mesh.coords["model"]
+    rows = []
+    for idx, (proj, m, k, n, split) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(140 + idx)
+        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+        x = torch.randn(m, k, generator=gen, device=dev)
+        pw = Q.pack_weights(w, cfg)
+        if split == "column":
+            local, xl, k_axis, n_axis = pack_weights_sharded(w, cfg, mesh), x, None, "model"
+            cols = slice(c * n // msz, (c + 1) * n // msz)
+        else:
+            ks = slice(c * k // msz, (c + 1) * k // msz)
+            local, xl, k_axis, n_axis = pw.slice(rows=ks), x[:, ks].contiguous(), "model", None
+            cols = slice(0, n)
+        del w
+
+        def call(xx, ww, k_axis=k_axis, n_axis=n_axis):
+            return TO.dsbp_matmul_fused_sharded(xx, ww, mesh, k_axis=k_axis, n_axis=n_axis)
+
+        full = torch.zeros(m, n, device=dev)
+        full[:, cols] = call(xl, local)
+        if n_axis is not None:
+            mesh.all_reduce(full, "sum", n_axis)
+        ts = per_tensor_scale(x, icfg.fmt).reshape(1)
+        tw = pw.tscale.reshape(-1).contiguous()
+        plain = DF.dsbp_fused_plain(x, ts, pw.ka, pw.kscale, tw, icfg)  # B8's plain version
+        ref = DF.dsbp_fused(x, ts, pw.ka, pw.kscale, tw, icfg)  # B1, whole weight
+        torch.cuda.synchronize()
+        a = full.cpu().numpy()
+        held = {}
+        for name, want in (("plain", plain), ("B1", ref)):
+            b = want.cpu().numpy()
+            diff = np.abs(a - b)
+            held[name] = (int((diff > 0).sum()), float((diff / np.spacing(np.abs(b))).max()),
+                          float(diff.max()))
+            n_diff, ulps, _ = held[name]
+            # column-parallel is exact per column; a row-parallel sum may
+            # round where the f32 group-order sum does
+            if (split == "column" and n_diff) or not ulps <= 4:
+                raise AssertionError(f"B8 {proj} M={m} {split}: {n_diff} elements differ "
+                                     f"from {name} on the whole weight, up to {ulps} ulps")
+        n_diff, ulps, max_err = held["plain"]
+        wbytes = local.ka.numel() + local.kscale.numel() * 4
+        copies = [_clone_packed(local)
+                  for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
+        iters = 20 if m <= 4 else 5
+        for i in range(2):
+            call(xl, copies[i % len(copies)])
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            call(xl, copies[i % len(copies)])
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3 / iters
+        coll_ms = {"cpu": None}
+        # the output's all_reduce: of the CUDA tensor (staged through the
+        # host by gloo), and of a host copy (gloo alone; NCCL takes none)
+        for where in ("cuda", "cpu")[:1 + (torch.distributed.get_backend() == "gloo")]:
+            buf = torch.zeros(m, cols.stop - cols.start, device=dev if where == "cuda" else "cpu")
+            mesh.barrier()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                mesh.all_reduce(buf, "sum", "model")
+            torch.cuda.synchronize()
+            coll_ms[where] = (time.perf_counter() - t0) * 1e3 / iters
+        row = None
+        if mesh.rank == 0:  # the other rank waits at the barrier: the card is ours
+            twl = local.tscale.reshape(-1).contiguous()
+            b1_ms = cuda_ms(DF.dsbp_fused, [(xl, ts, cc.ka, cc.kscale, twl, icfg)
+                                            for cc in copies], iters=iters)
+            plain_ms = cuda_ms(DF.dsbp_fused_plain, [(x, ts, pw.ka, pw.kscale, tw, icfg)],
+                               iters=3, warmup=1)
+            # both ranks read their shards through the one card: the whole weight
+            nbytes = pw.ka.numel() + pw.kscale.numel() * 4 + m * k * 4 + m * n * 4 + n * 4
+            b_ms, b_by = bound(nbytes, 2.0 * m * pw.padded_k * n, FP16_OPS)
+            row = {"proj": proj, "M": m, "K": k, "N": n, "split": split, "n_diff": n_diff,
+                   "ulps": ulps, "max_abs_err": max_err, "n_diff_b1": held["B1"][0],
+                   "ulps_b1": held["B1"][1], "ms": whole_ms,
+                   "b1_shard_ms": b1_ms, "collective_ms": coll_ms["cuda"],
+                   "host_collective_ms": coll_ms["cpu"], "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+        mesh.barrier()
+        rows.append(row)
+        del pw, local, copies, full, ref, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_b8(torch):
+    print("== phase 14: B8 dsbp_fused_sharded_call on a (1, 2) mesh of two ranks, "
+          "against its plain version and B1 on the whole weight")
+    from repro_torch.launch.mesh import spawn
+
+    rows = spawn(_b8_rank, (1, 2), B8_CASES, device="cuda", deadline_s=600)[0]
+    for r in rows:
+        print(f"  B8 {r['proj']} M={r['M']:3d} K={r['K']:5d} N={r['N']:5d} {r['split']:6s}: "
+              f"{r['n_diff']} elements differ from plain (max {r['ulps']:.1f} ulps), "
+              f"{r['n_diff_b1']} from B1 (max {r['ulps_b1']:.1f}); whole call "
+              f"{r['ms']:.4f} ms on rank 0, B1 on its shard {r['b1_shard_ms']:.4f} ms, one "
+              f"all_reduce of the output {r['collective_ms']:.4f} ms (of a host copy "
+              f"{r['host_collective_ms']} ms), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def _mesh_serve_rank(mesh, n_layers):
+    """Phases 15 / 15b on one rank: build (one rank at a time draws the
+    whole seeded model and keeps its shards), then phase 5's traffic
+    through generate and serve at 4 slots with the launch counts from 0,
+    then once more, untimed, with its sampled batches recorded."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dsbp_fused as DF
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama-7b-paper").replace(n_layers=n_layers)
+    scfg = ServeConfig(max_len=512, batch_size=4, mesh_shape=tuple(mesh.shape.values()))
+    t0 = time.perf_counter()
+    eng = None
+    for turn in range(mesh.size):
+        if mesh.rank == turn:
+            eng = Engine(TM.init(cfg, seed=0, device=mesh.device), scfg, device=mesh.device)
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    t_build = time.perf_counter() - t0
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    kernels = {"dsbp_fused": DF.dsbp_fused, "dsbp_fused_sharded_call": DF.dsbp_fused_sharded_call,
+               "flash_attention": FA.flash_attention}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the mesh's main path: counts from 0 over exactly this run ----
+    _reset_launches(kernels)
+    out = eng.generate(toks, 16, lengths=lens)
+    gst = dict(eng.last_stats)
+    served = eng.serve(reqs, max_new_tokens=16)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    sst = dict(eng.last_stats)
+    calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)
+    layer = eng.model.layers[0]
+    return {"generate": out, "serve": served, "calls": calls, "gen_stats": gst,
+            "serve_stats": sst, "launches": launches, "build_s": t_build,
+            "peak": torch.cuda.max_memory_allocated(), "pool_size": sst["pool_size"],
+            "q_heads": layer.attn.wq.n // cfg.d_head, "kv_heads": layer.kv_heads(cfg),
+            "shards": {name: tuple(getattr(layer.attn if name[1] in "qkvo" else layer.ffn,
+                                           name).ka.shape)
+                       for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2")},
+            "lm_head": tuple(eng.model.lm_head.shape)}
+
+
+def _merge_calls(ranks, shape, n_ref_rows):
+    """The sampled batches of a mesh run as one engine's: a batch each data
+    rank sampled for its own rows is their rows in data order; a batch
+    every rank sampled whole (an admission) is data rank 0's."""
+    d, m = shape
+    firsts = [ranks[i * m]["calls"] for i in range(d)]
+    merged = []
+    for i, (lg, tok) in enumerate(firsts[0]):
+        if lg.shape[0] == n_ref_rows[i]:
+            merged.append((lg, tok))
+        else:
+            import torch
+
+            merged.append((torch.cat([f[i][0] for f in firsts]),
+                           torch.cat([f[i][1] for f in firsts])))
+    return merged
+
+
+def phase_mesh_reference(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
+    """Phase 15b's single-device reference: 2 layers at full width from the
+    ranks' seed, phase 5's traffic at 4 slots, then its sampled batches
+    recorded in an untimed pass."""
+    eng = Engine(TM.init(cfg.replace(n_layers=2), seed=0, device="cuda"),
+                 ServeConfig(max_len=512, batch_size=4), device="cuda")
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    DF.dsbp_fused.launches = 0
+    FA.flash_attention.launches = 0
+    out = eng.generate(toks, 16, lengths=lens)
+    served = eng.serve(reqs, max_new_tokens=16)
+    torch.cuda.synchronize()
+    sst = dict(eng.last_stats)
+    launches = {"dsbp_fused": DF.dsbp_fused.launches,
+                "flash_attention": FA.flash_attention.launches}
+    calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)
+    ref = {"generate": out, "serve": served, "calls": calls, "launches": launches,
+           "decode_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"]}
+    del eng
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_mesh_calls(torch, ref, got, rel: float):
+    """What the mesh promises against one device, in every recorded
+    sampled batch: equal tokens, and finite logits within ``rel`` *
+    max|logit| of the reference's (``rel`` 0: bit-equal).  On a failure
+    phase 9's near-tie rule is run over the same batches and its verdict
+    printed with it, to tell a near tie from a fault.  Returns (batches
+    with bit-equal logits, largest difference relative to max|logit|)."""
+    if len(ref) != len(got):
+        raise AssertionError(f"{len(got)} sampled batches vs {len(ref)}")
+    worst, equal = 0.0, 0
+    for i, ((a, ta), (b, tb)) in enumerate(zip(ref, got)):
+        if a.shape != b.shape:
+            raise AssertionError(f"batch {i}: logits {tuple(b.shape)} vs {tuple(a.shape)}")
+        top, delta = float(a.abs().max()), float((a - b).abs().max())
+        worst = max(worst, delta / top)
+        equal += bool(torch.equal(a, b))
+        if not (torch.isfinite(b).all() and delta <= rel * top and torch.equal(ta, tb)):
+            try:
+                first = check_calls(torch, ref, got)[0]
+                why = "phase 9's near-tie rule would pass (" + (
+                    "no token diverges)" if first is None else f"a near tie at batch {first})")
+            except AssertionError as e:
+                why = f"phase 9's near-tie rule fails too: {e}"
+            raise AssertionError(
+                f"batch {i}: logits differ by {delta} (limit {rel} * {top}), tokens "
+                f"{'equal' if torch.equal(ta, tb) else 'differ'}; {why}")
+    return equal, worst
+
+
+def phase_mesh_serve(torch, ref, shape, n_layers, phase, rel):
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn
+
+    ranks = spawn(_mesh_serve_rank, shape, n_layers, device="cuda", deadline_s=900)
+    r0 = ranks[0]
+    calls = _merge_calls(ranks, shape, [lg.shape[0] for lg, _ in ref["calls"]])
+    equal, worst = check_mesh_calls(torch, ref["calls"], calls, rel)
+    gst, sst = r0["gen_stats"], r0["serve_stats"]
+    for res in ranks:
+        if not np.array_equal(res["generate"], ref["generate"]) or any(
+                not np.array_equal(res["serve"][u], t) for u, t in ref["serve"].items()):
+            raise AssertionError(f"phase {phase}: equal sampled batches, unequal streams")
+    for res in ranks:
+        ln = res["launches"]
+        if not (ln["dsbp_fused_sharded_call"] == ln["dsbp_fused"] == ref["launches"]["dsbp_fused"]
+                and ln["flash_attention"] == ref["launches"]["flash_attention"]):
+            raise AssertionError(f"phase {phase}: launches {ln} against one device's "
+                                 f"{ref['launches']}")
+    step_ms = 1e3 * sst["decode_time_s"] / sst["decode_steps"]
+    cards = "the one card" if torch.cuda.device_count() < len(ranks) else "a card each"
+    print(f"  {len(ranks)} ranks on {cards}, built one after another in "
+          f"{r0['build_s']:.1f} s; pool {r0['pool_size']} slots; rank 0 holds "
+          f"{r0['q_heads']} q / {r0['kv_heads']} KV heads, shards {r0['shards']}, "
+          f"lm_head {r0['lm_head']}")
+    print(f"  tokens equal to the single device's, every stream on every rank; {equal} "
+          f"of {len(calls)} sampled batches with bit-equal logits, largest difference "
+          f"{worst:.3g} of max|logit| (limit {rel})")
+    print(f"  generate: decode {1e3 * gst['decode_s'] / gst['decode_steps']:.2f} ms/step; "
+          f"serve: {sst['decode_steps']} steps, {step_ms:.2f} ms/step (one device: "
+          f"{ref['decode_ms']:.2f}), prefill {sst['prefill_time_s']:.3f} s")
+    print(f"  collectives per decode step (rank 0): {sst['collectives_per_decode_step']}")
+    print(f"  peak memory per rank: {[round(r['peak'] / 2**30, 2) for r in ranks]} GiB")
+    print(f"  launches over generate + serve, per rank: {r0['launches']} (one device: "
+          f"{ref['launches']})")
+    return {"ranks": ranks, "equal": equal, "worst": worst, "step_ms": step_ms}
+
+
+def mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5):
+    """Phases 14, 15 and 15b, after the caller dropped its models."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    b8 = phase_b8(torch)
+    print("== phase 15: full-width llama-7b-paper on a (1, 2) mesh (tensor-parallel, 2 "
+          "ranks): phase 5's traffic, held against phase 5")
+    # bit-equal: column-parallel GEMMs are exact per column, and the
+    # row-parallel sums did not round on the serve's activations (PERF.md)
+    mesh15 = phase_mesh_serve(torch, ref5, (1, 2), cfg.n_layers, "15", 0.0)
+    ref15b = phase_mesh_reference(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
+    print("== phase 15b: 2 layers at full width on a (2, 2) mesh (data- and "
+          "tensor-parallel, 4 ranks), held against one device")
+    phase_mesh_serve(torch, ref15b, (2, 2), 2, "15b", MESH_DATA_REL)
+    return b8, mesh15
+
+
 def main() -> int:
     import torch
 
@@ -1142,12 +1574,21 @@ def main() -> int:
             "    " + line for line in report.strip().splitlines() if "ptxas" in line
             or "registers" in line or "spill" in line))
 
+    if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
+        model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
+                                               FA, get_config("llama-7b-paper"))
+        ref5["launches"] = launches
+        del model
+        mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA,
+                    get_config("llama-7b-paper"), ref5)
+        print(smi())
+        return 0
     b1_rows, b1_err = phase_b1(torch, Q, DF, per_tensor_scale)
     b2 = phase_b2(torch, FA)
     cfg = get_config("llama-7b-paper")
     models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
-    model, launches, float_bpt = phase_serve(torch, TM, Engine, ServeConfig, Request,
-                                             DF, FA, cfg)
+    model, launches, float_bpt, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request,
+                                                   DF, FA, cfg)
     b3_rows = phase_b3(torch, Q, QA, per_tensor_scale)
     b4_rows, b4_err = phase_b4(torch, Q, DM, TO)
     b5 = phase_b5(torch, FA, KVQ)
@@ -1163,6 +1604,12 @@ def main() -> int:
                    paged_packed_flash_attention=FA.paged_packed_flash_attention)
     paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
                               model, cfg)
+
+    # the mesh: its ranks are processes of their own, each drawing a whole
+    # model in turn; the models above are freed first
+    ref5["launches"] = launches
+    del model, models
+    b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
 
     b1 = next(r for r in b1_rows if (r["M"], r["K"], r["N"]) == (4, 4096, 11008))
     b3 = next(r for r in b3_rows if (r["M"], r["K"]) == (4, 4096))
@@ -1229,6 +1676,24 @@ def main() -> int:
                         for case, r in rows.items() if case != "serve"},
              "shape": "decode, 8 lanes H=32 D=128 bs=16 MB=32 (phase 13's)",
              "path": f"phase 13 (paged, {pool} pool, dsbp_fused)"})
+    b8m = next(r for r in b8 if (r["proj"], r["M"]) == ("w2", 4))
+    kernels.append(
+        {"name": "dsbp_fused_sharded_call", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dsbp_fused.cu",
+         "replaces": "src/repro/kernels/dsbp_fused.py:135",
+         "launches": mesh15["ranks"][0]["launches"]["dsbp_fused_sharded_call"],
+         "max_abs_err": max(r["max_abs_err"] for r in b8),
+         "ms": b8m["ms"], "plain_ms": b8m["plain_ms"], "bound_ms": b8m["bound_ms"],
+         "bound_by": b8m["bound_by"], "library_ms": None,
+         "b1_shard_ms": b8m["b1_shard_ms"], "collective_ms": b8m["collective_ms"],
+         "host_collective_ms": b8m["host_collective_ms"],
+         "others": {f"{r['proj']} M={r['M']}": {k: r[k] for k in (
+             "ms", "b1_shard_ms", "collective_ms", "host_collective_ms", "plain_ms",
+             "bound_ms", "n_diff", "ulps")}
+             for r in b8 if r is not b8m},
+         "shape": "decode M=4, w2 row-parallel K=11008 N=4096 over 2 ranks (rank 0's "
+                  "whole call, collectives included)",
+         "path": "phase 15 (mesh (1, 2), two ranks on the one card, per rank)"})
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ __all__ = [
     "quantize",
     "decompose",
     "per_tensor_scale",
+    "scale_for_amax",
 ]
 
 
@@ -119,9 +120,15 @@ def decompose(x: torch.Tensor, fmt: str | FPFormat = "e4m3") -> dict:
 def per_tensor_scale(x: torch.Tensor, fmt: str | FPFormat, margin: float = 1.0) -> torch.Tensor:
     """Power-of-two per-tensor scale mapping amax(x) into the format's
     range, as a 0-d f32 tensor on x's device (no host sync)."""
+    return scale_for_amax(x.abs().max(), fmt, margin)
+
+
+def scale_for_amax(amax: torch.Tensor, fmt: str | FPFormat, margin: float = 1.0) -> torch.Tensor:
+    """:func:`per_tensor_scale` from an already reduced ``amax`` (a
+    sharded activation's, reduced over the ranks that split it)."""
     f = get_format(fmt)
-    amax = x.abs().max().to(torch.float32)
+    amax = amax.to(torch.float32)
     amax = torch.where(amax > 0, amax, torch.ones_like(amax))
     _, e = torch.frexp(torch.as_tensor(f.max_value * margin, dtype=torch.float32,
-                                       device=x.device) / amax)
+                                       device=amax.device) / amax)
     return exp2i(e - 1)

@@ -22,6 +22,14 @@ The registry decides how ``models.layers.dense`` executes a projection:
                grouped integer GEMM (B4) off the stored operands
   dsbp_fused   the one-pass fused DSBP GEMM (CUDA kernel on the card,
                its plain PyTorch version on the CPU) — the serving default
+  dsbp_fused_sharded
+               the fused GEMM on one rank of a mesh (B8): the projection's
+               name picks its tensor-parallel split
+               (``parallel.context``); the default under a mesh
+
+Every method takes the projection's ``name`` (``wq``, ``w2``, ...); only
+the sharded one reads it, as in JAX.  :func:`pack_weights_sharded` packs a
+rank's column shard straight into its kernel layout.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ __all__ = [
     "QuantMethod",
     "register_quant_method",
     "get_quant_method",
+    "pack_weights_sharded",
 ]
 
 LAYOUT_VERSION = 2
@@ -87,6 +96,30 @@ class PackedDSBPWeight(nn.Module):
         return (f"k={self.k}, n={self.n}, group={self.group_size}, "
                 f"v{self.version}")
 
+    def slice(self, rows: slice | None = None, cols: slice | None = None) -> "PackedDSBPWeight":
+        """The container of logical rows ``rows`` (group-aligned) and
+        output columns ``cols`` of this one: every child cut along its own
+        axes (``ka``/``kscale`` rows and columns, ``tscale`` per-channel
+        rows, ``bits`` rows and groups).  Exact: the weight path is fixed
+        per column and per group."""
+        g = self.group_size
+        rows = slice(0, self.k) if rows is None else rows
+        cols = slice(0, self.n) if cols is None else cols
+        if (rows.start, rows.stop) == (0, self.k):
+            kr, gr, k = slice(None), slice(None), self.k
+        elif rows.start % g or rows.stop % g:
+            raise ValueError(f"row slice {rows} is not group-aligned (group {g})")
+        else:
+            kr, gr, k = rows, slice(rows.start // g, rows.stop // g), rows.stop - rows.start
+        ts = self.tscale
+        if ts.ndim == self.ka.ndim:  # per-channel (..., N, 1)
+            ts = ts[..., cols, :]
+        return PackedDSBPWeight(
+            self.ka[..., kr, cols].contiguous(), self.kscale[..., gr, cols].contiguous(),
+            ts.contiguous(), self.bits[..., cols, gr].contiguous(), k=k,
+            n=len(range(*cols.indices(self.n))), group_size=g, cfg=self.cfg,
+            version=self.version)
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """Back to a dense ``(..., k, n)`` matrix (weight-only consumption)."""
         deq = self.ka.to(dtype) * torch.repeat_interleave(
@@ -104,26 +137,27 @@ class PackedDSBPWeight(nn.Module):
 # ---------------------------------------------------------------------------
 
 class QuantMethod:
-    """How a projection executes: ``apply(w, x, cfg)`` computes the logical
-    ``x (..., K) @ w (K, N)``, with ``w`` a raw tensor or a
-    :class:`PackedDSBPWeight` and ``cfg`` the active
-    ``QuantizedMatmulConfig`` (None = no activation quantization)."""
+    """How a projection executes: ``apply(w, x, cfg, name)`` computes the
+    logical ``x (..., K) @ w (K, N)``, with ``w`` a raw tensor or a
+    :class:`PackedDSBPWeight`, ``cfg`` the active
+    ``QuantizedMatmulConfig`` (None = no activation quantization) and
+    ``name`` the projection's weight name."""
 
     name: str = "?"
 
-    def apply(self, w, x, cfg):
+    def apply(self, w, x, cfg, name=None):
         if isinstance(w, PackedDSBPWeight):
             if cfg is None:
                 return _matmul(w.dequantize(x.dtype), x)
-            return self._apply_packed(w, x, cfg)
+            return self._apply_packed(w, x, cfg, name=name)
         if cfg is None:
             return _matmul(w, x)
-        return self._apply_raw(w, x, cfg)
+        return self._apply_raw(w, x, cfg, name=name)
 
-    def _apply_packed(self, pw, x, cfg):
+    def _apply_packed(self, pw, x, cfg, name=None):
         raise NotImplementedError
 
-    def _apply_raw(self, w, x, cfg):
+    def _apply_raw(self, w, x, cfg, name=None):
         raise NotImplementedError
 
 
@@ -155,8 +189,8 @@ class DenseBF16Method(QuantMethod):
 
     name = "dense_bf16"
 
-    def apply(self, w, x, cfg):
-        del cfg
+    def apply(self, w, x, cfg, name=None):
+        del cfg, name
         if isinstance(w, PackedDSBPWeight):
             w = w.dequantize(x.dtype)
         return _matmul(w, x)
@@ -170,12 +204,12 @@ class DSBPRefMethod(QuantMethod):
 
     name = "dsbp_ref"
 
-    def _apply_packed(self, pw, x, cfg):
+    def _apply_packed(self, pw, x, cfg, name=None):
         from . import quantized as Q
 
         return Q.packed_matmul(x, pw, input_cfg=cfg.input_cfg).to(x.dtype)
 
-    def _apply_raw(self, w, x, cfg):
+    def _apply_raw(self, w, x, cfg, name=None):
         from . import quantized as Q
 
         return Q.dsbp_matmul_ref(x, w, cfg).to(x.dtype)
@@ -190,12 +224,12 @@ class DSBPKernelMethod(QuantMethod):
 
     name = "dsbp_kernel"
 
-    def _apply_packed(self, pw, x, cfg):
+    def _apply_packed(self, pw, x, cfg, name=None):
         from repro_torch.kernels import ops
 
         return ops.dsbp_matmul_packed(x, pw, input_cfg=cfg.input_cfg).to(x.dtype)
 
-    def _apply_raw(self, w, x, cfg):
+    def _apply_raw(self, w, x, cfg, name=None):
         from repro_torch.kernels import ops
 
         return ops.dsbp_matmul(x, w, cfg).to(x.dtype)
@@ -209,12 +243,72 @@ class DSBPFusedMethod(QuantMethod):
 
     name = "dsbp_fused"
 
-    def _apply_packed(self, pw, x, cfg):
+    def _apply_packed(self, pw, x, cfg, name=None):
         from repro_torch.kernels import ops
 
         return ops.dsbp_matmul_fused(x, pw, input_cfg=cfg.input_cfg).to(x.dtype)
 
-    def _apply_raw(self, w, x, cfg):
+    def _apply_raw(self, w, x, cfg, name=None):
         from . import quantized as Q
 
-        return self._apply_packed(Q.pack_weights(w, cfg), x, cfg)
+        return self._apply_packed(Q.pack_weights(w, cfg), x, cfg, name=name)
+
+
+@register_quant_method
+class DSBPFusedShardedMethod(DSBPFusedMethod):
+    """The fused one-pass GEMM on one rank of a mesh (B8).
+
+    Under a sharding context (``parallel.context.sharding_ctx``, entered
+    by a multi-rank Engine around every model call) each packed projection
+    runs :func:`repro_torch.kernels.ops.dsbp_matmul_fused_sharded` with the
+    split the weights were cut under, looked up by the projection's name:
+    wq/wk/wv/w1/w3 column-parallel on their N shards (no collective),
+    wo/w2 row-parallel on group-aligned K shards with ONE ``all_reduce``
+    after the in-kernel scale division; the input scale is reduced over
+    every rank that splits the activation.  Without a context this is
+    'dsbp_fused'."""
+
+    name = "dsbp_fused_sharded"
+
+    def _apply_packed(self, pw, x, cfg, name=None):
+        from repro_torch.parallel import context as PC
+
+        ctx = PC.active_ctx()
+        if ctx is None or pw.ka.ndim != 2:
+            return super()._apply_packed(pw, x, cfg, name=name)
+        from repro_torch.kernels import ops
+
+        k_axis, n_axis = ctx.plan.get(name, (None, None))
+        return ops.dsbp_matmul_fused_sharded(
+            x, pw, ctx.mesh, input_cfg=cfg.input_cfg, batch_axis=ctx.batch_axes,
+            k_axis=k_axis, n_axis=n_axis).to(x.dtype)
+
+
+def pack_weights_sharded(w, cfg, mesh, *, n_axis: str = "model",
+                         cols: slice | None = None) -> PackedDSBPWeight:
+    """Pack only this rank's output columns of ``w (..., K, N)`` straight
+    into kernel layout: its even shard over ``n_axis`` of ``mesh``, or the
+    columns ``cols`` (the kv-head columns its q heads read).  The full
+    quantized container never exists on the rank.
+
+    Bit-identical to slicing the global pack: with per-column weight
+    scales (every PRESETS entry packs with ``scale_granularity='row'``)
+    the whole weight path — scale, group scales, width prediction,
+    alignment — is independent per output column.  Per-tensor scales
+    couple the columns through the global max, so that case packs globally
+    and slices; an ``N`` that ``n_axis`` does not divide (or a mesh
+    without it) falls back to the global pack, as JAX's does."""
+    from . import quantized as Q  # local import: packed stays dependency-light
+
+    if isinstance(cfg, str):
+        cfg = Q.PRESETS[cfg]
+    n = w.shape[-1]
+    if cols is None:
+        size = mesh.shape.get(n_axis, 0)
+        if not size or n % size:
+            return Q.pack_weights(w, cfg)
+        c = mesh.coords[n_axis]
+        cols = slice(c * n // size, (c + 1) * n // size)
+    if cfg.weight_cfg.scale_granularity != "row":
+        return Q.pack_weights(w, cfg).slice(cols=cols)
+    return Q.pack_weights(w[..., cols], cfg)

@@ -8,6 +8,13 @@ against a packed weight in kernel layout.  On a CUDA tensor it launches
 the kernel and the plain version agree bit for bit on the card.
 
 Replaces ``src/repro/kernels/dsbp_fused.py::dsbp_fused_kernel_call`` (:73).
+
+B8, :func:`dsbp_fused_sharded_call`, replaces ``dsbp_fused_sharded_call``
+(:135): B1 under ``shard_map``.  It is no new kernel body, on the TPU nor
+here: each rank launches B1 on its own shards and, for a row-parallel
+projection, folds the partial outputs with one ``all_reduce`` after the
+in-kernel scale division.  Its plain version is :func:`dsbp_fused_plain`
+over the whole weight.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ from . import build
 
 GROUP = 64
 
-__all__ = ["GROUP", "quant_align_tile", "dsbp_fused", "dsbp_fused_plain"]
+__all__ = ["GROUP", "quant_align_tile", "dsbp_fused", "dsbp_fused_plain",
+           "dsbp_fused_sharded_call"]
 
 
 def _floor_log2(ax: torch.Tensor) -> torch.Tensor:
@@ -156,3 +164,32 @@ def dsbp_fused(x: torch.Tensor, ts: torch.Tensor, ka: torch.Tensor,
 
 
 dsbp_fused.launches = 0
+
+
+def dsbp_fused_sharded_call(x: torch.Tensor, ts: torch.Tensor, ka: torch.Tensor,
+                            kscale: torch.Tensor, tw: torch.Tensor, cfg: DSBPConfig,
+                            mesh=None, *, k_axis: str | None = None) -> torch.Tensor:
+    """B8: B1 on this rank's shards, partials folded over ``k_axis``.
+
+    ``x (M_l, K'_l)`` holds this rank's rows and K slice, ``ts (1,)`` the
+    GLOBAL pow2 input scale (reduced over every rank that splits ``x``
+    before the call), ``ka (K'_l, N_l)`` / ``kscale (K'_l/64, N_l)`` /
+    ``tw (N_l,)`` the weight's shards (K slices group-aligned, so every
+    group lies on one rank).  Each rank quantizes and aligns its own K
+    slice and runs B1 (the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors); with ``k_axis`` set (row-parallel), ONE
+    ``all_reduce(SUM)`` over that axis of ``mesh`` sums the partial
+    outputs.  The partials are integer dots times pow2 scales, so the sum
+    equals the single-device group-order sum whenever the f32 group-order
+    sum does not round (every input the JAX tests use; not every input:
+    heavy-tailed activations with widely spread group exponents differ by
+    a few ulps)."""
+    y = dsbp_fused(x, ts, ka, kscale, tw, cfg)
+    if x.is_cuda:
+        dsbp_fused_sharded_call.launches += 1
+    if k_axis is not None:
+        mesh.all_reduce(y, "sum", k_axis)
+    return y
+
+
+dsbp_fused_sharded_call.launches = 0

@@ -2,6 +2,7 @@
 
 Port of ``repro.kernels.ops``: ``fp8_quant_align`` (:92),
 ``dsbp_matmul_packed`` (:102), ``dsbp_matmul_fused`` (:150),
+``dsbp_matmul_fused_sharded`` (:190),
 ``dsbp_matmul`` (:274), and the two dispatch contracts
 ``count_weight_transposes`` (:52) and ``count_kv_dequants`` (:386), plus
 the paged cache's ``count_kv_gathers`` (no JAX counterpart: the JAX model
@@ -18,17 +19,17 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.dsbp import DSBPConfig
-from repro_torch.core.formats import per_tensor_scale
+from repro_torch.core.formats import per_tensor_scale, scale_for_amax
 from repro_torch.core.packed import PackedDSBPWeight
 
 from . import build
 from . import fp8_quant_align as _qa
-from .dsbp_fused import dsbp_fused
+from .dsbp_fused import dsbp_fused, dsbp_fused_sharded_call
 from .dsbp_matmul import dsbp_matmul as _dsbp_matmul
 
 __all__ = ["fp8_quant_align", "dsbp_matmul_packed", "dsbp_matmul_fused",
-           "dsbp_matmul", "count_weight_transposes", "count_kv_dequants",
-           "count_kv_gathers"]
+           "dsbp_matmul_fused_sharded", "dsbp_matmul",
+           "count_weight_transposes", "count_kv_dequants", "count_kv_gathers"]
 
 
 def _check_packed_2d(pw: PackedDSBPWeight, x: torch.Tensor, name: str) -> None:
@@ -84,6 +85,46 @@ def dsbp_matmul_fused(x: torch.Tensor, pw: PackedDSBPWeight,
     tw = pw.tscale.reshape(-1).expand(pw.n) if pw.tscale.numel() == 1 \
         else pw.tscale.reshape(pw.n)
     y = dsbp_fused(xm, ts, pw.ka, pw.kscale, tw.to(torch.float32), icfg)
+    return y.reshape(*batch, pw.n)
+
+
+def _axes_tuple(ax) -> tuple:
+    if not ax:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def dsbp_matmul_fused_sharded(x: torch.Tensor, pw: PackedDSBPWeight, mesh,
+                              input_cfg: DSBPConfig | None = None, *, batch_axis=None,
+                              k_axis: str | None = None,
+                              n_axis: str | None = None) -> torch.Tensor:
+    """The fused DSBP GEMM on one rank of a mesh: this rank's shards
+    ``x (..., K_l) @ pw (K_l, N_l) -> (..., N_l)``, through B8.
+
+    The axes say how the operands were cut (the engine's plan,
+    ``parallel.sharding.serve_cuts``, applies JAX's divisibility fallbacks,
+    :244-257, when it cuts them): ``batch_axis`` splits the token rows,
+    ``k_axis`` the contraction (row-parallel: the partial outputs are
+    summed over it, inside B8), ``n_axis`` the output columns
+    (column-parallel: each rank keeps its own, no collective).  The
+    per-tensor input scale is the GLOBAL one, as JAX computes it before
+    its ``shard_map``: this rank's amax goes through ``all_reduce(MAX)``
+    over every axis that splits ``x``, on the device (no host sync), then
+    through the same pow2 formula."""
+    _check_packed_2d(pw, x, "dsbp_matmul_fused_sharded")
+    if k_axis is not None and (k_axis == n_axis or k_axis in _axes_tuple(batch_axis)):
+        raise ValueError(f"axis {k_axis!r} cannot split K and another dim")
+    batch = x.shape[:-1]
+    icfg = input_cfg if input_cfg is not None else pw.cfg.input_cfg
+    xm = _rows(x, pw)
+    amax = xm.abs().max().reshape(1)
+    for axis in _axes_tuple(batch_axis) + _axes_tuple(k_axis):
+        mesh.all_reduce(amax, "max", axis)
+    ts = scale_for_amax(amax, icfg.fmt)
+    tw = pw.tscale.reshape(-1).expand(pw.n) if pw.tscale.numel() == 1 \
+        else pw.tscale.reshape(pw.n)
+    y = dsbp_fused_sharded_call(xm, ts, pw.ka, pw.kscale, tw.to(torch.float32), icfg,
+                                mesh, k_axis=k_axis)
     return y.reshape(*batch, pw.n)
 
 

@@ -3,13 +3,19 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b-paper \\
       --packed [--ragged] [--kv-quant kv8] [--method dsbp_kernel] \\
       [--paged --kv-block-size 16 [--kv-blocks N] [--max-active N]] \\
-      [--smoke --device cpu]
+      [--mesh DxM] [--smoke --device cpu]
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead (use it with ``--smoke``).  ``--ragged`` draws mixed-length
 prompts (2 per slot) through the ``Engine.serve`` slot scheduler instead of
 one uniform ``generate`` batch; ``--paged`` serves them from a pool of KV
 blocks through per-lane block tables (and implies ``--ragged``).
+
+``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
+counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
+starts one process per rank (``launch.mesh.spawn``; gloo on the CPU or on
+one shared card, NCCL with a card per rank).  Every rank draws the same
+seeded weights, in turn, and keeps only its shards; rank 0 prints.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import time
 
 import numpy as np
 
+from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import model as M
 from repro_torch.serve.engine import Engine, Request, ServeConfig
@@ -60,16 +67,39 @@ def main():
     ap.add_argument("--max-active", type=int, default=None,
                     help="paged lane count; with prefix sharing it can exceed "
                          "--batch at the same --kv-blocks budget")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh of D*M ranks, e.g. '1x2': "
+                         "weights cut per rank (Megatron split over model), the "
+                         "fused GEMM on each rank's shards (B8), the slot pool "
+                         "split over data; one process per rank")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
     args = ap.parse_args()
     if args.paged:
         args.ragged = True  # the paged scheduler lives in serve()
+    if args.mesh is None:
+        _run(None, args)
+        return
+    shape = tuple(int(s) for s in args.mesh.lower().split("x"))
+    if len(shape) != 2 or min(shape) < 1:
+        ap.error(f"--mesh takes DxM (two positive sizes), got {args.mesh!r}")
+    device = resolve_device(args.device)
+    if device.type == "cuda":  # once, before the ranks load the libraries
+        from repro_torch.kernels import build
 
+        build.build_all()
+    from repro_torch.launch.mesh import spawn
+
+    spawn(_run, shape, args, device=str(device))
+
+
+def _run(mesh, args):
+    """Build, pack and serve (one rank of ``mesh``, or the only process)."""
+    device = args.device if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(quant=args.preset if args.packed else None)
-    model = M.init(cfg, seed=0, device=args.device)
     max_len = args.prompt_len + args.new_tokens + 8
     if args.paged:  # block pools need block-aligned ring lengths
         max_len = -(-max_len // args.kv_block_size) * args.kv_block_size
@@ -77,18 +107,30 @@ def main():
                        quant_method=args.method, kv_quant=args.kv_quant,
                        kv_bits=args.kv_bits, paged=args.paged,
                        kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
-                       max_active=args.max_active)
-    eng = Engine(model, scfg, device=args.device)
+                       max_active=args.max_active,
+                       mesh_shape=None if mesh is None else tuple(mesh.shape.values()))
+    eng = None
+    # ranks that share a card draw the whole model one after another, each
+    # keeping only its shards
+    for turn in range(1 if mesh is None else mesh.size):
+        if mesh is None or mesh.rank == turn:
+            eng = Engine(M.init(cfg, seed=0, device=device), scfg, device=device)
+        if mesh is not None:
+            mesh.barrier()
+    say = print if rank0 else (lambda *a, **k: None)  # rank 0 reports for the mesh
+    if mesh is not None:
+        say(f"mesh {tuple(mesh.shape.values())}: {mesh.size} ranks, "
+            f"{scfg.batch_size} slots, {eng.cfg.quant_method or 'float'} projections")
     if args.paged:
-        print(f"paged KV: {eng.kv_blocks} blocks x {args.kv_block_size} slots, "
-              f"{eng.lanes} lanes, table width {eng._table_width}")
+        say(f"paged KV: {eng.kv_blocks} blocks x {args.kv_block_size} slots, "
+            f"{eng.lanes} lanes, table width {eng._table_width}")
     if eng.pack_report:
         rep = eng.pack_report
-        print(f"packed weights: {rep['raw_nbytes']/1e6:.1f} -> "
-              f"{rep['packed_nbytes']/1e6:.1f} MB (avg W bits "
-              f"{rep['avg_w_bits']:.2f}, preset {rep['preset']})")
+        say(f"packed weights: {rep['raw_nbytes']/1e6:.1f} -> "
+            f"{rep['packed_nbytes']/1e6:.1f} MB (avg W bits "
+            f"{rep['avg_w_bits']:.2f}, preset {rep['preset']})")
     if eng.kv_spec is not None:
-        print(f"packed KV cache: {eng.kv_spec}")
+        say(f"packed KV cache: {eng.kv_spec}")
     rng = np.random.default_rng(0)
     if args.ragged:
         lens = rng.integers(args.prompt_len // 2, args.prompt_len + 1, 2 * args.batch)
@@ -99,28 +141,30 @@ def main():
         out = eng.serve(reqs, max_new_tokens=args.new_tokens)
         dt = time.monotonic() - t0
         st = eng.last_stats
-        print(f"served {st['requests']} ragged requests (lens {lens.tolist()}) "
-              f"in {dt:.2f}s ({st['decode_tps']:.1f} decode tok/s, occupancy "
-              f"{st['occupancy']*100:.0f}%, {st['decode_steps']} pool steps, "
-              f"{st['kv_bytes_per_token']:.0f} KV bytes/token)")
+        say(f"served {st['requests']} ragged requests (lens {lens.tolist()}) "
+            f"in {dt:.2f}s ({st['decode_tps']:.1f} decode tok/s, occupancy "
+            f"{st['occupancy']*100:.0f}%, {st['decode_steps']} pool steps, "
+            f"{st['kv_bytes_per_token']:.0f} KV bytes/token)")
         if args.paged:
-            print(f"block pool: peak {st['block_peak_used']}/{st['kv_blocks'] - 1} used "
-                  f"({st['block_utilization'] * 100:.0f}%), {st['shared_blocks_peak']} "
-                  f"shared at peak, {st['prefix_hit_blocks']} prefix hits, "
-                  f"{st['cow_splits']} COW splits, {st['chunk_steps']} chunk steps "
-                  f"({st['chunked_requests']} chunked requests), "
-                  f"{st['stalled_decode_steps']} stalled decode steps")
+            say(f"block pool: peak {st['block_peak_used']}/{st['kv_blocks'] - 1} used "
+                f"({st['block_utilization'] * 100:.0f}%), {st['shared_blocks_peak']} "
+                f"shared at peak, {st['prefix_hit_blocks']} prefix hits, "
+                f"{st['cow_splits']} COW splits, {st['chunk_steps']} chunk steps "
+                f"({st['chunked_requests']} chunked requests), "
+                f"{st['stalled_decode_steps']} stalled decode steps")
+        if mesh is not None:
+            say(f"collectives per decode step: {st['collectives_per_decode_step']}")
         for uid in list(out)[:2]:
-            print(f"  req{uid}: {out[uid].tolist()}")
+            say(f"  req{uid}: {out[uid].tolist()}")
         return
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     t0 = time.monotonic()
     out = eng.generate(prompts, args.new_tokens)
     dt = time.monotonic() - t0
-    print(f"generated {out.shape} in {dt:.2f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    say(f"generated {out.shape} in {dt:.2f}s "
+        f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     for b in range(min(2, args.batch)):
-        print(f"  seq{b}: {out[b].tolist()}")
+        say(f"  seq{b}: {out[b].tolist()}")
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.packed import PackedDSBPWeight
 from repro_torch.kvq import PackedKVBlock, init_packed_kv, quantize_like
 
 from .attention import (blockwise_attention, decode_attention, gather_kv_view,
@@ -75,6 +76,11 @@ class _FFN(nn.Module):
         self.w2 = _weight((ff, d), device)
 
 
+def out_features(w) -> int:
+    """Output columns of a projection weight, raw (d_in, d_out) or packed."""
+    return w.n if isinstance(w, PackedDSBPWeight) else w.shape[-1]
+
+
 class Layer(nn.Module):
     """One ``attn_full`` decoder layer: norm1, attn {wq, wk, wv, wo},
     norm2, ffn {w1, w3, w2}.  Projection weights are raw (d_in, d_out)
@@ -91,14 +97,18 @@ class Layer(nn.Module):
         self.norm2 = _weight((cfg.d_model,), device)
         self.ffn = _FFN(cfg, device)
 
+    def kv_heads(self, cfg) -> int:
+        """The KV heads this layer's weights produce (a rank's share)."""
+        return out_features(self.attn.wk) // cfg.d_head
+
 
 # ---------------- ffn ----------------
 
 def _ffn(ffn: _FFN, x, quant):
-    h1 = dense(ffn.w1, x, quant)
-    h3 = dense(ffn.w3, x, quant)
+    h1 = dense(ffn.w1, x, quant, name="w1")
+    h3 = dense(ffn.w3, x, quant, name="w3")
     h = torch.nn.functional.silu(h1.to(torch.float32)).to(x.dtype) * h3
-    return dense(ffn.w2, h, quant)
+    return dense(ffn.w2, h, quant, name="w2")
 
 
 def _mlp_part(layer: Layer, x, cfg, quant):
@@ -108,11 +118,13 @@ def _mlp_part(layer: Layer, x, cfg, quant):
 # ---------------- attention, sequence mode ----------------
 
 def _qkv(attn: _Attn, y, cfg, quant, positions):
+    """q (B, Hq, S, D), k, v (B, Hkv, S, D) with the head counts of the
+    weights held here: all of them, or this rank's under a mesh."""
     b, s, _ = y.shape
     dh = cfg.d_head
-    q = dense(attn.wq, y, quant).reshape(b, s, cfg.n_heads, dh)
-    k = dense(attn.wk, y, quant).reshape(b, s, cfg.n_kv_heads, dh)
-    v = dense(attn.wv, y, quant).reshape(b, s, cfg.n_kv_heads, dh)
+    q = dense(attn.wq, y, quant, name="wq").reshape(b, s, -1, dh)
+    k = dense(attn.wk, y, quant, name="wk").reshape(b, s, -1, dh)
+    v = dense(attn.wv, y, quant, name="wv").reshape(b, s, -1, dh)
     q = rope(q.transpose(1, 2), positions, cfg.rope_theta)
     k = rope(k.transpose(1, 2), positions, cfg.rope_theta)
     return q, k, v.transpose(1, 2).contiguous()
@@ -123,8 +135,8 @@ def _attn_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
     q, k, v = _qkv(layer.attn, y, cfg, quant, positions)
     o = blockwise_attention(q, k, v, causal=True, kv_lens=lengths)
     b, s, _ = x.shape
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-    x = x + dense(layer.attn.wo, o.to(x.dtype), quant)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    x = x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
     return x, (k, v)
 
 
@@ -138,10 +150,13 @@ def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
 
 # ---------------- caches ----------------
 
-def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None) -> dict:
+def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None,
+                     n_kv_heads: int | None = None) -> dict:
     """One {'k', 'v'} cache entry: float tensors, or packed blocks when a
-    resolved ``kv`` spec (:class:`~repro_torch.kvq.KVQuantConfig`) is set."""
-    shp = (batch, cfg.n_kv_heads, max_len, cfg.d_head)
+    resolved ``kv`` spec (:class:`~repro_torch.kvq.KVQuantConfig`) is set.
+    ``n_kv_heads`` is the layer's own (a rank's under a mesh; default
+    ``cfg.n_kv_heads``)."""
+    shp = (batch, n_kv_heads or cfg.n_kv_heads, max_len, cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
     return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
@@ -212,8 +227,8 @@ def _attn_decode(layer: Layer, x, cfg, quant, cache: dict, pos: torch.Tensor):
         for leaf, fl in _leaf_pairs(cache[name], fresh):
             leaf[bidx, :, slot] = fl[:, :, 0]
     o = decode_attention(q, cache["k"], cache["v"], pos + 1)
-    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.d_head)
-    return x + dense(layer.attn.wo, o.to(x.dtype), quant)
+    o = o.transpose(1, 2).reshape(b, 1, -1)
+    return x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
 
 
 def layer_decode(layer: Layer, x, cfg, cache: dict, pos, quant=None):
@@ -321,8 +336,8 @@ def _attn_decode_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
     q, k, v = _qkv(layer.attn, y, cfg, quant, posb[:, None])
     write_kv_blocks(pool, k, v, plan)
     o = paged_decode_attention(q, pool["k"], pool["v"], table, posb)
-    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.d_head)
-    return x + dense(layer.attn.wo, o.to(x.dtype), quant)
+    o = o.transpose(1, 2).reshape(b, 1, -1)
+    return x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
 
 
 def layer_decode_paged(layer: Layer, x, cfg, pool: dict, table, pos,
@@ -349,8 +364,8 @@ def _attn_verify_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
     kq = quantize_like(pool["k"], k)
     vq = quantize_like(pool["v"], v)
     o = verify_attention(q, kq, vq, ck, cv, posb)
-    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.d_head)
-    x = x + dense(layer.attn.wo, o.to(x.dtype), quant)
+    o = o.transpose(1, 2).reshape(b, t, -1)
+    x = x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
     return x, {"k": kq, "v": vq}
 
 

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.core.packed import PackedDSBPWeight, get_quant_method
 from repro_torch.core.quantized import PRESETS
+from repro_torch.parallel.context import fold_partials
 
 __all__ = ["rms_norm", "rope", "Quant", "dense"]
 
@@ -42,14 +43,18 @@ class Quant:
         return self.cfg is not None
 
 
-def dense(w, x: torch.Tensor, quant: Quant | None = None) -> torch.Tensor:
+def dense(w, x: torch.Tensor, quant: Quant | None = None,
+          name: str | None = None) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) through the active quant method;
-    ``w`` is a raw tensor or a :class:`PackedDSBPWeight`."""
+    ``w`` is a raw tensor or a :class:`PackedDSBPWeight`, ``name`` the
+    projection's weight name (the key of its tensor-parallel split under a
+    mesh: a quantized projection's method folds its own partials, a float
+    row-parallel one's partials are summed here)."""
     if quant is not None and quant:
-        return quant.method.apply(w, x, quant.cfg)
+        return quant.method.apply(w, x, quant.cfg, name=name)
     if isinstance(w, PackedDSBPWeight):
-        return get_quant_method("dsbp_ref").apply(w, x, None)
-    return torch.matmul(x, w)
+        return get_quant_method("dsbp_ref").apply(w, x, None, name=name)
+    return fold_partials(torch.matmul(x, w), name)
 
 
 def _rope_angles(positions: torch.Tensor, d_head: int, theta: float):

@@ -6,7 +6,9 @@ Port of the dense main path of ``repro.models.model``: :func:`init` (:46),
 (:206, :242) and ``decode_step`` (:370, per-row ``pos``), and the paged
 cache's ``init_paged_cache`` (:286), ``prefill_paged`` (:314),
 ``decode_step_paged`` (:405), ``verify_step_paged`` (:539) and
-``rollback_cache_paged`` (:581).  The JAX
+``rollback_cache_paged`` (:581).  Under a mesh (``parallel``) a rank's
+layers hold its head and column shards, its caches its own rows and KV
+heads, and :meth:`Model.head` assembles the vocab over 'model'.  The JAX
 ``lax.scan`` over stacked units becomes a loop over ``Model.layers``
 (layer i is unit i // P at pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
 knobs and have no counterpart here.
@@ -20,6 +22,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig
 from repro_torch.kvq import kv_policy_cfg
+from repro_torch.parallel.context import gather_columns
 
 from . import blocks
 from .layers import Quant, rms_norm
@@ -80,8 +83,11 @@ class Model(nn.Module):
         return x, torch.arange(x.shape[1], device=x.device)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits over the padded vocab; padded rows masked to -1e30."""
-        logits = torch.matmul(x, self.lm_head.to(x.dtype))
+        """Logits over the padded vocab; padded rows masked to -1e30.
+        Under a mesh a rank holds its own vocab columns of ``lm_head`` (the
+        JAX placement) and the logits assemble over 'model'."""
+        logits = gather_columns(torch.matmul(x, self.lm_head.to(x.dtype)), "lm_head",
+                                self.cfg.padded_vocab_size)
         vp, v = self.cfg.padded_vocab_size, self.cfg.vocab_size
         if vp != v:
             valid = torch.arange(logits.shape[-1], device=logits.device) % vp < v
@@ -134,8 +140,9 @@ class Model(nn.Module):
         (preset name / bits / config, or a mapping keyed ``units.<i>`` /
         ``tail.<i>`` with a ``default``) makes them packed."""
         return [blocks.init_layer_cache(self.cfg, batch, max_len, self.device,
-                                        kv=kv_policy_cfg(kv, self.cache_entry_name(i)))
-                for i in range(len(self.layers))]
+                                        kv=kv_policy_cfg(kv, self.cache_entry_name(i)),
+                                        n_kv_heads=layer.kv_heads(self.cfg))
+                for i, layer in enumerate(self.layers)]
 
     def prefill(self, tokens: torch.Tensor, max_len: int, lengths=None,
                 quant: Quant | None = None, kv=None):

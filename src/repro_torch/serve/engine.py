@@ -13,7 +13,12 @@ priority-ordered ``_build_queue`` (:721), and the paged scheduler
 ``_cow_writable`` (:1683), ``_chunk_step`` (:1755) and ``_requeue``
 (:851).  The JAX scheduler's fault plans, deadlines, cancellation,
 numeric guards, observability hooks and speculative rounds are not
-ported yet; the paged scheduler here has none of them.
+ported yet; the paged scheduler here has none of them.  Multi-rank
+serving (``mesh_shape``) ports ``_build_mesh`` (:605), ``_trace_ctx``
+(:624) and ``_shard_cache`` (:638) for the dense float-KV scheduler and
+``generate``; the pool is ``batch_size`` slots (JAX's
+``per_device_batch_size`` and ``mesh_axes`` are not ported: the axes are
+('data', 'model') until the expert axis is).
 
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
@@ -33,9 +38,25 @@ divergent write), long prompts prefill in chunks between decode steps, and
 a higher-priority request preempts a lower one, which is recomputed when
 it resumes.  Paged decode attention reads the pool through the tables with
 the B6/B7 kernels.
+
+With ``mesh_shape=(D, M)`` the engine is one rank of a ``torch.distributed``
+group of ``D*M`` processes (``launch.mesh.spawn``), each running the same
+host scheduler in lockstep.  Weights are cut and packed per rank
+(``parallel.sharding``: the Megatron split over 'model', by whole heads),
+every projection runs the fused GEMM on its shards
+(``'dsbp_fused_sharded'``, B8: the input scale reduced over the ranks that
+split the activation, row-parallel partials folded with one all_reduce),
+the logits assemble over 'model', and the pool of ``batch_size`` slots
+splits over 'data' (where the data axis divides it): each data rank decodes
+the slots it holds, and the sampled tokens assemble with one all_reduce.
+Admission prefills run the whole group on every data rank (the input
+scale then spans the group as on one device); each rank keeps the K/V of
+its own slots.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -45,12 +66,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.packed import PackedDSBPWeight
+from repro_torch.core.packed import PackedDSBPWeight, pack_weights_sharded
 from repro_torch.core.quantized import PRESETS, pack_weights
 from repro_torch.kvq import kv_cache_nbytes, resolve_kv_spec, tree_has_packed_kv
 from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
+from repro_torch.parallel import context as PC
+from repro_torch.parallel import sharding as SH
 from repro_torch.serve import blocks as SB
 
 __all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES",
@@ -84,6 +107,14 @@ class ServeConfig:
     # 'default': spec}; None serves the float cache
     kv_quant: object = None
     kv_bits: int | None = None   # uniform shorthand for kv_quant (exclusive)
+    # --- multi-rank serving ---
+    # mesh_shape (D, M) makes the engine one rank of a torch.distributed
+    # group of D*M processes: weights cut and packed per rank (Megatron
+    # split over 'model'), projections through 'dsbp_fused_sharded' (B8),
+    # the batch_size slots split over 'data'; the axes are ('data',
+    # 'model').  (1, 1) needs no process group and serves as no mesh; None
+    # (default) is the single-device engine
+    mesh_shape: tuple[int, ...] | None = None
     # --- paged KV cache ---
     # paged=True swaps serve()'s dense per-slot caches for a pool of
     # kv_block_size-token blocks addressed through per-lane block tables:
@@ -117,24 +148,38 @@ class Request:
     priority: int = 0
 
 
-def pack_weights_int8(model: Model, preset="precise") -> dict:
+def pack_weights_int8(model: Model, preset="precise", mesh=None) -> dict:
     """Offline DSBP pass over every projection, run ONCE and in place:
     each raw 2-D projection parameter named in :data:`PROJ_NAMES` (with at
     least one full group of rows) becomes a :class:`PackedDSBPWeight` on
     the same device.  Returns the average packed weight width (incl. the
-    sign bit) and the number of projections packed."""
+    sign bit) and the number of projections packed.
+
+    With ``mesh`` (a rank mesh) each projection becomes this rank's shard
+    (``parallel.sharding.serve_cuts``): its columns pack straight into
+    kernel layout (:func:`pack_weights_sharded`, bit-identical to slicing
+    the global pack), a row-parallel weight packs whole and keeps its
+    group-aligned K rows (the per-column scales span the whole K), and the
+    global raw weight is freed."""
     if isinstance(preset, str):
         if preset not in PRESETS:
             raise ValueError(f"unknown quant preset {preset!r}: valid presets "
                              f"are {sorted(PRESETS)}")
         preset = PRESETS[preset]
+    cuts = SH.serve_cuts(model.cfg, mesh) if mesh is not None else {}
     bits_sum, groups, layers = 0, 0, 0
     for module in list(model.modules()):
         for name, p in list(module.named_parameters(recurse=False)):
             if (name not in PROJ_NAMES or p.ndim < 2
                     or p.shape[-2] < preset.weight_cfg.group_size):
                 continue
-            pw = pack_weights(p.data, preset)
+            cut = cuts.get(name)
+            if cut is None:
+                pw = pack_weights(p.data, preset)
+            else:
+                pw = pack_weights_sharded(p.data, preset, mesh, cols=cut.cols)
+                if cut.rows != slice(0, cut.k):
+                    pw = pw.slice(rows=cut.rows)
             delattr(module, name)  # frees the raw weight as we go
             setattr(module, name, pw)
             bits_sum += int((pw.bits.to(torch.int64) + 1).sum())
@@ -173,14 +218,20 @@ class Engine:
         self.device = resolve_device(device)
         cfg = model.cfg
         preset = scfg.pack_preset if scfg.pack_preset is not None else cfg.quant
+        # serving default: the fused one-pass kernel — its per-rank form
+        # (B8) under a mesh — unless the arch config or ServeConfig pins one
         if cfg.quant is not None and (scfg.quant_method or cfg.quant_method) is None:
-            cfg = cfg.replace(quant_method="dsbp_fused")
+            cfg = cfg.replace(quant_method=("dsbp_fused" if scfg.mesh_shape is None
+                                            else "dsbp_fused_sharded"))
         elif scfg.quant_method is not None:
             cfg = cfg.replace(quant_method=scfg.quant_method)
         self.cfg = cfg
         self.scfg = scfg
         self.kv_spec = self._norm_kv(scfg)
         self.quant = Quant(cfg.quant, cfg.quant_method)
+        if scfg.mesh_shape is not None:
+            self._check_mesh_config(preset)
+        self.mesh = self._build_mesh(scfg, self.device)
         if scfg.paged:
             self._init_paged()
         self.model = model.to(self.device)
@@ -189,10 +240,94 @@ class Engine:
         if scfg.pack and preset is not None and not packed:
             raw = _nbytes(self.model)
             with torch.no_grad():
-                stats = pack_weights_int8(self.model, preset)
+                stats = pack_weights_int8(self.model, preset, mesh=self.mesh)
             self.pack_report = {"preset": preset, "raw_nbytes": raw,
                                 "packed_nbytes": _nbytes(self.model), **stats}
+        self._plan = {}
+        if self.mesh is not None:
+            # whatever is still global (raw weights of a float model, lm_head,
+            # containers that arrived packed) is cut to this rank's shard
+            cuts = SH.serve_cuts(cfg, self.mesh)
+            with torch.no_grad():
+                SH.shard_model(self.model, cuts)
+            self._plan = {name: (c.k_axis, c.n_axis) for name, c in cuts.items()}
         self.last_stats: dict | None = None
+
+    # ------------------------------------------------------------------
+    # multi-rank plumbing
+    # ------------------------------------------------------------------
+
+    def _check_mesh_config(self, preset) -> None:
+        """What this slice serves under a mesh: the dense float-KV
+        scheduler and ``generate``, packed weights through
+        'dsbp_fused_sharded' (or a float model)."""
+        scfg, cfg = self.scfg, self.cfg
+        missing = []
+        if scfg.paged:
+            missing.append("the paged KV pool (paged=True)")
+        if self.kv_spec is not None:
+            missing.append("a DSBP-quantized KV cache (kv_quant/kv_bits)")
+        if cfg.quant is not None and cfg.quant_method != "dsbp_fused_sharded":
+            missing.append(f"quant_method {cfg.quant_method!r} (only 'dsbp_fused_sharded')")
+        if cfg.quant is not None and (not scfg.pack or preset is None):
+            missing.append("per-call quantization of raw weights (pack=False)")
+        if missing:
+            raise NotImplementedError(
+                "under a mesh the port serves the dense float-KV scheduler only; not "
+                "ported yet (ROADMAP A13): " + "; ".join(missing))
+
+    @staticmethod
+    def _build_mesh(scfg: ServeConfig, device):
+        """This rank's mesh (None without ``mesh_shape``); raises unless a
+        process group of ``prod(mesh_shape)`` ranks is initialized — only a
+        mesh of one rank runs without one."""
+        if scfg.mesh_shape is None:
+            return None
+        from repro_torch.launch.mesh import make_mesh
+
+        return make_mesh(scfg.mesh_shape, device=device)
+
+    def _trace_ctx(self, rows_split: bool):
+        """The sharding context every model call runs under (none without
+        a mesh): the weights' plan, and the data axis as a batch axis when
+        this rank's activation rows are its own share."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return PC.sharding_ctx(self.mesh, SH.batch_axes(self.mesh) if rows_split else (),
+                               self._plan)
+
+    def _shard_cache(self, batch: int) -> slice | None:
+        """The rows of a ``batch``-row cache this rank holds (the dense
+        rule of ``cache_pspecs``): its share over 'data', or None for all
+        of them (no mesh, or a batch the data axis does not divide)."""
+        return SH.cache_rows(self.mesh, batch) if self.mesh is not None else None
+
+    def _sample_rows(self, logits, gen, rows: slice | None, n: int) -> torch.Tensor:
+        """Tokens of all ``n`` rows on every rank from this rank's logits
+        of ``rows`` (None: of every row, replicated over 'data'): sampled
+        here, placed in a zero-filled (n,) tensor and summed over 'data'
+        — a replicated batch contributes data rank 0's, so every rank goes
+        on with the same tokens whatever its generator drew."""
+        tok = self._sample(logits, gen)
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return tok
+        full = torch.zeros(n, dtype=torch.int64, device=tok.device)
+        if rows is not None:
+            full[rows] = tok
+        elif self.mesh.coords["data"] == 0:
+            full.copy_(tok)
+        return self.mesh.all_reduce(full, "sum", "data")
+
+    def _collectives(self) -> collections.Counter:
+        """A copy of this rank's collective counts (empty without a mesh)."""
+        return collections.Counter(self.mesh.collectives if self.mesh else ())
+
+    def _mesh_stats(self, coll: collections.Counter, steps: int) -> dict:
+        if self.mesh is None:
+            return {}
+        return {"mesh_shape": tuple(self.scfg.mesh_shape), "pool_size": self.scfg.batch_size,
+                "collectives_per_decode_step": {k: v / max(steps, 1)
+                                                for k, v in sorted(coll.items())}}
 
     def _init_paged(self):
         """Pool geometry of the paged scheduler, validated at
@@ -257,27 +392,40 @@ class Engine:
         if n_new < 1:
             raise ValueError(f"n_new must be >= 1, got {n_new}")
         dev, scfg = self.device, self.scfg
-        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=dev)
+        prompts = np.asarray(prompts)
+        b = prompts.shape[0]
+        # under a mesh each data rank runs its share of the rows (all of
+        # them when the data axis does not divide the batch)
+        rows = self._shard_cache(b)
+        mine = slice(None) if rows is None else rows
+        if lengths is not None:
+            lengths = np.asarray(lengths)[mine]
+        toks = torch.as_tensor(prompts[mine], dtype=torch.int64, device=dev)
         t0 = time.perf_counter()
-        logits, cache, length = self.model.prefill(
-            toks, scfg.max_len, lengths=lengths, quant=self.quant, kv=self.kv_spec)
-        b = toks.shape[0]
-        pos = torch.as_tensor(length, dtype=torch.int32, device=dev).expand(b).clone()
-        gen = self._generator()
-        tok = self._sample(logits[:, -1], gen)
-        self._sync()
-        t1 = time.perf_counter()
-        outs = [tok]
-        for _ in range(n_new - 1):
-            logits, cache = self.model.decode_step(tok[:, None], cache, pos, self.quant)
-            pos += 1
-            tok = self._sample(logits[:, -1], gen)
-            outs.append(tok)
-        out = torch.stack(outs, dim=1).cpu().numpy()
+        with self._trace_ctx(rows is not None):
+            logits, cache, length = self.model.prefill(
+                toks, scfg.max_len, lengths=lengths, quant=self.quant, kv=self.kv_spec)
+            pos = torch.as_tensor(length, dtype=torch.int32,
+                                  device=dev).expand(toks.shape[0]).clone()
+            gen = self._generator()
+            tok = self._sample_rows(logits[:, -1], gen, rows, b)
+            self._sync()
+            t1 = time.perf_counter()
+            outs = [tok]
+            before = self._collectives()
+            for _ in range(n_new - 1):
+                logits, cache = self.model.decode_step(tok[mine, None], cache, pos,
+                                                       self.quant)
+                pos += 1
+                tok = self._sample_rows(logits[:, -1], gen, rows, b)
+                outs.append(tok)
+            out = torch.stack(outs, dim=1).cpu().numpy()
+            coll = self._collectives() - before
         t2 = time.perf_counter()
         self.last_stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                            "decode_steps": n_new - 1,
-                           "decode_tokens": b * (n_new - 1)}
+                           "decode_tokens": b * (n_new - 1),
+                           **self._mesh_stats(coll, n_new - 1)}
         return out
 
     # ------------------------------------------------------------------
@@ -295,9 +443,14 @@ class Engine:
         queue = self._build_queue(requests, max_new_tokens)
         nreq = len(queue)
         B = scfg.batch_size
-        pool = self.model.init_cache(B, scfg.max_len, kv=self.kv_spec)
+        # this rank's slots of the pool (all of them without a mesh)
+        rows = self._shard_cache(B)
+        mine = slice(None) if rows is None else rows
+        b_l = len(range(B)[mine])
+        pool = self.model.init_cache(b_l, scfg.max_len, kv=self.kv_spec)
         # KV bytes one slot's token pins, from the leaves' actual dtypes
-        kv_bpt = kv_cache_nbytes(pool) / max(B * scfg.max_len, 1)
+        kv_bpt = kv_cache_nbytes(pool) / max(b_l * scfg.max_len, 1)
+        coll = collections.Counter()
         active: list[Request | None] = [None] * B
         tok = np.zeros(B, np.int64)        # last sampled token per slot
         pos = np.zeros(B, np.int32)        # next absolute position per slot
@@ -310,17 +463,20 @@ class Engine:
             free = [i for i in range(B) if active[i] is None]
             if queue and free:
                 t0 = time.perf_counter()
-                self._admit(pool, queue, free, active, tok, pos, out, stats, gen)
+                self._admit(pool, queue, free, active, tok, pos, out, stats, gen, rows)
                 stats["prefill_time_s"] += time.perf_counter() - t0
             if not any(s is not None for s in active):
                 continue  # every admitted request finished at token 1
             stats["decode_steps"] += 1
             stats["occupied_lanes"] += sum(s is not None for s in active)
             t0 = time.perf_counter()
-            logits, pool = self.model.decode_step(
-                torch.as_tensor(tok, device=dev)[:, None], pool,
-                torch.as_tensor(pos, device=dev), self.quant)
-            nxt = self._sample(logits[:, -1], gen).cpu().numpy()  # syncs
+            before = self._collectives()
+            with self._trace_ctx(rows is not None):
+                logits, pool = self.model.decode_step(
+                    torch.as_tensor(tok[mine], device=dev)[:, None], pool,
+                    torch.as_tensor(pos[mine], device=dev), self.quant)
+                nxt = self._sample_rows(logits[:, -1], gen, rows, B).cpu().numpy()  # syncs
+            coll += self._collectives() - before
             stats["decode_time_s"] += time.perf_counter() - t0
             for i in range(B):
                 r = active[i]
@@ -337,15 +493,19 @@ class Engine:
             stats, requests=nreq,
             occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
             decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
-            kv_bytes_per_token=kv_bpt, kv_packed=tree_has_packed_kv(pool))
+            kv_bytes_per_token=kv_bpt, kv_packed=tree_has_packed_kv(pool),
+            **self._mesh_stats(coll, stats["decode_steps"]))
         return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
 
-    def _admit(self, pool, queue, free, active, tok, pos, out, stats, gen):
+    def _admit(self, pool, queue, free, active, tok, pos, out, stats, gen,
+               pool_rows=None):
         """Admit up to len(free) queued requests: one ragged group prefill
         (padded to a bucket multiple, per-row lengths), then each continuing
         row's K/V is written straight into its slot of the pool — the JAX
         engine builds a fresh cache and copies its rows in (_cache_insert);
-        writing in place skips that max_len-sized copy."""
+        writing in place skips that max_len-sized copy.  Under a mesh every
+        data rank prefills the whole group, and keeps the K/V of the slots
+        in its ``pool_rows`` of the pool."""
         scfg = self.scfg
         group = [queue.popleft() for _ in range(min(len(free), len(queue)))]
         lens = np.asarray([len(r.tokens) for r in group], np.int32)
@@ -355,9 +515,10 @@ class Engine:
         for j, r in enumerate(group):
             toks[j, : lens[j]] = r.tokens
         lens_t = torch.as_tensor(lens, device=self.device)
-        logits, kvs, _ = self.model.prefill_trunk(
-            torch.as_tensor(toks, device=self.device), lens_t, self.quant)
-        first = self._sample(logits[:, -1], gen).cpu().numpy()
+        with self._trace_ctx(False):
+            logits, kvs, _ = self.model.prefill_trunk(
+                torch.as_tensor(toks, device=self.device), lens_t, self.quant)
+            first = self._sample_rows(logits[:, -1], gen, None, len(group)).cpu().numpy()
         stats["admissions"] += len(group)
         stats["prefill_tokens"] += int(lens.sum())
         rows, slots = [], []
@@ -372,10 +533,13 @@ class Engine:
             active[slot] = r
             tok[slot] = t
             pos[slot] = int(lens[j])
-        if rows:
-            rows_t = torch.as_tensor(rows, device=self.device)
+        lo, hi = (0, len(active)) if pool_rows is None else (pool_rows.start, pool_rows.stop)
+        keep = [(j, s - lo) for j, s in zip(rows, slots) if lo <= s < hi]
+        if keep:
+            rows_t = torch.as_tensor([j for j, _ in keep], device=self.device)
             for c, (k, v) in zip(pool, kvs):
-                blocks.fill_kv_cache(c, k, v, lens_t[rows_t], slots=slots, rows=rows_t)
+                blocks.fill_kv_cache(c, k, v, lens_t[rows_t], slots=[s for _, s in keep],
+                                     rows=rows_t)
 
     # ------------------------------------------------------------------
     # paged serving: block tables, COW prefix sharing, chunked prefill,

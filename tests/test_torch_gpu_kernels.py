@@ -223,3 +223,31 @@ def test_paged_flash_attention_kernels(cuda, b, hq, hkv, sq, bs, mb, window, pac
     ref = dense(q, *gathered, kv_len, q0, window=window)
     assert torch.equal(o, ref), float((o - ref).abs().max())
     torch.testing.assert_close(o, plain(*args, window=window), rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_call_launches_b1_on_one_rank(cuda):
+    """B8 on a mesh of one rank equals its plain version (B1's plain
+    version over the whole weight) and B1, bit for bit, and counts its own
+    launch beside B1's."""
+    from repro_torch.launch.mesh import RankMesh
+
+    cfg = Q.PRESETS["precise"]
+    x, ts, ka, kscale, tw = _operands(4, 512, 256, cfg, cuda)
+    mesh = RankMesh((1, 1), ("data", "model"), 0, {}, cuda)
+    b1, b8 = DF.dsbp_fused.launches, DF.dsbp_fused_sharded_call.launches
+    y = DF.dsbp_fused_sharded_call(x, ts, ka, kscale, tw, cfg.input_cfg, mesh, k_axis="model")
+    plain = DF.dsbp_fused_plain(x, ts, ka, kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain), float((y - plain).abs().max())
+    assert torch.equal(y, ref)
+    assert DF.dsbp_fused.launches == b1 + 2 and DF.dsbp_fused_sharded_call.launches == b8 + 1
+
+
+def test_sharded_call_raises_when_b1_cannot_launch(cuda):
+    """A CUDA activation with a scale left on the CPU: B1 refuses it, so
+    B8 raises (no fallback to the plain version)."""
+    cfg = Q.PRESETS["precise"]
+    x, ts, ka, kscale, tw = _operands(4, 512, 256, cfg, cuda)
+    with pytest.raises(ValueError, match="ts must be"):
+        DF.dsbp_fused_sharded_call(x, ts.cpu(), ka, kscale, tw, cfg.input_cfg)
