@@ -12,7 +12,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
      kernel, plain and bound times;
   3. B2, flash attention, against its plain version at prefill (B=4, H=32,
      S=512, D=128, ragged lengths) and decode (per-row positions), with
-     torch's scaled_dot_product_attention timed on the same work as a
+     torch's scaled_dot_product_attention timed on the same work, cold, as a
      yardstick;
   4. a 2-layer model at full llama-7b width, the same packed weights served
      once on the CPU (plain versions) and once on the card (kernels): logits
@@ -21,7 +21,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
      torch.Generator, packed "precise": one ragged Engine.generate of 4
      prompts and Engine.serve of 8 requests through 4 slots, with each
      kernel's launch count over that run; then the same traffic again,
-     untimed, recording every sampled batch for phase 15;
+     untimed, recording every sampled batch for phase 15; then a
+     torch.profiler trace of four decode steps: device time of B1, B2 and
+     everything else, and the card's idle share;
   6. B3, the standalone input path, against its plain version: bit-equal at
      M in {4, 512} x K in {4096, 11008}, e5m2, fixed and trunc;
   7. B4, the grouped integer GEMM, against its plain versions at the
@@ -88,6 +90,16 @@ Prints the kernels' JSON record, the card's name and power limit, and last
 
 runs phases 1, 5 and 14-15b alone; on a machine with a card per rank the
 ranks get one each and NCCL (the ranks of phase 15b need four).
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3, 6-8 and 11 alone: every kernel against its plain version,
+and its times.
+
+Kernel times are cold: each timed loop cycles through copies of the
+operands that a call reads (weights, K/V, pools) that together overflow
+the 50 MB L2 twice, so every call reads them from device memory, as on the
+main path, where ~7 GB of weights pass between two calls of one kernel.
 """
 from __future__ import annotations
 
@@ -115,6 +127,8 @@ F32_OPS = 67e12
 B3_OPS_PER_ELEM = 16
 LLAMA_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (K, N): wq.., w1/w3, w2
 L2_BYTES = 50 * 2**20
+# ~0.5 ms of the SM clock per timed call: more than a wrapper's host work
+SLEEP_CYCLES_PER_CALL = 10**6
 TIE = 1e-3  # logit tolerance, relative to max|logit|
 # a data-split mesh against one device (phase 15b): the split changes the
 # row count of the float lm_head GEMM (and of B2's launches), whose library
@@ -142,19 +156,33 @@ def smi() -> str:
 def cuda_ms(fn, args_list, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn(*args) per call, CUDA events around ``iters``
     calls cycling through ``args_list`` (copies that overflow the L2 cache,
-    so every call reads its operands from device memory, as serving does)."""
+    so every call reads its operands from device memory, as serving does).
+    A sleep kernel queued first keeps the card busy while the host enqueues
+    the calls, so a kernel shorter than its wrapper's host work is timed at
+    the card's speed, not at the host's enqueue rate."""
     import torch
 
     for i in range(warmup):
         fn(*args_list[i % len(args_list)])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for i in range(iters):
         fn(*args_list[i % len(args_list)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_copies(torch, args: tuple, nbytes: float) -> list:
+    """``args`` and copies of its tensors of 1 MiB or more, ceil(2 * L2 /
+    nbytes) argument sets in all: cycling through them, each call of a
+    function that reads ``nbytes`` finds its operands in device memory, as
+    a serving step does after streaming ~7 GB of weights."""
+    big = [torch.is_tensor(a) and a.numel() * a.element_size() >= 2**20 for a in args]
+    return [args] + [tuple(a.clone() if b else a for a, b in zip(args, big))
+                     for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)) - 1)]
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -204,10 +232,14 @@ def phase_b1(torch, Q, DF, per_tensor_scale):
     return rows, max_err
 
 
-def phase_b2(torch, FA):
-    print("== phase 2: B2 flash_attention vs plain on the card")
+def _sdpa(q, k, v, mask):
     import torch.nn.functional as F
 
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def phase_b2(torch, FA):
+    print("== phase 2: B2 flash_attention vs plain on the card (timed cold)")
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, h, s, d = 4, 32, 512, 128
     q = torch.randn(b, h, s, d, generator=gen, device="cuda")
@@ -228,14 +260,14 @@ def phase_b2(torch, FA):
             raise AssertionError(f"B2 {name}: kernel vs plain max |diff| {err}")
         mask = FA.attention_mask(kv_len, q0, qq.shape[2], s, causal=True, window=0)
         visible = float(mask.sum())  # (b, query, key) pairs this run attends
-        args = [(qq, k, v, kv_len, q0)]
-        ms = cuda_ms(FA.flash_attention, args, iters=20)
-        plain_ms = cuda_ms(FA.flash_attention_plain, args, iters=5)
         nbytes = 2 * qq.numel() * 4 + 2 * float(kv_len.sum()) * h * d * 4 + 8 * b
         b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
-        am = mask[:, None]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=am),
-                         [()], iters=20)
+        # cold: every call reads K/V from device memory, as on the main path
+        args = cold_copies(torch, (qq, k, v, kv_len, q0), nbytes)
+        ms = cuda_ms(FA.flash_attention, args, iters=20)
+        plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
+        lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args], iters=20)
+        del args
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "max_abs_err": err}
         print(f"  B2 {name:7s} B={b} H={h} Sq={qq.shape[2]} S={s} D={d}: max |diff| {err:.3g};"
@@ -380,6 +412,66 @@ def check_calls(torch, ref, got):
     return None, equal, worst
 
 
+# kernel names (torch.profiler) of B1's and B2's launches
+TRACE_KERNELS = {"B1": ("::prep_kernel(", "::gemm_kernel<"),
+                 "B2": ("::split_kernel<", "::merge_kernel(", "::tile_kernel<")}
+
+
+def trace_decode(torch, eng, toks, lens, steps: int = 4) -> dict:
+    """Device time by kernel over ``steps`` decode steps of the engine's
+    model (greedy tokens chosen on the card, as the engine's loop does
+    without a host sync), in one torch.profiler window after a warm step,
+    outside every timed pass; busy = the kernels' summed device time, idle
+    share = 1 - busy / the window's host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), 512,
+                                         lengths=lens, quant=eng.quant)
+        pos = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        lg, cache = eng.model.decode_step(tok, cache, pos, eng.quant)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                lg, cache = eng.model.decode_step(tok, cache, pos + 1 + i, eng.quant)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {"B1": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
+    other = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us <= 0:
+            continue
+        kind = next((k for k, pats in TRACE_KERNELS.items()
+                     if any(p in e.key for p in pats)), "other")
+        by[kind][0] += us / 1e3
+        by[kind][1] += e.count
+        if kind == "other":
+            other.append((us / 1e3, e.key[:60]))
+    busy = sum(v[0] for v in by.values())
+    out = {"steps": steps, "wall_ms": wall_ms, "busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms if busy else None,
+           **{f"{k}_ms": v[0] for k, v in by.items()},
+           **{f"{k}_launches": v[1] for k, v in by.items()},
+           "other_top": sorted(other, reverse=True)[:4]}
+    if not busy:
+        print(f"  trace, {steps} decode steps: torch.profiler recorded no device time on "
+              f"this machine ({wall_ms:.2f} ms window)")
+        return out
+    print(f"  trace, {steps} decode steps (torch.profiler, outside the timed pass): window "
+          f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{out['idle_share']:.3f}; per step B1 {by['B1'][0] / steps:.3f} ms "
+          f"({by['B1'][1] // steps} kernels), B2 {by['B2'][0] / steps:.3f} ms "
+          f"({by['B2'][1] // steps}), everything else {by['other'][0] / steps:.3f} ms "
+          f"({by['other'][1] // steps} kernels; largest "
+          f"{[(n, round(t / steps, 4)) for t, n in out['other_top']]})")
+    return out
+
+
 def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     print("== phase 5: full-width llama-7b-paper, packed 'precise', generate + serve")
     import numpy as np
@@ -411,8 +503,9 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
                 "flash_attention": FA.flash_attention.launches}
     sst = dict(eng.last_stats)
     calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)  # phase 15's
-
     peak = torch.cuda.max_memory_allocated()
+    trace = trace_decode(torch, eng, toks, lens)
+
     if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate output {out.shape} out of range")
     if sorted(served) != list(range(8)) or any(len(t) != 16 for t in served.values()):
@@ -438,7 +531,7 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     print(f"  KV bytes per token (float cache): {sst['kv_bytes_per_token']:.0f}")
-    ref = {"generate": out, "serve": served, "calls": calls,
+    ref = {"generate": out, "serve": served, "calls": calls, "trace": trace,
            "decode_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"]}
     return eng.model, launches, sst['kv_bytes_per_token'], ref
 
@@ -527,9 +620,8 @@ def phase_b4(torch, Q, DM, TO):
 
 
 def phase_b5(torch, FA, KVQ):
-    print("== phase 8: B5 packed_flash_attention vs B2 over dequantize() and plain")
-    import torch.nn.functional as F
-
+    print("== phase 8: B5 packed_flash_attention vs B2 over dequantize() and plain "
+          "(timed cold)")
     gen = torch.Generator(device="cuda").manual_seed(8)
     b, h, s, d = 4, 32, 2048, 128
     kv8 = KVQ.KV_PRESETS["kv8"]
@@ -556,15 +648,17 @@ def phase_b5(torch, FA, KVQ):
             raise AssertionError(f"B5 {name}: kernel vs plain max |diff| {err}")
         mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
         visible = float(mask.sum())
-        ms = cuda_ms(FA.packed_flash_attention, [args], iters=20)
-        plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
-        b2_ms = cuda_ms(FA.flash_attention, [(q, kd, vd, kv_len, q0)], iters=20)
-        am = mask[:, None]
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=am),
-                          [()], iters=20)
         # each row reads its keys up to kv_len once: int8 K/V + f32 scales
         nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * h * (d + 4) + 8 * b
         b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
+        # cold, as phase 2: copies of the packed and the dequantized caches
+        cold = cold_copies(torch, (*args, kd, vd), nbytes)
+        ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
+        plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
+        b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
+                        iters=20)
+        sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold], iters=20)
+        del cold
         out[name] = {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms, "sdpa_dequantized_ms": sdpa_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
         print(f"  B5 {name:6s} B={b} H={h} Sq={sq} S={s} D={d}: bit-equal to B2 over "
@@ -787,11 +881,19 @@ def _serve_table(torch, gen, rows, mb: int, nb: int):
     return table, kv_len
 
 
+def _gather_sdpa_b6(FA, q, pk, pv, table, mask):
+    return _sdpa(q, FA.gather_blocks(pk, table), FA.gather_blocks(pv, table), mask)
+
+
+def _gather_sdpa_b7(FA, q, kqm, ksc, vqm, vsc, table, mask):
+    k = FA.gather_blocks(kqm, table) * FA.gather_blocks(ksc, table)
+    v = FA.gather_blocks(vqm, table) * FA.gather_blocks(vsc, table)
+    return _sdpa(q, k, v, mask)
+
+
 def phase_b6_b7(torch, FA, KVQ):
     print("== phase 11: B6 / B7 paged flash attention vs B2 / B5 over the gathered "
-          "view and plain")
-    import torch.nn.functional as F
-
+          "view and plain (timed cold)")
     gen = torch.Generator(device="cuda").manual_seed(11)
     h, d, bs = 32, 128, 16
     kv8 = KVQ.KV_PRESETS["kv8"]
@@ -851,24 +953,19 @@ def phase_b6_b7(torch, FA, KVQ):
             err = float((o - pl).abs().max())
             if not torch.allclose(o, pl, rtol=1e-5, atol=1e-5):
                 raise AssertionError(f"{kname} {name}: kernel vs plain max |diff| {err}")
-            ms = cuda_ms(fn, [args], iters=20)
-            dense_ms = cuda_ms(dense, [dargs], iters=20)
-            plain_ms = cuda_ms(plain, [args], iters=5)
-            if kname == "B6":
-                def yard():
-                    return F.scaled_dot_product_attention(
-                        q, FA.gather_blocks(pk, table), FA.gather_blocks(pv, table),
-                        attn_mask=am)
-            else:
-                def yard():
-                    k_ = FA.gather_blocks(kq.qm, table) * FA.gather_blocks(kq.scale, table)
-                    v_ = FA.gather_blocks(vq.qm, table) * FA.gather_blocks(vq.scale, table)
-                    return F.scaled_dot_product_attention(q, k_, v_, attn_mask=am)
-            yard_ms = cuda_ms(yard, [()], iters=10)
             # every distinct key row it needs once, the queries, the output,
             # its table rows and the lengths
             nbytes = (2 * q.numel() * 4 + 2 * keys * h * kvb + table.numel() * 4 + 8 * b)
             b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
+            # cold, as phase 2: copies of the pools and of the gathered views
+            np_ = len(args)
+            cold = cold_copies(torch, (*args, *dargs[1:-2]), nbytes)
+            ms = cuda_ms(fn, [c[:np_] for c in cold], iters=20)
+            dense_ms = cuda_ms(dense, [(q, *c[np_:], kv_len, q0) for c in cold], iters=20)
+            plain_ms = cuda_ms(plain, [args], iters=5)
+            yard = _gather_sdpa_b6 if kname == "B6" else _gather_sdpa_b7
+            yard_ms = cuda_ms(yard, [(FA, *c[:np_ - 2], am) for c in cold], iters=10)
+            del cold
             out[(kname, name)] = {"ms": ms, "dense_ms": dense_ms, "plain_ms": plain_ms,
                                   "gather_sdpa_ms": yard_ms, "bound_ms": b_ms,
                                   "bound_by": b_by, "max_abs_err": err, "keys": keys}
@@ -1574,6 +1671,15 @@ def main() -> int:
             "    " + line for line in report.strip().splitlines() if "ptxas" in line
             or "registers" in line or "spill" in line))
 
+    if sys.argv[1:] == ["--kernels"]:  # phases 1-3, 6-8 and 11: the kernels alone
+        phase_b1(torch, Q, DF, per_tensor_scale)
+        phase_b2(torch, FA)
+        phase_b3(torch, Q, QA, per_tensor_scale)
+        phase_b4(torch, Q, DM, TO)
+        phase_b5(torch, FA, KVQ)
+        phase_b6_b7(torch, FA, KVQ)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -1621,7 +1727,8 @@ def main() -> int:
          "launches": launches["dsbp_fused"], "max_abs_err": b1_err,
          "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
          "bound_by": b1["bound_by"], "library_ms": None,
-         "shape": "decode M=4 K=4096 N=11008", "path": "phase 5 (float KV, dsbp_fused)"},
+         "shape": "decode M=4 K=4096 N=11008", "path": "phase 5 (float KV, dsbp_fused)",
+         "trace_ms_per_step": ref5["trace"]["B1_ms"] / ref5["trace"]["steps"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -1631,7 +1738,8 @@ def main() -> int:
          "bound_ms": b2["prefill"]["bound_ms"], "bound_by": b2["prefill"]["bound_by"],
          "library_ms": b2["prefill"]["library_ms"],
          "decode_ms": b2["decode"]["ms"], "decode_library_ms": b2["decode"]["library_ms"],
-         "shape": "prefill B=4 H=32 S=512 D=128", "path": "phase 5 (float KV, dsbp_fused)"},
+         "shape": "prefill B=4 H=32 S=512 D=128", "path": "phase 5 (float KV, dsbp_fused)",
+         "trace_ms_per_step": ref5["trace"]["B2_ms"] / ref5["trace"]["steps"]},
         {"name": "fp8_quant_align", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fp8_quant_align.cu",
          "replaces": "src/repro/kernels/fp8_quant_align.py:123",

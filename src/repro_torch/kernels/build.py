@@ -20,8 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "SIGNATURES", "build_all", "load",
-           "plain_body", "in_plain_body"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "SIGNATURES", "aligned",
+           "build_all", "load", "plain_body", "in_plain_body"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -30,22 +30,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 # each kernel's launch function: name -> (library = csrc/<library>.cu,
 # C symbol, argtypes)
 SIGNATURES = {
     "dsbp_fused": ("dsbp_fused", "dsbp_fused_launch",
-                   [P, P, P, P, P, P, I, I, I, I, I, I, F, I, F, I, I, P]),
+                   [P, P, P, P, P, P, P, L, I, I, I, I, I, I, F, I, F, I, I, P]),
     "flash_attention": ("flash_attention", "flash_attention_launch",
-                        [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
+                        [P] * 7 + [L] + [I] * 8 + [F, P]),
     "packed_flash_attention": ("flash_attention", "packed_flash_attention_launch",
-                               [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
+                               [P] * 9 + [L] + [I] * 8 + [F, P]),
     "paged_flash_attention": ("flash_attention", "paged_flash_attention_launch",
-                              [P] * 7 + [I] * 9 + [F, P]),
+                              [P] * 8 + [L] + [I] * 9 + [F, P]),
     "paged_packed_flash_attention": ("flash_attention",
                                      "paged_packed_flash_attention_launch",
-                                     [P] * 9 + [I] * 9 + [F, P]),
+                                     [P] * 10 + [L] + [I] * 9 + [F, P]),
     "fp8_quant_align": ("fp8_quant_align", "fp8_quant_align_launch",
                         [P, P, P, P, I, I, I, I, I, F, I, F, I, I, P]),
     "dsbp_matmul": ("dsbp_matmul", "dsbp_matmul_launch",
@@ -119,6 +120,13 @@ def plain_body():
 
 def in_plain_body() -> bool:
     return _plain_depth[0] > 0
+
+
+def aligned(t):
+    """``t`` contiguous and at a 16-byte aligned address (the kernels'
+    16-byte loads): a copy only where a view starts in between."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def load(name: str):

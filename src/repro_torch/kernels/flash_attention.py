@@ -28,8 +28,11 @@ view (:func:`gather_blocks`) bit for bit: the kernel changes only the
 address of a key's row.  Their plain versions are exactly that, gather
 then the dense plain version.
 
-On a CUDA tensor each launches ``csrc/flash_attention.cu`` (or raises); on
-a CPU tensor it runs its plain version.  Replaces
+On a CUDA tensor each launches ``csrc/flash_attention.cu`` (or raises): a
+split-KV decode variant for Sq <= DECODE_MAX_SQ, whose per-split partials
+live in a scratch the wrapper allocates, and a register-tiled variant
+above; d_head must be a multiple of 16, at most 128.  On a CPU tensor it
+runs its plain version.  Replaces
 ``src/repro/kernels/flash_attention.py::flash_attention_kernel_call`` (:70)
 ``packed_flash_attention_kernel_call`` (:166),
 ``paged_flash_attention_kernel_call`` (:264) and
@@ -44,6 +47,12 @@ import torch
 from . import build
 
 NEG_INF = -1e30
+# csrc/flash_attention.cu's decode variant (Sq <= DECODE_MAX_SQ) keeps one
+# partial (acc, m, l) per warp of every KEYS_PER_SPLIT-key split in a
+# scratch the wrapper allocates; its launcher refuses a smaller one
+DECODE_MAX_SQ = 8
+KEYS_PER_SPLIT = 128
+PARTS_PER_SPLIT = 4
 
 __all__ = ["flash_attention", "flash_attention_plain", "packed_flash_attention",
            "packed_flash_attention_plain", "paged_flash_attention",
@@ -116,6 +125,38 @@ def _check(q, k, v, kv_len, q_pos0):
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
 
 
+def _kernel_dims(name: str, q):
+    d = q.shape[3]
+    if d > 128 or d % 16:
+        raise ValueError(f"{name} kernel takes d_head <= 128 and a multiple of 16, got {d}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"{name} kernel takes a float32 q")
+
+
+def _scratch(q, s: int):
+    """The decode variant's partials for q (B, Hq, Sq, D) over S keys, and
+    their count of floats (None, 0 for the prefill variant)."""
+    b, hq, sq, d = q.shape
+    if sq > DECODE_MAX_SQ:
+        return None, 0
+    n = b * hq * sq * PARTS_PER_SPLIT * -(-s // KEYS_PER_SPLIT) * (d + 2)
+    return torch.empty(n, dtype=torch.float32, device=q.device), n
+
+
+def _launch(name: str, q, s: int, operands, ints) -> torch.Tensor:
+    """Run kernel ``name`` on ``operands`` (tensors, in the C order before
+    the output) and ``ints`` (the shape and mask ints before the scale)."""
+    o = torch.empty_like(q)
+    part, n = _scratch(q, s)
+    err = build.load(name)(*(t.data_ptr() for t in operands), o.data_ptr(),
+                           None if part is None else part.data_ptr(), n, *ints,
+                           float(q.shape[3] ** -0.5),
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return o
+
+
 def flash_attention(q, k, v, kv_len, q_pos0, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     _check(q, k, v, kv_len, q_pos0)
@@ -125,21 +166,14 @@ def flash_attention(q, k, v, kv_len, q_pos0, *, causal: bool = True,
                                          window=window)
     b, hq, sq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    if q.dtype != torch.float32 or k.dtype != torch.float32 or v.dtype != torch.float32:
+    _kernel_dims("flash_attention", q)
+    if k.dtype != torch.float32 or v.dtype != torch.float32:
         raise ValueError("flash_attention kernel takes float32 q/k/v")
-    if d > 128:
-        raise ValueError(f"flash_attention kernel takes d_head <= 128, got {d}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     kv_len = kv_len.to(torch.int32).contiguous()
     q_pos0 = q_pos0.to(torch.int32).contiguous()
-    o = torch.empty_like(q)
-    launch = build.load("flash_attention")
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 q_pos0.data_ptr(), o.data_ptr(), b, hq, hkv, sq, s, d,
-                 int(causal), int(window), float(d ** -0.5),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    o = _launch("flash_attention", q, s, (q, k, v, kv_len, q_pos0),
+                (b, hq, hkv, sq, s, d, int(causal), int(window)))
     flash_attention.launches += 1
     return o
 
@@ -175,21 +209,14 @@ def packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0, *,
                                                 window=window)
     b, hq, sq, d = q.shape
     hkv, s = k_qm.shape[1], k_qm.shape[2]
-    if q.dtype != torch.float32:
-        raise ValueError("packed_flash_attention kernel takes a float32 q")
-    if d > 128:
-        raise ValueError(f"packed_flash_attention kernel takes d_head <= 128, got {d}")
-    q, k_qm, k_scale, v_qm, v_scale = (t.contiguous() for t in (q, k_qm, k_scale, v_qm, v_scale))
+    _kernel_dims("packed_flash_attention", q)
+    q, k_qm, v_qm = (build.aligned(t) for t in (q, k_qm, v_qm))
+    k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     kv_len = kv_len.to(torch.int32).contiguous()
     q_pos0 = q_pos0.to(torch.int32).contiguous()
-    o = torch.empty_like(q)
-    launch = build.load("packed_flash_attention")
-    err = launch(q.data_ptr(), k_qm.data_ptr(), k_scale.data_ptr(), v_qm.data_ptr(),
-                 v_scale.data_ptr(), kv_len.data_ptr(), q_pos0.data_ptr(), o.data_ptr(),
-                 b, hq, hkv, sq, s, d, int(causal), int(window), float(d ** -0.5),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"packed_flash_attention kernel launch failed: CUDA error {err}")
+    o = _launch("packed_flash_attention", q, s,
+                (q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0),
+                (b, hq, hkv, sq, s, d, int(causal), int(window)))
     packed_flash_attention.launches += 1
     return o
 
@@ -253,10 +280,9 @@ def _check_paged(name, q, k_pool, v_pool, table, kv_len, q_pos0):
                              f"table's {s} slots")
 
 
-def _launch_dims(q, pool, table):
+def _launch_dims(name, q, pool, table):
     b, hq, sq, d = q.shape
-    if d > 128:
-        raise ValueError(f"paged attention kernel takes d_head <= 128, got {d}")
+    _kernel_dims(name, q)
     return b, hq, pool.shape[1], sq, table.shape[1], pool.shape[2], d
 
 
@@ -269,20 +295,14 @@ def paged_flash_attention(q, k_pool, v_pool, table, kv_len, q_pos0, *,
         with build.plain_body():
             return paged_flash_attention_plain(q, k_pool, v_pool, table, kv_len,
                                                q_pos0, causal=causal, window=window)
-    if q.dtype != torch.float32 or k_pool.dtype != torch.float32 \
-            or v_pool.dtype != torch.float32:
+    if k_pool.dtype != torch.float32 or v_pool.dtype != torch.float32:
         raise ValueError("paged_flash_attention kernel takes float32 q and pools")
-    dims = _launch_dims(q, k_pool, table)
-    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
+    dims = _launch_dims("paged_flash_attention", q, k_pool, table)
+    q, k_pool, v_pool = build.aligned(q), build.aligned(k_pool), build.aligned(v_pool)
     table, kv_len, q_pos0 = (t.to(torch.int32).contiguous() for t in (table, kv_len, q_pos0))
-    o = torch.empty_like(q)
-    launch = build.load("paged_flash_attention")
-    err = launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-                 kv_len.data_ptr(), q_pos0.data_ptr(), o.data_ptr(), *dims,
-                 int(causal), int(window), float(q.shape[3] ** -0.5),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_flash_attention kernel launch failed: CUDA error {err}")
+    o = _launch("paged_flash_attention", q, dims[4] * dims[5],
+                (q, k_pool, v_pool, table, kv_len, q_pos0),
+                (*dims, int(causal), int(window)))
     paged_flash_attention.launches += 1
     return o
 
@@ -302,19 +322,13 @@ def paged_packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, table, kv_len,
             return paged_packed_flash_attention_plain(
                 q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0,
                 causal=causal, window=window)
-    if q.dtype != torch.float32:
-        raise ValueError(f"{name} kernel takes a float32 q")
-    dims = _launch_dims(q, k_qm, table)
-    q, k_qm, k_scale, v_qm, v_scale = (t.contiguous() for t in (q, k_qm, k_scale, v_qm, v_scale))
+    dims = _launch_dims(name, q, k_qm, table)
+    q, k_qm, v_qm = (build.aligned(t) for t in (q, k_qm, v_qm))
+    k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     table, kv_len, q_pos0 = (t.to(torch.int32).contiguous() for t in (table, kv_len, q_pos0))
-    o = torch.empty_like(q)
-    launch = build.load(name)
-    err = launch(q.data_ptr(), k_qm.data_ptr(), k_scale.data_ptr(), v_qm.data_ptr(),
-                 v_scale.data_ptr(), table.data_ptr(), kv_len.data_ptr(),
-                 q_pos0.data_ptr(), o.data_ptr(), *dims, int(causal), int(window),
-                 float(q.shape[3] ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    o = _launch(name, q, dims[4] * dims[5],
+                (q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0),
+                (*dims, int(causal), int(window)))
     paged_packed_flash_attention.launches += 1
     return o
 

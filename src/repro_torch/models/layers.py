@@ -15,9 +15,13 @@ __all__ = ["rms_norm", "rope", "Quant", "dense"]
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The mean of squares accumulates in float64: a library reduction sums
+    in an order that depends on how many rows it reduces, and an f32 sum
+    then differs in the last bit between a batch and its rows (a mesh's
+    data split); rounded from float64 the order no longer shows."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32)).to(dt)
 

@@ -251,3 +251,123 @@ def test_sharded_call_raises_when_b1_cannot_launch(cuda):
     x, ts, ka, kscale, tw = _operands(4, 512, 256, cfg, cuda)
     with pytest.raises(ValueError, match="ts must be"):
         DF.dsbp_fused_sharded_call(x, ts.cpu(), ka, kscale, tw, cfg.input_cfg)
+
+
+# ---- the Hopper designs: B1's two tiles, B2's two variants ----
+
+def _device_operands(m, k, n, cfg, device, seed):
+    """x (M, K) and a weight (K, N) from seeded numpy, packed on the card."""
+    pw = Q.pack_weights(torch.from_numpy(_data((k, n), seed + 1, 2)).to(device), cfg)
+    x = torch.from_numpy(_data((m, k), seed)).to(device)
+    ts = per_tensor_scale(x, cfg.input_cfg.fmt).reshape(1)
+    return x, ts, pw.ka, pw.kscale, pw.tscale.reshape(-1).contiguous()
+
+
+@pytest.mark.parametrize("m,k,n,kw", [
+    *[(m, 4096, 4096, {}) for m in (1, 3, 4, 5, 8, 16, 17, 64, 512)],  # both tiles
+    (4, 64, 4096, {}), (64, 64, 4096, {}),                 # one group
+    (4, 11008, 4096, {}), (64, 11008, 4096, {}),           # w2's 172 groups
+    (4, 4096, 44, {}), (17, 4096, 44, {}),                 # N padded to 48
+    (4, 4096, 11008, {}), (17, 4096, 11008, {}),           # w1/w3's width
+    (4, 4096, 4096, {"fmt": "e5m2"}), (64, 4096, 4096, {"fmt": "e5m2"}),
+    (4, 4096, 4096, {"mode": "fixed", "k": 0.0, "b_fix": 7}),
+    (64, 4096, 4096, {"mode": "fixed", "k": 0.0, "b_fix": 7}),
+    (4, 4096, 4096, {"mantissa_rounding": "trunc"}),
+    (64, 4096, 4096, {"mantissa_rounding": "trunc"}),
+])
+def test_dsbp_fused_bit_equal_plain_at_serving_shapes(cuda, m, k, n, kw):
+    """B1's decode (M <= 16) and prefill tiles at llama-7b's projection
+    widths, every e4m3/e5m2 and fixed/trunc case: bit-equal to the plain
+    version (exact integer dots, folds in group order)."""
+    cfg = _cfg("precise", **kw)
+    x, ts, ka, kscale, tw = _device_operands(m, k, n, cfg, cuda, seed=m + k + n)
+    y = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused_plain(x, ts, ka, kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n)
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+
+
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("cols", [(1000, 1044), (512, 1024), (0, 32)])
+def test_dsbp_fused_column_slice_bit_equal(cuda, m, cols):
+    """A column slice of the packed weight gives the matching columns of
+    the whole product bit for bit: an output's bits do not depend on N or
+    the column tiling (B8's column shards)."""
+    cfg = _cfg()
+    x, ts, ka, kscale, tw = _device_operands(m, 4096, 4096, cfg, cuda, seed=m)
+    full = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    a, b = cols
+    part = DF.dsbp_fused(x, ts, ka[:, a:b], kscale[:, a:b], tw[a:b], cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(part, full[:, a:b])
+
+
+ATT_LENS = [1, FA.KEYS_PER_SPLIT - 1, FA.KEYS_PER_SPLIT, FA.KEYS_PER_SPLIT + 1, 512]
+
+
+@pytest.mark.parametrize("sq", [1, 3, 16, 17, 64, 130])
+@pytest.mark.parametrize("rep,window", [(1, 0), (2, 0), (4, 0), (2, 20)])
+def test_attention_variants_against_plain_and_each_other(cuda, sq, rep, window):
+    """B2 (decode variant for Sq <= 8, register-tiled above) within 1e-5
+    of its plain version on every row with a visible key, at kv_len 1,
+    KEYS_PER_SPLIT - 1, KEYS_PER_SPLIT, KEYS_PER_SPLIT + 1 and 512; B6 over
+    a shuffled pool equal to B2 over the gathered view, B7 to B5 over the
+    gathered packed view and B5 to B2 over the dequantized view, bit for
+    bit.  Window 20 leaves whole 128-key splits fully masked."""
+    g = torch.Generator().manual_seed(sq * 10 + rep + window)
+    b, hkv, d, bs, mb = len(ATT_LENS), 2, 128, 16, 32
+    hq, nb = hkv * rep, b * mb + 1
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    pk = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    pv = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    table = (torch.randperm(nb - 1, generator=g)[:b * mb] + 1).reshape(b, mb)
+    table = table.to(cuda, torch.int32)
+    kv_len = torch.tensor(ATT_LENS, dtype=torch.int32)
+    q0 = torch.clamp(kv_len - sq, min=0)
+    kv_len, q0 = kv_len.to(cuda), q0.to(cuda, torch.int32)
+    kw = {"causal": True, "window": window}
+    k, v = FA.gather_blocks(pk, table), FA.gather_blocks(pv, table)
+
+    o = FA.flash_attention(q, k, v, kv_len, q0, **kw)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0, **kw)
+    o6 = FA.paged_flash_attention(q, pk, pv, table, kv_len, q0, **kw)
+    kq, vq = (quantize_kv(t, KV_PRESETS["kv8"]) for t in (pk, pv))
+    gq = [FA.gather_blocks(t, table) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+    o5 = FA.packed_flash_attention(q, *gq, kv_len, q0, **kw)
+    o7 = FA.paged_packed_flash_attention(q, kq.qm, kq.scale, vq.qm, vq.scale, table, kv_len,
+                                         q0, **kw)
+    o2d = FA.flash_attention(q, gq[0].float() * gq[1], gq[2].float() * gq[3], kv_len, q0, **kw)
+    ref5 = FA.packed_flash_attention_plain(q, *gq, kv_len, q0, **kw)
+    torch.cuda.synchronize()
+    vis = FA.attention_mask(kv_len, q0, sq, mb * bs, causal=True, window=window).any(-1)
+    vis = vis[:, None].expand(-1, hq, -1)  # (B, Hq, Sq): rows with a visible key
+    torch.testing.assert_close(o[vis], ref[vis], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(o5[vis], ref5[vis], rtol=1e-5, atol=1e-5)
+    assert torch.equal(o6, o), float((o6 - o).abs().max())
+    assert torch.equal(o7, o5), float((o7 - o5).abs().max())
+    assert torch.equal(o5, o2d), float((o5 - o2d).abs().max())
+
+
+@pytest.mark.parametrize("sq", [1, 3, 130])
+@pytest.mark.parametrize("hkv", [32, 8])
+def test_attention_slices_bit_equal(cuda, sq, hkv):
+    """A row's bits depend on its keys, kv_len and q_pos0 only: B2 on
+    heads [0:16], or on batch rows [2:4], equals the matching slice of the
+    whole call bit for bit (the mesh's head split, the data axis's row
+    split)."""
+    g = torch.Generator().manual_seed(sq + hkv)
+    b, hq, s, d = 4, 32, 600, 128
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    k = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    v = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    kv_len = torch.tensor([600, 257, 130, 9], dtype=torch.int32)
+    q0 = torch.clamp(kv_len - sq, min=0)
+    kv_len, q0 = kv_len.to(cuda), q0.to(cuda, torch.int32)
+    full = FA.flash_attention(q, k, v, kv_len, q0)
+    kh = 16 // (hq // hkv)
+    heads = FA.flash_attention(q[:, :16], k[:, :kh], v[:, :kh], kv_len, q0)
+    rows = FA.flash_attention(q[2:4], k[2:4], v[2:4], kv_len[2:4], q0[2:4])
+    torch.cuda.synchronize()
+    assert torch.equal(heads, full[:, :16])
+    assert torch.equal(rows, full[2:4])
