@@ -10,9 +10,11 @@ Phases (each raises on failure; nothing falls back to the CPU):
   2. B1, the fused DSBP GEMM, against its plain PyTorch version on the card at
      the llama-7b projection shapes (decode M=4 and prefill M=512): bit-equal;
      kernel, plain and bound times;
-  3. B2, flash attention, against its plain version at prefill (B=4, H=32,
-     S=512, D=128, ragged lengths) and decode (per-row positions), with
-     torch's scaled_dot_product_attention timed on the same work, cold, as a
+  3. B2, flash attention, against its plain version at prefill (B=4, S=512,
+     ragged lengths) and decode (per-row positions), at llama-7b's width
+     (H=32, D=128) and gemma3-12b's (Hq=16, Hkv=8, D=256), with head and
+     row slices bit-equal to the whole call and torch's
+     scaled_dot_product_attention timed on the same work, cold, as a
      yardstick;
   4. a 2-layer model at full llama-7b width, the same packed weights served
      once on the CPU (plain versions) and once on the card (kernels): logits
@@ -25,14 +27,17 @@ Phases (each raises on failure; nothing falls back to the CPU):
      torch.profiler trace of four decode steps: device time of B1, B2 and
      everything else, and the card's idle share;
   6. B3, the standalone input path, against its plain version: bit-equal at
-     M in {4, 512} x K in {4096, 11008}, e5m2, fixed and trunc;
-  7. B4, the grouped integer GEMM, against its plain versions at the
-     projection shapes, folded and unfolded (bit-equal: the plain versions
-     add in the kernel's order), and B3+B4 against B1 (within 3e-5 *
-     max|y|: the scale folds and sums run in other orders);
+     M in {4, 512} x K in {4096, 11008}, e5m2, fixed and trunc, timed cold;
+     then the launch floor, an empty kernel timed the same way;
+  7. B4, the grouped integer GEMM, against its plain version at the
+     projection shapes (M=4 and 512), folded and unfolded: bit-equal, one
+     order for both forms, so folded == unfolded; timed cold; and B3+B4
+     against B1 (within 3e-5 * max|y|: the scale folds run in another
+     order);
   8. B5, packed-KV flash attention, against B2 over dequantize() (bit-equal:
      one source, pow2 folds) and its plain version (1e-5), at decode (B=4,
-     H=32, S=2048, ragged) and a 128-query chunk at q_pos0 > 0;
+     H=32, S=2048, ragged), a 128-query chunk at q_pos0 > 0, and
+     gemma3-12b's decode (Hq=16, Hkv=8, D=256);
   9. the 2-layer model of phase 4 served with kv_quant="kv8",
      quant_method="dsbp_kernel": CPU vs card greedy tokens equal, and on the
      card packed-KV serving equal token for token to serving over a float
@@ -40,16 +45,19 @@ Phases (each raises on failure; nothing falls back to the CPU):
   10. the full-width model of phase 5 with kv8 + dsbp_kernel (generate +
      serve, launch counts of B2-B5 per step and prefill, bytes per token,
      zero weight relayouts and zero KV dequantizes dispatched by a decode
-     step), then serve with kv8 + the default dsbp_fused;
+     step, and a torch.profiler trace of four decode steps: device time of
+     B3, B4, B5 and everything else, and the idle share), then serve with
+     kv8 + the default dsbp_fused;
   11. B6 and B7, paged flash attention over a float / packed block pool,
      against B2 / B5 over the gathered dense view (bit-equal: one source,
      only a key row's address changes) and their plain versions (1e-5), at
      phase 13's shape (8 lanes, H=32, D=128, bs=16, 32 blocks per table,
      shared prompt blocks, idle all-scratch lanes and a chunk lane at
      kv_len 1), at decode (B=4, ragged lengths up to 2,048, shuffled
-     tables with and without shared blocks) and a 16-query chunk at
-     q_pos0 > 0 with a partial last block; times beside the gather + SDPA
-     yardstick, bounds from the distinct key rows read;
+     tables with and without shared blocks), a 16-query chunk at q_pos0 > 0
+     with a partial last block, and gemma3-12b's decode (Hq=16, Hkv=8,
+     D=256); times beside the gather + SDPA yardstick, bounds from the
+     distinct key rows read;
   12. the 2-layer models of phase 4 served paged (a shared-prefix group and
      a chunked prompt), float pool and kv8 pool, on the CPU (plain
      versions) and on the card (kernels): greedy tokens equal under the
@@ -105,7 +113,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import functools
 import gc
 import json
 import math
@@ -235,44 +242,66 @@ def phase_b1(torch, Q, DF, per_tensor_scale):
 def _sdpa(q, k, v, mask):
     import torch.nn.functional as F
 
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    # one library call for GQA too (K/V heads shared by Hq/Hkv query heads)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=q.shape[1] != k.shape[1])
+
+
+# (name, Hq, Hkv, D) of phase 3's attention shapes at full width: the main
+# path's llama-7b, and gemma3-12b (src/repro/configs/gemma3_12b.py), whose
+# d_head 256 takes the kernels' second head-dim class
+B2_MODELS = (("llama-7b", 32, 32, 128), ("gemma3-12b", 16, 8, 256))
 
 
 def phase_b2(torch, FA):
-    print("== phase 2: B2 flash_attention vs plain on the card (timed cold)")
+    print("== phase 3: B2 flash_attention vs plain on the card (timed cold)")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    b, h, s, d = 4, 32, 512, 128
-    q = torch.randn(b, h, s, d, generator=gen, device="cuda")
-    k = torch.randn(b, h, s, d, generator=gen, device="cuda")
-    v = torch.randn(b, h, s, d, generator=gen, device="cuda")
     out = {}
-    for name, qq, kv_len, q0 in (
-            ("prefill", q, [512, 300, 129, 77], [0, 0, 0, 0]),
-            ("decode", q[:, :, :1].contiguous(), [512, 301, 129, 18], [511, 300, 128, 17])):
-        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-        q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
-        o = FA.flash_attention(qq, k, v, kv_len, q0)
-        ref = FA.flash_attention_plain(qq, k, v, kv_len, q0)
-        torch.cuda.synchronize()
-        err = float((o - ref).abs().max())
-        # online-softmax order: per-tile rescaling rounds differently
-        if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"B2 {name}: kernel vs plain max |diff| {err}")
-        mask = FA.attention_mask(kv_len, q0, qq.shape[2], s, causal=True, window=0)
-        visible = float(mask.sum())  # (b, query, key) pairs this run attends
-        nbytes = 2 * qq.numel() * 4 + 2 * float(kv_len.sum()) * h * d * 4 + 8 * b
-        b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
-        # cold: every call reads K/V from device memory, as on the main path
-        args = cold_copies(torch, (qq, k, v, kv_len, q0), nbytes)
-        ms = cuda_ms(FA.flash_attention, args, iters=20)
-        plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
-        lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args], iters=20)
-        del args
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, "max_abs_err": err}
-        print(f"  B2 {name:7s} B={b} H={h} Sq={qq.shape[2]} S={s} D={d}: max |diff| {err:.3g};"
-              f" kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), sdpa {lib_ms:.4f} ms")
+    for model, hq, hkv, d in B2_MODELS:
+        b, s = 4, 512
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+        k = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+        for name, qq, kv_len, q0 in (
+                ("prefill", q, [512, 300, 129, 77], [0, 0, 0, 0]),
+                ("decode", q[:, :, :1].contiguous(), [512, 301, 129, 18], [511, 300, 128, 17])):
+            kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
+            o = FA.flash_attention(qq, k, v, kv_len, q0)
+            ref = FA.flash_attention_plain(qq, k, v, kv_len, q0)
+            # a row's bits depend on its own keys only: half the KV heads (with
+            # their query heads) and two batch rows give the matching slices
+            kh, qh = hkv // 2, hq // 2
+            heads = FA.flash_attention(qq[:, :qh], k[:, :kh], v[:, :kh], kv_len, q0)
+            rows = FA.flash_attention(qq[2:4], k[2:4], v[2:4], kv_len[2:4], q0[2:4])
+            torch.cuda.synchronize()
+            err = float((o - ref).abs().max())
+            # online-softmax order: per-tile rescaling rounds differently
+            if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"B2 {model} {name}: kernel vs plain max |diff| {err}")
+            if not (torch.equal(heads, o[:, :qh]) and torch.equal(rows, o[2:4])):
+                raise AssertionError(f"B2 {model} {name}: a head or row slice differs from "
+                                     f"the whole call")
+            mask = FA.attention_mask(kv_len, q0, qq.shape[2], s, causal=True, window=0)
+            visible = float(mask.sum())  # (b, query, key) pairs this run attends
+            nbytes = 2 * qq.numel() * 4 + 2 * float(kv_len.sum()) * hkv * d * 4 + 8 * b
+            b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
+            # cold: every call reads K/V from device memory, as on the main path
+            args = cold_copies(torch, (qq, k, v, kv_len, q0), nbytes)
+            ms = cuda_ms(FA.flash_attention, args, iters=20)
+            plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
+            lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args],
+                             iters=20)
+            del args
+            key = name if model == "llama-7b" else f"{name}-{model}"
+            out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms, "max_abs_err": err}
+            print(f"  B2 {model:10s} {name:7s} B={b} Hq={hq} Hkv={hkv} Sq={qq.shape[2]} S={s} "
+                  f"D={d}: max |diff| {err:.3g}, head and row slices bit-equal; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa "
+                  f"{lib_ms:.4f} ms")
+        del q, k, v
+    torch.cuda.empty_cache()
     return out
 
 
@@ -412,22 +441,28 @@ def check_calls(torch, ref, got):
     return None, equal, worst
 
 
-# kernel names (torch.profiler) of B1's and B2's launches
-TRACE_KERNELS = {"B1": ("::prep_kernel(", "::gemm_kernel<"),
-                 "B2": ("::split_kernel<", "::merge_kernel(", "::tile_kernel<")}
+# kernel names (torch.profiler) of each traced kernel's launches: phase 5
+# (float KV, dsbp_fused) and phase 10 (kv8, dsbp_kernel: its decode steps
+# attend through B5's instantiation of the attention kernels)
+TRACE_FUSED = {"B1": ("::prep_kernel(", "::gemm_kernel<"),
+               "B2": ("::split_kernel<", "::merge_kernel<", "::tile_kernel<")}
+TRACE_TWO_KERNEL = {"B3": ("::fp8_quant_align_kernel(",),
+                    "B4": ("::layout_kernel(", "::gemm_kernel<"),
+                    "B5": ("::split_kernel<", "::merge_kernel<", "::tile_kernel<")}
 
 
-def trace_decode(torch, eng, toks, lens, steps: int = 4) -> dict:
-    """Device time by kernel over ``steps`` decode steps of the engine's
-    model (greedy tokens chosen on the card, as the engine's loop does
-    without a host sync), in one torch.profiler window after a warm step,
-    outside every timed pass; busy = the kernels' summed device time, idle
-    share = 1 - busy / the window's host wall time."""
+def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4) -> dict:
+    """Device time by kernel (``kinds``: name -> kernel-name patterns) over
+    ``steps`` decode steps of the engine's model (greedy tokens chosen on
+    the card, as the engine's loop does without a host sync), in one
+    torch.profiler window after a warm step, outside every timed pass;
+    busy = the kernels' summed device time, idle share = 1 - busy / the
+    window's host wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
         lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), 512,
-                                         lengths=lens, quant=eng.quant)
+                                         lengths=lens, quant=eng.quant, kv=eng.kv_spec)
         pos = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
         tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
         lg, cache = eng.model.decode_step(tok, cache, pos, eng.quant)
@@ -439,15 +474,14 @@ def trace_decode(torch, eng, toks, lens, steps: int = 4) -> dict:
                 lg, cache = eng.model.decode_step(tok, cache, pos + 1 + i, eng.quant)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    by = {"B1": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
+    by = {k: [0.0, 0] for k in (*kinds, "other")}
     other = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
         if us <= 0:
             continue
-        kind = next((k for k, pats in TRACE_KERNELS.items()
-                     if any(p in e.key for p in pats)), "other")
+        kind = next((k for k, pats in kinds.items() if any(p in e.key for p in pats)), "other")
         by[kind][0] += us / 1e3
         by[kind][1] += e.count
         if kind == "other":
@@ -462,12 +496,12 @@ def trace_decode(torch, eng, toks, lens, steps: int = 4) -> dict:
         print(f"  trace, {steps} decode steps: torch.profiler recorded no device time on "
               f"this machine ({wall_ms:.2f} ms window)")
         return out
+    per = ", ".join(f"{k} {v[0] / steps:.3f} ms ({v[1] // steps} kernels)"
+                    for k, v in by.items() if k != "other")
     print(f"  trace, {steps} decode steps (torch.profiler, outside the timed pass): window "
           f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
-          f"{out['idle_share']:.3f}; per step B1 {by['B1'][0] / steps:.3f} ms "
-          f"({by['B1'][1] // steps} kernels), B2 {by['B2'][0] / steps:.3f} ms "
-          f"({by['B2'][1] // steps}), everything else {by['other'][0] / steps:.3f} ms "
-          f"({by['other'][1] // steps} kernels; largest "
+          f"{out['idle_share']:.3f}; per step {per}, everything else "
+          f"{by['other'][0] / steps:.3f} ms ({by['other'][1] // steps} kernels; largest "
           f"{[(n, round(t / steps, 4)) for t, n in out['other_top']]})")
     return out
 
@@ -504,7 +538,7 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     sst = dict(eng.last_stats)
     calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)  # phase 15's
     peak = torch.cuda.max_memory_allocated()
-    trace = trace_decode(torch, eng, toks, lens)
+    trace = trace_decode(torch, eng, toks, lens, TRACE_FUSED)
 
     if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate output {out.shape} out of range")
@@ -536,7 +570,19 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     return eng.model, launches, sst['kv_bytes_per_token'], ref
 
 
-def phase_b3(torch, Q, QA, per_tensor_scale):
+def launch_floor(torch, build) -> float:
+    """Device time of a kernel that does nothing, timed as every kernel
+    here (cuda_ms): the floor under a decode-sized launch."""
+    empty = build.load("empty")
+
+    def call():
+        err = empty(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+    return cuda_ms(call, [()], iters=50)
+
+
+def phase_b3(torch, Q, QA, per_tensor_scale, build):
     print("== phase 6: B3 fp8_quant_align vs plain on the card")
     cases = [(m, k, {}) for m in (4, 512) for k in (4096, 11008)]
     cases += [(512, 4096, {"fmt": "e5m2"}),
@@ -554,19 +600,23 @@ def phase_b3(torch, Q, QA, per_tensor_scale):
         for name, g, r in zip(("a", "scale", "bits"), got, ref):
             if not torch.equal(g, r):
                 raise AssertionError(f"B3 kernel != plain ({name}) at M={m} K={k} {kw}")
-        ms = cuda_ms(QA.fp8_quant_align, [(xs, icfg)], iters=50)
-        plain_ms = cuda_ms(QA.fp8_quant_align_plain, [(xs, icfg)], iters=5, warmup=1)
         nbytes = 8 * m * k + 8 * m * (k // 64)  # x in; a, scale, bits out
+        ms = cuda_ms(QA.fp8_quant_align, cold_copies(torch, (xs, icfg), nbytes), iters=50)
+        plain_ms = cuda_ms(QA.fp8_quant_align_plain, [(xs, icfg)], iters=5, warmup=1)
         b_ms, b_by = bound(nbytes, B3_OPS_PER_ELEM * m * k, F32_OPS)
         rows.append({"M": m, "K": k, "cfg": kw or "precise e4m3", "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
         print(f"  B3 M={m:4d} K={k:5d} {str(kw or 'precise e4m3'):40s} bit-equal; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return rows
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.0%} of it")
+    floor = launch_floor(torch, build)
+    print(f"  launch floor: an empty kernel takes {floor:.4f} ms (the same timing)")
+    return rows, floor
 
 
 def phase_b4(torch, Q, DM, TO):
-    print("== phase 7: B4 dsbp_matmul vs plain, and B3+B4 vs B1, on the card")
+    print("== phase 7: B4 dsbp_matmul vs plain, folded == unfolded, and B3+B4 vs B1, "
+          "on the card")
     cfg = Q.PRESETS["precise"]
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows, max_err = [], 0.0
@@ -578,25 +628,26 @@ def phase_b4(torch, Q, DM, TO):
             x = torch.randn(m, k, generator=gen, device="cuda")
             qx = TO.fp8_quant_align(x, cfg.input_cfg)
             ax, sx = qx["a"], qx["scale"]
+            ng = k // 64
             wbytes = pw.ka.numel() + pw.kscale.numel() * 4
-            copies = [(ax, sx, pw.ka.clone(), pw.kscale.clone())
-                      for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
+            nbytes = m * k * 4 + m * ng * 4 + wbytes + m * n * 4
+            copies = cold_copies(torch, (ax, sx, pw.ka, pw.kscale), nbytes)
             row = {"M": m, "K": k, "N": n}
+            ref = DM.dsbp_matmul_plain(ax, sx, pw.ka, pw.kscale)
+            # one order for both forms (DM's docstring)
             for folded in (False, True):
-                form = "folded" if folded else "unfolded"
                 y = DM.dsbp_matmul(ax, sx, pw.ka, pw.kscale, folded=folded)
-                ref = DM.dsbp_matmul_plain(ax, sx, pw.ka, pw.kscale, folded=folded)
                 torch.cuda.synchronize()
                 err = float((y - ref).abs().max())
                 if not torch.equal(y, ref):
-                    raise AssertionError(f"B4 {form} M={m} K={k} N={n} != plain: {err}")
+                    raise AssertionError(f"B4 folded={folded} M={m} K={k} N={n} "
+                                         f"!= plain: {err}")
                 max_err = max(max_err, err)
-                kern = functools.partial(DM.dsbp_matmul, folded=folded)
-                plain = functools.partial(DM.dsbp_matmul_plain, folded=folded)
-                row[form] = {"ms": cuda_ms(kern, copies, iters=30 if m <= 4 else 10),
-                             "plain_ms": cuda_ms(plain, copies[:1], iters=3, warmup=1),
-                             "max_abs_err": err}
-                del y, ref
+            if not torch.equal(DM.dsbp_matmul_plain(ax, sx, pw.ka, pw.kscale, folded=False),
+                               ref):
+                raise AssertionError(f"B4 plain folded != unfolded at M={m} K={k} N={n}")
+            row["ms"] = cuda_ms(DM.dsbp_matmul, copies, iters=30 if m <= 4 else 10)
+            row["plain_ms"] = cuda_ms(DM.dsbp_matmul_plain, copies[:1], iters=3, warmup=1)
             two = TO.dsbp_matmul_packed(x, pw)
             one = TO.dsbp_matmul_fused(x, pw)
             torch.cuda.synchronize()
@@ -604,17 +655,14 @@ def phase_b4(torch, Q, DM, TO):
             if d12 > 3e-5 * top:
                 raise AssertionError(f"B3+B4 vs B1 at M={m} K={k} N={n}: max |diff| {d12} "
                                      f"> 3e-5 * {top}")
-            ng = k // 64
-            nbytes = m * k * 4 + m * ng * 4 + wbytes + m * n * 4
             row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * m * k * n, FP16_OPS)
             row["b3b4_vs_b1"] = d12
             rows.append(row)
-            print(f"  B4 M={m:4d} K={k:5d} N={n:5d}: bit-equal; unfolded "
-                  f"{row['unfolded']['ms']:.4f} ms (plain {row['unfolded']['plain_ms']:.3f}), "
-                  f"folded {row['folded']['ms']:.4f} ms (plain {row['folded']['plain_ms']:.3f}); "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                  f"B3+B4 vs B1 |diff| {d12:.3g} (max |y| {top:.3g})")
-            del pw, copies, two, one, qx, ax, sx, x
+            print(f"  B4 M={m:4d} K={k:5d} N={n:5d}: bit-equal to plain, folded == unfolded; "
+                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); B3+B4 vs B1 |diff| "
+                  f"{d12:.3g} (max |y| {top:.3g})")
+            del pw, copies, two, one, qx, ax, sx, x, ref
     torch.cuda.empty_cache()
     return rows, max_err
 
@@ -623,49 +671,57 @@ def phase_b5(torch, FA, KVQ):
     print("== phase 8: B5 packed_flash_attention vs B2 over dequantize() and plain "
           "(timed cold)")
     gen = torch.Generator(device="cuda").manual_seed(8)
-    b, h, s, d = 4, 32, 2048, 128
     kv8 = KVQ.KV_PRESETS["kv8"]
-    k = KVQ.quantize_kv(torch.randn(b, h, s, d, generator=gen, device="cuda"), kv8)
-    v = KVQ.quantize_kv(torch.randn(b, h, s, d, generator=gen, device="cuda"), kv8)
-    kd, vd = k.dequantize(), v.dequantize()
     out = {}
-    for name, sq, kv_len, q0 in (
-            ("decode", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),
-            ("chunk", 128, [2048, 1128, 328, 192], [1920, 1000, 200, 64])):
-        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
-        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-        q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
-        args = (q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
-        o = FA.packed_flash_attention(*args)
-        b2 = FA.flash_attention(q, kd, vd, kv_len, q0)
-        ref = FA.packed_flash_attention_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(o, b2):
-            raise AssertionError(f"B5 {name} != B2 over dequantize(): max |diff| "
-                                 f"{float((o - b2).abs().max())}")
-        err = float((o - ref).abs().max())
-        if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"B5 {name}: kernel vs plain max |diff| {err}")
-        mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
-        visible = float(mask.sum())
-        # each row reads its keys up to kv_len once: int8 K/V + f32 scales
-        nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * h * (d + 4) + 8 * b
-        b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
-        # cold, as phase 2: copies of the packed and the dequantized caches
-        cold = cold_copies(torch, (*args, kd, vd), nbytes)
-        ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
-        plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
-        b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
-                        iters=20)
-        sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold], iters=20)
-        del cold
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms, "sdpa_dequantized_ms": sdpa_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-        print(f"  B5 {name:6s} B={b} H={h} Sq={sq} S={s} D={d}: bit-equal to B2 over "
-              f"dequantize(), |diff| to plain {err:.3g}; kernel {ms:.4f} ms, B2 {b2_ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa over "
-              f"dequantized K/V {sdpa_ms:.4f} ms (yardstick)")
-    del k, v, kd, vd
+    # llama-7b's decode and a 128-query chunk; gemma3-12b's decode (d_head
+    # 256, GQA 16 / 8)
+    for model, hq, hkv, d, cases in (
+            ("llama-7b", 32, 32, 128,
+             (("decode", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),
+              ("chunk", 128, [2048, 1128, 328, 192], [1920, 1000, 200, 64]))),
+            ("gemma3-12b", 16, 8, 256,
+             (("decode-gemma3-12b", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),))):
+        b, s = 4, 2048
+        k = KVQ.quantize_kv(torch.randn(b, hkv, s, d, generator=gen, device="cuda"), kv8)
+        v = KVQ.quantize_kv(torch.randn(b, hkv, s, d, generator=gen, device="cuda"), kv8)
+        kd, vd = k.dequantize(), v.dequantize()
+        for name, sq, kv_len, q0 in cases:
+            q = torch.randn(b, hq, sq, d, generator=gen, device="cuda")
+            kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
+            args = (q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
+            o = FA.packed_flash_attention(*args)
+            b2 = FA.flash_attention(q, kd, vd, kv_len, q0)
+            ref = FA.packed_flash_attention_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(o, b2):
+                raise AssertionError(f"B5 {name} != B2 over dequantize(): max |diff| "
+                                     f"{float((o - b2).abs().max())}")
+            err = float((o - ref).abs().max())
+            if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"B5 {name}: kernel vs plain max |diff| {err}")
+            mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
+            visible = float(mask.sum())
+            # each row reads its keys up to kv_len once: int8 K/V + f32 scales
+            nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * (d + 4) + 8 * b
+            b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
+            # cold, as phase 3: copies of the packed and the dequantized caches
+            cold = cold_copies(torch, (*args, kd, vd), nbytes)
+            ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
+            plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
+            b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
+                            iters=20)
+            sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold],
+                              iters=20)
+            del cold
+            out[name] = {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms,
+                         "sdpa_dequantized_ms": sdpa_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": err}
+            print(f"  B5 {name:17s} B={b} Hq={hq} Hkv={hkv} Sq={sq} S={s} D={d}: bit-equal to "
+                  f"B2 over dequantize(), |diff| to plain {err:.3g}; kernel {ms:.4f} ms, B2 "
+                  f"{b2_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"sdpa over dequantized K/V {sdpa_ms:.4f} ms (yardstick)")
+        del k, v, kd, vd
     torch.cuda.empty_cache()
     return out
 
@@ -832,6 +888,7 @@ def phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels, model, cfg,
     print("  one decode step dispatches 0 weight-sized relayouts and 0 KV-sized "
           "int8->float conversions outside the kernels")
     del cache, lg
+    trace = trace_decode(torch, eng, toks, lens, TRACE_TWO_KERNEL)
 
     fused = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant="kv8"),
                    device="cuda")
@@ -851,7 +908,7 @@ def phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels, model, cfg,
           f"{fst['prefill_time_s']:.3f} s, decode {fst['decode_tps']:.1f} tok/s, "
           f"{1e3 * fst['decode_time_s'] / fst['decode_steps']:.2f} ms/step, peak "
           f"{fpeak / 2**30:.2f} GiB; launches {fl}")
-    return launches, fl
+    return launches, fl, trace
 
 
 def _distinct_keys(table, kv_len, bs: int) -> int:
@@ -898,9 +955,9 @@ def phase_b6_b7(torch, FA, KVQ):
     h, d, bs = 32, 128, 16
     kv8 = KVQ.KV_PRESETS["kv8"]
 
-    def pools(nb):
-        pk = torch.randn(nb, h, bs, d, generator=gen, device="cuda")
-        pv = torch.randn(nb, h, bs, d, generator=gen, device="cuda")
+    def pools(nb, hkv=h, dd=d):
+        pk = torch.randn(nb, hkv, bs, dd, generator=gen, device="cuda")
+        pv = torch.randn(nb, hkv, bs, dd, generator=gen, device="cuda")
         return pk, pv, KVQ.quantize_kv(pk, kv8), KVQ.quantize_kv(pv, kv8)
 
     # B=4 rows over 2,048 keys each: shuffled tables over blocks 1..512, one
@@ -919,15 +976,18 @@ def phase_b6_b7(torch, FA, KVQ):
     lanes = ((209, 14, 0), (215, 14, 12), (1, 0, 0), (1, 21, 0), (330, 21, 0),
              (1, 0, 0), (223, 14, 12), (512, 32, 0))
     serve_table, serve_len = _serve_table(torch, gen, lanes, 32, 129)
-    cases = (("serve", pools(129), serve_table, 1, serve_len),
-             ("decode", big, shared, 1, ragged),
-             ("decode-unshared", big, own, 1, ragged),
+    # gemma3-12b's decode (d_head 256, GQA 16 / 8) over the shared table
+    cases = (("serve", pools(129), serve_table, 1, serve_len, h, d),
+             ("decode", big, shared, 1, ragged, h, d),
+             ("decode-unshared", big, own, 1, ragged, h, d),
              ("chunk", big, shared, 16,
-              torch.tensor([1000, 537, 250, 77], dtype=torch.int32, device="cuda")))
+              torch.tensor([1000, 537, 250, 77], dtype=torch.int32, device="cuda"), h, d),
+             ("decode-gemma3-12b", pools(4 * 128 + 1, 8, 256), shared, 1, ragged, 16, 256))
     out = {}
-    for name, (pk, pv, kq, vq), table, sq, kv_len in cases:
+    for name, (pk, pv, kq, vq), table, sq, kv_len, hq, d in cases:
         b, mb = table.shape
-        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        hkv = pk.shape[1]
+        q = torch.randn(b, hq, sq, d, generator=gen, device="cuda")
         q0 = kv_len - sq
         gk, gv = FA.gather_blocks(pk, table), FA.gather_blocks(pv, table)
         gq = [FA.gather_blocks(t, table) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
@@ -955,9 +1015,9 @@ def phase_b6_b7(torch, FA, KVQ):
                 raise AssertionError(f"{kname} {name}: kernel vs plain max |diff| {err}")
             # every distinct key row it needs once, the queries, the output,
             # its table rows and the lengths
-            nbytes = (2 * q.numel() * 4 + 2 * keys * h * kvb + table.numel() * 4 + 8 * b)
-            b_ms, b_by = bound(nbytes, visible * h * 4 * d, F32_OPS)
-            # cold, as phase 2: copies of the pools and of the gathered views
+            nbytes = (2 * q.numel() * 4 + 2 * keys * hkv * kvb + table.numel() * 4 + 8 * b)
+            b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
+            # cold, as phase 3: copies of the pools and of the gathered views
             np_ = len(args)
             cold = cold_copies(torch, (*args, *dargs[1:-2]), nbytes)
             ms = cuda_ms(fn, [c[:np_] for c in cold], iters=20)
@@ -969,8 +1029,8 @@ def phase_b6_b7(torch, FA, KVQ):
             out[(kname, name)] = {"ms": ms, "dense_ms": dense_ms, "plain_ms": plain_ms,
                                   "gather_sdpa_ms": yard_ms, "bound_ms": b_ms,
                                   "bound_by": b_by, "max_abs_err": err, "keys": keys}
-            print(f"  {kname} {name:15s} B={b} H={h} Sq={sq} bs={bs} MB={mb} keys "
-                  f"{int(kv_len.sum())} ({keys} distinct): bit-equal to "
+            print(f"  {kname} {name:17s} B={b} Hq={hq} Hkv={hkv} D={d} Sq={sq} bs={bs} MB={mb} "
+                  f"keys {int(kv_len.sum())} ({keys} distinct): bit-equal to "
                   f"{'B2' if kname == 'B6' else 'B5'} over the gathered view, |diff| to "
                   f"plain {err:.3g}; kernel {ms:.4f} ms, dense over gathered "
                   f"{dense_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
@@ -1674,7 +1734,7 @@ def main() -> int:
     if sys.argv[1:] == ["--kernels"]:  # phases 1-3, 6-8 and 11: the kernels alone
         phase_b1(torch, Q, DF, per_tensor_scale)
         phase_b2(torch, FA)
-        phase_b3(torch, Q, QA, per_tensor_scale)
+        phase_b3(torch, Q, QA, per_tensor_scale, build)
         phase_b4(torch, Q, DM, TO)
         phase_b5(torch, FA, KVQ)
         phase_b6_b7(torch, FA, KVQ)
@@ -1695,14 +1755,14 @@ def main() -> int:
     models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
     model, launches, float_bpt, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request,
                                                    DF, FA, cfg)
-    b3_rows = phase_b3(torch, Q, QA, per_tensor_scale)
+    b3_rows, floor_ms = phase_b3(torch, Q, QA, per_tensor_scale, build)
     b4_rows, b4_err = phase_b4(torch, Q, DM, TO)
     b5 = phase_b5(torch, FA, KVQ)
     phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
     kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
                "packed_flash_attention": FA.packed_flash_attention,
                "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul}
-    kv_launches, _ = phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels,
+    kv_launches, _, trace10 = phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels,
                                     model, cfg, float_bpt)
     b67 = phase_b6_b7(torch, FA, KVQ)
     phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cfg)
@@ -1738,6 +1798,9 @@ def main() -> int:
          "bound_ms": b2["prefill"]["bound_ms"], "bound_by": b2["prefill"]["bound_by"],
          "library_ms": b2["prefill"]["library_ms"],
          "decode_ms": b2["decode"]["ms"], "decode_library_ms": b2["decode"]["library_ms"],
+         "gemma3_12b_d256": {case: {k: b2[f"{case}-gemma3-12b"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+             for case in ("prefill", "decode")},
          "shape": "prefill B=4 H=32 S=512 D=128", "path": "phase 5 (float KV, dsbp_fused)",
          "trace_ms_per_step": ref5["trace"]["B2_ms"] / ref5["trace"]["steps"]},
         {"name": "fp8_quant_align", "route": "cuda",
@@ -1745,16 +1808,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/fp8_quant_align.py:123",
          "launches": kv_launches["fp8_quant_align"], "max_abs_err": 0.0,
          "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
-         "bound_by": b3["bound_by"], "library_ms": None,
-         "shape": "decode M=4 K=4096", "path": "phase 10 (kv8, dsbp_kernel)"},
+         "bound_by": b3["bound_by"], "library_ms": None, "launch_floor_ms": floor_ms,
+         "shape": "decode M=4 K=4096", "path": "phase 10 (kv8, dsbp_kernel)",
+         "trace_ms_per_step": trace10["B3_ms"] / trace10["steps"]},
         {"name": "dsbp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dsbp_matmul.cu",
          "replaces": "src/repro/kernels/dsbp_matmul.py:84",
          "launches": kv_launches["dsbp_matmul"], "max_abs_err": b4_err,
-         "ms": b4["folded"]["ms"], "plain_ms": b4["folded"]["plain_ms"],
+         "ms": b4["ms"], "plain_ms": b4["plain_ms"],
          "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"], "library_ms": None,
-         "unfolded_ms": b4["unfolded"]["ms"],
-         "shape": "decode M=4 K=4096 N=11008, folded", "path": "phase 10 (kv8, dsbp_kernel)"},
+         "shape": "decode M=4 K=4096 N=11008 (either form)",
+         "path": "phase 10 (kv8, dsbp_kernel)",
+         "trace_ms_per_step": trace10["B4_ms"] / trace10["steps"]},
         {"name": "packed_flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:166",
@@ -1763,12 +1828,16 @@ def main() -> int:
          "ms": b5["decode"]["ms"], "plain_ms": b5["decode"]["plain_ms"],
          "bound_ms": b5["decode"]["bound_ms"], "bound_by": b5["decode"]["bound_by"],
          "library_ms": None, "sdpa_dequantized_ms": b5["decode"]["sdpa_dequantized_ms"],
-         "shape": "decode B=4 H=32 S=2048 D=128, ragged", "path": "phase 10 (kv8, dsbp_kernel)"},
+         "gemma3_12b_d256": {k: b5["decode-gemma3-12b"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "sdpa_dequantized_ms", "max_abs_err")},
+         "shape": "decode B=4 H=32 S=2048 D=128, ragged", "path": "phase 10 (kv8, dsbp_kernel)",
+         "trace_ms_per_step": trace10["B5_ms"] / trace10["steps"]},
     ]
     for name, kname, line, pool in (("paged_flash_attention", "B6", 264, "float"),
                                     ("paged_packed_flash_attention", "B7", 378, "kv8")):
         rows = {case: b67[(kname, case)]
-                for case in ("serve", "decode", "decode-unshared", "chunk")}
+                for case in ("serve", "decode", "decode-unshared", "chunk",
+                             "decode-gemma3-12b")}
         main = rows["serve"]
         kernels.append(
             {"name": name, "route": "cuda",

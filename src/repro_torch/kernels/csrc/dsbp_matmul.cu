@@ -5,127 +5,78 @@
 // aw int8 (K,N) (PackedDSBPWeight.ka) and sw f32 (K/64,N) (.kscale).
 //
 // Replaces src/repro/kernels/dsbp_matmul.py::dsbp_matmul_kernel_call (:84,
-// bodies _kernel :34 and _kernel_folded :50, pallas_call :124).  Two forms:
-//   unfolded (FOLDED=false): an exact int32 64-deep dot per group, then
-//     acc = acc + dot * (sx * sw) in group order — every product is exact
-//     (|ax| < 2^11, |aw| < 2^7, 64-deep sums < 2^24, pow2 scales), so only
-//     the f32 adds round;
-//   folded (FOLDED=true, the serving default): one running f32 sum over K
-//     of the pow2-prescaled operands (ax*sx) * (aw*sw), here spelled as
-//     fmaf(float(ax*aw), sx*sw, acc) — the same exact product, one rounding
-//     per term, as the TPU's single rank-bk dot.
-// The plain versions (kernels/dsbp_matmul.py) add in the same orders, so
-// both forms agree with them bit for bit.
+// bodies _kernel :34 and _kernel_folded :50, pallas_call :124).
+//
+// One order for both of the TPU kernel's forms: an exact 64-deep integer
+// dot per group (|ax| <= 2^11, |aw| < 2^7: sums below 2^24), folded in
+// group order as acc = acc + dot * (sx * sw).  Every product is exact, so
+// the TPU's folded form (one rank-bk f32 dot of the pow2-prescaled
+// operands) is the same sum taken in an order its MXU does not specify;
+// here the exact group dots are both the fastest route and the most exact,
+// so `folded` no longer selects other arithmetic and both forms give these
+// bits (kernels/dsbp_matmul.py's plain version takes the same order).
 //
 // Bound on this card: the weight bytes (int8 aw + f32 sw) at decode M; the
-// integer operations at prefill M.  Design of this first version, as B1's
-// MAC: a (16 x 32) output tile per 128-thread block, a loop over the K
-// groups inside the block (the TPU's sequential kk grid axis), the input
-// mantissas (int16 in shared memory: they fit 12 signed bits) and the
-// (64 x 32) int8 weight tile staged in shared memory, the MAC on CUDA
-// cores (12-bit signed inputs do not fit int8 MMA).  Any M and N; any K
-// that is a multiple of 64 (no K % 512 block constraint).
+// integer operations at prefill M.  The first design (a 16 x 32 output tile
+// per 128-thread block, each group loaded synchronously between two
+// barriers, the MAC on CUDA cores, the folded form one dependent FMA per
+// k) ran 19-47x over the bound at decode.  This design is B1's GEMM stage
+// (dsbp_gemm.cuh: a cp.async ring over the whole K, mma.sync m16n8k32 int8
+// on the 12-bit input split into hi = a >> 6 and lo = a & 63, the decode
+// tile for M <= 16 and the prefill tile above) on B3's operands, with
+// sw = kscale as it is (no per-channel tw).  A layout kernel first splits
+// the int32 mantissas into B1's hi | lo scratch, once per (row, group),
+// and the GEMM reads it as B1's does.  (Splitting per stage in shared
+// memory instead, one kernel with twice the A bytes in the ring and the
+// same rows split again by every column block, was slower at every
+// llama-7b shape on an H100, PERF.md.)  Any M; any K that is a multiple
+// of 64; any N, N % 16 != 0 through a slower instantiation (byte loads of
+// the weight rows, no padded copy).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dsbp_gemm.cuh"
+
 namespace {
 
-constexpr int GROUP = 64;
-constexpr int BM = 16;       // rows per block
-constexpr int BN = 32;       // columns per block (one per lane)
-constexpr int THREADS = 128; // 4 warps; warp w owns rows w, w+4, w+8, w+12
-constexpr int RPW = BM / 4;  // rows per warp
+using dsbp::A_BYTES;
+using dsbp::GROUP;
+// B1's tiles
+using DecodeTile = dsbp::Tile<16, 1, 4, 1, 4, 3, 3>;   // BN 32, 128 threads, 65 KB
+using PrefillTile = dsbp::Tile<64, 4, 2, 8, 1, 4, 2>;  // BN 128, 256 threads, 76 KB
 
-template <bool FOLDED>
-__global__ void __launch_bounds__(THREADS)
-dsbp_matmul_kernel(const int* __restrict__ ax, const float* __restrict__ sx,
-                   const int8_t* __restrict__ aw,
-                   const float* __restrict__ sw, float* __restrict__ y,
-                   int M, int N, int K) {
-  __shared__ short As[BM][GROUP];        // input mantissas of the group
-  __shared__ float Sx[BM];               // input group scales
-  __shared__ signed char Ws[GROUP][BN];  // weight mantissa tile
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int n = n0 + lane;
-  const bool n_ok = n < N;
-  const int ng = K / GROUP;
-
-  float acc[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) acc[r] = 0.f;
-
-  for (int g = 0; g < ng; ++g) {
-    // ---- input tile: 16 rows x 64, neighbours on neighbouring k ----
-    for (int i = tid; i < BM * GROUP; i += THREADS) {
-      const int r = i / GROUP;
-      const int kk = i - r * GROUP;
-      const int m = m0 + r;
-      As[r][kk] = m < M ? (short)ax[(size_t)m * K + (size_t)g * GROUP + kk]
-                        : (short)0;
-    }
-    if (tid < BM) Sx[tid] = m0 + tid < M ? sx[(size_t)(m0 + tid) * ng + g] : 0.f;
-    // ---- weight tile: 64 x 32 int8, neighbours on neighbouring n ----
-    for (int i = tid; i < GROUP * BN; i += THREADS) {
-      const int kr = i / BN;
-      const int col = i - kr * BN;
-      const int nn = n0 + col;
-      Ws[kr][col] =
-          nn < N ? aw[((size_t)g * GROUP + kr) * (size_t)N + nn] : (int8_t)0;
-    }
-    const float swn = n_ok ? sw[(size_t)g * N + n] : 0.f;
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = warp + 4 * r;
-      if (m0 + row >= M) continue;  // warp-uniform
-      const float s = __fmul_rn(Sx[row], swn);  // pow2 x pow2: exact
-      if (FOLDED) {
-        float a = acc[r];
-#pragma unroll 16
-        for (int i = 0; i < GROUP; ++i)
-          a = fmaf((float)((int)As[row][i] * (int)Ws[i][lane]), s, a);
-        acc[r] = a;
-      } else {
-        int dot = 0;
-#pragma unroll 16
-        for (int i = 0; i < GROUP; ++i) dot += (int)As[row][i] * (int)Ws[i][lane];
-        acc[r] = __fadd_rn(acc[r], __fmul_rn((float)dot, s));
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int m = m0 + warp + 4 * r;
-    if (m < M && n_ok) y[(size_t)m * N + n] = acc[r];
-  }
+// ax (M, K) int32 -> hi | lo int8 rows per (row, group), B1's scratch
+// layout: one thread per 4 mantissas
+__global__ void __launch_bounds__(256)
+layout_kernel(const int* __restrict__ ax, int8_t* __restrict__ a, long long quads) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= quads) return;
+  const int4 v = *(const int4*)(ax + 4 * i);
+  unsigned hi, lo;
+  dsbp::split4(v.x, v.y, v.z, v.w, hi, lo);
+  int8_t* row = a + (i >> 4) * A_BYTES + 4 * (i & 15);  // (row, group) i / 16
+  *(unsigned*)row = hi;
+  *(unsigned*)(row + GROUP) = lo;
 }
 
 }  // namespace
 
-extern "C" int dsbp_matmul_launch(const void* ax, const void* sx,
-                                  const void* aw, const void* sw, void* y,
-                                  int M, int N, int K, int folded,
-                                  void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % GROUP != 0)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+// scratch: at least M * (K/64) * 128 bytes, 16-byte aligned; ax 16-byte
+// aligned
+extern "C" int dsbp_matmul_launch(const void* ax, const void* sx, const void* aw,
+                                  const void* sw, void* y, void* scratch,
+                                  long long scratch_bytes, int M, int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % GROUP != 0) return (int)cudaErrorInvalidValue;
+  const int G = K / GROUP;
   cudaStream_t st = (cudaStream_t)stream;
-  if (folded)
-    dsbp_matmul_kernel<true><<<grid, THREADS, 0, st>>>(
-        (const int*)ax, (const float*)sx, (const int8_t*)aw, (const float*)sw,
-        (float*)y, M, N, K);
-  else
-    dsbp_matmul_kernel<false><<<grid, THREADS, 0, st>>>(
-        (const int*)ax, (const float*)sx, (const int8_t*)aw, (const float*)sw,
-        (float*)y, M, N, K);
-  return (int)cudaGetLastError();
+  const long long rows = (long long)M * G;
+  if (scratch == nullptr || scratch_bytes < rows * A_BYTES) return (int)cudaErrorInvalidValue;
+  const long long quads = rows * (GROUP / 4);
+  layout_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>((const int*)ax,
+                                                                  (int8_t*)scratch, quads);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)dsbp::run_gemm_any_n<DecodeTile, PrefillTile, false>(
+      (const int8_t*)scratch, (const float*)sx, aw, sw, nullptr, y, M, N, G, st);
 }

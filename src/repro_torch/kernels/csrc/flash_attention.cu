@@ -45,7 +45,9 @@
 // prefill (no TF32: B2 is held within 1e-5 of its plain version).  The
 // first design (one 128-thread block per 16-query tile, 4-byte loads behind
 // two or three barriers per 32-key tile, a scalar FMA chain per logit) ran
-// 30-130x over that bound.  Two variants of one source, chosen by Sq alone:
+// 30-130x over that bound.  Two variants of one source, chosen by Sq alone,
+// each instantiated per head-dim class DC (D <= 128 or D <= 256; the text
+// below gives the DC = 128 numbers, DC = 256's follow it):
 //
 // Decode (Sq <= DEC_MAX_SQ), split-KV: each row's keys are cut into splits
 // of KPS = 128 positions, fixed, so split boundaries depend on key
@@ -58,7 +60,10 @@
 // Each warp keeps its own (m, l, acc) and writes it as one partial of the
 // row; a second kernel merges the partials of each row in partial order
 // with the usual log-sum-exp rescale.  Blocks past a row's last visible key
-// exit, and the merge reads only the partials below it.
+// exit, and the merge reads only the partials below it.  DC = 256: lanes
+// hold 8 of the D columns (4 at c and 4 at 128 + c) and the split's keys
+// stream in 16-key tiles (warp w owns keys 4w..4w+3 of each), so the ring
+// stays at 64 KB; a split still ends every 128 key positions.
 //
 // Prefill (Sq > DEC_MAX_SQ), register-tiled: a 256-thread block owns 64
 // queries of one head and walks 64-key tiles up to the tile's last visible
@@ -68,13 +73,23 @@
 // padded to D+4 floats: conflict-free), the online softmax of its 4 rows
 // (statistics reduced over the 16 threads of a half-warp by shuffles), and
 // a 4 x 8 block of the output (rows 4ty.., columns 4tx.. and 64+4tx..).
-// P goes through shared memory within the half-warp.
+// P goes through shared memory within the half-warp.  DC = 256: 32-key
+// tiles (4 x 2 logits a thread, keys tx and tx + 16) and a 4 x 16 block of
+// the output (columns 4tx + 64c), so Q, P and the double-buffered K/V tiles
+// fit the 227 KB a block may have (203 KB in f32).
+//
+// Any D up to 256: shared-memory rows are Dp = D rounded up to 16 columns,
+// the pad columns of Q, K and V tiles are zero (so they add exact zeros to
+// every dot), and where D % 16 != 0 rows are not 16-byte aligned in device
+// memory, so K/V are staged by 4-byte cp.async (f32) or byte copies (int8)
+// and q, o by single floats: a slower path of the same instantiation,
+// chosen per launch, whose arithmetic is that of the aligned path.
 //
 // The contract the tests and chip_smoke.py hold it to: a row's bits depend
 // only on its key positions, kv_len and q_pos0 (and Sq, which picks the
-// variant): never on B, Hq, Hkv, S or the grid, so a slice of the heads
-// or of the batch rows gives the same bits as the matching slice of the
-// whole call.  D <= 128 and D % 16 == 0; q, K and V 16-byte aligned.
+// variant, and D): never on B, Hq, Hkv, S or the grid, so a slice of the
+// heads or of the batch rows gives the same bits as the matching slice of
+// the whole call.  D <= 256; q, K and V 16-byte aligned.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,22 +99,35 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;
 
 // decode: split-KV
 constexpr int DEC_MAX_SQ = 8;   // Sq <= this takes the decode variant
 constexpr int KPS = 128;        // key positions per split
 constexpr int DEC_WARPS = 4;    // partials per split: one per warp
 constexpr int DEC_THREADS = 32 * DEC_WARPS;
-constexpr int DEC_TILE = 32;    // keys per staged tile
-constexpr int DEC_KPW = DEC_TILE / DEC_WARPS;  // keys per warp and tile
 constexpr int RMAX = 8;         // query rows per block
 
 // prefill: register-tiled
 constexpr int PBQ = 64;         // queries per block
-constexpr int PBK = 64;         // keys per tile
 constexpr int P_THREADS = 256;
-constexpr int PS_STRIDE = PBK + 4;  // P rows in shared memory
+
+// the tiling of one head-dim class (D <= DC)
+template <int DC>
+struct Dims {
+  static_assert(DC == 128 || DC == 256, "head-dim classes: D <= 128, D <= 256");
+  static constexpr int NC = DC / 128;                   // decode: float4 columns a lane
+  static constexpr int DEC_TILE = DC == 128 ? 32 : 16;  // decode: keys per staged tile
+  static constexpr int DEC_KPW = DEC_TILE / DEC_WARPS;  // decode: keys per warp and tile
+  static constexpr int PBK = DC == 128 ? 64 : 32;       // prefill: keys per tile
+  static constexpr int KJ = PBK / 16;                   // prefill: keys (logits) a thread
+  static constexpr int OC = DC / 64;                    // prefill: float4 output columns a thread
+  static constexpr int PS_STRIDE = PBK + 4;             // prefill: P rows in shared memory
+  static_assert(KPS % DEC_TILE == 0, "a split is whole tiles");
+};
+
+// shared-memory row length: D rounded up to 16 columns (pads are zero)
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) & ~15; }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -130,11 +158,43 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
 
+// columns c .. c+3 of a row of D floats that need not be 16-byte aligned
+// (zero past D)
+__device__ __forceinline__ float4 load4_any(const float* row, int c, int D) {
+  return make_float4(c < D ? row[c] : 0.f, c + 1 < D ? row[c + 1] : 0.f,
+                     c + 2 < D ? row[c + 2] : 0.f, c + 3 < D ? row[c + 3] : 0.f);
+}
+
+// columns c .. c+3 of a row of D floats: one 16-byte store where D % 16 ==
+// 0 (vec), else the columns below D one by one
+__device__ __forceinline__ void store4(float* row, int c, int D, bool vec, float4 t) {
+  if (vec) {
+    *(float4*)(row + c) = t;
+    return;
+  }
+  if (c < D) row[c] = t.x;
+  if (c + 1 < D) row[c + 1] = t.y;
+  if (c + 2 < D) row[c + 2] = t.z;
+  if (c + 3 < D) row[c + 3] = t.w;
+}
+
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   float s = __fmul_rn(a.x, b.x);
   s = fmaf(a.y, b.y, s);
   s = fmaf(a.z, b.z, s);
   return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ float dot4_acc(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ float4 scale4(float4 a, float s) {
+  return make_float4(__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s),
+                     __fmul_rn(a.w, s));
 }
 
 // the pool row (PAGED) or the dense cache row of key j
@@ -145,24 +205,42 @@ __device__ __forceinline__ long long key_row(int j, long long base, const int* t
   return base + j;
 }
 
-// Start the cp.async loads of keys k0 .. k0+nk-1 (those < k_hi; the rest
-// zero-filled) into K/V tiles of row strides ks_ / vs_ elements, and their
-// pow2 scales (PACKED).
+// Start the loads of keys k0 .. k0+nk-1 (those < k_hi; the rest zero-filled)
+// into K/V tiles of row strides ks_ / vs_ elements, and their pow2 scales
+// (PACKED).  Rows of D elements: 16-byte cp.async where D % 16 == 0 (vec),
+// else 4-byte cp.async (f32) or byte copies (int8), columns below D only.
 template <typename KV, bool PACKED, bool PAGED>
 __device__ __forceinline__ void load_tile(KV* Kt, KV* Vt, int ks_, int vs_, float* Ksc,
                                           float* Vsc, const KV* k, const KV* v,
                                           const float* ksc, const float* vsc, int k0, int nk,
                                           int k_hi, long long base, const int* tb, int Hkv,
-                                          int hk, int bs, int D, int tid, int nthreads) {
-  constexpr int EPC = 16 / sizeof(KV);  // elements per 16-byte chunk
-  const int cpr = D / EPC;
-  for (int i = tid; i < nk * cpr; i += nthreads) {
-    const int j = i / cpr;
-    const int c = (i - j * cpr) * EPC;
-    const bool ok = k0 + j < k_hi;
-    const long long row = ok ? key_row<PAGED>(k0 + j, base, tb, Hkv, hk, bs) : 0;
-    cp_async16(Kt + j * ks_ + c, k + row * D + c, ok);
-    cp_async16(Vt + j * vs_ + c, v + row * D + c, ok);
+                                          int hk, int bs, int D, bool vec, int tid,
+                                          int nthreads) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(KV);  // elements per 16-byte chunk
+    const int cpr = D / EPC;
+    for (int i = tid; i < nk * cpr; i += nthreads) {
+      const int j = i / cpr;
+      const int c = (i - j * cpr) * EPC;
+      const bool ok = k0 + j < k_hi;
+      const long long row = ok ? key_row<PAGED>(k0 + j, base, tb, Hkv, hk, bs) : 0;
+      cp_async16(Kt + j * ks_ + c, k + row * D + c, ok);
+      cp_async16(Vt + j * vs_ + c, v + row * D + c, ok);
+    }
+  } else {
+    for (int i = tid; i < nk * D; i += nthreads) {
+      const int j = i / D;
+      const int c = i - j * D;
+      const bool ok = k0 + j < k_hi;
+      const long long row = ok ? key_row<PAGED>(k0 + j, base, tb, Hkv, hk, bs) : 0;
+      if constexpr (sizeof(KV) == 4) {
+        cp_async4(Kt + j * ks_ + c, k + row * D + c, ok);
+        cp_async4(Vt + j * vs_ + c, v + row * D + c, ok);
+      } else {
+        Kt[j * ks_ + c] = ok ? k[row * D + c] : KV(0);
+        Vt[j * vs_ + c] = ok ? v[row * D + c] : KV(0);
+      }
+    }
   }
   if (PACKED) {
     for (int j = tid; j < nk; j += nthreads) {
@@ -171,6 +249,18 @@ __device__ __forceinline__ void load_tile(KV* Kt, KV* Vt, int ks_, int vs_, floa
       cp_async4(Ksc + j, ksc + row, ok);
       cp_async4(Vsc + j, vsc + row, ok);
     }
+  }
+}
+
+// zero the pad columns D .. pad16(D)-1 of `rows` rows of stride `stride`
+// (no loads ever write them)
+template <typename T>
+__device__ __forceinline__ void zero_pads(T* t, int rows, int stride, int D, int tid,
+                                          int nthreads) {
+  const int w = pad16(D) - D;
+  for (int i = tid; i < rows * w; i += nthreads) {
+    const int r = i / w;
+    t[r * stride + D + (i - r * w)] = T(0);
   }
 }
 
@@ -184,13 +274,21 @@ __device__ __forceinline__ int last_key(int len, int p0, int q_end, int causal) 
 
 // ---------------------------------------------------------------- decode
 
+template <bool PACKED, int DC>
+constexpr size_t split_smem(int Dp) {
+  using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  // K, V [2][DEC_TILE][Dp], then (PACKED) their scales [2][DEC_TILE] each
+  return 4 * (size_t)Dims<DC>::DEC_TILE * Dp * sizeof(KV) +
+         (PACKED ? 16 * Dims<DC>::DEC_TILE : 0);
+}
+
 // PAGED: k/v (and the scales) are pools with the block axis first, S is
 // the logical length MB * bs, and table (B, MB) maps logical blocks to
 // pool blocks; otherwise table is null and bs unused.  part holds, per
-// query row and partial, acc (D floats) and then, after every row's acc,
+// query row and partial, acc (Dp floats) and then, after every row's acc,
 // (m, l).  A block serves R query rows: 1 where a KV head has one (MHA
 // decode), RMAX otherwise; a row's arithmetic is the same either way.
-template <bool PACKED, bool PAGED, int R>
+template <bool PACKED, bool PAGED, int R, int DC>
 __global__ void __launch_bounds__(DEC_THREADS)
 split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
              const float* __restrict__ k_scale, const void* __restrict__ v_in,
@@ -199,11 +297,16 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
              float* __restrict__ part, int Hq, int Hkv, int Sq, int S, int D, int bs,
              int causal, int window, float scale, int nparts) {
   using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  constexpr int TILE = Dims<DC>::DEC_TILE;
+  constexpr int KPW = Dims<DC>::DEC_KPW;
+  constexpr int NC = Dims<DC>::NC;
+  const int Dp = pad16(D);
+  const bool vec = Dp == D;
   extern __shared__ __align__(16) unsigned char smem[];
-  KV* Ks = (KV*)smem;                    // [2][DEC_TILE][D]
-  KV* Vs = Ks + 2 * DEC_TILE * D;        // [2][DEC_TILE][D]
-  float* Ksc = (float*)(Vs + 2 * DEC_TILE * D);  // [2][DEC_TILE], PACKED
-  float* Vsc = Ksc + 2 * DEC_TILE;
+  KV* Ks = (KV*)smem;                        // [2][TILE][Dp]
+  KV* Vs = Ks + 2 * TILE * Dp;               // [2][TILE][Dp]
+  float* Ksc = (float*)(Vs + 2 * TILE * Dp);  // [2][TILE], PACKED
+  float* Vsc = Ksc + 2 * TILE;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -225,9 +328,11 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   const KV* v = (const KV*)v_in;
   const long long base = PAGED ? 0 : ((long long)b * Hkv + hk) * S;
   const int* tb = PAGED ? table + (size_t)b * (S / bs) : nullptr;
-  const bool dl = 4 * lane < D;  // this lane's 4 columns exist
+  bool dl[NC];  // this lane's 4 columns 4 lane + 128 c exist (pads included)
+#pragma unroll
+  for (int c = 0; c < NC; ++c) dl[c] = 4 * lane + 128 * c < Dp;
 
-  float4 qv[R];
+  float4 qv[R][NC];
   int qpos[R];
   long long orow[R];  // output row index (b, head, query)
 #pragma unroll
@@ -237,56 +342,69 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     const int qi = rr - (rr / Sq) * Sq;
     orow[r] = ((long long)b * Hq + h) * Sq + qi;
     qpos[r] = p0 + qi;
-    qv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nr && dl) {
-      const float4 t = load4(q + orow[r] * D + 4 * lane);
-      qv[r] = make_float4(__fmul_rn(t.x, scale), __fmul_rn(t.y, scale),
-                          __fmul_rn(t.z, scale), __fmul_rn(t.w, scale));
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      qv[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nr && dl[c]) {
+        const float* qr = q + orow[r] * D;
+        const int col = 4 * lane + 128 * c;
+        qv[r][c] = scale4(vec ? load4(qr + col) : load4_any(qr, col, D), scale);
+      }
     }
   }
 
   float m[R], l[R];
-  float4 acc[R];
+  float4 acc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
-    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  const int ntile = (k_hi - k_lo + DEC_TILE - 1) / DEC_TILE;
-  load_tile<KV, PACKED, PAGED>(Ks, Vs, D, D, Ksc, Vsc, k, v, k_scale, v_scale, k_lo, DEC_TILE,
-                               k_hi, base, tb, Hkv, hk, bs, D, tid, DEC_THREADS);
+  if (!vec) {
+    zero_pads(Ks, 2 * TILE, Dp, D, tid, DEC_THREADS);
+    zero_pads(Vs, 2 * TILE, Dp, D, tid, DEC_THREADS);
+  }
+  const int ntile = (k_hi - k_lo + TILE - 1) / TILE;
+  load_tile<KV, PACKED, PAGED>(Ks, Vs, Dp, Dp, Ksc, Vsc, k, v, k_scale, v_scale, k_lo, TILE,
+                               k_hi, base, tb, Hkv, hk, bs, D, vec, tid, DEC_THREADS);
   cp_commit();
   for (int t = 0; t < ntile; ++t) {
     const int nb = (t + 1) & 1;
     if (t + 1 < ntile)
-      load_tile<KV, PACKED, PAGED>(Ks + nb * DEC_TILE * D, Vs + nb * DEC_TILE * D, D, D,
-                                   Ksc + nb * DEC_TILE, Vsc + nb * DEC_TILE, k, v, k_scale,
-                                   v_scale, k_lo + (t + 1) * DEC_TILE, DEC_TILE, k_hi, base,
-                                   tb, Hkv, hk, bs, D, tid, DEC_THREADS);
+      load_tile<KV, PACKED, PAGED>(Ks + nb * TILE * Dp, Vs + nb * TILE * Dp, Dp, Dp,
+                                   Ksc + nb * TILE, Vsc + nb * TILE, k, v, k_scale, v_scale,
+                                   k_lo + (t + 1) * TILE, TILE, k_hi, base, tb, Hkv, hk, bs, D,
+                                   vec, tid, DEC_THREADS);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
 
     const int cb = t & 1;
-    const KV* Kt = Ks + cb * DEC_TILE * D;
-    const KV* Vt = Vs + cb * DEC_TILE * D;
-    const int kbase = k_lo + t * DEC_TILE + warp * DEC_KPW;  // this warp's first key
+    const KV* Kt = Ks + cb * TILE * Dp;
+    const KV* Vt = Vs + cb * TILE * Dp;
+    const int kbase = k_lo + t * TILE + warp * KPW;  // this warp's first key
 
-    float p[R][DEC_KPW];
+    float p[R][KPW];
     unsigned okb[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) okb[r] = 0u;
 #pragma unroll
-    for (int jj = 0; jj < DEC_KPW; ++jj) {
-      const int j = warp * DEC_KPW + jj;
-      const float4 kk = dl ? load4(Kt + j * D + 4 * lane) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float ks = PACKED ? Ksc[cb * DEC_TILE + j] : 1.f;
+    for (int jj = 0; jj < KPW; ++jj) {
+      const int j = warp * KPW + jj;
+      float4 kk[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        kk[c] = dl[c] ? load4(Kt + j * Dp + 4 * lane + 128 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float ks = PACKED ? Ksc[cb * TILE + j] : 1.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r >= nr) continue;  // block-uniform
-        float s = dot4(qv[r], kk);
+        float s = dot4(qv[r][0], kk[0]);
+#pragma unroll
+        for (int c = 1; c < NC; ++c) s = dot4_acc(qv[r][c], kk[c], s);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           s = __fadd_rn(s, __shfl_xor_sync(FULL_MASK, s, off));
@@ -301,33 +419,39 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
       if (r >= nr) continue;
       float mt = NEG_INF;
 #pragma unroll
-      for (int jj = 0; jj < DEC_KPW; ++jj) mt = fmaxf(mt, p[r][jj]);
+      for (int jj = 0; jj < KPW; ++jj) mt = fmaxf(mt, p[r][jj]);
       const float m_new = fmaxf(m[r], mt);
       const float alpha = expf(m[r] - m_new);
       float ls = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < DEC_KPW; ++jj) {
+      for (int jj = 0; jj < KPW; ++jj) {
         p[r][jj] = (okb[r] >> jj) & 1u ? expf(p[r][jj] - m_new) : 0.f;
         ls = __fadd_rn(ls, p[r][jj]);
       }
       l[r] = __fadd_rn(__fmul_rn(l[r], alpha), ls);
       m[r] = m_new;
-      acc[r] = make_float4(__fmul_rn(acc[r].x, alpha), __fmul_rn(acc[r].y, alpha),
-                           __fmul_rn(acc[r].z, alpha), __fmul_rn(acc[r].w, alpha));
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] = scale4(acc[r][c], alpha);
     }
 #pragma unroll
-    for (int jj = 0; jj < DEC_KPW; ++jj) {
-      const int j = warp * DEC_KPW + jj;
-      const float4 vv = dl ? load4(Vt + j * D + 4 * lane) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float vsc = PACKED ? Vsc[cb * DEC_TILE + j] : 1.f;
+    for (int jj = 0; jj < KPW; ++jj) {
+      const int j = warp * KPW + jj;
+      float4 vv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        vv[c] = dl[c] ? load4(Vt + j * Dp + 4 * lane + 128 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float vsc = PACKED ? Vsc[cb * TILE + j] : 1.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r >= nr) continue;
         const float pv = PACKED ? __fmul_rn(p[r][jj], vsc) : p[r][jj];  // V scale into p
-        acc[r].x = fmaf(pv, vv.x, acc[r].x);
-        acc[r].y = fmaf(pv, vv.y, acc[r].y);
-        acc[r].z = fmaf(pv, vv.z, acc[r].z);
-        acc[r].w = fmaf(pv, vv.w, acc[r].w);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          acc[r][c].x = fmaf(pv, vv[c].x, acc[r][c].x);
+          acc[r][c].y = fmaf(pv, vv[c].y, acc[r][c].y);
+          acc[r][c].z = fmaf(pv, vv[c].z, acc[r][c].z);
+          acc[r][c].w = fmaf(pv, vv[c].w, acc[r][c].w);
+        }
       }
     }
     __syncthreads();  // the next load refills this buffer
@@ -339,9 +463,11 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   for (int r = 0; r < R; ++r) {
     if (r >= nr) continue;
     const long long slot = orow[r] * nparts + pi;
-    if (dl) *(float4*)(part + slot * D + 4 * lane) = acc[r];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (dl[c]) *(float4*)(part + slot * Dp + 4 * lane + 128 * c) = acc[r][c];
     if (lane == 0) {
-      float* ml = part + nrows * nparts * D + slot * 2;
+      float* ml = part + nrows * nparts * Dp + slot * 2;
       ml[0] = m[r];
       ml[1] = l[r];
     }
@@ -349,11 +475,13 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
 }
 
 // One warp per query row: the row's partials merged in partial order.
+template <int NC>
 __global__ void __launch_bounds__(128)
 merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_len,
              const int* __restrict__ q_pos0, float* __restrict__ o, int B, int Hq, int Sq,
              int S, int D, int causal, int nparts) {
   const int lane = threadIdx.x & 31;
+  const int Dp = pad16(D);
   const long long nrows = (long long)B * Hq * Sq;
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   if (row >= nrows) return;
@@ -361,46 +489,55 @@ merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_len,
   const int len = min(kv_len[b], S);
   const int k_end = last_key(len, q_pos0[b], Sq, causal);
   const int np = k_end > 0 ? (k_end + KPS - 1) / KPS * DEC_WARPS : 0;
-  const float* ml = part + nrows * nparts * D + row * nparts * 2;
-  const float* pa = part + row * nparts * D + 4 * lane;
-  const bool dl = 4 * lane < D;
+  const float* ml = part + nrows * nparts * Dp + row * nparts * 2;
+  const float* pa = part + row * nparts * Dp + 4 * lane;
+  bool dl[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) dl[c] = 4 * lane + 128 * c < Dp;
 
   float M = NEG_INF;
   for (int p = 0; p < np; ++p) M = fmaxf(M, ml[2 * p]);
   float L = 0.f;
-  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 A[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) A[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int p = 0; p < np; ++p) {
     const float e = expf(ml[2 * p] - M);
     L = __fadd_rn(L, __fmul_rn(ml[2 * p + 1], e));
-    if (dl) {
-      const float4 a = load4(pa + (size_t)p * D);
-      A = make_float4(__fadd_rn(A.x, __fmul_rn(a.x, e)), __fadd_rn(A.y, __fmul_rn(a.y, e)),
-                      __fadd_rn(A.z, __fmul_rn(a.z, e)), __fadd_rn(A.w, __fmul_rn(a.w, e)));
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (!dl[c]) continue;
+      const float4 a = load4(pa + (size_t)p * Dp + 128 * c);
+      A[c] = make_float4(__fadd_rn(A[c].x, __fmul_rn(a.x, e)), __fadd_rn(A[c].y, __fmul_rn(a.y, e)),
+                         __fadd_rn(A[c].z, __fmul_rn(a.z, e)), __fadd_rn(A[c].w, __fmul_rn(a.w, e)));
     }
   }
-  if (dl) {
-    const float den = fmaxf(L, 1e-30f);
-    *(float4*)(o + row * D + 4 * lane) =
-        make_float4(__fdiv_rn(A.x, den), __fdiv_rn(A.y, den), __fdiv_rn(A.z, den),
-                    __fdiv_rn(A.w, den));
+  const float den = fmaxf(L, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (!dl[c]) continue;
+    store4(o + row * D, 4 * lane + 128 * c, D, Dp == D,
+           make_float4(__fdiv_rn(A[c].x, den), __fdiv_rn(A[c].y, den), __fdiv_rn(A[c].z, den),
+                       __fdiv_rn(A[c].w, den)));
   }
 }
 
 // --------------------------------------------------------------- prefill
 
-template <bool PACKED>
-constexpr size_t tile_smem(int D) {
-  // Qs [PBQ][D+4], Ps [PBQ][PS_STRIDE], then
-  // f32:    K [2][PBK][D+4], V [2][PBK][D]
-  // PACKED: K, V f32 [PBK][D+4] / [PBK][D] (widened), int8 K, V [2][PBK][D],
+template <bool PACKED, int DC>
+constexpr size_t tile_smem(int Dp) {
+  using T = Dims<DC>;
+  // Qs [PBQ][Dp+4], Ps [PBQ][PS_STRIDE], then
+  // f32:    K [2][PBK][Dp+4], V [2][PBK][Dp]
+  // PACKED: K, V f32 [PBK][Dp+4] / [PBK][Dp] (widened), int8 K, V [2][PBK][Dp],
   //         scales [2][PBK] each
-  return 4 * ((size_t)PBQ * (D + 4) + (size_t)PBQ * PS_STRIDE) +
-         (PACKED ? 4 * ((size_t)PBK * (D + 4) + (size_t)PBK * D) + 2 * 2 * (size_t)PBK * D +
-                       4 * 2 * 2 * PBK
-                 : 4 * (2 * (size_t)PBK * (D + 4) + 2 * (size_t)PBK * D));
+  return 4 * ((size_t)PBQ * (Dp + 4) + (size_t)PBQ * T::PS_STRIDE) +
+         (PACKED ? 4 * ((size_t)T::PBK * (Dp + 4) + (size_t)T::PBK * Dp) +
+                       2 * 2 * (size_t)T::PBK * Dp + 4 * 2 * 2 * T::PBK
+                 : 4 * (2 * (size_t)T::PBK * (Dp + 4) + 2 * (size_t)T::PBK * Dp));
 }
 
-template <bool PACKED, bool PAGED>
+template <bool PACKED, bool PAGED, int DC>
 __global__ void __launch_bounds__(P_THREADS)
 tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
             const float* __restrict__ k_scale, const void* __restrict__ v_in,
@@ -409,8 +546,14 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
             float* __restrict__ o, int Hq, int Hkv, int Sq, int S, int D, int bs, int causal,
             int window, float scale) {
   using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  constexpr int PBK = Dims<DC>::PBK;
+  constexpr int KJ = Dims<DC>::KJ;
+  constexpr int OC = Dims<DC>::OC;
+  constexpr int PS_STRIDE = Dims<DC>::PS_STRIDE;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int QS = D + 4;  // Q and K row strides (floats)
+  const int Dp = pad16(D);
+  const bool vec = Dp == D;
+  const int QS = Dp + 4;  // Q and K row strides (floats)
   float* Qs = (float*)smem;
   float* Ps = Qs + PBQ * QS;
   float* Kf = Ps + PBQ * PS_STRIDE;  // f32 K tiles (PACKED: the widened one)
@@ -421,12 +564,12 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   float* Ksc = nullptr;
   float* Vsc = nullptr;
   if (PACKED) {
-    int8_t* k8 = (int8_t*)(Vf + PBK * D);
+    int8_t* k8 = (int8_t*)(Vf + PBK * Dp);
     Kst = (KV*)k8;
-    Vst = (KV*)(k8 + 2 * PBK * D);
-    Ksc = (float*)(k8 + 4 * PBK * D);
+    Vst = (KV*)(k8 + 2 * PBK * Dp);
+    Ksc = (float*)(k8 + 4 * PBK * Dp);
     Vsc = Ksc + 2 * PBK;
-    kst_stride = D;
+    kst_stride = Dp;
   } else {
     Kst = (KV*)Kf;
     Vst = (KV*)Vf;
@@ -435,7 +578,7 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;  // rows 4ty .. 4ty+3
-  const int tx = tid & 15;  // keys tx + 16j; output columns 4tx.., 64+4tx..
+  const int tx = tid & 15;  // keys tx + 16j; output columns 4tx + 64c
   const int q0 = blockIdx.x * PBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -449,48 +592,50 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   const float* qb = q + ((size_t)b * Hq + h) * (size_t)Sq * D;
   float* ob = o + ((size_t)b * Hq + h) * (size_t)Sq * D;
 
+  if (!vec) {
+    zero_pads(Kst, 2 * PBK, kst_stride, D, tid, P_THREADS);
+    zero_pads(Vst, 2 * PBK, Dp, D, tid, P_THREADS);
+  }
   // keys past the tile's last query position are masked for every row of
   // the tile: stop there instead of streaming them
   const int k_end = last_key(len, p0, min(q0 + PBQ, Sq), causal);
   const int ntile = k_end > 0 ? (k_end + PBK - 1) / PBK : 0;
   if (ntile > 0)
-    load_tile<KV, PACKED, PAGED>(Kst, Vst, kst_stride, D, Ksc, Vsc, k, v, k_scale, v_scale, 0,
-                                 PBK, k_end, base, tb, Hkv, hk, bs, D, tid, P_THREADS);
+    load_tile<KV, PACKED, PAGED>(Kst, Vst, kst_stride, Dp, Ksc, Vsc, k, v, k_scale, v_scale, 0,
+                                 PBK, k_end, base, tb, Hkv, hk, bs, D, vec, tid, P_THREADS);
   cp_commit();
 
-  const int d4 = D / 4;
+  const int d4 = Dp / 4;
   for (int i = tid; i < PBQ * d4; i += P_THREADS) {
     const int r = i / d4;
     const int c = (i - r * d4) * 4;
     float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < Sq) {
-      t = load4(qb + (size_t)(q0 + r) * D + c);
-      t = make_float4(__fmul_rn(t.x, scale), __fmul_rn(t.y, scale), __fmul_rn(t.z, scale),
-                      __fmul_rn(t.w, scale));
+      const float* qr = qb + (size_t)(q0 + r) * D;
+      t = scale4(vec ? load4(qr + c) : load4_any(qr, c, D), scale);
     }
     *(float4*)(Qs + r * QS + c) = t;
   }
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][4 * OC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * OC; ++c) acc[i][c] = 0.f;
   }
-  const int c0 = 4 * tx;       // output columns c0.. and c1..
-  const int c1 = 64 + 4 * tx;
-  const bool c0ok = c0 < D;
-  const bool c1ok = c1 < D;
+  bool cok[OC];  // output columns 4tx + 64c exist (pads included)
+#pragma unroll
+  for (int c = 0; c < OC; ++c) cok[c] = 4 * tx + 64 * c < Dp;
 
   for (int t = 0; t < ntile; ++t) {
     const int nb = (t + 1) & 1;
     if (t + 1 < ntile)
       load_tile<KV, PACKED, PAGED>(
-          Kst + nb * PBK * kst_stride, Vst + nb * PBK * D, kst_stride, D,
+          Kst + nb * PBK * kst_stride, Vst + nb * PBK * Dp, kst_stride, Dp,
           PACKED ? Ksc + nb * PBK : nullptr, PACKED ? Vsc + nb * PBK : nullptr, k, v,
-          k_scale, v_scale, (t + 1) * PBK, PBK, k_end, base, tb, Hkv, hk, bs, D, tid,
+          k_scale, v_scale, (t + 1) * PBK, PBK, k_end, base, tb, Hkv, hk, bs, D, vec, tid,
           P_THREADS);
     cp_commit();
     cp_wait<1>();
@@ -500,38 +645,38 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     const float* Kt;
     const float* Vt;
     if (PACKED) {  // widen the int8 mantissas into the f32 tile
-      const int8_t* k8 = (const int8_t*)Kst + cb * PBK * D;
-      const int8_t* v8 = (const int8_t*)Vst + cb * PBK * D;
+      const int8_t* k8 = (const int8_t*)Kst + cb * PBK * Dp;
+      const int8_t* v8 = (const int8_t*)Vst + cb * PBK * Dp;
       for (int i = tid; i < PBK * d4; i += P_THREADS) {
         const int j = i / d4;
         const int c = (i - j * d4) * 4;
-        *(float4*)(Kf + j * QS + c) = load4(k8 + j * D + c);
-        *(float4*)(Vf + j * D + c) = load4(v8 + j * D + c);
+        *(float4*)(Kf + j * QS + c) = load4(k8 + j * Dp + c);
+        *(float4*)(Vf + j * Dp + c) = load4(v8 + j * Dp + c);
       }
       __syncthreads();
       Kt = Kf;
       Vt = Vf;
     } else {
       Kt = Kf + cb * PBK * QS;
-      Vt = Vf + cb * PBK * D;
+      Vt = Vf + cb * PBK * Dp;
     }
 
-    // ---- logits: a 4 x 4 block, an FMA chain over d ----
-    float s[4][4];
+    // ---- logits: a 4 x KJ block, an FMA chain over d ----
+    float s[4][KJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], kk[4];
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < Dp; d += 4) {
+      float4 a[4], kk[KJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = load4(Qs + (4 * ty + i) * QS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = load4(Kt + (tx + 16 * j) * QS + d);
+      for (int j = 0; j < KJ; ++j) kk[j] = load4(Kt + (tx + 16 * j) * QS + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KJ; ++j) {
           float x = fmaf(a[i].x, kk[j].x, s[i][j]);
           x = fmaf(a[i].y, kk[j].y, x);
           x = fmaf(a[i].z, kk[j].z, x);
@@ -544,10 +689,10 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     for (int i = 0; i < 4; ++i) {
       const int row = 4 * ty + i;
       const int qpos = p0 + q0 + row;
-      bool ok[4];
+      bool ok[KJ];
       float mt = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const int kj = tx + 16 * j;
         float x = s[i][j];
         if (PACKED) x = __fmul_rn(x, Ksc[cb * PBK + kj]);  // K scale after the dot
@@ -561,7 +706,7 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
       const float alpha = expf(m[i] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const int kj = tx + 16 * j;
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         ps = __fadd_rn(ps, p);
@@ -573,31 +718,32 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
       l[i] = __fadd_rn(__fmul_rn(l[i], alpha), ps);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
+      for (int c = 0; c < 4 * OC; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
     }
     __syncwarp();  // P rows 4ty.. are written and read by one half-warp
 
-    // ---- O += P V: a 4 x 8 block, an FMA chain over the tile's keys ----
+    // ---- O += P V: a 4 x 4*OC block, an FMA chain over the tile's keys ----
     for (int j = 0; j < PBK; j += 4) {
       float4 pr[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = load4(Ps + (4 * ty + i) * PS_STRIDE + j);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vr = Vt + (j + u) * D;
-        const float4 v0 = c0ok ? load4(vr + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 v1 = c1ok ? load4(vr + c1) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float* vr = Vt + (j + u) * Dp;
+        float4 vv[OC];
+#pragma unroll
+        for (int c = 0; c < OC; ++c)
+          vv[c] = cok[c] ? load4(vr + 4 * tx + 64 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = u == 0 ? pr[i].x : u == 1 ? pr[i].y : u == 2 ? pr[i].z : pr[i].w;
-          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
-          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
-          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
-          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
-          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
-          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
+#pragma unroll
+          for (int c = 0; c < OC; ++c) {
+            acc[i][4 * c] = fmaf(p, vv[c].x, acc[i][4 * c]);
+            acc[i][4 * c + 1] = fmaf(p, vv[c].y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(p, vv[c].z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(p, vv[c].w, acc[i][4 * c + 3]);
+          }
         }
       }
     }
@@ -610,77 +756,96 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     float* orow = ob + (size_t)r * D;
-    if (c0ok)
-      *(float4*)(orow + c0) = make_float4(__fdiv_rn(acc[i][0], den), __fdiv_rn(acc[i][1], den),
-                                          __fdiv_rn(acc[i][2], den), __fdiv_rn(acc[i][3], den));
-    if (c1ok)
-      *(float4*)(orow + c1) = make_float4(__fdiv_rn(acc[i][4], den), __fdiv_rn(acc[i][5], den),
-                                          __fdiv_rn(acc[i][6], den), __fdiv_rn(acc[i][7], den));
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+      if (cok[c])
+        store4(orow, 4 * tx + 64 * c, D, vec,
+               make_float4(__fdiv_rn(acc[i][4 * c], den), __fdiv_rn(acc[i][4 * c + 1], den),
+                           __fdiv_rn(acc[i][4 * c + 2], den), __fdiv_rn(acc[i][4 * c + 3], den)));
   }
 }
 
 // --------------------------------------------------------------- launch
+
+// above 48 KB of shared memory only after opting in: once per kernel, for
+// the class's largest D
+template <bool PACKED, bool PAGED, int DC>
+cudaError_t opt_in() {
+  static const cudaError_t err = [] {
+    const int split = (int)split_smem<PACKED, DC>(DC);
+    cudaError_t e = cudaFuncSetAttribute(split_kernel<PACKED, PAGED, 1, DC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, split);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(split_kernel<PACKED, PAGED, RMAX, DC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, split);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(tile_kernel<PACKED, PAGED, DC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)tile_smem<PACKED, DC>(DC));
+    return e;
+  }();
+  return err;
+}
+
+template <bool PACKED, bool PAGED, int DC>
+int launch_dc(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+              const void* table, const void* kv_len, const void* q_pos0, void* o, void* part,
+              long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int bs,
+              int causal, int window, float scale, cudaStream_t st) {
+  const cudaError_t attr = opt_in<PACKED, PAGED, DC>();
+  if (attr != cudaSuccess) return (int)attr;
+  const int Dp = pad16(D);
+  if (Sq <= DEC_MAX_SQ) {
+    const int nsplit = (S + KPS - 1) / KPS;
+    const int nparts = nsplit * DEC_WARPS;
+    const long long need = (long long)B * Hq * Sq * nparts * (Dp + 2);
+    if (part == nullptr || part_floats < need) return (int)cudaErrorInvalidValue;
+    const int rows = Hq / Hkv * Sq;  // query rows per KV head
+    const int r = rows == 1 ? 1 : RMAX;
+    const dim3 grid(nsplit, Hkv * ((rows + r - 1) / r), B);
+    (r == 1 ? split_kernel<PACKED, PAGED, 1, DC> : split_kernel<PACKED, PAGED, RMAX, DC>)
+        <<<grid, DEC_THREADS, split_smem<PACKED, DC>(Dp), st>>>(
+            (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
+            (const int*)kv_len, (const int*)q_pos0, (float*)part, Hq, Hkv, Sq, S, D, bs,
+            causal, window, scale, nparts);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long nrows = (long long)B * Hq * Sq;
+    merge_kernel<Dims<DC>::NC><<<(unsigned)((nrows + 3) / 4), 128, 0, st>>>(
+        (const float*)part, (const int*)kv_len, (const int*)q_pos0, (float*)o, B, Hq, Sq, S,
+        D, causal, nparts);
+  } else {
+    tile_kernel<PACKED, PAGED, DC>
+        <<<dim3((Sq + PBQ - 1) / PBQ, Hq, B), P_THREADS, tile_smem<PACKED, DC>(Dp), st>>>(
+            (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
+            (const int*)kv_len, (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, S, D, bs, causal,
+            window, scale);
+  }
+  return (int)cudaGetLastError();
+}
 
 template <bool PACKED, bool PAGED>
 int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
            const void* table, const void* kv_len, const void* q_pos0, void* o, void* part,
            long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int bs,
            int causal, int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || S <= 0 || D <= 0 || D > DMAX || D % 16 || Hkv <= 0 ||
-      Hq % Hkv != 0 || (PAGED && bs <= 0))
+  if (B <= 0 || Sq <= 0 || S <= 0 || D <= 0 || D > DMAX || Hkv <= 0 || Hq % Hkv != 0 ||
+      (PAGED && bs <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  using KV = typename std::conditional<PACKED, int8_t, float>::type;
-  // above 48 KB of shared memory only after opting in: once per kernel,
-  // for D = DMAX
-  const int split_max = (int)(4 * DEC_TILE * DMAX * sizeof(KV) + 16 * DEC_TILE);
-  static const cudaError_t split_attr =
-      cudaFuncSetAttribute(split_kernel<PACKED, PAGED, 1>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, split_max);
-  static const cudaError_t split_attr_r =
-      cudaFuncSetAttribute(split_kernel<PACKED, PAGED, RMAX>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, split_max);
-  static const cudaError_t tile_attr =
-      cudaFuncSetAttribute(tile_kernel<PACKED, PAGED>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)tile_smem<PACKED>(DMAX));
-  if (split_attr != cudaSuccess) return (int)split_attr;
-  if (split_attr_r != cudaSuccess) return (int)split_attr_r;
-  if (tile_attr != cudaSuccess) return (int)tile_attr;
-  cudaError_t err;
-  if (Sq <= DEC_MAX_SQ) {
-    const int nsplit = (S + KPS - 1) / KPS;
-    const int nparts = nsplit * DEC_WARPS;
-    const long long need = (long long)B * Hq * Sq * nparts * (D + 2);
-    if (part == nullptr || part_floats < need) return (int)cudaErrorInvalidValue;
-    const int rows = Hq / Hkv * Sq;  // query rows per KV head
-    const int r = rows == 1 ? 1 : RMAX;
-    const size_t smem = 4 * (size_t)DEC_TILE * D * sizeof(KV) + (PACKED ? 16 * DEC_TILE : 0);
-    const dim3 grid(nsplit, Hkv * ((rows + r - 1) / r), B);
-    (r == 1 ? split_kernel<PACKED, PAGED, 1> : split_kernel<PACKED, PAGED, RMAX>)
-        <<<grid, DEC_THREADS, smem, st>>>(
-            (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
-            (const int*)kv_len, (const int*)q_pos0, (float*)part, Hq, Hkv, Sq, S, D, bs,
-            causal, window, scale, nparts);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long nrows = (long long)B * Hq * Sq;
-    merge_kernel<<<(unsigned)((nrows + 3) / 4), 128, 0, st>>>(
-        (const float*)part, (const int*)kv_len, (const int*)q_pos0, (float*)o, B, Hq, Sq, S,
-        D, causal, nparts);
-  } else {
-    tile_kernel<PACKED, PAGED><<<dim3((Sq + PBQ - 1) / PBQ, Hq, B), P_THREADS, tile_smem<PACKED>(D), st>>>(
-        (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
-        (const int*)kv_len, (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, S, D, bs, causal,
-        window, scale);
-  }
-  return (int)cudaGetLastError();
+  return D <= 128 ? launch_dc<PACKED, PAGED, 128>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
+                                                  part, part_floats, B, Hq, Hkv, Sq, S, D, bs,
+                                                  causal, window, scale, st)
+                  : launch_dc<PACKED, PAGED, 256>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
+                                                  part, part_floats, B, Hq, Hkv, Sq, S, D, bs,
+                                                  causal, window, scale, st);
 }
 
 }  // namespace
 
 // part: f32 scratch for the decode variant's partials (Sq <= 8), at least
-// B*Hq*Sq * 4*ceil(S/128) * (D+2) floats; unused (may be null) otherwise.
+// B*Hq*Sq * 4*ceil(S/128) * (pad16(D)+2) floats; unused (may be null)
+// otherwise.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* kv_len, const void* q_pos0, void* o,
                                       void* part, long long part_floats, int B, int Hq,

@@ -1,7 +1,8 @@
 // The DSBP input path for one 64-wide group of one activation row, run by
-// one warp: FP8 round-to-nearest-even saturating quantize, group max
-// exponent, MPU bitwidth prediction (the paper's Eq. 1) and FIAU alignment
-// to (b+1)-bit signed integers with the group scale 2^(e_max-(b-1)).
+// 16 lanes of a warp (a warp runs two groups): FP8 round-to-nearest-even
+// saturating quantize, group max exponent, MPU bitwidth prediction (the
+// paper's Eq. 1) and FIAU alignment to (b+1)-bit signed integers with the
+// group scale 2^(e_max-(b-1)).
 //
 // Replaces the tile math of the TPU kernels:
 // src/repro/kernels/fp8_quant_align.py::quant_align_tile (:53-112).
@@ -11,10 +12,18 @@
 // spelled out as an IEEE round-to-nearest intrinsic (__fmul_rn, __fadd_rn,
 // __fdiv_rn), which the compiler never contracts into an FMA.  The plain
 // PyTorch version (repro_torch/kernels/dsbp_fused.py) performs the same
-// operations in the same order, so the two agree bit for bit.  The MPU
-// sums run as: lane-local pair (element l + element l+32), then an xor
-// butterfly over offsets 16, 8, 4, 2, 1 — the plain version reproduces
-// that tree with halving slices.
+// operations in the same order, so the two agree bit for bit.
+//
+// Lane mapping: lane l of the group's 16 holds elements 4l .. 4l+3, so
+// every load and store of a thread is 16 bytes.  The group max is order-
+// free; the two MPU sums are f32 sums that can round (e5m2's shifts reach
+// 29), so they keep one fixed tree: element e + element e+32, then e + 16,
+// e + 8, e + 4 (xor shuffles over 8, 4, 2, 1 lanes, one per element a
+// lane holds), then e + 2 and e + 1 within the lane.  Float addition is
+// commutative, so every lane ends with the same bits, and the plain
+// version reproduces the tree with halving slices (dsbp_fused._tree_sum).
+// B1's input path (dsbp_fused.cu) and B3 (fp8_quant_align.cu) both run
+// this function, so they align the same values to the same bits.
 #pragma once
 
 #include <cstdint>
@@ -71,48 +80,58 @@ __device__ __forceinline__ float align_one(float q, float m_int, int shift,
   return fminf(fmaxf(rintf(mag), -(lim - 1.f)), lim - 1.f);
 }
 
-// Lane `l` holds elements l and l+32 of the group (x0, x1), already
-// multiplied by the tensor scale.  Every lane returns its two aligned
-// mantissas; all lanes return the group's scale and bitwidth.
-__device__ __forceinline__ void quant_align_group(float x0, float x1,
-                                                  const QACfg& c, int& a0,
-                                                  int& a1, float& scale,
-                                                  int& bits) {
-  float q0, q1, m0, m1;
-  int e0, e1;
-  bool nz0, nz1;
-  fp8_fields(x0, c, q0, e0, m0, nz0);
-  fp8_fields(x1, c, q1, e1, m1, nz1);
-
-  // group max exponent over the non-zero elements
-  int emax = max(nz0 ? e0 : -(1 << 30), nz1 ? e1 : -(1 << 30));
+// Lanes 16h .. 16h+15 of the warp run one group (h = 0, 1; every lane of
+// the warp takes part, a lane without a group with any finite x).  Lane l
+// of the 16 holds elements 4l .. 4l+3 of the group in x, already multiplied
+// by the tensor scale, and gets their aligned mantissas in a; every lane
+// of the 16 gets the group's scale and bitwidth.
+__device__ __forceinline__ void quant_align_group(const float4 x, const QACfg& c, int4& a,
+                                                  float& scale, int& bits) {
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+  float q[4], mi[4];
+  int e[4];
+  bool nz[4];
+  int emax = -(1 << 30);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int i = 0; i < 4; ++i) {
+    fp8_fields(xs[i], c, q[i], e[i], mi[i], nz[i]);
+    if (nz[i]) emax = max(emax, e[i]);
+  }
+  // group max exponent over the non-zero elements (0 where there is none)
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
     emax = max(emax, __shfl_xor_sync(FULL_MASK, emax, off));
-  if (!__any_sync(FULL_MASK, nz0 || nz1)) emax = 0;
-  const int sh0 = nz0 ? min(max(emax - e0, 0), MAX_SHIFT) : MAX_SHIFT;
-  const int sh1 = nz1 ? min(max(emax - e1, 0), MAX_SHIFT) : MAX_SHIFT;
+  if (emax == -(1 << 30)) emax = 0;
+  int sh[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sh[i] = nz[i] ? min(max(emax - e[i], 0), MAX_SHIFT) : MAX_SHIFT;
 
   int b;
   if (c.fixed) {
     b = c.b_fix;
   } else {
     // MPU, Eq. (1): ratio = sum(shift*2^-shift) / sum(2^-shift)
-    const float w0 = nz0 ? exp2i(-sh0) : 0.f;
-    const float w1 = nz1 ? exp2i(-sh1) : 0.f;
-    float num = __fadd_rn(__fmul_rn((float)sh0, w0), __fmul_rn((float)sh1, w1));
-    float den = __fadd_rn(w0, w1);
+    float num[4], den[4];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      num = __fadd_rn(num, __shfl_xor_sync(FULL_MASK, num, off));
-      den = __fadd_rn(den, __shfl_xor_sync(FULL_MASK, den, off));
+    for (int i = 0; i < 4; ++i) {
+      den[i] = nz[i] ? exp2i(-sh[i]) : 0.f;
+      num[i] = __fmul_rn((float)sh[i], den[i]);
     }
-    const float ratio = den > 0.f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.f;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        num[i] = __fadd_rn(num[i], __shfl_xor_sync(FULL_MASK, num[i], off));
+        den[i] = __fadd_rn(den[i], __shfl_xor_sync(FULL_MASK, den[i], off));
+      }
+    const float nsum = __fadd_rn(__fadd_rn(num[0], num[2]), __fadd_rn(num[1], num[3]));
+    const float dsum = __fadd_rn(__fadd_rn(den[0], den[2]), __fadd_rn(den[1], den[3]));
+    const float ratio = dsum > 0.f ? __fdiv_rn(nsum, fmaxf(dsum, 1e-30f)) : 0.f;
     const float raw = __fadd_rn(__fmul_rn(c.k, ratio), (float)c.b_fix);
     b = (int)fminf(fmaxf(ceilf(raw), 1.f), 11.f);
   }
-  a0 = (int)align_one(q0, m0, sh0, b, c);
-  a1 = (int)align_one(q1, m1, sh1, b, c);
+  a = make_int4((int)align_one(q[0], mi[0], sh[0], b, c), (int)align_one(q[1], mi[1], sh[1], b, c),
+                (int)align_one(q[2], mi[2], sh[2], b, c), (int)align_one(q[3], mi[3], sh[3], b, c));
   scale = exp2i(emax - (b - 1));
   bits = b;
 }

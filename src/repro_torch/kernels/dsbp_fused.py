@@ -5,7 +5,8 @@
 against a packed weight in kernel layout.  On a CUDA tensor it launches
 ``csrc/dsbp_fused.cu`` (or raises): the input path once per (row, group)
 into a scratch this wrapper allocates, then the integer tensor-core GEMM
-(N padded to a multiple of 16 here where it is not); on a CPU tensor it
+(any N: N % 16 != 0 takes a slower instantiation, never a padded copy of
+the weight); on a CPU tensor it
 runs :func:`dsbp_fused_plain`, the same stages in PyTorch in the same
 order, so the kernel and the plain version agree bit for bit on the card.
 
@@ -40,8 +41,8 @@ def _floor_log2(ax: torch.Tensor) -> torch.Tensor:
 
 
 def _tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (64) in the kernel's order: lane pairs
-    (element l + element l+32), then the xor butterfly 16, 8, 4, 2, 1."""
+    """Sum over the last axis (64) in the kernel's order (quant_align.cuh):
+    element e + element e+32, then e + 16, e + 8, e + 4, e + 2, e + 1."""
     while v.shape[-1] > 1:
         h = v.shape[-1] // 2
         v = v[..., :h] + v[..., h:]
@@ -151,29 +152,24 @@ def dsbp_fused(x: torch.Tensor, ts: torch.Tensor, ka: torch.Tensor,
     m, kp = x.shape
     n = ka.shape[1]
     f = get_format(cfg.fmt)
-    x, ts = x.contiguous(), ts.contiguous()
+    x, ts = build.aligned(x), ts.contiguous()  # the input path loads x 16 bytes at a time
     tw = tw.reshape(-1).contiguous()
-    pad = -n % 16
-    if pad:  # the kernel streams 16-byte weight chunks: zero columns, scale 1
-        ka = torch.nn.functional.pad(ka, (0, pad))
-        kscale = torch.nn.functional.pad(kscale, (0, pad))
-        tw = torch.nn.functional.pad(tw, (0, pad), value=1.0)
     ka, kscale = build.aligned(ka), build.aligned(kscale)
-    y = torch.empty((m, n + pad), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     # the input path's output, once per (row, group): a halves and sx
     scratch = torch.empty(m * (kp // GROUP) * (2 * GROUP + 4), dtype=torch.uint8,
                           device=x.device)
     launch = build.load("dsbp_fused")
     err = launch(x.data_ptr(), ts.data_ptr(), ka.data_ptr(), kscale.data_ptr(),
                  tw.data_ptr(), y.data_ptr(), scratch.data_ptr(), scratch.numel(),
-                 m, n + pad, kp, f.mbits, f.emin, f.emax,
+                 m, n, kp, f.mbits, f.emin, f.emax,
                  f.max_value, int(cfg.mode == "fixed"), float(cfg.k),
                  int(cfg.b_fix), int(cfg.mantissa_rounding == "trunc"),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"dsbp_fused kernel launch failed: CUDA error {err}")
     dsbp_fused.launches += 1
-    return y[:, :n].contiguous() if pad else y
+    return y
 
 
 dsbp_fused.launches = 0

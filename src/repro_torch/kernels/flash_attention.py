@@ -31,7 +31,9 @@ then the dense plain version.
 On a CUDA tensor each launches ``csrc/flash_attention.cu`` (or raises): a
 split-KV decode variant for Sq <= DECODE_MAX_SQ, whose per-split partials
 live in a scratch the wrapper allocates, and a register-tiled variant
-above; d_head must be a multiple of 16, at most 128.  On a CPU tensor it
+above, each built for d_head <= 128 and for d_head <= 256 (any d_head up to
+MAX_D_HEAD, every one the reference's configs use; one not a multiple of 16
+takes a slower load path of the same instantiation).  On a CPU tensor it
 runs its plain version.  Replaces
 ``src/repro/kernels/flash_attention.py::flash_attention_kernel_call`` (:70)
 ``packed_flash_attention_kernel_call`` (:166),
@@ -53,6 +55,9 @@ NEG_INF = -1e30
 DECODE_MAX_SQ = 8
 KEYS_PER_SPLIT = 128
 PARTS_PER_SPLIT = 4
+# the largest head dim csrc/flash_attention.cu is built for (gemma3-12b's
+# and recurrentgemma-2b's 256)
+MAX_D_HEAD = 256
 
 __all__ = ["flash_attention", "flash_attention_plain", "packed_flash_attention",
            "packed_flash_attention_plain", "paged_flash_attention",
@@ -127,8 +132,8 @@ def _check(q, k, v, kv_len, q_pos0):
 
 def _kernel_dims(name: str, q):
     d = q.shape[3]
-    if d > 128 or d % 16:
-        raise ValueError(f"{name} kernel takes d_head <= 128 and a multiple of 16, got {d}")
+    if d > MAX_D_HEAD:
+        raise ValueError(f"{name} kernel takes d_head <= {MAX_D_HEAD}, got {d}")
     if q.dtype != torch.float32:
         raise ValueError(f"{name} kernel takes a float32 q")
 
@@ -139,7 +144,8 @@ def _scratch(q, s: int):
     b, hq, sq, d = q.shape
     if sq > DECODE_MAX_SQ:
         return None, 0
-    n = b * hq * sq * PARTS_PER_SPLIT * -(-s // KEYS_PER_SPLIT) * (d + 2)
+    dp = -(-d // 16) * 16  # the kernel's row length: d rounded up to 16 columns
+    n = b * hq * sq * PARTS_PER_SPLIT * -(-s // KEYS_PER_SPLIT) * (dp + 2)
     return torch.empty(n, dtype=torch.float32, device=q.device), n
 
 

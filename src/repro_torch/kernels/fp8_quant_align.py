@@ -41,7 +41,7 @@ def fp8_quant_align(x: torch.Tensor, cfg: DSBPConfig):
             return fp8_quant_align_plain(x, cfg)
     m, k = x.shape
     f = get_format(cfg.fmt)
-    x = x.contiguous()
+    x = build.aligned(x)  # 16-byte loads
     a = torch.empty((m, k), dtype=torch.int32, device=x.device)
     scale = torch.empty((m, k // GROUP), dtype=torch.float32, device=x.device)
     bits = torch.empty((m, k // GROUP), dtype=torch.int32, device=x.device)

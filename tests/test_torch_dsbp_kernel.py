@@ -6,8 +6,10 @@ B3 (input path): aligned mantissas, scales and widths bit-equal to JAX
 ragged M.  B4 (grouped integer GEMM): bit-equal to JAX
 ``dsbp_matmul_kernel_call`` on unit single-group scales, where every sum
 is an exact integer, and unfolded at any scales (exact group dots, the
-same group-ordered f32 adds); folded within 3e-5 * max|y| otherwise (the
-f32 sum order, the tolerance of ``tests/test_kernels.py:177``).  The
+same group-ordered f32 adds); JAX's folded form within 3e-5 * max|y|
+otherwise (the f32 sum order, the tolerance of
+``tests/test_kernels.py:177``): the port takes the unfolded order for both
+forms, folded and unfolded bit-equal.  The
 ``dsbp_kernel`` method on a bridged packed container matches JAX's, and
 the dispatch counter ``count_weight_transposes`` sees no per-call weight
 relayout."""
@@ -95,22 +97,34 @@ def test_b4_plain_matches_jax(m, k, n, unit, folded):
 
 @pytest.mark.parametrize("folded", [False, True], ids=["unfolded", "folded"])
 def test_b4_plain_sums_in_kernel_order(folded):
-    """The plain versions add in the kernel's order, so the kernel is held
-    to them bit for bit on the card: unfolded y = y + dot_g * (sx_g *
-    sw_g) by group, folded y = y + (ax*sx)_k (aw*sw)_k by k."""
+    """The plain version adds in the kernel's order, so the kernel is held
+    to it bit for bit on the card: for either form, y = y + dot_g * (sx_g *
+    sw_g) by group, with dot_g the exact 64-deep integer dot (one order for
+    both forms on Hopper)."""
     m, k, n = 4, 256, 32
     ax, sx, aw, sw = map(torch.from_numpy, _b4_operands(m, k, n, seed=9))
     y = DM.dsbp_matmul(ax, sx, aw, sw, folded=folded)
     ref = torch.zeros(m, n)
     for g in range(k // 64):
         a, w = ax[:, 64 * g:64 * (g + 1)].double(), aw[64 * g:64 * (g + 1)].double()
-        s = sx[:, g:g + 1] * sw[g:g + 1]
-        if folded:
-            for i in range(64):
-                ref = ref + (a[:, i:i + 1] * w[i:i + 1]).float() * s
-        else:
-            ref = ref + (a @ w).float() * s
+        ref = ref + (a @ w).float() * (sx[:, g:g + 1] * sw[g:g + 1])
     assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 256, 32), (17, 640, 44), (3, 1024, 96)])
+def test_b4_folded_equals_unfolded(m, k, n):
+    """Every product is exact, so the folded form is the same sum: on
+    Hopper both forms take the one group-order fold, so each gives the bits
+    of JAX's unfolded kernel (an independent implementation of that order),
+    with heavy-tailed pow2 scales too.  The card's kernel is held to the
+    same in tests/test_torch_gpu_kernels.py."""
+    ax, sx, aw, sw = _b4_operands(m, k, n, seed=m + n)
+    sx = sx * np.exp2(np.random.default_rng(m).integers(-20, 20, sx.shape)).astype(np.float32)
+    jy = np.asarray(dsbp_matmul_kernel_call(*map(jnp.asarray, (ax, sx, aw, sw)), bk=64,
+                                            folded=False, interpret=True))
+    args = [torch.from_numpy(t) for t in (ax, sx, aw, sw)]
+    for folded in (True, False):
+        np.testing.assert_array_equal(DM.dsbp_matmul(*args, folded=folded).numpy(), jy)
 
 
 def _pair(k, n, seed, preset="precise"):

@@ -371,3 +371,132 @@ def test_attention_slices_bit_equal(cuda, sq, hkv):
     torch.cuda.synchronize()
     assert torch.equal(heads, full[:, :16])
     assert torch.equal(rows, full[2:4])
+
+
+# ---- B4 and B3 redesigned; the attention kernels at every head dim ----
+
+def _b4_operands(m, k, n, device, seed):
+    rng = np.random.default_rng(seed)
+    ax = rng.integers(-2048, 2048, (m, k)).astype(np.int32)
+    aw = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sx = np.exp2(rng.integers(-8, 8, (m, k // 64))).astype(np.float32)
+    sw = np.exp2(rng.integers(-8, 8, (k // 64, n))).astype(np.float32)
+    return [torch.from_numpy(t).to(device) for t in (ax, sx, aw, sw)]
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 4096), (4, 4096, 11008), (16, 256, 64),     # the decode tile
+    (17, 640, 96), (64, 4096, 4096), (65, 11008, 4096),   # the prefill tile, ragged M
+    (4, 640, 44), (17, 256, 100), (65, 192, 1000),        # N % 16 != 0
+    (4, 11008, 4096), (512, 4096, 11008),                 # llama-7b's shapes
+])
+def test_dsbp_matmul_tiles_bit_equal_plain_both_forms(cuda, m, k, n):
+    """B4 on both tiles (M <= 16 and above, crossing the boundary), at N
+    not a multiple of 16: bit-equal to the plain version in both forms, and
+    the folded form equal to the unfolded one (one order for both)."""
+    ax, sx, aw, sw = _b4_operands(m, k, n, cuda, seed=m + k + n)
+    ref = DM.dsbp_matmul_plain(ax, sx, aw, sw)
+    out = {folded: DM.dsbp_matmul(ax, sx, aw, sw, folded=folded)
+           for folded in (False, True)}
+    torch.cuda.synchronize()
+    for y in out.values():
+        assert y.shape == (m, n)
+        assert torch.equal(y, ref), float((y - ref).abs().max())
+    assert torch.equal(out[True], out[False])
+
+
+@pytest.mark.parametrize("m", [1, 3, 17, 33])
+@pytest.mark.parametrize("kw", [{}, {"fmt": "e5m2"}, {"fmt": "e2m5"}, {"fmt": "e3m4"},
+                                {"mode": "fixed", "k": 0.0, "b_fix": 7},
+                                {"mantissa_rounding": "trunc"},
+                                {"mode": "dsbp", "k": 2.0, "b_fix": 4}])
+def test_fp8_quant_align_ragged_m_every_format_and_mode(cuda, m, kw):
+    """B3 (16 lanes per group, two groups a warp) bit-equal to the plain
+    version at ragged M, where the last warp's second group is missing, in
+    every format and mode."""
+    icfg = _cfg("precise", **kw).input_cfg
+    x = torch.from_numpy(_data((m, 320), seed=m, spread=8)).to(cuda)
+    xs = x * per_tensor_scale(x, icfg.fmt)
+    got = QA.fp8_quant_align(xs, icfg)
+    torch.cuda.synchronize()
+    for g, r in zip(got, QA.fp8_quant_align_plain(xs, icfg)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("m,k,kw", [(4, 4096, {}), (37, 640, {}), (5, 192, {"fmt": "e5m2"}),
+                                    (16, 256, {"mode": "fixed", "k": 0.0, "b_fix": 7}),
+                                    (9, 256, {"mantissa_rounding": "trunc"})])
+def test_fp8_quant_align_equals_b1_scratch(cuda, m, k, kw):
+    """B3's outputs are the values B1's input-path kernel writes to its
+    scratch: a = 64 * hi + lo and sx = scale / ts, bit for bit (one group
+    function, quant_align.cuh)."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import build
+
+    icfg = _cfg("precise", **kw).input_cfg
+    f = get_format(icfg.fmt)
+    x = torch.from_numpy(_data((m, k), seed=m + k, spread=8)).to(cuda)
+    ts = per_tensor_scale(x, icfg.fmt).reshape(1)
+    a, s, _ = QA.fp8_quant_align(x * ts, icfg)
+    g, n = k // 64, 16
+    ka = torch.zeros(k, n, dtype=torch.int8, device=cuda)
+    kscale = torch.ones(g, n, device=cuda)
+    tw = torch.ones(n, device=cuda)
+    y = torch.empty(m, n, device=cuda)
+    scratch = torch.empty(m * g * 132, dtype=torch.uint8, device=cuda)
+    err = build.load("dsbp_fused")(
+        x.data_ptr(), ts.data_ptr(), ka.data_ptr(), kscale.data_ptr(), tw.data_ptr(),
+        y.data_ptr(), scratch.data_ptr(), scratch.numel(), m, n, k, f.mbits, f.emin, f.emax,
+        f.max_value, int(icfg.mode == "fixed"), float(icfg.k), int(icfg.b_fix),
+        int(icfg.mantissa_rounding == "trunc"), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    halves = scratch[:m * g * 128].view(torch.int8).reshape(m, g, 2, 64).to(torch.int32)
+    assert torch.equal(halves[:, :, 0] * 64 + halves[:, :, 1], a.reshape(m, g, 64))
+    assert torch.equal(scratch[m * g * 128:].view(torch.float32).reshape(m, g), s / ts)
+
+
+@pytest.mark.parametrize("d", [40, 64, 256])
+@pytest.mark.parametrize("hq,hkv,window", [(16, 8, 0),    # gemma3-12b's GQA
+                                           (10, 1, 24)])  # recurrentgemma-2b's MQA, windowed
+@pytest.mark.parametrize("sq", [1, 3, 130])
+def test_attention_every_head_dim(cuda, d, hq, hkv, window, sq):
+    """B2 at d_head 40 (not a multiple of 16: the unaligned load path), 64
+    and 256 (the second head-dim class) within 1e-5 of its plain version;
+    B6 equal to B2 over the gathered view, B5 to B2 over the dequantized
+    cache, B7 to B5 over the gathered packed view, bit for bit; head and
+    row slices of B2 bit-equal to the whole call."""
+    g = torch.Generator().manual_seed(d * 10 + hq + sq)
+    b, bs, mb = len(ATT_LENS), 16, 32
+    nb = b * mb + 1
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    pk = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    pv = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    table = (torch.randperm(nb - 1, generator=g)[:b * mb] + 1).reshape(b, mb)
+    table = table.to(cuda, torch.int32)
+    kv_len = torch.tensor(ATT_LENS, dtype=torch.int32)
+    q0 = torch.clamp(kv_len - sq, min=0)
+    kv_len, q0 = kv_len.to(cuda), q0.to(cuda, torch.int32)
+    kw = {"causal": True, "window": window}
+    k, v = FA.gather_blocks(pk, table), FA.gather_blocks(pv, table)
+
+    o = FA.flash_attention(q, k, v, kv_len, q0, **kw)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0, **kw)
+    o6 = FA.paged_flash_attention(q, pk, pv, table, kv_len, q0, **kw)
+    kq, vq = (quantize_kv(t, KV_PRESETS["kv8"]) for t in (pk, pv))
+    gq = [FA.gather_blocks(t, table) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+    o5 = FA.packed_flash_attention(q, *gq, kv_len, q0, **kw)
+    o7 = FA.paged_packed_flash_attention(q, kq.qm, kq.scale, vq.qm, vq.scale, table, kv_len,
+                                         q0, **kw)
+    o2d = FA.flash_attention(q, gq[0].float() * gq[1], gq[2].float() * gq[3], kv_len, q0, **kw)
+    rep, kh = hq // hkv, max(1, hkv // 2)
+    heads = FA.flash_attention(q[:, :kh * rep], k[:, :kh], v[:, :kh], kv_len, q0, **kw)
+    rows = FA.flash_attention(q[2:4], k[2:4], v[2:4], kv_len[2:4], q0[2:4], **kw)
+    torch.cuda.synchronize()
+    vis = FA.attention_mask(kv_len, q0, sq, mb * bs, causal=True, window=window).any(-1)
+    vis = vis[:, None].expand(-1, hq, -1)  # (B, Hq, Sq): rows with a visible key
+    torch.testing.assert_close(o[vis], ref[vis], rtol=1e-5, atol=1e-5)
+    assert torch.equal(o6, o), float((o6 - o).abs().max())
+    assert torch.equal(o5, o2d), float((o5 - o2d).abs().max())
+    assert torch.equal(o7, o5), float((o7 - o5).abs().max())
+    assert torch.equal(heads, o[:, :kh * rep]) and torch.equal(rows, o[2:4])

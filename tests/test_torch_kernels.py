@@ -159,3 +159,31 @@ def test_attention_plain_matches_decode(hq, hkv):
     to = TAT.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                               torch.from_numpy(pos))
     _close(jo, to)
+
+
+@pytest.mark.parametrize("d", [40, 256])  # not a multiple of 16; gemma3-12b's d_head
+@pytest.mark.parametrize("causal,window,sq", [(True, None, 16), (True, 8, 16), (False, None, 1)])
+def test_attention_plain_matches_pallas_flash_head_dims(d, causal, window, sq):
+    """The head dims the card's kernels now take beyond 128 / multiples of
+    16, against the Pallas kernel at the same tolerance as d_head 32."""
+    q, k, v = _qkv(1, 1, 1, sq, 32, d, seed=d + sq)
+    jo = JFA.flash_attention_kernel_call(jnp.asarray(q[0, 0]), jnp.asarray(k[0, 0]),
+                                         jnp.asarray(v[0, 0]), causal=causal,
+                                         window=window, bq=sq, bkv=16, interpret=True)
+    to = FA.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            torch.tensor([32]), torch.tensor([32 - sq]),
+                            causal=causal, window=window or 0)
+    _close(jo, to[0, 0])
+
+
+@pytest.mark.parametrize("d", [40, 256])
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (10, 1)])  # gemma3-12b's GQA, recurrentgemma-2b's MQA
+def test_attention_plain_matches_blockwise_head_dims(d, hq, hkv):
+    """GQA / MQA at d_head 40 and 256, ragged kv lengths, a query offset."""
+    q, k, v = _qkv(2, hq, hkv, 8, 13, d, seed=d + hq)
+    lens = np.asarray([13, 9], np.int32)
+    jo = JAT.blockwise_attention(*(jnp.asarray(a) for a in (q, k, v)), bq=4, bkv=4,
+                                 q_offset=5, kv_lens=jnp.asarray(lens))
+    to = TAT.blockwise_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 q_offset=5, kv_lens=torch.from_numpy(lens))
+    _close(jo, to)

@@ -165,3 +165,25 @@ def test_count_kv_dequants_packed_zero_oracle_positive():
 
     assert TO.count_kv_dequants(packed, min_size=size) == 0
     assert TO.count_kv_dequants(oracle, min_size=size) >= 1
+
+
+@pytest.mark.parametrize("d", [40, 256])  # not a multiple of 16; gemma3-12b's d_head
+@pytest.mark.parametrize("hq,hkv,window", [(4, 2, 0), (2, 1, 6)])
+def test_packed_attention_plain_matches_jax_kernel_head_dims(d, hq, hkv, window):
+    """B5's plain version at the head dims the card's kernels now take,
+    against JAX's packed kernel (interpret mode) at the d_head 32
+    tolerance, and bit-equal to B2's plain version over dequantize()."""
+    b, sq, s = 2, 4, 16
+    q, k, v = _attn_inputs(b, hq, hkv, sq, s, d, seed=d + hq)
+    jk, jv = (JK.PackedKVBlock(jnp.asarray(t.qm.numpy()), jnp.asarray(t.scale.numpy()),
+                               bits=8, fmt="e5m7") for t in (k, v))
+    jo = np.asarray(JO.packed_flash_attention(jnp.asarray(q), jk, jv, causal=True,
+                                              window=window or None, interpret=True))
+    kv_len = torch.full((b,), s, dtype=torch.int32)
+    q0 = torch.full((b,), s - sq, dtype=torch.int32)
+    q = torch.from_numpy(q)
+    to = FA.packed_flash_attention(q, k.qm, k.scale, v.qm, v.scale, kv_len, q0, causal=True,
+                                   window=window)
+    np.testing.assert_allclose(to.numpy(), jo, rtol=1e-5, atol=1e-5)
+    oracle = FA.flash_attention(q, k.dequantize(), v.dequantize(), kv_len, q0, window=window)
+    assert torch.equal(to, oracle)

@@ -264,6 +264,38 @@ def test_paged_plain_matches_jax_pallas_interpret(packed):
         np.testing.assert_allclose(out[0, 0].numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [40, 256])  # not a multiple of 16; gemma3-12b's d_head
+@pytest.mark.parametrize("packed", [False, True], ids=["B6", "B7"])
+def test_paged_plain_matches_jax_pallas_interpret_head_dims(packed, d):
+    """B6 / B7's plain versions at the head dims the card's kernels now
+    take, against the Pallas kernels at the d_head 16 tolerance, and equal
+    to the dense plain versions over the gathered view."""
+    f, pk, pv, table = _paged_case(d, hq=1, hkv=1, d=d, nb=9, mb=4)
+    tab = table[:1]
+    q = f(1, 1, 4, d)
+    lens, q0 = torch.tensor([15], dtype=torch.int32), torch.tensor([11], dtype=torch.int32)
+    if packed:
+        kq, vq = (TK.quantize_kv(t, TK.KV_PRESETS["kv8"]) for t in (pk, pv))
+        out = FA.paged_packed_flash_attention(q, kq.qm, kq.scale, vq.qm, vq.scale, tab, lens,
+                                              q0, window=5)
+        ref = JFA.paged_packed_flash_attention_kernel_call(
+            jnp.asarray(q[0, 0].numpy()), *(jnp.asarray(t[:, 0].numpy()) for t in
+                                            (kq.qm, kq.scale, vq.qm, vq.scale)),
+            jnp.asarray(tab[0].numpy()), kv_len=15, window=5, q_start=11, bq=4)
+        g = [FA.gather_blocks(t, tab) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+        dense = FA.packed_flash_attention(q, *g, lens, q0, window=5)
+    else:
+        out = FA.paged_flash_attention(q, pk, pv, tab, lens, q0, window=5)
+        ref = JFA.paged_flash_attention_kernel_call(
+            jnp.asarray(q[0, 0].numpy()), jnp.asarray(pk[:, 0].numpy()),
+            jnp.asarray(pv[:, 0].numpy()), jnp.asarray(tab[0].numpy()), kv_len=15, window=5,
+            q_start=11, bq=4)
+        dense = FA.flash_attention(q, FA.gather_blocks(pk, tab), FA.gather_blocks(pv, tab),
+                                   lens, q0, window=5)
+    np.testing.assert_allclose(out[0, 0].numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, dense)
+
+
 def test_paged_wrapper_checks():
     f, pk, pv, table = _paged_case(9)
     q = f(3, 4, 1, 32)
