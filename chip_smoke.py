@@ -12,7 +12,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
      kernel, plain and bound times;
   3. B2, flash attention, against its plain version at prefill (B=4, S=512,
      ragged lengths) and decode (per-row positions), at llama-7b's width
-     (H=32, D=128) and gemma3-12b's (Hq=16, Hkv=8, D=256), with head and
+     (H=32, D=128), gemma3-12b's (Hq=16, Hkv=8, D=256) and gemma3-12b's
+     heads at D=320 and D=512 (no config has them: the kernel of one warp
+     per query row above 256), with head and
      row slices bit-equal to the whole call and torch's
      scaled_dot_product_attention timed on the same work, cold, as a
      yardstick;
@@ -37,7 +39,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
   8. B5, packed-KV flash attention, against B2 over dequantize() (bit-equal:
      one source, pow2 folds) and its plain version (1e-5), at decode (B=4,
      H=32, S=2048, ragged), a 128-query chunk at q_pos0 > 0, and
-     gemma3-12b's decode (Hq=16, Hkv=8, D=256);
+     gemma3-12b's decode (Hq=16, Hkv=8, D=256, 320 and 512);
   9. the 2-layer model of phase 4 served with kv_quant="kv8",
      quant_method="dsbp_kernel": CPU vs card greedy tokens equal, and on the
      card packed-KV serving equal token for token to serving over a float
@@ -56,8 +58,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
      kv_len 1), at decode (B=4, ragged lengths up to 2,048, shuffled
      tables with and without shared blocks), a 16-query chunk at q_pos0 > 0
      with a partial last block, and gemma3-12b's decode (Hq=16, Hkv=8,
-     D=256); times beside the gather + SDPA yardstick, bounds from the
-     distinct key rows read;
+     D=256, 320 and 512); times beside the gather + SDPA yardstick, bounds
+     from the distinct key rows read;
   12. the 2-layer models of phase 4 served paged (a shared-prefix group and
      a chunked prompt), float pool and kv8 pool, on the CPU (plain
      versions) and on the card (kernels): greedy tokens equal under the
@@ -89,8 +91,30 @@ Phases (each raises on failure; nothing falls back to the CPU):
      same at 2 layers on a (2, 2) mesh (data- and tensor-parallel, 4
      ranks) against one device: equal tokens, logits within
      MESH_DATA_REL * max|logit|.
+  16a. the 2-layer models of phase 4 served speculatively (spec_k 3, the
+     draft through dsbp_fused) on the CPU (plain versions) and on the card
+     (kernels): tokens equal under phase 9's near-tie rule, the same
+     accepted-length histogram where no near tie was taken; then on the
+     card with the JAX default draft method dsbp_ref (the plain integer
+     path), its time per round beside dsbp_fused's;
+  16. self-speculative decoding at full width: B1 over draft_view
+     containers bit-equal to plain at the draft's decode shapes and the
+     verify's; the time of deriving every projection's draft view; then
+     phase 5's model, seed and traffic served with spec_k 3 and
+     spec_draft_method dsbp_fused at spec_draft_bits 4 and 7, then kv8
+     with kv_draft_bits 6 (the narrow view's bytes and time), then phase
+     13's paged traffic on a float and a kv8 pool; each held against the
+     same engine with spec_k 0 under phase 9's rule on the logits both
+     serves drew each token from (the verify pass batches its reductions
+     otherwise), with zero extra weight bytes and the engine's containers
+     untouched, B1 launched at M = lanes in every draft step and M = 4 *
+     lanes in every verify, and B2 / B5 / B6 / B7 launched n_layers times
+     in every draft step; accepted_hist, mean_accepted, ms per round and
+     per committed token beside the spec_k 0 serve's and phase 5's, peak
+     memory.
   The ranks of 14-15 time-slice the one card: their step times are not
-  multi-card numbers.
+  multi-card numbers.  16a and 16 run after 13, before 14-15b, for which
+  the models are freed.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 
@@ -103,6 +127,10 @@ ranks get one each and NCCL (the ranks of phase 15b need four).
 
 runs phases 1-3, 6-8 and 11 alone: every kernel against its plain version,
 and its times.
+
+    python3 chip_smoke.py --spec
+
+runs phases 1, 4, 5, 13 (the references of phase 16), 16a and 16 alone.
 
 Kernel times are cold: each timed loop cycles through copies of the
 operands that a call reads (weights, K/V, pools) that together overflow
@@ -160,20 +188,22 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, args_list, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, args_list, iters: int, warmup: int = 2,
+            sleep: int = SLEEP_CYCLES_PER_CALL) -> float:
     """Mean device time of fn(*args) per call, CUDA events around ``iters``
     calls cycling through ``args_list`` (copies that overflow the L2 cache,
     so every call reads its operands from device memory, as serving does).
-    A sleep kernel queued first keeps the card busy while the host enqueues
-    the calls, so a kernel shorter than its wrapper's host work is timed at
-    the card's speed, not at the host's enqueue rate."""
+    A sleep kernel of ``sleep`` SM cycles per call, queued first, keeps the
+    card busy while the host enqueues the calls, so a kernel shorter than
+    its wrapper's host work is timed at the card's speed, not at the host's
+    enqueue rate (a call that enqueues many kernels takes a longer sleep)."""
     import torch
 
     for i in range(warmup):
         fn(*args_list[i % len(args_list)])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(sleep * iters)
     start.record()
     for i in range(iters):
         fn(*args_list[i % len(args_list)])
@@ -248,9 +278,12 @@ def _sdpa(q, k, v, mask):
 
 
 # (name, Hq, Hkv, D) of phase 3's attention shapes at full width: the main
-# path's llama-7b, and gemma3-12b (src/repro/configs/gemma3_12b.py), whose
-# d_head 256 takes the kernels' second head-dim class
-B2_MODELS = (("llama-7b", 32, 32, 128), ("gemma3-12b", 16, 8, 256))
+# path's llama-7b, gemma3-12b (src/repro/configs/gemma3_12b.py), whose
+# d_head 256 takes the kernels' second head-dim class, and gemma3-12b's
+# heads at d_head 320 and 512, which no config has (the one-warp-per-row
+# kernel above 256)
+B2_MODELS = (("llama-7b", 32, 32, 128), ("gemma3-12b", 16, 8, 256), ("d320", 16, 8, 320),
+             ("d512", 16, 8, 512))
 
 
 def phase_b2(torch, FA):
@@ -451,6 +484,18 @@ TRACE_TWO_KERNEL = {"B3": ("::fp8_quant_align_kernel(",),
                     "B5": ("::split_kernel<", "::merge_kernel<", "::tile_kernel<")}
 
 
+def device_events(prof):
+    """The profile's device events (kernels, copies), by name, with device
+    time.  An ATen op on the host carries the time of the kernels it
+    launched as its own ``self_device_time_total`` as well, so summing every
+    entry of ``key_averages()`` counts each kernel PyTorch launches twice
+    (the ctypes-launched kernels, which have no ATen op, once)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+
+
 def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4) -> dict:
     """Device time by kernel (``kinds``: name -> kernel-name patterns) over
     ``steps`` decode steps of the engine's model (greedy tokens chosen on
@@ -476,11 +521,8 @@ def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
     by = {k: [0.0, 0] for k in (*kinds, "other")}
     other = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        if us <= 0:
-            continue
+    for e in device_events(prof):
+        us = e.self_device_time_total
         kind = next((k for k, pats in kinds.items() if any(p in e.key for p in pats)), "other")
         by[kind][0] += us / 1e3
         by[kind][1] += e.count
@@ -566,7 +608,8 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
             raise AssertionError(f"kernel {name} was not launched on the main path")
     print(f"  KV bytes per token (float cache): {sst['kv_bytes_per_token']:.0f}")
     ref = {"generate": out, "serve": served, "calls": calls, "trace": trace,
-           "decode_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"]}
+           "decode_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"],
+           "token_ms": 1e3 * sst["decode_time_s"] / sst["decode_tokens"], "peak": peak}
     return eng.model, launches, sst['kv_bytes_per_token'], ref
 
 
@@ -674,13 +717,17 @@ def phase_b5(torch, FA, KVQ):
     kv8 = KVQ.KV_PRESETS["kv8"]
     out = {}
     # llama-7b's decode and a 128-query chunk; gemma3-12b's decode (d_head
-    # 256, GQA 16 / 8)
+    # 256, GQA 16 / 8) and its heads at d_head 320 and 512
     for model, hq, hkv, d, cases in (
             ("llama-7b", 32, 32, 128,
              (("decode", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),
               ("chunk", 128, [2048, 1128, 328, 192], [1920, 1000, 200, 64]))),
             ("gemma3-12b", 16, 8, 256,
-             (("decode-gemma3-12b", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),))):
+             (("decode-gemma3-12b", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),)),
+            ("d320", 16, 8, 320,
+             (("decode-d320", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),)),
+            ("d512", 16, 8, 512,
+             (("decode-d512", 1, [2048, 1501, 700, 37], [2047, 1500, 699, 36]),))):
         b, s = 4, 2048
         k = KVQ.quantize_kv(torch.randn(b, hkv, s, d, generator=gen, device="cuda"), kv8)
         v = KVQ.quantize_kv(torch.randn(b, hkv, s, d, generator=gen, device="cuda"), kv8)
@@ -976,13 +1023,16 @@ def phase_b6_b7(torch, FA, KVQ):
     lanes = ((209, 14, 0), (215, 14, 12), (1, 0, 0), (1, 21, 0), (330, 21, 0),
              (1, 0, 0), (223, 14, 12), (512, 32, 0))
     serve_table, serve_len = _serve_table(torch, gen, lanes, 32, 129)
-    # gemma3-12b's decode (d_head 256, GQA 16 / 8) over the shared table
+    # gemma3-12b's decode (d_head 256, GQA 16 / 8) over the shared table, and
+    # its heads at d_head 320 and 512
     cases = (("serve", pools(129), serve_table, 1, serve_len, h, d),
              ("decode", big, shared, 1, ragged, h, d),
              ("decode-unshared", big, own, 1, ragged, h, d),
              ("chunk", big, shared, 16,
               torch.tensor([1000, 537, 250, 77], dtype=torch.int32, device="cuda"), h, d),
-             ("decode-gemma3-12b", pools(4 * 128 + 1, 8, 256), shared, 1, ragged, 16, 256))
+             ("decode-gemma3-12b", pools(4 * 128 + 1, 8, 256), shared, 1, ragged, 16, 256),
+             ("decode-d320", pools(4 * 128 + 1, 8, 320), shared, 1, ragged, 16, 320),
+             ("decode-d512", pools(4 * 128 + 1, 8, 512), shared, 1, ragged, 16, 512))
     out = {}
     for name, (pk, pv, kq, vq), table, sq, kv_len, hq, d in cases:
         b, mb = table.shape
@@ -1373,10 +1423,387 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
               f"no sharing): paged == dense token for token")
         print(f"  one paged decode step dispatches 0 KV-sized gathers and 0 KV-sized "
               f"int8->float conversions outside the kernels")
-        results[name] = {"launches": launches, "stats": st, "peak": peak}
+        results[name] = {"launches": launches, "stats": st, "peak": peak, "out": out,
+                         "rows": dict(tape.rows), "reqs": reqs}
         del eng, dense
         torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 16: self-speculative decoding (the MSB-slice draft, verify, rollback)
+# ---------------------------------------------------------------------------
+
+class SpecTape:
+    """A speculative serve's record: for every emitted token the logit row
+    it was drawn from (an admission or chunk step's sampled batch, or the
+    round's verify row of its lane and position), and B1's launches by
+    their M, split into draft steps (the decode steps a round makes),
+    verify passes (T = spec_k + 1 tokens) and the rest.  It wraps the
+    engine's sampling, completion test and admission, the model's steps
+    and the B1 wrapper's entry in ``kernels.ops``; :meth:`close` undoes
+    every wrapper."""
+
+    def __init__(self, eng, vocab: int, TO):
+        import collections
+
+        self.rows: dict = {}
+        self.b1_m = collections.Counter()    # (tag, M) -> B1 launches
+        self.calls = collections.Counter()   # tag -> model step calls
+        model, spec_t = eng.model, eng.scfg.spec_k + 1
+        batch, emit, lanes, tag, verify, count = [], [], [], ["other"], [None], {}
+        sample, done = eng._sample, eng._done
+        self._undo = []
+
+        def patch(obj, name, make):
+            orig = getattr(obj, name)
+            setattr(obj, name, make(orig))
+            self._undo.append((obj, name, orig))
+
+        def take_sample(orig):
+            def f(logits, gen):
+                batch[:] = [logits[:, :vocab].float().cpu()]
+                emit[:] = range(logits.shape[0])
+                verify[0] = None
+                return orig(logits, gen)
+            return f
+
+        def lane_of(r):
+            for i, l in enumerate(lanes[0]):
+                if l is r or (isinstance(l, dict) and l["req"] is r):
+                    return i
+            raise AssertionError(f"request {r.uid} holds no lane")
+
+        def take_done(orig):
+            def f(t, emitted, r):
+                if verify[0] is None:
+                    row = batch[0][emit.pop(0)]
+                else:
+                    j = count.get(r.uid, 0)
+                    count[r.uid] = j + 1
+                    row = verify[0][lane_of(r), j]
+                if int(row.argmax()) != t:
+                    raise AssertionError(f"spec tape out of step at request {r.uid}")
+                self.rows.setdefault(r.uid, []).append(row)
+                return orig(t, emitted, r)
+            return f
+
+        def take_admit(orig):
+            def f(cache, queue, free, held, *rest):
+                lanes[:] = [held]
+                return orig(cache, queue, free, held, *rest)
+            return f
+
+        def tagged(name):
+            def make(orig):
+                def f(tokens, *args, **kw):
+                    kind = (name if name != "verify" or tokens.shape[1] == spec_t
+                            else "chunk")
+                    self.calls[kind] += 1
+                    tag[0] = kind
+                    try:
+                        res = orig(tokens, *args, **kw)
+                    finally:
+                        tag[0] = "other"
+                    if kind == "verify":
+                        verify[0] = res[0][..., :vocab].float().cpu()
+                        count.clear()
+                    return res
+                return f
+            return make
+
+        def count_b1(orig):
+            def f(x, *args, **kw):
+                self.b1_m[(tag[0], int(x.shape[0]))] += 1
+                return orig(x, *args, **kw)
+            return f
+
+        patch(eng, "_sample", take_sample)
+        patch(eng, "_done", take_done)
+        patch(eng, "_admit_paged" if eng.scfg.paged else "_admit", take_admit)
+        for step, name in (("decode_step", "draft"), ("decode_step_paged", "draft"),
+                           ("verify_step", "verify"), ("verify_step_paged", "verify"),
+                           ("prefill_trunk", "prefill")):
+            patch(model, step, tagged(name))
+        patch(TO, "dsbp_fused", count_b1)
+
+    def close(self):
+        import types
+
+        for obj, name, orig in reversed(self._undo):
+            if isinstance(obj, types.ModuleType):
+                setattr(obj, name, orig)
+            else:  # an instance attribute over the class's method
+                delattr(obj, name)
+
+
+def _containers(model):
+    from repro_torch.spec.draft import projection_keys
+
+    return [(pw, pw.ka.data_ptr()) for _, pw in projection_keys(model)]
+
+
+def trace_round(torch, eng, toks, lens, kinds: dict) -> dict:
+    """Device time by kernel over ONE speculation round of the engine
+    (prefilled with ``toks``, one warm round first), in a torch.profiler
+    window outside every timed pass; the idle share is 1 - busy / the
+    window's host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device=eng.device), 512,
+                                         lengths=lens, quant=eng.quant, kv=eng.kv_spec)
+        pos = torch.as_tensor(lens, dtype=torch.int32, device=eng.device)
+        tok = torch.argmax(lg[:, -1], dim=-1)
+        eng._spec(eng.model, cache, tok, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._spec(eng.model, cache, tok, pos)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {k: [0.0, 0] for k in (*kinds, "other")}
+    for e in device_events(prof):
+        us = e.self_device_time_total
+        kind = next((k for k, pats in kinds.items() if any(p in e.key for p in pats)), "other")
+        by[kind][0] += us / 1e3
+        by[kind][1] += e.count
+    busy = sum(v[0] for v in by.values())
+    out = {"wall_ms": wall_ms, "busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms if busy else None,
+           **{f"{k}_ms": v[0] for k, v in by.items()},
+           **{f"{k}_launches": v[1] for k, v in by.items()}}
+    if busy:
+        print(f"    trace of one round (torch.profiler, outside the timed pass): window "
+              f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+              f"{out['idle_share']:.3f}; " + ", ".join(
+                  f"{k} {v[0]:.3f} ms ({v[1]} kernels)" for k, v in by.items()))
+    else:
+        print(f"    trace of one round: torch.profiler recorded no device time "
+              f"({wall_ms:.2f} ms window)")
+    return out
+
+
+# kernel names (torch.profiler) in a speculation round: B1, B2, and the
+# draft view's arithmetic shift of ka (PyTorch's right-shift kernel)
+TRACE_ROUND = {"B1": TRACE_FUSED["B1"], "B2": TRACE_FUSED["B2"], "draft_view shift": ("rshift",)}
+
+
+def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, ref_rows,
+                scfg: dict, label: str, trace=None):
+    """One speculative serve of phase 16 against its spec_k=0 reference:
+    tokens under phase 9's rule, containers untouched, B1's M per step
+    kind and the attention kernels' launches per draft step."""
+    eng = Engine(model, ServeConfig(spec_k=3, spec_draft_method="dsbp_fused", **scfg),
+                 device="cuda")
+    if eng.spec_report["extra_weight_nbytes"] != 0:
+        raise AssertionError(f"{label}: spec_report {eng.spec_report}")
+    before = _containers(eng.model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tape = SpecTape(eng, cfg.vocab_size, TO)
+    _reset_launches(kernels)
+    try:
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+    finally:
+        tape.close()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st = dict(eng.last_stats)
+    if _containers(eng.model) != before:
+        raise AssertionError(f"{label}: the engine's containers changed")
+    ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows)
+    n_layers = cfg.n_layers
+    lanes = eng.lanes if scfg.get("paged") else eng.scfg.batch_size
+    rounds, drafts = st["spec_rounds"], tape.calls["draft"]
+    if drafts != 3 * rounds or tape.calls["verify"] != rounds:
+        raise AssertionError(f"{label}: {drafts} draft steps and {tape.calls['verify']} "
+                             f"verify passes for {rounds} rounds")
+    m = {k: v for k, v in tape.b1_m.items() if k[0] in ("draft", "verify")}
+    want = {("draft", lanes): 7 * n_layers * drafts, ("verify", 4 * lanes): 7 * n_layers * rounds}
+    if m != want:
+        raise AssertionError(f"{label}: B1 launches by (step, M) {m}, want {want}")
+    attn = ("paged_packed_flash_attention" if scfg.get("paged") and scfg.get("kv_quant")
+            else "paged_flash_attention" if scfg.get("paged")
+            else "packed_flash_attention" if scfg.get("kv_quant") else "flash_attention")
+    prefills = n_layers * tape.calls["prefill"]
+    want_attn = n_layers * drafts + (prefills if attn == "flash_attention" else 0)
+    if launches[attn] != want_attn or (attn != "flash_attention"
+                                       and launches["flash_attention"] != prefills):
+        raise AssertionError(f"{label}: attention launches {launches} for {drafts} draft "
+                             f"steps and {tape.calls['prefill']} prefills")
+    ms_round = 1e3 * st["decode_time_s"] / rounds
+    ms_token = 1e3 * st["decode_time_s"] / st["decode_tokens"]
+    print(f"  {label}: {rounds} rounds, accepted_hist {st['accepted_hist']}, mean_accepted "
+          f"{st['mean_accepted']:.3f}; {ms_round:.2f} ms per round, {ms_token:.2f} ms per "
+          f"committed token; peak {peak / 2**30:.2f} GiB; B1 launches by (step, M) {m}; "
+          f"{attn} {launches[attn]} ({n_layers} x {drafts} draft steps"
+          f"{' + prefills' if attn == 'flash_attention' else ''}); tokens equal to "
+          f"spec_k=0 up to near ties in {len(ties)} of {len(ref)} streams (largest logit "
+          f"difference {max(worst.values()):.4f} of max|logit|)")
+    res = {"stats": st, "launches": launches, "b1_m": m, "peak": peak, "ms_round": ms_round,
+           "ms_token": ms_token, "ties": len(ties)}
+    if trace is not None:
+        res["trace"] = trace_round(torch, eng, *trace, TRACE_ROUND)
+    del eng
+    return res
+
+
+def spec_record(spec: dict, two_layer: dict) -> dict:
+    """Phase 16's numbers for its JSON line: per serve its times, peak,
+    near ties, acceptance (and the narrow view's, the round's trace)."""
+    keys = ("ms_round", "ms_token", "plain_ms_step", "plain_ms_token", "peak", "ties",
+            "narrow_view_bytes", "narrow_view_ms", "trace")
+    return {"draft_view_ms_per_round": spec["draft_view_ms_per_round"],
+            "b1_over_draft_view": spec["b1_draft_view"],
+            "two_layer_ms_per_round": two_layer,
+            **{label: {**{k: r[k] for k in keys if k in r},
+                       "accepted_hist": r["stats"]["accepted_hist"],
+                       "mean_accepted": r["stats"]["mean_accepted"]}
+               for label, r in spec.items() if isinstance(r, dict) and "stats" in r}}
+
+
+def phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg):
+    print("== phase 16a: 2-layer full width, speculative serve (spec_k 3, draft "
+          "dsbp_fused), CPU (plain) vs card (kernels); then the card with draft dsbp_ref")
+    import numpy as np
+
+    gpu_model, cpu_model = models
+    rng = np.random.default_rng(16)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n), max_new_tokens=6)
+            for i, n in enumerate([5, 17, 9, 12])]
+    prompts = {r.uid: r.tokens for r in reqs}
+    scfg = dict(max_len=64, batch_size=2, spec_k=3)
+    cpu = Engine(cpu_model, ServeConfig(spec_draft_method="dsbp_fused", **scfg), device="cpu")
+    gpu = Engine(gpu_model, ServeConfig(spec_draft_method="dsbp_fused", **scfg), device="cuda")
+    t_cpu = cpu.serve(reqs)
+    h_cpu = cpu.last_stats["accepted_hist"]
+    t_gpu = gpu.serve(reqs)
+    gst = dict(gpu.last_stats)
+    ties = check_streams(torch, t_cpu, t_gpu, prompts, cpu, gpu)
+    if not ties and gst["accepted_hist"] != h_cpu:
+        raise AssertionError(f"accepted_hist card {gst['accepted_hist']} != CPU {h_cpu}")
+    ref = Engine(gpu_model, ServeConfig(spec_draft_method="dsbp_ref", **scfg),
+                 device="cuda")
+    t_ref = ref.serve(reqs)
+    rst = dict(ref.last_stats)
+    for uid, t in t_gpu.items():
+        if not np.array_equal(t_ref[uid], t):
+            raise AssertionError(f"request {uid}: draft dsbp_ref served {t_ref[uid]} != "
+                                 f"dsbp_fused {t}")
+    out = {name: 1e3 * st["decode_time_s"] / st["spec_rounds"]
+           for name, st in (("dsbp_fused", gst), ("dsbp_ref", rst))}
+    print(f"  CPU vs card tokens equal (near ties above excepted), accepted_hist "
+          f"{gst['accepted_hist']} (CPU {h_cpu}); on the card, ms per round over 2 layers: "
+          f"draft dsbp_fused {out['dsbp_fused']:.2f}, draft dsbp_ref {out['dsbp_ref']:.2f} "
+          f"(accepted_hist {rst['accepted_hist']}, same tokens)")
+    del cpu, gpu, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
+                     kernels, model, cfg, ref5, paged):
+    print("== phase 16: full-width llama-7b-paper served speculatively (spec_k 3, the "
+          "MSB-slice draft through B1): phase 5's traffic at draft bits 4 and 7, kv8 with "
+          "kv_draft_bits 6, then phase 13's paged traffic on a float and a kv8 pool")
+    from repro_torch.core.packed import draft_view
+    from repro_torch.spec.draft import projection_keys
+
+    # ---- B1 over draft_view containers, bit-equal to plain, at the round's shapes ----
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    pws = {name: pw for key, pw in projection_keys(model)
+           for name in (key.split("/")[-1],) if key.startswith("units/0/")}
+    b1 = {}
+    for name, m in (("wq", 4), ("w1", 4), ("w2", 4), ("w1", 16), ("w2", 32)):
+        pw = pws[name]
+        for bits in (4, 7):
+            dv = draft_view(pw, bits)
+            x = torch.randn(m, pw.padded_k, generator=gen, device="cuda")
+            ts = per_tensor_scale(x, pw.cfg.input_cfg.fmt).reshape(1)
+            tw = pw.tscale.reshape(-1).contiguous()
+            y = DF.dsbp_fused(x, ts, dv.ka, dv.kscale, tw, pw.cfg.input_cfg)
+            want = DF.dsbp_fused_plain(x, ts, dv.ka, dv.kscale, tw, pw.cfg.input_cfg)
+            torch.cuda.synchronize()
+            if not torch.equal(y, want):
+                raise AssertionError(f"B1 over draft_view({name}, {bits}) at M={m} != plain")
+            if bits == 4:  # cold, as phase 2
+                wbytes = dv.ka.numel() + dv.kscale.numel() * 4
+                copies = [(x, ts, dv.ka.clone(), dv.kscale.clone(), tw, pw.cfg.input_cfg)
+                          for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
+                ms = cuda_ms(DF.dsbp_fused, copies, iters=30)
+                b_ms, _ = bound(m * pw.padded_k * 4 + wbytes + pw.n * 8 + m * pw.n * 4,
+                                2.0 * m * pw.padded_k * pw.n, FP16_OPS)
+                b1[f"{name} M={m}"] = {"ms": ms, "bound_ms": b_ms}
+                del copies
+    print("  B1 over draft_view containers (bits 4, 7) bit-equal to plain at M=4 (wq, w1, "
+          "w2: the draft's decode shapes), M=16 (w1: the dense verify) and M=32 (w2: the "
+          "paged verify); cold ms over the bits-4 views (bound): " + ", ".join(
+              f"{k} {v['ms']:.4f} ({v['bound_ms']:.4f})" for k, v in b1.items()))
+
+    # ---- draft_view's cost: every projection's view, once per draft step ----
+    conts = [pw for _, pw in projection_keys(model)]
+
+    def views():
+        for pw in conts:
+            draft_view(pw, 4)
+
+    # ~2,000 small launches and 224 containers built a call: a sleep long
+    # enough to hide their enqueue
+    view_ms = cuda_ms(views, [()], iters=3, warmup=1, sleep=4 * 10**8)
+    print(f"  draft_view of all {len(conts)} projections (one draft step): {view_ms:.2f} ms "
+          f"device time; {3 * view_ms:.2f} ms per round (3 draft steps)")
+
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    out = {"draft_view_ms_per_round": 3 * view_ms, "b1_draft_view": b1}
+    for kv, bits, kv_draft in ((None, 4, None), (None, 7, None), ("kv8", 4, 6)):
+        base = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant=kv),
+                      device="cuda")
+        tape = LogitTape(base, cfg.vocab_size)
+        try:
+            ref = base.serve(reqs)
+        finally:
+            tape.close()
+        bst = dict(base.last_stats)
+        label = f"dense {kv or 'float'}, draft bits {bits}" + (
+            f", kv_draft_bits {kv_draft}" if kv_draft else "")
+        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref,
+                          tape.rows, dict(max_len=512, batch_size=4, kv_quant=kv,
+                                          spec_draft_bits=bits, kv_draft_bits=kv_draft),
+                          label, trace=(toks, lens) if bits == 7 else None)
+        res["plain_ms_step"] = 1e3 * bst["decode_time_s"] / bst["decode_steps"]
+        res["plain_ms_token"] = 1e3 * bst["decode_time_s"] / bst["decode_tokens"]
+        print(f"    spec_k=0, same engine and traffic: {res['plain_ms_step']:.2f} ms per step, "
+              f"{res['plain_ms_token']:.2f} ms per token (phase 5 in this run: "
+              f"{ref5['decode_ms']:.2f} ms per step, {ref5['token_ms']:.2f} per token, peak "
+              f"{ref5['peak'] / 2**30:.2f} GiB)")
+        out[label] = res
+        del base
+        if kv_draft:
+            with torch.inference_mode():
+                cache = model.init_cache(4, 512, kv="kv8")
+                nb = KVQ.kv_cache_nbytes(cache)
+                narrow_ms = cuda_ms(lambda: KVQ.kv_narrow_view(cache, kv_draft), [()],
+                                    iters=5, sleep=5 * 10**7)
+            del cache
+            res["narrow_view_bytes"], res["narrow_view_ms"] = nb, narrow_ms
+            print(f"    kv_narrow_view: a {nb / 2**20:.1f} MiB copy of the kv8 cache (4 slots "
+                  f"x 512) per round, {narrow_ms:.3f} ms device time")
+    for name, kv in (("float", None), ("kv8", "kv8")):
+        p13 = paged[name]
+        scfg = dict(max_len=512, batch_size=4, max_active=8, paged=True, kv_block_size=16,
+                    chunk_prefill_tokens=256, kv_quant=kv)
+        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, p13["reqs"],
+                          p13["out"], p13["rows"], scfg, f"paged {name} pool")
+        st13 = p13["stats"]
+        print(f"    phase 13 in this run ({name} pool, spec_k=0): "
+              f"{1e3 * st13['decode_time_s'] / st13['decode_steps']:.2f} ms per step, "
+              f"{1e3 * st13['decode_time_s'] / st13['decode_tokens']:.2f} ms per token, peak "
+              f"{p13['peak'] / 2**30:.2f} GiB")
+        out[f"paged {name}"] = res
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1740,6 +2167,22 @@ def main() -> int:
         phase_b6_b7(torch, FA, KVQ)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--spec"]:  # phases 1, 4, 5, 13, 16a and 16: speculation
+        cfg = get_config("llama-7b-paper")
+        models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
+        model, _, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
+        kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+                   "packed_flash_attention": FA.packed_flash_attention,
+                   "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul,
+                   "paged_flash_attention": FA.paged_flash_attention,
+                   "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+        paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks,
+                                  kernels, model, cfg)
+        phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
+        phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
+                         kernels, model, cfg, ref5, paged)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -1770,6 +2213,11 @@ def main() -> int:
                    paged_packed_flash_attention=FA.paged_packed_flash_attention)
     paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
                               model, cfg)
+    spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
+    spec = phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
+                            kernels, model, cfg, ref5, paged)
+    spec_dense, spec_kv8 = spec["dense float, draft bits 4"], spec[
+        "dense kv8, draft bits 4, kv_draft_bits 6"]
 
     # the mesh: its ranks are processes of their own, each drawing a whole
     # model in turn; the models above are freed first
@@ -1787,6 +2235,9 @@ def main() -> int:
          "launches": launches["dsbp_fused"], "max_abs_err": b1_err,
          "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
          "bound_by": b1["bound_by"], "library_ms": None,
+         "spec_launches_by_step_and_m": {f"{k[0]} M={k[1]}": v
+                                         for k, v in spec_dense["b1_m"].items()},
+         "spec_path": "phase 16 (dense float, spec_k 3, draft bits 4, draft dsbp_fused)",
          "shape": "decode M=4 K=4096 N=11008", "path": "phase 5 (float KV, dsbp_fused)",
          "trace_ms_per_step": ref5["trace"]["B1_ms"] / ref5["trace"]["steps"]},
         {"name": "flash_attention", "route": "cuda",
@@ -1798,9 +2249,12 @@ def main() -> int:
          "bound_ms": b2["prefill"]["bound_ms"], "bound_by": b2["prefill"]["bound_by"],
          "library_ms": b2["prefill"]["library_ms"],
          "decode_ms": b2["decode"]["ms"], "decode_library_ms": b2["decode"]["library_ms"],
-         "gemma3_12b_d256": {case: {k: b2[f"{case}-gemma3-12b"][k] for k in (
+         **{tag: {case: {k: b2[f"{case}-{model}"][k] for k in (
              "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
-             for case in ("prefill", "decode")},
+             for case in ("prefill", "decode")}
+            for tag, model in (("gemma3_12b_d256", "gemma3-12b"), ("d320", "d320"),
+                               ("d512", "d512"))},
+         "spec_launches": spec_dense["launches"]["flash_attention"],
          "shape": "prefill B=4 H=32 S=512 D=128", "path": "phase 5 (float KV, dsbp_fused)",
          "trace_ms_per_step": ref5["trace"]["B2_ms"] / ref5["trace"]["steps"]},
         {"name": "fp8_quant_align", "route": "cuda",
@@ -1828,8 +2282,11 @@ def main() -> int:
          "ms": b5["decode"]["ms"], "plain_ms": b5["decode"]["plain_ms"],
          "bound_ms": b5["decode"]["bound_ms"], "bound_by": b5["decode"]["bound_by"],
          "library_ms": None, "sdpa_dequantized_ms": b5["decode"]["sdpa_dequantized_ms"],
-         "gemma3_12b_d256": {k: b5["decode-gemma3-12b"][k] for k in (
-             "ms", "plain_ms", "bound_ms", "sdpa_dequantized_ms", "max_abs_err")},
+         **{tag: {k: b5[f"decode-{model}"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "sdpa_dequantized_ms", "max_abs_err")}
+            for tag, model in (("gemma3_12b_d256", "gemma3-12b"), ("d320", "d320"),
+                               ("d512", "d512"))},
+         "spec_launches": spec_kv8["launches"]["packed_flash_attention"],
          "shape": "decode B=4 H=32 S=2048 D=128, ragged", "path": "phase 10 (kv8, dsbp_kernel)",
          "trace_ms_per_step": trace10["B5_ms"] / trace10["steps"]},
     ]
@@ -1837,7 +2294,7 @@ def main() -> int:
                                     ("paged_packed_flash_attention", "B7", 378, "kv8")):
         rows = {case: b67[(kname, case)]
                 for case in ("serve", "decode", "decode-unshared", "chunk",
-                             "decode-gemma3-12b")}
+                             "decode-gemma3-12b", "decode-d320", "decode-d512")}
         main = rows["serve"]
         kernels.append(
             {"name": name, "route": "cuda",
@@ -1849,8 +2306,10 @@ def main() -> int:
              "bound_by": main["bound_by"], "library_ms": None,
              "dense_over_gathered_ms": main["dense_ms"],
              "gather_sdpa_ms": main["gather_sdpa_ms"],
-             "others": {case: {k: r[k] for k in ("ms", "dense_ms", "bound_ms", "keys")}
+             "others": {case: {k: r[k] for k in ("ms", "dense_ms", "plain_ms", "bound_ms",
+                                                 "gather_sdpa_ms", "keys")}
                         for case, r in rows.items() if case != "serve"},
+             "spec_launches": spec[f"paged {pool}"]["launches"][name],
              "shape": "decode, 8 lanes H=32 D=128 bs=16 MB=32 (phase 13's)",
              "path": f"phase 13 (paged, {pool} pool, dsbp_fused)"})
     b8m = next(r for r in b8 if (r["proj"], r["M"]) == ("w2", 4))
@@ -1871,6 +2330,7 @@ def main() -> int:
          "shape": "decode M=4, w2 row-parallel K=11008 N=4096 over 2 ranks (rank 0's "
                   "whole call, collectives included)",
          "path": "phase 15 (mesh (1, 2), two ranks on the one card, per rank)"})
+    print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

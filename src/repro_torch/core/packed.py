@@ -29,7 +29,8 @@ The registry decides how ``models.layers.dense`` executes a projection:
 
 Every method takes the projection's ``name`` (``wq``, ``w2``, ...); only
 the sharded one reads it, as in JAX.  :func:`pack_weights_sharded` packs a
-rank's column shard straight into its kernel layout.
+rank's column shard straight into its kernel layout; :func:`draft_view`
+derives a container's MSB-slice draft (speculative decoding).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ __all__ = [
     "register_quant_method",
     "get_quant_method",
     "pack_weights_sharded",
+    "draft_view",
 ]
 
 LAYOUT_VERSION = 2
@@ -130,6 +132,36 @@ class PackedDSBPWeight(nn.Module):
         if ts.ndim < deq.ndim:
             ts = ts.reshape(*ts.shape, *([1] * (deq.ndim - ts.ndim)))
         return (deq / ts)[..., : self.k, :]
+
+
+def draft_view(pw: PackedDSBPWeight, draft_bits: int) -> PackedDSBPWeight:
+    """MSB-slice view of a packed container: the top ``draft_bits``
+    magnitude bits of every aligned mantissa, as a new container (port of
+    ``repro.core.packed.draft_view``, :200).
+
+    Per group, ``s_g = max(B_g - draft_bits, 0)``: ``ka >> s_g`` (an
+    arithmetic shift, floor(a / 2^s_g), on the kernel-layout (K', N)
+    operand, the shift broadcast over the group's rows without repeating
+    it) and ``kscale * 2^s_g`` (exact: pow2 times pow2, ``2^s`` from its bit
+    pattern), ``bits = min(bits, draft_bits)``; ``tscale`` and the static
+    fields are shared.  ``draft_bits`` 7 returns the container's exact
+    numerics.  A new, plain v2 container: it goes through every method
+    unchanged.  The source container is neither copied nor modified; the
+    view's ``ka`` and ``kscale`` are new tensors of the same shapes, which
+    the caller drops after use."""
+    if not 1 <= int(draft_bits) <= 7:
+        raise ValueError(f"draft_bits must be in [1, 7], got {draft_bits}")
+    from .formats import exp2i  # local import: packed stays dependency-light
+
+    shift = torch.clamp(pw.bits.to(torch.int32) - int(draft_bits), min=0)  # (..., N, n_g)
+    shift_k = shift.transpose(-1, -2)                                        # (..., n_g, N)
+    lead, (kp, n) = pw.ka.shape[:-2], pw.ka.shape[-2:]
+    g = pw.group_size
+    ka = (pw.ka.reshape(*lead, kp // g, g, n)
+          >> shift_k.to(torch.int8)[..., :, None, :]).reshape(pw.ka.shape)
+    return PackedDSBPWeight(
+        ka, pw.kscale * exp2i(shift_k), pw.tscale, pw.bits.clamp(max=int(draft_bits)),
+        k=pw.k, n=pw.n, group_size=g, cfg=pw.cfg, version=pw.version)
 
 
 # ---------------------------------------------------------------------------

@@ -89,7 +89,11 @@
 // only on its key positions, kv_len and q_pos0 (and Sq, which picks the
 // variant, and D): never on B, Hq, Hkv, S or the grid, so a slice of the
 // heads or of the batch rows gives the same bits as the matching slice of
-// the whole call.  D <= 256; q, K and V 16-byte aligned.
+// the whole call.  q, K and V 16-byte aligned.
+//
+// Any D above 256 (no config of either package has one; the reference's
+// kernels take it): a third kernel, one warp per query row with the head
+// dim strided over the lanes (row_kernel, below), for every policy.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -765,6 +769,145 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   }
 }
 
+// ------------------------------------------------------- any D (> 256)
+
+// One warp per query row, for D > DMAX, where no head-dim class's tiles
+// fit: lane t owns columns t, t + 32, ... of the row.  Keys run in groups
+// of ROW_KEYS at fixed positions (a multiple of ROW_KEYS from 0, so a
+// group's keys, and with them every rounding, depend on key positions
+// only); per group, each key's logit is the lane's FMA chain over its
+// columns then an xor butterfly, then one online-softmax update: m, l and
+// alpha as the split kernel's, l += the group's probabilities in key
+// order, acc = acc * alpha then one FMA per key in key order.  The scaled
+// query row and acc live in shared memory, 2 * D floats a warp; where
+// even one warp's do not fit, acc lives in the output row itself (device
+// memory) and the query is scaled at each use (the same product), so any
+// D runs.  The same order for every policy: PACKED multiplies the K scale
+// onto the logit after the butterfly and the V scale onto the
+// probability, both exact (powers of two), so this path too gives B5 =
+// B2 over dequantize() and B6 / B7 = B2 / B5 over the gathered view bit
+// for bit.  Bound: as the tiled variants'; nothing is reused across query
+// rows (each warp reads its own keys), a simple kernel that is right.
+constexpr int ROW_KEYS = 4;
+constexpr int ROW_WARPS = 4;
+constexpr size_t SMEM_MAX = 232448;  // a block's shared-memory limit on sm_90
+
+// warps a block of the row kernel holds, and whether q and acc go to
+// shared memory
+__host__ inline int row_warps(int D, bool* smem) {
+  const long long per_warp = 8LL * D;
+  const long long fit = (long long)SMEM_MAX / per_warp;
+  *smem = fit >= 1;
+  return fit >= ROW_WARPS || !*smem ? ROW_WARPS : (int)fit;
+}
+
+template <bool PACKED, bool PAGED>
+__global__ void __launch_bounds__(32 * ROW_WARPS)
+row_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
+           const float* __restrict__ k_scale, const void* __restrict__ v_in,
+           const float* __restrict__ v_scale, const int* __restrict__ table,
+           const int* __restrict__ kv_len, const int* __restrict__ q_pos0, float* __restrict__ o,
+           int B, int Hq, int Hkv, int Sq, int S, int D, int bs, int causal, int window,
+           float scale, int smem) {
+  using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= (long long)B * Hq * Sq) return;  // no block-wide barrier below
+  const int qi = (int)(row % Sq);
+  const long long bh = row / Sq;
+  const int h = (int)(bh % Hq);
+  const int b = (int)(bh / Hq);
+  const int hk = h / (Hq / Hkv);
+  const int len = min(kv_len[b], S);
+  const int qpos = q_pos0[b] + qi;
+  const KV* k = (const KV*)k_in;
+  const KV* v = (const KV*)v_in;
+  const long long base = PAGED ? 0 : ((long long)b * Hkv + hk) * S;
+  const int* tb = PAGED ? table + (size_t)b * (S / bs) : nullptr;
+  const float* qr = q + row * D;
+  float* orow = o + row * D;
+  float* qs = smem ? (float*)smem_raw + (size_t)warp * 2 * D : nullptr;
+  float* acc = smem ? qs + D : orow;  // each lane touches its own columns only
+  for (int d = lane; d < D; d += 32) {
+    if (smem) qs[d] = __fmul_rn(qr[d], scale);
+    acc[d] = 0.f;
+  }
+
+  const int k_end = last_key(len, qpos, 1, causal);
+  const int k_beg = window > 0 ? max(qpos - window + 1, 0) / ROW_KEYS * ROW_KEYS : 0;
+  float m = NEG_INF, l = 0.f;
+  for (int k0 = k_beg; k0 < k_end; k0 += ROW_KEYS) {
+    long long kr[ROW_KEYS];
+    bool ok[ROW_KEYS];
+    float s[ROW_KEYS];
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) {
+      ok[j] = k0 + j < k_end && visible(k0 + j, len, qpos, causal, window);
+      kr[j] = ok[j] ? key_row<PAGED>(k0 + j, base, tb, Hkv, hk, bs) : 0;
+      s[j] = 0.f;
+    }
+    for (int d = lane; d < D; d += 32) {
+      const float qd = smem ? qs[d] : __fmul_rn(qr[d], scale);
+#pragma unroll
+      for (int j = 0; j < ROW_KEYS; ++j)
+        if (ok[j]) s[j] = fmaf(qd, (float)k[kr[j] * D + d], s[j]);
+    }
+    float mt = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s[j] = __fadd_rn(s[j], __shfl_xor_sync(FULL_MASK, s[j], off));
+      if (PACKED && ok[j]) s[j] = __fmul_rn(s[j], k_scale[kr[j]]);  // K scale after the dot
+      s[j] = ok[j] ? s[j] : NEG_INF;
+      mt = fmaxf(mt, s[j]);
+    }
+    const float m_new = fmaxf(m, mt);
+    const float alpha = expf(m - m_new);
+    float ls = 0.f;
+    float pv[ROW_KEYS];
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) {
+      const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
+      ls = __fadd_rn(ls, p);
+      pv[j] = PACKED && ok[j] ? __fmul_rn(p, v_scale[kr[j]]) : p;  // V scale into p
+    }
+    l = __fadd_rn(__fmul_rn(l, alpha), ls);
+    m = m_new;
+    for (int d = lane; d < D; d += 32) {
+      float a = __fmul_rn(acc[d], alpha);
+#pragma unroll
+      for (int j = 0; j < ROW_KEYS; ++j)
+        if (ok[j]) a = fmaf(pv[j], (float)v[kr[j] * D + d], a);
+      acc[d] = a;
+    }
+  }
+  const float den = fmaxf(l, 1e-30f);
+  for (int d = lane; d < D; d += 32) orow[d] = __fdiv_rn(acc[d], den);
+}
+
+template <bool PACKED, bool PAGED>
+int launch_rows(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                const void* table, const void* kv_len, const void* q_pos0, void* o, int B,
+                int Hq, int Hkv, int Sq, int S, int D, int bs, int causal, int window,
+                float scale, cudaStream_t st) {
+  bool smem = false;
+  const int warps = row_warps(D, &smem);
+  const size_t bytes = smem ? (size_t)warps * 8 * D : 0;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(row_kernel<PACKED, PAGED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long nrows = (long long)B * Hq * Sq;
+  row_kernel<PACKED, PAGED><<<(unsigned)((nrows + warps - 1) / warps), 32 * warps, bytes, st>>>(
+      (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
+      (const int*)kv_len, (const int*)q_pos0, (float*)o, B, Hq, Hkv, Sq, S, D, bs, causal,
+      window, scale, smem ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
 // --------------------------------------------------------------- launch
 
 // above 48 KB of shared memory only after opting in: once per kernel, for
@@ -829,10 +972,13 @@ int launch(const void* q, const void* k, const void* ks, const void* v, const vo
            const void* table, const void* kv_len, const void* q_pos0, void* o, void* part,
            long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int bs,
            int causal, int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || S <= 0 || D <= 0 || D > DMAX || Hkv <= 0 || Hq % Hkv != 0 ||
+  if (B <= 0 || Sq <= 0 || S <= 0 || D <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       (PAGED && bs <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D > DMAX)
+    return launch_rows<PACKED, PAGED>(q, k, ks, v, vs, table, kv_len, q_pos0, o, B, Hq, Hkv,
+                                      Sq, S, D, bs, causal, window, scale, st);
   return D <= 128 ? launch_dc<PACKED, PAGED, 128>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
                                                   part, part_floats, B, Hq, Hkv, Sq, S, D, bs,
                                                   causal, window, scale, st)

@@ -55,9 +55,10 @@ NEG_INF = -1e30
 DECODE_MAX_SQ = 8
 KEYS_PER_SPLIT = 128
 PARTS_PER_SPLIT = 4
-# the largest head dim csrc/flash_attention.cu is built for (gemma3-12b's
-# and recurrentgemma-2b's 256)
-MAX_D_HEAD = 256
+# the largest head dim of csrc/flash_attention.cu's tiled variants
+# (gemma3-12b's and recurrentgemma-2b's 256); above it, one warp per query
+# row, with no partials
+TILED_MAX_D_HEAD = 256
 
 __all__ = ["flash_attention", "flash_attention_plain", "packed_flash_attention",
            "packed_flash_attention_plain", "paged_flash_attention",
@@ -131,18 +132,16 @@ def _check(q, k, v, kv_len, q_pos0):
 
 
 def _kernel_dims(name: str, q):
-    d = q.shape[3]
-    if d > MAX_D_HEAD:
-        raise ValueError(f"{name} kernel takes d_head <= {MAX_D_HEAD}, got {d}")
     if q.dtype != torch.float32:
         raise ValueError(f"{name} kernel takes a float32 q")
 
 
 def _scratch(q, s: int):
     """The decode variant's partials for q (B, Hq, Sq, D) over S keys, and
-    their count of floats (None, 0 for the prefill variant)."""
+    their count of floats (None, 0 for the prefill variant and the
+    one-warp-per-row kernel)."""
     b, hq, sq, d = q.shape
-    if sq > DECODE_MAX_SQ:
+    if sq > DECODE_MAX_SQ or d > TILED_MAX_D_HEAD:
         return None, 0
     dp = -(-d // 16) * 16  # the kernel's row length: d rounded up to 16 columns
     n = b * hq * sq * PARTS_PER_SPLIT * -(-s // KEYS_PER_SPLIT) * (dp + 2)

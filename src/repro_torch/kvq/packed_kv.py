@@ -1,7 +1,7 @@
 """Packed DSBP KV-cache representation.
 
-Port of ``repro.kvq.packed_kv`` (the dense-cache part; the narrow draft
-view ``kv_narrow_view`` waits for speculative decoding).  K/V vectors are
+Port of ``repro.kvq.packed_kv``, with the speculative draft's narrow view
+:func:`kv_narrow_view`.  K/V vectors are
 quantized at cache-write time with the paper's aligned-mantissa machinery
 and stored as
 
@@ -35,6 +35,7 @@ __all__ = [
     "PackedKVBlock",
     "init_packed_kv",
     "kv_cache_nbytes",
+    "kv_narrow_view",
     "kv_policy_cfg",
     "quantize_kv",
     "quantize_like",
@@ -187,6 +188,41 @@ def quantize_like(cache_leaf, fresh):
     if isinstance(fresh, PackedKVBlock):
         raise TypeError("packed K/V written into a float cache leaf")
     return fresh.to(cache_leaf.dtype)
+
+
+def kv_narrow_view(cache, draft_bits: int):
+    """Narrow-KV draft view (port of ``repro.kvq.kv_narrow_view``, :249):
+    every :class:`PackedKVBlock` leaf keeps only the top ``draft_bits - 1``
+    magnitude bits, ``qm >> s`` (arithmetic: floor division of the 2's
+    complement mantissas) and ``scale * 2**s`` (exact, pow2 times pow2)
+    with ``s = bits - draft_bits``, at ``bits = draft_bits``.  Float leaves,
+    and packed leaves already at most ``draft_bits`` wide, pass through as
+    the same objects.
+
+    ``cache`` is a list of per-layer ``{'k', 'v'}`` entries (or one entry);
+    the result has the same structure.  JAX traces this view inside its
+    jitted draft; here each narrowed leaf is a new tensor pair of the
+    cache's size (a copy at the narrow width, which the draft then writes
+    at that width through :func:`quantize_like`), dropped by the caller
+    after the draft."""
+    if not KV_MIN_BITS <= int(draft_bits) <= KV_MAX_BITS:
+        raise ValueError(
+            f"kv draft bits must be in [{KV_MIN_BITS}, {KV_MAX_BITS}], "
+            f"got {draft_bits}")
+
+    def narrow(leaf):
+        if not isinstance(leaf, PackedKVBlock):
+            return leaf
+        s = max(int(leaf.bits) - int(draft_bits), 0)
+        if s == 0:
+            return leaf
+        # 2**s is an exact f32 (s <= 6): the same product as JAX's exp2i
+        return PackedKVBlock(leaf.qm >> s, leaf.scale * float(2 ** s),
+                             bits=int(draft_bits), fmt=leaf.fmt)
+
+    if isinstance(cache, Mapping):
+        return {name: narrow(leaf) for name, leaf in cache.items()}
+    return [{name: narrow(leaf) for name, leaf in entry.items()} for entry in cache]
 
 
 def _kv_leaves(cache):

@@ -3,13 +3,20 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b-paper \\
       --packed [--ragged] [--kv-quant kv8] [--method dsbp_kernel] \\
       [--paged --kv-block-size 16 [--kv-blocks N] [--max-active N]] \\
-      [--mesh DxM] [--smoke --device cpu]
+      [--spec-k 3 [--spec-draft-bits 4] [--spec-draft-method dsbp_fused] \\
+       [--kv-draft-bits 6]] [--mesh DxM] [--smoke --device cpu]
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead (use it with ``--smoke``).  ``--ragged`` draws mixed-length
 prompts (2 per slot) through the ``Engine.serve`` slot scheduler instead of
 one uniform ``generate`` batch; ``--paged`` serves them from a pool of KV
 blocks through per-lane block tables (and implies ``--ragged``).
+``--spec-k K`` serves speculatively: each pool step drafts K tokens per lane
+with the MSB-slice view of the packed weights (``--spec-draft-bits``,
+through ``--spec-draft-method``), verifies them in one target forward and
+commits the longest greedy-matching prefix; with a packed KV cache
+``--kv-draft-bits`` narrows the draft's view of it.  It implies
+``--ragged``.
 
 ``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
 counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
@@ -67,6 +74,19 @@ def main():
     ap.add_argument("--max-active", type=int, default=None,
                     help="paged lane count; with prefix sharing it can exceed "
                          "--batch at the same --kv-blocks budget")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative serving: draft tokens per pool step "
+                         "(0 = off; implies the --ragged scheduler path)")
+    ap.add_argument("--spec-draft-bits", type=int, default=4,
+                    help="aligned-mantissa bits of the MSB-slice draft view")
+    ap.add_argument("--spec-draft-method", default="dsbp_ref",
+                    help="quantized-linear method of the draft forward "
+                         "(dsbp_ref, the default as in JAX; dsbp_fused runs "
+                         "B1 over the draft view)")
+    ap.add_argument("--kv-draft-bits", type=int, default=None,
+                    help="with --spec-k and a packed KV cache: draft over an "
+                         "MSB-slice view of the cached mantissas at this width "
+                         "(served tokens unchanged; only acceptance can move)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="serve on a (data, model) mesh of D*M ranks, e.g. '1x2': "
                          "weights cut per rank (Megatron split over model), the "
@@ -76,8 +96,8 @@ def main():
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
     args = ap.parse_args()
-    if args.paged:
-        args.ragged = True  # the paged scheduler lives in serve()
+    if args.paged or args.spec_k:
+        args.ragged = True  # both live in the serve() scheduler
     if args.mesh is None:
         _run(None, args)
         return
@@ -100,14 +120,17 @@ def _run(mesh, args):
     rank0 = mesh is None or mesh.rank == 0
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(quant=args.preset if args.packed else None)
-    max_len = args.prompt_len + args.new_tokens + 8
+    max_len = args.prompt_len + args.new_tokens + args.spec_k + 8
     if args.paged:  # block pools need block-aligned ring lengths
         max_len = -(-max_len // args.kv_block_size) * args.kv_block_size
     scfg = ServeConfig(max_len=max_len, batch_size=args.batch,
                        quant_method=args.method, kv_quant=args.kv_quant,
                        kv_bits=args.kv_bits, paged=args.paged,
                        kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
-                       max_active=args.max_active,
+                       max_active=args.max_active, spec_k=args.spec_k,
+                       spec_draft_bits=args.spec_draft_bits,
+                       spec_draft_method=args.spec_draft_method,
+                       kv_draft_bits=args.kv_draft_bits,
                        mesh_shape=None if mesh is None else tuple(mesh.shape.values()))
     eng = None
     # ranks that share a card draw the whole model one after another, each
@@ -131,6 +154,11 @@ def _run(mesh, args):
             f"{rep['avg_w_bits']:.2f}, preset {rep['preset']})")
     if eng.kv_spec is not None:
         say(f"packed KV cache: {eng.kv_spec}")
+    if eng.spec_report:
+        rep = eng.spec_report
+        say(f"speculative: spec_k {rep['spec_k']}, draft bits {rep['draft_bits']}, draft "
+            f"method {rep['draft_method']}, kv draft bits {rep['kv_draft_bits']}, extra "
+            f"weight bytes {rep['extra_weight_nbytes']}")
     rng = np.random.default_rng(0)
     if args.ragged:
         lens = rng.integers(args.prompt_len // 2, args.prompt_len + 1, 2 * args.batch)
@@ -152,6 +180,10 @@ def _run(mesh, args):
                 f"{st['cow_splits']} COW splits, {st['chunk_steps']} chunk steps "
                 f"({st['chunked_requests']} chunked requests), "
                 f"{st['stalled_decode_steps']} stalled decode steps")
+        if args.spec_k:
+            say(f"speculation: {st['spec_rounds']} rounds, mean accepted "
+                f"{st['mean_accepted']:.2f}/{args.spec_k + 1} (accepted_hist "
+                f"{st['accepted_hist']})")
         if mesh is not None:
             say(f"collectives per decode step: {st['collectives_per_decode_step']}")
         for uid in list(out)[:2]:

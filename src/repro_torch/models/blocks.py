@@ -9,7 +9,9 @@ entries of ``_kv_entry`` (:174); and the paged cache's
 writes ``write_kv_blocks`` (:267), ``fill_kv_cache_paged`` (:303) and
 ``rollback_kv_cache_paged`` (:563) as one :func:`write_kv_blocks` over a
 plan, ``_attn_decode_paged`` (:392) / ``layer_decode_paged`` (:625) and
-``_attn_verify_paged`` (:479) / ``layer_verify_paged`` (:507).  A layer's
+``_attn_verify_paged`` (:479) / ``layer_verify_paged`` (:507); and the
+dense verify of speculative decoding, ``_attn_verify`` (:419) /
+``layer_verify`` (:450) and ``rollback_kv_cache`` (:537).  A layer's
 weights live in
 :class:`Layer` (parameter names as in the JAX tree); the cache of a layer
 is ``{'k', 'v'}``, each a float tensor (B, Hkv, S_c, D) or a
@@ -45,9 +47,10 @@ from .attention import (blockwise_attention, decode_attention, gather_kv_view,
 from .layers import dense, rms_norm, rope
 
 __all__ = ["Layer", "layer_seq", "layer_decode", "init_layer_cache",
-           "fill_kv_cache", "init_layer_cache_paged", "WritePlan", "write_plan",
-           "fill_plan", "write_kv_blocks", "layer_decode_paged",
-           "layer_verify_paged"]
+           "fill_kv_cache", "layer_verify", "kv_slots", "rollback_kv_cache",
+           "init_layer_cache_paged", "WritePlan", "write_plan", "fill_plan",
+           "write_kv_blocks", "layer_decode_paged", "layer_verify_paged",
+           "pool_entries", "restore_pool_entries"]
 
 SUPPORTED_KINDS = ("attn_full",)
 
@@ -163,12 +166,15 @@ def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None,
             "v": torch.zeros(shp, dtype=torch.float32, device=device)}
 
 
+def _children(leaf):
+    """The tensors of one cache leaf: both children of a packed leaf, or
+    the float tensor itself."""
+    return (leaf.qm, leaf.scale) if isinstance(leaf, PackedKVBlock) else (leaf,)
+
+
 def _leaf_pairs(entry, fresh):
-    """(cache tensor, fresh tensor) pairs of one cache leaf: the two
-    children of a packed leaf, or the float tensor itself."""
-    if isinstance(entry, PackedKVBlock):
-        return ((entry.qm, fresh.qm), (entry.scale, fresh.scale))
-    return ((entry, fresh),)
+    """(cache tensor, fresh tensor) pairs of one cache leaf."""
+    return zip(_children(entry), _children(fresh))
 
 
 def _fill_slot_sources(lengths: torch.Tensor, s: int):
@@ -235,6 +241,81 @@ def layer_decode(layer: Layer, x, cfg, cache: dict, pos, quant=None):
     """One decode step through one layer; the cache updates in place."""
     x = _attn_decode(layer, x, cfg, quant, cache, pos)
     return _mlp_part(layer, x, cfg, quant)
+
+
+# ---------------- verify (speculative decoding) ----------------
+
+def _ring_slots(posb: torch.Tensor, t: int, s_c: int):
+    """(row index (B, 1), ring slots (B, T)) of tokens pos .. pos+T-1,
+    distinct within a row while T <= S_c (the engine's contract)."""
+    b = posb.shape[0]
+    j = torch.arange(t, device=posb.device)
+    return (torch.arange(b, device=posb.device)[:, None],
+            torch.remainder(posb.to(torch.int64)[:, None] + j[None, :], s_c))
+
+
+def _verify_attend(layer: Layer, x, cfg, quant, like: dict, ck, cv, posb):
+    """The attention half of a T-token verify: the queries at positions
+    pos .. pos+T-1 attend over the history ``ck`` / ``cv`` (entries below
+    pos valid) plus the T fresh K/V, causally.  Quantize first: the fresh
+    K/V attend in the representation of the cache leaves ``like``, so a
+    verify equals T chained decode steps token for token.  Returns (x,
+    fresh K, fresh V), the fresh K/V in that representation."""
+    b, t, _ = x.shape
+    positions = posb[:, None] + torch.arange(t, device=x.device)[None, :]
+    y = rms_norm(layer.norm1, x, cfg.norm_eps)
+    q, k, v = _qkv(layer.attn, y, cfg, quant, positions)
+    kq = quantize_like(like["k"], k)
+    vq = quantize_like(like["v"], v)
+    o = verify_attention(q, kq, vq, ck, cv, posb)
+    o = o.transpose(1, 2).reshape(b, t, -1)
+    return x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo"), kq, vq
+
+
+def _attn_verify(layer: Layer, x, cfg, quant, cache: dict, posb):
+    """Dense verify attention over the cache (slots below pos), then all T
+    fresh entries written, in place."""
+    x, kq, vq = _verify_attend(layer, x, cfg, quant, cache, cache["k"], cache["v"], posb)
+    rows, slots = _ring_slots(posb, x.shape[1], cache["k"].shape[2])
+    for name, fresh in (("k", kq), ("v", vq)):
+        for leaf, fl in _leaf_pairs(cache[name], fresh):
+            leaf[rows, :, slots] = fl.transpose(1, 2).to(leaf.dtype)
+    return x
+
+
+def layer_verify(layer: Layer, x, cfg, cache: dict, pos, quant=None):
+    """T tokens through one layer in verify mode (x (B, T, d), ``pos`` (B,)
+    the position of token 0 of each row); the cache advances by all T
+    tokens, in place.  What a rollback needs of an attention layer is the
+    old content of those slots (:func:`kv_slots`); the per-step states of
+    recurrent layers (JAX ``select_state_step``) come with their families."""
+    x = _attn_verify(layer, x, cfg, quant, cache, pos)
+    return _mlp_part(layer, x, cfg, quant)
+
+
+def kv_slots(cache: dict, pos, n: int) -> dict:
+    """Copies of ring slots pos .. pos+n-1 of every row of one layer's
+    cache, every child of every leaf: {'k': [(B, n, H, D) ...], 'v': ...}.
+    What a round overwrites and :func:`rollback_kv_cache` puts back."""
+    rows, slots = _ring_slots(pos, n, cache["k"].shape[2])
+    return {name: [leaf[rows, :, slots] for leaf in _children(cache[name])]
+            for name in ("k", "v")}
+
+
+def rollback_kv_cache(cache: dict, old: dict, keep, pos, n_new: int) -> dict:
+    """Roll one layer's verify-advanced cache back to its accepted prefix,
+    in place: row b keeps its first ``keep[b]`` (>= 1) of the ``n_new``
+    fresh entries at ring slots (pos + j) % S_c, and every other of those
+    slots gets its pre-round content ``old`` (:func:`kv_slots`) back, bit
+    for bit.  The JAX function selects between the old and the new cache
+    (its values); this one rewrites the round's slots in place."""
+    rows, slots = _ring_slots(pos, n_new, cache["k"].shape[2])
+    keep = torch.as_tensor(keep, device=slots.device).to(torch.int64)
+    kept = (torch.arange(n_new, device=slots.device)[None, :] < keep[:, None])[:, :, None, None]
+    for name in ("k", "v"):
+        for leaf, saved in zip(_children(cache[name]), old[name]):
+            leaf[rows, :, slots] = torch.where(kept, leaf[rows, :, slots], saved)
+    return cache
 
 
 # ---------------- paged cache: block pools through block tables ----------------
@@ -324,6 +405,21 @@ def write_kv_blocks(pool: dict, k, v, plan: WritePlan) -> dict:
     return pool
 
 
+def pool_entries(pool: dict, plan: WritePlan) -> dict:
+    """Copies of the pool rows a ``plan`` writes, every child of every leaf:
+    {'k': [(n, H, D) ...], 'v': ...}."""
+    return {name: [leaf[plan.phys, :, plan.off] for leaf in _children(pool[name])]
+            for name in ("k", "v")}
+
+
+def restore_pool_entries(pool: dict, plan: WritePlan, saved: dict) -> dict:
+    """Put :func:`pool_entries`' copies back, in place."""
+    for name in ("k", "v"):
+        for leaf, old in zip(_children(pool[name]), saved[name]):
+            leaf[plan.phys, :, plan.off] = old
+    return pool
+
+
 def _attn_decode_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
                        plan: WritePlan):
     """Paged twin of :func:`_attn_decode`: the fresh K/V of every lane
@@ -355,17 +451,9 @@ def _attn_verify_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
     the pool's gathered view plus the T fresh K/V; nothing is written, and
     the fresh K/V come back (already quantized, so a later commit replays
     this pass's exact values) for a later :func:`write_kv_blocks`."""
-    b, t, _ = x.shape
-    positions = posb[:, None] + torch.arange(t, device=x.device)[None, :]
-    y = rms_norm(layer.norm1, x, cfg.norm_eps)
-    q, k, v = _qkv(layer.attn, y, cfg, quant, positions)
     ck = gather_kv_view(pool["k"], table, s_c)  # both children of a packed pool
     cv = gather_kv_view(pool["v"], table, s_c)
-    kq = quantize_like(pool["k"], k)
-    vq = quantize_like(pool["v"], v)
-    o = verify_attention(q, kq, vq, ck, cv, posb)
-    o = o.transpose(1, 2).reshape(b, t, -1)
-    x = x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
+    x, kq, vq = _verify_attend(layer, x, cfg, quant, pool, ck, cv, posb)
     return x, {"k": kq, "v": vq}
 
 

@@ -3,7 +3,9 @@
 Port of the dense main path of ``repro.models.model``: :func:`init` (:46),
 ``embed_tokens`` (:76), ``_head`` (:94), ``forward`` (:125),
 ``init_cache(kv=)`` (:182), ``_prefill_trunk`` / ``prefill(lengths=, kv=)``
-(:206, :242) and ``decode_step`` (:370, per-row ``pos``), and the paged
+(:206, :242), ``decode_step`` (:370, per-row ``pos``), the dense
+``verify_step(collect_rollback=)`` (:450) and ``rollback_cache`` (:505) of
+speculative decoding, and the paged
 cache's ``init_paged_cache`` (:286), ``prefill_paged`` (:314),
 ``decode_step_paged`` (:405), ``verify_step_paged`` (:539) and
 ``rollback_cache_paged`` (:581).  Under a mesh (``parallel``) a rank's
@@ -166,6 +168,48 @@ class Model(nn.Module):
         for layer, c in zip(self.layers, cache):
             x = blocks.layer_decode(layer, x, self.cfg, c, pos, quant)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), cache
+
+    # ---------------- speculative verification ----------------
+
+    def verify_step(self, tokens: torch.Tensor, cache: list[dict], pos,
+                    quant: Quant | None = None, collect_rollback: bool = False):
+        """T tokens per row in one forward (token j of row b at position
+        pos[b] + j; T <= the cache length): logits (B, T, Vp) equal to T
+        chained :meth:`decode_step` calls, the cache advanced by all T
+        tokens in place.  With ``collect_rollback`` also the old content
+        of the T slots of every layer (:meth:`kv_slots`, taken before the
+        writes), for :meth:`rollback_cache`.  Returns (logits, cache) or
+        (logits, cache, rollback)."""
+        quant = self.default_quant() if quant is None else quant
+        b, t = tokens.shape[:2]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device).expand(b)
+        rollback = self.kv_slots(cache, pos, t) if collect_rollback else None
+        x = self.embed[tokens]
+        for layer, c in zip(self.layers, cache):
+            x = blocks.layer_verify(layer, x, self.cfg, c, pos, quant)
+        logits = self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps))
+        return (logits, cache, rollback) if collect_rollback else (logits, cache)
+
+    def kv_slots(self, cache: list[dict], pos, n: int) -> list[dict]:
+        """Copies of ring slots pos .. pos+n-1 of every row and layer (every
+        child of a packed leaf): what a speculative round overwrites, a
+        few kilobytes per row and layer."""
+        b = cache[0]["k"].shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
+        return [blocks.kv_slots(c, pos, n) for c in cache]
+
+    def rollback_cache(self, cache: list[dict], rollback: list[dict], keep, pos,
+                       n_new: int) -> list[dict]:
+        """Roll a :meth:`verify_step`-advanced cache back to the accepted
+        prefix in place: row b keeps its first ``keep[b]`` (1 .. n_new)
+        verified tokens, and the slots of the rest get ``rollback`` (their
+        content before the round) back, so the cache equals the pre-round
+        cache plus the accepted writes, bit for bit."""
+        b = cache[0]["k"].shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
+        for c, old in zip(cache, rollback):
+            blocks.rollback_kv_cache(c, old, keep, pos, n_new)
+        return cache
 
     # ---------------- paged cache ----------------
 

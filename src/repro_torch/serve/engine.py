@@ -11,9 +11,11 @@ priority-ordered ``_build_queue`` (:721), and the paged scheduler
 ``_reserve_blocks`` (:1475), ``_admit_paged`` (:1515), ``_pick_victim``
 (:1636), ``_preempt_lane`` (:1646), ``_release_lane`` (:1675),
 ``_cow_writable`` (:1683), ``_chunk_step`` (:1755) and ``_requeue``
-(:851).  The JAX scheduler's fault plans, deadlines, cancellation,
-numeric guards, observability hooks and speculative rounds are not
-ported yet; the paged scheduler here has none of them.  Multi-rank
+(:851); and self-speculative decoding (``spec_k > 0``) in both
+schedulers: ``_spec_advance`` (:1109), ``_spec_advance_paged`` (:1836)
+and ``_spec_summary`` (:1097).  The JAX scheduler's fault plans,
+deadlines, cancellation, numeric guards and observability hooks are not
+ported yet (ROADMAP A10, A11).  Multi-rank
 serving (``mesh_shape``) ports ``_build_mesh`` (:605), ``_trace_ctx``
 (:624) and ``_shard_cache`` (:638) for the dense float-KV scheduler and
 ``generate``; the pool is ``batch_size`` slots (JAX's
@@ -38,6 +40,16 @@ divergent write), long prompts prefill in chunks between decode steps, and
 a higher-priority request preempts a lower one, which is recomputed when
 it resumes.  Paged decode attention reads the pool through the tables with
 the B6/B7 kernels.
+
+With ``spec_k > 0`` either scheduler advances its lanes by speculation
+rounds (``repro_torch.spec``): the draft is the packed containers'
+MSB-slice view (``spec_draft_bits``), derived per projection at call time,
+so it adds no weight bytes (``spec_report``); ``spec_k`` tokens are
+drafted, verified in one target forward, and the longest greedy-matching
+prefix commits.  Committed tokens are the target's own argmax, so the
+stream is the non-speculative one (up to near ties between the batched
+verify and sequential decode).  ``kv_draft_bits`` lets the draft attend a
+narrower view of a packed KV cache.
 
 With ``mesh_shape=(D, M)`` the engine is one rank of a ``torch.distributed``
 group of ``D*M`` processes (``launch.mesh.spawn``), each running the same
@@ -68,13 +80,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.packed import PackedDSBPWeight, pack_weights_sharded
 from repro_torch.core.quantized import PRESETS, pack_weights
-from repro_torch.kvq import kv_cache_nbytes, resolve_kv_spec, tree_has_packed_kv
+from repro_torch.kvq import (KV_MAX_BITS, KV_MIN_BITS, kv_cache_nbytes, resolve_kv_spec,
+                             tree_has_packed_kv)
 from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
 from repro_torch.parallel import context as PC
 from repro_torch.parallel import sharding as SH
 from repro_torch.serve import blocks as SB
+from repro_torch.spec import (acceptance_summary, build_spec_round,
+                              build_spec_round_paged)
 
 __all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES",
            "pack_weights_int8", "sample_tokens"]
@@ -107,6 +122,26 @@ class ServeConfig:
     # 'default': spec}; None serves the float cache
     kv_quant: object = None
     kv_bits: int | None = None   # uniform shorthand for kv_quant (exclusive)
+    # --- self-speculative decoding ---
+    # spec_k > 0 makes serve() speculative: per pool step, draft spec_k
+    # tokens per lane with the MSB-slice view of the packed weights, verify
+    # them in ONE target forward, commit the longest greedy-matching prefix
+    # (1 .. spec_k + 1 tokens) and roll the cache back past it.  Greedy only
+    # (temperature 0).  Committed tokens are the target's argmax over the
+    # verify logits, equal to sequential decode's up to float round-off, so
+    # the stream is the non-speculative one except at near ties
+    spec_k: int = 0
+    # aligned-mantissa width of the draft view: an int, or a per-layer
+    # artifact {path: bits, 'default': bits} (repro_torch.spec.draft)
+    spec_draft_bits: object = 4
+    # quantized-linear method of the DRAFT forward ('dsbp_ref': the plain
+    # integer path, as JAX's default; None inherits the serving method)
+    spec_draft_method: str | None = "dsbp_ref"
+    # speculative rounds draft over an even narrower view of a packed KV
+    # cache (repro_torch.kvq.kv_narrow_view); the verify and the committed
+    # writes keep the serving width, so tokens never change, only
+    # acceptance.  Needs kv_quant; None drafts over the serving width
+    kv_draft_bits: int | None = None
     # --- multi-rank serving ---
     # mesh_shape (D, M) makes the engine one rank of a torch.distributed
     # group of D*M processes: weights cut and packed per rank (Megatron
@@ -232,6 +267,7 @@ class Engine:
         if scfg.mesh_shape is not None:
             self._check_mesh_config(preset)
         self.mesh = self._build_mesh(scfg, self.device)
+        self._init_spec()
         if scfg.paged:
             self._init_paged()
         self.model = model.to(self.device)
@@ -271,6 +307,8 @@ class Engine:
             missing.append(f"quant_method {cfg.quant_method!r} (only 'dsbp_fused_sharded')")
         if cfg.quant is not None and (not scfg.pack or preset is None):
             missing.append("per-call quantization of raw weights (pack=False)")
+        if scfg.spec_k:
+            missing.append("speculative rounds (spec_k > 0)")
         if missing:
             raise NotImplementedError(
                 "under a mesh the port serves the dense float-KV scheduler only; not "
@@ -329,6 +367,40 @@ class Engine:
                 "collectives_per_decode_step": {k: v / max(steps, 1)
                                                 for k, v in sorted(coll.items())}}
 
+    def _init_spec(self):
+        """The speculation rounds of both schedulers (None without
+        ``spec_k``), validated with JAX's messages, and ``spec_report``."""
+        scfg, cfg = self.scfg, self.cfg
+        self._spec = self._spec_paged = None
+        self.spec_report = None
+        if not scfg.spec_k:
+            return
+        if scfg.temperature > 0:
+            raise ValueError(
+                "speculative serving uses greedy token-match acceptance; "
+                "set temperature=0 (temperature sampling acceptance is "
+                "not implemented)")
+        if cfg.window and 0 < cfg.window <= scfg.spec_k:
+            raise ValueError(
+                f"spec_k={scfg.spec_k} needs spec_k+1 <= window "
+                f"({cfg.window}): a verify pass must not wrap its own "
+                f"tokens around the SWA ring cache")
+        args = (cfg, scfg.spec_k, scfg.spec_draft_bits, scfg.spec_draft_method)
+        if scfg.paged:
+            self._spec_paged = build_spec_round_paged(
+                *args, max_len=scfg.max_len, kv_draft_bits=scfg.kv_draft_bits)
+        else:
+            self._spec = build_spec_round(*args, kv_draft_bits=scfg.kv_draft_bits)
+        # the draft view is derived per projection at call time: the
+        # engine's containers are the only weights
+        self.spec_report = {
+            "spec_k": scfg.spec_k,
+            "draft_bits": scfg.spec_draft_bits,
+            "draft_method": scfg.spec_draft_method,
+            "kv_draft_bits": scfg.kv_draft_bits,
+            "extra_weight_nbytes": 0,
+        }
+
     def _init_paged(self):
         """Pool geometry of the paged scheduler, validated at
         construction.  Every layer the port serves is ``attn_full``, so
@@ -367,8 +439,20 @@ class Engine:
                                  "set one, not both")
             kv = int(scfg.kv_bits)
         if isinstance(kv, Mapping):
-            return {str(k): resolve_kv_spec(v) for k, v in kv.items()}
-        return resolve_kv_spec(kv)
+            kv = {str(k): resolve_kv_spec(v) for k, v in kv.items()}
+        else:
+            kv = resolve_kv_spec(kv)
+        if scfg.kv_draft_bits is not None:
+            if kv is None:
+                raise ValueError(
+                    "kv_draft_bits needs a packed KV cache: set kv_quant "
+                    "(or kv_bits) as well")
+            db = int(scfg.kv_draft_bits)
+            if not KV_MIN_BITS <= db <= KV_MAX_BITS:
+                raise ValueError(
+                    f"kv_draft_bits must be in [{KV_MIN_BITS}, "
+                    f"{KV_MAX_BITS}], got {db}")
+        return kv
 
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.scfg.seed)
@@ -459,6 +543,14 @@ class Engine:
         stats = {"decode_steps": 0, "occupied_lanes": 0, "admissions": 0,
                  "prefill_tokens": 0, "decode_tokens": 0, "prefill_time_s": 0.0,
                  "decode_time_s": 0.0}
+        slot_accepted = slot_rounds = None
+        if self._spec is not None:
+            # accepted-length histogram over occupied lanes: index j =
+            # rounds that committed j tokens (1 .. spec_k + 1)
+            stats.update(spec_rounds=0, draft_tokens=0,
+                         accepted_hist=np.zeros(scfg.spec_k + 2, np.int64))
+            slot_accepted = np.zeros(B, np.int64)
+            slot_rounds = np.zeros(B, np.int64)
         while queue or any(s is not None for s in active):
             free = [i for i in range(B) if active[i] is None]
             if queue and free:
@@ -470,6 +562,11 @@ class Engine:
             stats["decode_steps"] += 1
             stats["occupied_lanes"] += sum(s is not None for s in active)
             t0 = time.perf_counter()
+            if self._spec is not None:
+                pool = self._spec_advance(pool, active, tok, pos, out, stats,
+                                          slot_accepted, slot_rounds)
+                stats["decode_time_s"] += time.perf_counter() - t0
+                continue
             before = self._collectives()
             with self._trace_ctx(rows is not None):
                 logits, pool = self.model.decode_step(
@@ -495,7 +592,57 @@ class Engine:
             decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
             kv_bytes_per_token=kv_bpt, kv_packed=tree_has_packed_kv(pool),
             **self._mesh_stats(coll, stats["decode_steps"]))
+        if self._spec is not None:
+            self._spec_summary(stats, slot_accepted, slot_rounds)
         return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
+
+    def _spec_summary(self, stats, slot_accepted=None, slot_rounds=None) -> None:
+        """The speculation epilogue of both schedulers: the accepted-length
+        histogram into ``last_stats`` (dense: per-slot means as well)."""
+        self.last_stats.update(acceptance_summary(
+            stats["accepted_hist"], self.scfg.spec_k,
+            slot_accepted=slot_accepted, slot_rounds=slot_rounds))
+
+    def _commit_round(self, lanes, target, keep, pos, tok, out, stats, release):
+        """Commit one round's accepted tokens per live lane ``i`` of
+        ``lanes`` (a list of (i, request)): the first ``keep[i]`` verify
+        tokens, dropping any past an EOS or the budget (``release(i)``
+        frees the lane there)."""
+        for i, r in lanes:
+            kp = int(keep[i])
+            stats["accepted_hist"][kp] += 1
+            committed = 0
+            for j in range(kp):
+                t = int(target[i, j])
+                out[r.uid].append(t)
+                committed += 1
+                stats["decode_tokens"] += 1
+                if self._done(t, out[r.uid], r):
+                    release(i)  # tokens past EOS / the budget are dropped
+                    break
+            pos[i] += committed
+            tok[i] = int(target[i, committed - 1])
+
+    def _spec_advance(self, pool, active, tok, pos, out, stats, slot_accepted,
+                      slot_rounds):
+        """One speculation round for the whole slot pool (draft -> verify
+        -> accept -> rollback), then the accepted greedy tokens of every
+        occupied slot commit."""
+        dev = self.device
+        target, keep, pool = self._spec(
+            self.model, pool, torch.as_tensor(tok, device=dev),
+            torch.as_tensor(pos, device=dev))
+        target, keep = target.cpu().numpy(), keep.cpu().numpy()
+        occ = [(i, r) for i, r in enumerate(active) if r is not None]
+        stats["spec_rounds"] += 1
+        stats["draft_tokens"] += self.scfg.spec_k * len(occ)
+        for i, _ in occ:  # idle slots: their rolled-back writes are
+            # overwritten at the slot's next admission
+            slot_accepted[i] += int(keep[i])
+            slot_rounds[i] += 1
+        self._commit_round(occ, target, keep, pos, tok, out, stats,
+                           lambda i: active.__setitem__(i, None))
+        return pool
 
     def _admit(self, pool, queue, free, active, tok, pos, out, stats, gen,
                pool_rows=None):
@@ -558,9 +705,11 @@ class Engine:
         queue = self._build_queue(requests, max_new_tokens)
         nreq = len(queue)
         B, bs = self.lanes, scfg.kv_block_size
+        headroom = scfg.spec_k  # a round writes up to spec_k slots past the budget
         # a reservation that exceeds the whole pool can never succeed
         for r in queue:
-            span = SB.block_span(min(len(r.tokens) + r.max_new_tokens, self._s_c), bs)
+            span = SB.block_span(min(len(r.tokens) + r.max_new_tokens + headroom,
+                                     self._s_c), bs)
             if span > self.kv_blocks - 1:
                 raise SB.BlockError(
                     f"request {r.uid!r} cannot be admitted even with an "
@@ -587,6 +736,9 @@ class Engine:
                  "stalled_decode_steps": 0, "interleaved_decode_steps": 0,
                  "max_concurrent": 0, "shared_blocks_peak": 0,
                  "admission_blocked": 0, "preemptions": 0, "resumed": 0}
+        if self._spec_paged is not None:
+            stats.update(spec_rounds=0, draft_tokens=0,
+                         accepted_hist=np.zeros(scfg.spec_k + 2, np.int64))
         out: dict = {}
         ctl = {"stats": stats, "out": out, "gen": gen}
         idle_spins = 0
@@ -618,10 +770,12 @@ class Engine:
                                                   alloc.shared_blocks())
                 if dec:
                     t_step = time.perf_counter()
-                    # every ring slot this step writes must be exclusively
-                    # owned; under pool pressure this may preempt a lane
+                    # every ring slot this step writes (a round: 1 + spec_k)
+                    # must be exclusively owned; under pool pressure this
+                    # may preempt a lane
                     cache = self._cow_writable(
-                        cache, tables, alloc, prefix, [(i, int(pos[i]), 1) for i in dec],
+                        cache, tables, alloc, prefix,
+                        [(i, int(pos[i]), 1 + headroom) for i in dec],
                         stats, lanes=lanes, queue=queue, ctl=ctl)
                     dec = [i for i in dec if lanes[i] is not None]
                     chk = [i for i in chk if lanes[i] is not None]
@@ -630,21 +784,25 @@ class Engine:
                     stats["occupied_lanes"] += len(dec) + len(chk)
                     if chk:
                         stats["interleaved_decode_steps"] += 1
-                    live = np.zeros(B, np.int32)
-                    live[dec] = 1  # idle and chunk lanes: write_len 0
-                    logits, cache = self.model.decode_step_paged(
-                        torch.as_tensor(tok, device=dev)[:, None], cache, tables, pos,
-                        live, scfg.max_len, self.quant)
-                    nxt = self._sample(logits[:, -1], gen).cpu().numpy()  # syncs
-                    for i in dec:
-                        r = lanes[i]["req"]
-                        pos[i] += 1
-                        t = int(nxt[i])
-                        out[r.uid].append(t)
-                        tok[i] = t
-                        stats["decode_tokens"] += 1
-                        if self._done(t, out[r.uid], r):
-                            self._release_lane(i, lanes, tables, alloc)
+                    if self._spec_paged is not None:
+                        cache = self._spec_advance_paged(cache, lanes, tables, alloc, dec,
+                                                         tok, pos, ctl)
+                    else:
+                        live = np.zeros(B, np.int32)
+                        live[dec] = 1  # idle and chunk lanes: write_len 0
+                        logits, cache = self.model.decode_step_paged(
+                            torch.as_tensor(tok, device=dev)[:, None], cache, tables, pos,
+                            live, scfg.max_len, self.quant)
+                        nxt = self._sample(logits[:, -1], gen).cpu().numpy()  # syncs
+                        for i in dec:
+                            r = lanes[i]["req"]
+                            pos[i] += 1
+                            t = int(nxt[i])
+                            out[r.uid].append(t)
+                            tok[i] = t
+                            stats["decode_tokens"] += 1
+                            if self._done(t, out[r.uid], r):
+                                self._release_lane(i, lanes, tables, alloc)
                     stats["decode_time_s"] += time.perf_counter() - t_step
                 if chk:
                     t0 = time.perf_counter()
@@ -677,16 +835,36 @@ class Engine:
                 bytes_saved_sharing=(prefix.hits if prefix is not None else 0) * blk_bytes,
                 kv_bytes_per_token=blk_bytes / max(bs, 1),
                 kv_packed=tree_has_packed_kv(cache))
+            if self._spec_paged is not None:
+                self._spec_summary(stats)
         return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
+
+    def _spec_advance_paged(self, cache, lanes, tables, alloc, dec, tok, pos, ctl):
+        """One speculation round through the block tables: the round drafts
+        and verifies, and commits only each decode lane's accepted prefix
+        (commit-on-accept); then its tokens commit."""
+        stats = ctl["stats"]
+        live = np.zeros(self.lanes, np.int32)
+        live[dec] = 1
+        target, keep, cache = self._spec_paged(
+            self.model, cache, tables, torch.as_tensor(tok, device=self.device), pos, live)
+        target, keep = target.cpu().numpy(), keep.cpu().numpy()
+        stats["spec_rounds"] += 1
+        stats["draft_tokens"] += self.scfg.spec_k * len(dec)
+        self._commit_round([(i, lanes[i]["req"]) for i in dec], target, keep, pos, tok,
+                           ctl["out"], stats,
+                           lambda i: self._release_lane(i, lanes, tables, alloc))
+        return cache
 
     def _reserve_blocks(self, alloc, prefix, r, use_prefix=True, done: int = 0):
         """Reserve the lane's whole logical span up front: blocks for
-        min(prompt + remaining budget, S_c) ring slots, minus prefix hits
+        min(prompt + remaining budget + spec_k, S_c) ring slots, minus prefix hits
         (``done`` tokens already emitted ride inside a resumed request's
         prompt).  Returns (block_ids, n_hit_blocks), or None when the pool
         cannot cover it even after evicting cache-only prefix blocks."""
         bs = self.scfg.kv_block_size
-        total = min(len(r.tokens) + max(r.max_new_tokens - done, 1), self._s_c)
+        total = min(len(r.tokens) + max(r.max_new_tokens - done, 1) + self.scfg.spec_k,
+                    self._s_c)
         span = SB.block_span(total, bs)
         hits = []
         if use_prefix and prefix is not None and len(r.tokens) <= self._s_c:
@@ -941,11 +1119,14 @@ class Engine:
                 for i, r in enumerate(requests)]
         if len({r.uid for r in reqs}) != len(reqs):
             raise ValueError("request uids must be unique (results key on uid)")
+        headroom = self.scfg.spec_k
         for r in reqs:
-            if len(r.tokens) + r.max_new_tokens > self.scfg.max_len:
+            if len(r.tokens) + r.max_new_tokens + headroom > self.scfg.max_len:
                 raise ValueError(
                     f"request {r.uid!r}: prompt {len(r.tokens)} + budget "
-                    f"{r.max_new_tokens} exceeds max_len {self.scfg.max_len}")
+                    f"{r.max_new_tokens}"
+                    f"{f' + spec_k {headroom}' if headroom else ''}"
+                    f" exceeds max_len {self.scfg.max_len}")
         return deque(sorted(reqs, key=lambda r: -r.priority))
 
     def _done(self, t: int, emitted: list, r: Request) -> bool:

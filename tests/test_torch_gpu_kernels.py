@@ -456,13 +456,15 @@ def test_fp8_quant_align_equals_b1_scratch(cuda, m, k, kw):
     assert torch.equal(scratch[m * g * 128:].view(torch.float32).reshape(m, g), s / ts)
 
 
-@pytest.mark.parametrize("d", [40, 64, 256])
+@pytest.mark.parametrize("d", [40, 64, 256, 300, 320, 512])
 @pytest.mark.parametrize("hq,hkv,window", [(16, 8, 0),    # gemma3-12b's GQA
                                            (10, 1, 24)])  # recurrentgemma-2b's MQA, windowed
 @pytest.mark.parametrize("sq", [1, 3, 130])
 def test_attention_every_head_dim(cuda, d, hq, hkv, window, sq):
     """B2 at d_head 40 (not a multiple of 16: the unaligned load path), 64
-    and 256 (the second head-dim class) within 1e-5 of its plain version;
+    and 256 (the second head-dim class), and 300, 320 and 512 (one warp per
+    query row; 300 leaves lanes without a last column) within 1e-5 of its
+    plain version;
     B6 equal to B2 over the gathered view, B5 to B2 over the dequantized
     cache, B7 to B5 over the gathered packed view, bit for bit; head and
     row slices of B2 bit-equal to the whole call."""
@@ -500,3 +502,92 @@ def test_attention_every_head_dim(cuda, d, hq, hkv, window, sq):
     assert torch.equal(o5, o2d), float((o5 - o2d).abs().max())
     assert torch.equal(o7, o5), float((o7 - o5).abs().max())
     assert torch.equal(heads, o[:, :kh * rep]) and torch.equal(rows, o[2:4])
+
+
+def test_attention_head_dim_beyond_shared_memory(cuda):
+    """A head dim whose query row and accumulator (8 * D bytes) exceed a
+    block's shared memory: the row kernel accumulates in the output row
+    itself, within 1e-5 of the plain version, B5 = B2 over the dequantized
+    cache and B7 = B5 over the gathered view bit for bit."""
+    g = torch.Generator().manual_seed(30000)
+    b, hq, hkv, sq, d, bs, mb = 2, 2, 1, 2, 30000, 4, 4
+    nb = b * mb + 1
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    pk = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    pv = torch.randn(nb, hkv, bs, d, generator=g).to(cuda)
+    table = (torch.randperm(nb - 1, generator=g)[:b * mb] + 1).reshape(b, mb)
+    table = table.to(cuda, torch.int32)
+    kv_len = torch.tensor([16, 7], dtype=torch.int32, device=cuda)
+    q0 = kv_len - sq
+    k, v = FA.gather_blocks(pk, table), FA.gather_blocks(pv, table)
+    o = FA.flash_attention(q, k, v, kv_len, q0)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0)
+    kq, vq = (quantize_kv(t, KV_PRESETS["kv8"]) for t in (pk, pv))
+    gq = [FA.gather_blocks(t, table) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+    o5 = FA.packed_flash_attention(q, *gq, kv_len, q0)
+    o7 = FA.paged_packed_flash_attention(q, kq.qm, kq.scale, vq.qm, vq.scale, table, kv_len,
+                                         q0)
+    o2d = FA.flash_attention(q, gq[0].float() * gq[1], gq[2].float() * gq[3], kv_len, q0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o5, o2d) and torch.equal(o7, o5)
+
+
+# ---- speculative decoding: B1 over draft views; a spec serve on the card ----
+
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("k,n", [(512, 256), (640, 96), (1024, 512)])
+@pytest.mark.parametrize("bits", [1, 4, 7])
+def test_dsbp_fused_over_draft_view_bit_equal_plain(cuda, m, k, n, bits):
+    """B1 over a ``draft_view`` container (the draft's M = B rows, the
+    verify's B * (spec_k + 1)) equals its plain version bit for bit."""
+    from repro_torch.core.packed import draft_view
+
+    cfg = _cfg()
+    pw = Q.pack_weights(torch.from_numpy(_data((k, n), k + n, 2)), cfg).to(cuda)
+    dv = draft_view(pw, bits)
+    x = torch.nn.functional.pad(torch.from_numpy(_data((m, k), m)),
+                                (0, pw.padded_k - k)).to(cuda)
+    ts = per_tensor_scale(x, cfg.input_cfg.fmt).reshape(1)
+    tw = dv.tscale.reshape(-1).contiguous()
+    y = DF.dsbp_fused(x, ts, dv.ka, dv.kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused_plain(x, ts, dv.ka, dv.kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+
+
+@pytest.mark.parametrize("paged,kv", [(False, None), (False, "kv8"), (True, None),
+                                      (True, "kv8")],
+                         ids=["dense-float", "dense-kv8", "paged-float", "paged-kv8"])
+def test_spec_serve_card_equals_cpu(cuda, paged, kv):
+    """A 2-layer smoke model served speculatively (the draft through B1)
+    on the card and on the CPU: the same tokens and the same
+    accepted-length histogram, equal to the card's non-speculative
+    stream."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    cfg = smoke_config("llama-7b-paper").replace(quant="precise")
+    gpu_model = TM.init(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n), max_new_tokens=8)
+            for i, n in enumerate([5, 11, 8, 3, 19])]
+    scfg = dict(max_len=48, batch_size=2, kv_quant=kv, spec_draft_method="dsbp_fused",
+                paged=paged, kv_block_size=4, max_active=3, chunk_prefill_tokens=12,
+                kv_draft_bits=6 if kv else None)
+    gpu = Engine(gpu_model, ServeConfig(spec_k=3, **scfg), device=cuda)  # packs on the card
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), ServeConfig(spec_k=3, **scfg),
+                 device="cpu")
+    out, hist = {}, {}
+    for name, eng in (("cpu", cpu), ("gpu", gpu)):
+        out[name] = eng.serve(reqs)
+        hist[name] = eng.last_stats["accepted_hist"]
+    base = Engine(gpu.model, ServeConfig(**dict(scfg, kv_draft_bits=None)), device=cuda)
+    plain = base.serve(reqs)
+    for uid in plain:
+        np.testing.assert_array_equal(out["gpu"][uid], out["cpu"][uid])
+        np.testing.assert_array_equal(out["gpu"][uid], plain[uid])
+    assert hist["gpu"] == hist["cpu"]
