@@ -112,9 +112,28 @@ Phases (each raises on failure; nothing falls back to the CPU):
      in every draft step; accepted_hist, mean_accepted, ms per round and
      per committed token beside the spec_k 0 serve's and phase 5's, peak
      memory.
+  17a. the DSBP policy loop on 2 layers at full width, CPU (plain) vs card
+     (kernels): calibration reports with equal counts, flops and
+     weight-side statistics and input histograms within HIST_TOL; scores of
+     a decided synthetic BoolQ subset under a mixed policy (four presets
+     cycling over the projection paths, KV units.0 at kv4) within
+     SCORE_TIE; that policy's serve under phase 9's rule;
+  17. the policy loop at full width and depth: calibrate (4 batches of
+     4 x 128 tokens; seconds, flop shares, nz_frac, peak memory); price
+     every uniform rung of both ladders on the paper's macro model; gold
+     labels from the raw float model on 64-item synthetic BoolQ and
+     Winogrande, then autotune over the input ladder (6, 4, 3, 2) with
+     max_drop 0 (trials, seconds, the policy, accuracies); serve phase 5's
+     traffic under a uniform 'precise' policy (every sampled batch
+     bit-equal to phase 5's), the mixed policy with its kv4 cache and the
+     autotuned one (ms per step, tokens/s, peak memory, B1 = 224 and the
+     attention kernel = 32 launches per decode step, B1 bit-equal to plain
+     on a served container of each config); a row's score alone vs among
+     copies of itself and vs in a batch of other rows; B1 under every rung
+     and B5 at kv4 timed cold; a `policy (phase 17):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
-  multi-card numbers.  16a and 16 run after 13, before 14-15b, for which
-  the models are freed.
+  multi-card numbers.  16a, 16, 17a and 17 run after 13, before 14-15b,
+  for which the models are freed.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 
@@ -131,6 +150,10 @@ and its times.
     python3 chip_smoke.py --spec
 
 runs phases 1, 4, 5, 13 (the references of phase 16), 16a and 16 alone.
+
+    python3 chip_smoke.py --policy
+
+runs phases 1, 5 (the reference of phase 17), 17a and 17 alone.
 
 Kernel times are cold: each timed loop cycles through copies of the
 operands that a call reads (weights, K/V, pools) that together overflow
@@ -1807,6 +1830,451 @@ def phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tenso
 
 
 # ---------------------------------------------------------------------------
+# phases 17a and 17: the DSBP policy loop (calibrate, price, autotune, serve)
+# ---------------------------------------------------------------------------
+
+# the mixed policy of phases 17a and 17: llama-7b-paper's seven projection
+# paths (one pattern position: each covers every layer) cycle over four
+# Table I presets, and its KV side stores units.0 (every layer) at kv4
+MIXED_PRESETS = ("precise", "efficient", "e5m7_fixed", "e5m3_fixed")
+# input-side calibration histograms, card vs CPU (phase 17a): the float
+# matmuls sum in other orders on the two devices, so a group's ratio can
+# cross a bin edge; L1 distance over the counts (a moved count counts twice)
+HIST_TOL = 0.01
+# continuation scores (sums of log-probs), card vs CPU under the mixed
+# policy (phase 17a), relative to max|score|: one last-bit difference can
+# move a projection input across an FP8 rounding boundary (phase 9), which
+# moves a score by percents; a fault moves it by its own magnitude
+SCORE_TIE = 0.05
+# a row scored alone against the same row in a batch of its own copies
+# (phase 17), relative to max|score|: no kernel's result for a row depends
+# on the other rows or their count; only the float lm_head GEMM may sum in
+# another order at another M.  Against the same row in a batch of OTHER
+# rows the scores may differ by SCORE_TIE: every projection's DSBP input
+# path takes one per-tensor scale over all the rows of its GEMM (JAX's
+# semantics too), so the batch's largest activation sets how a row's
+# smallest inputs round (e4m3 subnormals), an FP8 crossing as above
+BATCH_TOL = 1e-5
+# phase 17's calibration: batches of rows x tokens
+CAL_BATCHES, CAL_ROWS, CAL_SEQ = 4, 4, 128
+# phase 17's eval suite: items of each synthetic task before the decided
+# subset is taken
+EVAL_ITEMS = 64
+
+
+def mixed_policy(P, PRESETS, keys):
+    return P.DSBPPolicy(layers={k: PRESETS[MIXED_PRESETS[i % 4]]
+                                for i, k in enumerate(sorted(keys))},
+                        kv_layers={"units.0": "kv4"}, kv_default="kv8")
+
+
+def compare_reports(ref, got) -> float:
+    """Phase 17a's rule for two calibration reports of the same weights and
+    batches: every count, shape, weight-side statistic and the flops equal;
+    the input-side ratio and shift histograms and nz within HIST_TOL.
+    Returns the largest histogram distance."""
+    import numpy as np
+
+    if sorted(ref.layers) != sorted(got.layers) or ref.meta != got.meta:
+        raise AssertionError(f"reports name {sorted(got.layers)} ({got.meta}) vs "
+                             f"{sorted(ref.layers)} ({ref.meta})")
+    worst = 0.0
+    for k, a in ref.layers.items():
+        b = got.layers[k]
+        same = ("k", "n", "total", "groups", "tokens", "flops", "w_groups", "w_nz_frac")
+        if any(getattr(a, f) != getattr(b, f) for f in same) or not np.array_equal(
+                a.w_bdyn_hist, b.w_bdyn_hist):
+            raise AssertionError(f"{k}: counts or weight-side statistics differ: "
+                                 f"{[(f, getattr(a, f), getattr(b, f)) for f in same]}")
+        for name, n in (("ratio_hist", a.groups), ("shift_hist", a.nz)):
+            d = float(np.abs(getattr(a, name) - getattr(b, name)).sum()) / max(n, 1)
+            if d > HIST_TOL:
+                raise AssertionError(f"{k}: {name} differs by {d:.4g} of its counts "
+                                     f"(limit {HIST_TOL})")
+            worst = max(worst, d)
+        if abs(a.nz - b.nz) > HIST_TOL * a.total:
+            raise AssertionError(f"{k}: nz {b.nz} vs {a.nz}")
+    return worst
+
+
+def compare_scores(ref, got, label: str) -> float:
+    """Two engines' (items, choices) scores: within SCORE_TIE * max|score|,
+    and the same choice on every item whose reference margin exceeds twice
+    the item's difference.  Returns the largest difference relative to
+    max|score|."""
+    import numpy as np
+
+    top = float(np.abs(ref).max())
+    diff = np.abs(ref - got).max(axis=1)
+    if float(diff.max()) > SCORE_TIE * top:
+        raise AssertionError(f"{label}: scores differ by {float(diff.max())} > "
+                             f"{SCORE_TIE} * {top}")
+    srt = np.sort(ref, axis=1)
+    margin = srt[:, -1] - srt[:, -2]
+    bad = (ref.argmax(axis=1) != got.argmax(axis=1)) & (margin > 2 * diff)
+    if bad.any():
+        raise AssertionError(f"{label}: items {np.flatnonzero(bad).tolist()} change "
+                             f"their choice beyond a near tie")
+    return float(diff.max()) / top
+
+
+def phase_policy_cross_device(torch, P, TM, Engine, ServeConfig, Request, PRESETS, kernels,
+                              cfg):
+    print("== phase 17a: 2-layer full width, the policy loop on the CPU (plain) vs the "
+          "card (kernels): calibration report, scores of a decided BoolQ subset and a "
+          "mixed-policy serve with a joint KV side")
+    import numpy as np
+
+    from repro_torch.eval import boolq_synthetic, harness
+
+    cfg2 = cfg.replace(n_layers=2)
+    gpu = TM.init(cfg2, seed=0, device="cuda")
+    cpu = TM.Model(cfg2, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    batches = P.synthetic_calibration_batches(cfg2, 2, 2, 64, seed=0)
+    reps = {name: P.calibrate(m, cfg2, batches) for name, m in (("cpu", cpu), ("gpu", gpu))}
+    worst = compare_reports(reps["cpu"], reps["gpu"])
+    print(f"  calibration ({len(batches)} batches of 2 x 64 tokens): {len(reps['gpu'].layers)} "
+          f"paths, counts, flops and weight-side statistics equal; input histograms within "
+          f"{worst:.4g} of their counts (limit {HIST_TOL})")
+    pol = mixed_policy(P, PRESETS, reps["gpu"].layers)
+    task = boolq_synthetic(cfg2.vocab_size, 16)
+    gold, margins = harness.gold_labels_and_margins(gpu, cfg2, task)
+    sub, _ = harness.decided_subset(task, gold, margins, 1.0)
+    scfg = ServeConfig(max_len=64, batch_size=4, pack_preset=pol, kv_quant=pol)
+    engines = {"gpu": Engine(TM.shared(gpu), scfg, device="cuda")}  # packs on the card
+    engines["cpu"] = Engine(copy.deepcopy(engines["gpu"].model).to("cpu"), scfg,
+                            device="cpu")
+    _reset_launches(kernels)
+    scores = {name: harness.score_task(eng, sub) for name, eng in engines.items()}
+    torch.cuda.synchronize()
+    score_launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    rel = compare_scores(scores["cpu"], scores["gpu"], "phase 17a scores")
+    print(f"  scores of {len(sub.items)} decided BoolQ items under the mixed policy: card "
+          f"vs CPU within {rel:.3g} of max|score| (limit {SCORE_TIE}), the same choices; "
+          f"launches {score_launches}")
+    toks, lens = _prompts(cfg2.vocab_size, [5, 17, 9, 12], seed=3)
+    reqs = [Request(uid=i, tokens=toks[i, :n], max_new_tokens=8) for i, n in enumerate(lens)]
+    calls = {}
+    for name, eng in engines.items():
+        tape = SampleTape(eng, cfg2.vocab_size)
+        eng.serve(reqs, max_new_tokens=8)
+        calls[name] = tape.close()
+        if not eng.last_stats["kv_packed"]:
+            raise AssertionError("the joint policy served a float cache")
+    first, equal, rel = check_calls(torch, calls["cpu"], calls["gpu"])
+    print(f"  mixed policy {list(MIXED_PRESETS)} cycling over the paths, KV units.0 kv4: "
+          f"serve of 4 requests, tokens equal under phase 9's rule "
+          f"({'no divergence' if first is None else f'a near tie at batch {first}'}), "
+          f"{equal} of {len(calls['cpu'])} sampled batches bit-equal, largest logit "
+          f"difference {rel:.3g} of max|logit|")
+    del engines, cpu, gpu
+    return {"hist": worst, "score_rel": rel}
+
+
+def b1_rung_rows(torch, Q, DF, per_tensor_scale, rungs: dict) -> dict:
+    """B1 at w1's decode shape (M=4 K=4096 N=11008) under each named config:
+    bit-equal to its plain version, timed cold as phase 2."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    m, k, n = 4, 4096, 11008
+    rows = {}
+    for name, cfg in rungs.items():
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        pw = Q.pack_weights(w, cfg)
+        del w
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        icfg = cfg.input_cfg
+        ts = per_tensor_scale(x, icfg.fmt).reshape(1)
+        tw = pw.tscale.reshape(-1).contiguous()
+        y = DF.dsbp_fused(x, ts, pw.ka, pw.kscale, tw, icfg)
+        ref = DF.dsbp_fused_plain(x, ts, pw.ka, pw.kscale, tw, icfg)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ref):
+            raise AssertionError(f"B1 != plain under {name}: max |diff| "
+                                 f"{float((y - ref).abs().max())}")
+        wbytes = pw.ka.numel() + pw.kscale.numel() * 4
+        copies = [(x, ts, pw.ka.clone(), pw.kscale.clone(), tw, icfg)
+                  for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
+        ms = cuda_ms(DF.dsbp_fused, copies, iters=30)
+        plain_ms = cuda_ms(DF.dsbp_fused_plain, copies[:1], iters=3, warmup=1)
+        nbytes = m * pw.padded_k * 4 + wbytes + n * 4 + 4 + m * n * 4
+        b_ms, b_by = bound(nbytes, 2.0 * m * pw.padded_k * n, FP16_OPS)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": 0.0, "b_fix": (icfg.b_fix, cfg.weight_cfg.b_fix),
+                      "k": icfg.k, "mode": icfg.mode}
+        print(f"  B1 M=4 K=4096 N=11008 under {name:10s} (k {icfg.k:g}, B_fix "
+              f"{icfg.b_fix}/{cfg.weight_cfg.b_fix}, {icfg.mode}): bit-equal; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del pw, copies
+    torch.cuda.empty_cache()
+    return rows
+
+
+def b5_kv4_row(torch, FA, KVQ) -> dict:
+    """B5 over a kv4 cache at phase 17's serving shape (B=4, H=32, S=512,
+    D=128, ragged): bit-equal to B2 over dequantize(), within 1e-5 of
+    plain, timed cold as phase 8."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    b, h, s, d = 4, 32, 512, 128
+    spec = KVQ.KV_PRESETS["kv4"]
+    k = KVQ.quantize_kv(torch.randn(b, h, s, d, generator=gen, device="cuda"), spec)
+    v = KVQ.quantize_kv(torch.randn(b, h, s, d, generator=gen, device="cuda"), spec)
+    kd, vd = k.dequantize(), v.dequantize()
+    q = torch.randn(b, h, 1, d, generator=gen, device="cuda")
+    kv_len = torch.tensor([512, 301, 144, 32], dtype=torch.int32, device="cuda")
+    q0 = kv_len - 1
+    args = (q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
+    o = FA.packed_flash_attention(*args)
+    b2 = FA.flash_attention(q, kd, vd, kv_len, q0)
+    ref = FA.packed_flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(o, b2):
+        raise AssertionError(f"B5 at kv4 != B2 over dequantize(): max |diff| "
+                             f"{float((o - b2).abs().max())}")
+    err = float((o - ref).abs().max())
+    if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"B5 at kv4: kernel vs plain max |diff| {err}")
+    nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * h * (d + 4) + 8 * b
+    b_ms, b_by = bound(nbytes, float(kv_len.sum()) * h * 4 * d, F32_OPS)
+    cold = cold_copies(torch, (*args, kd, vd), nbytes)
+    ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
+    plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
+    b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
+                    iters=20)
+    mask = FA.attention_mask(kv_len, q0, 1, s, causal=True, window=0)
+    sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold], iters=20)
+    print(f"  B5 at kv4, decode B=4 H=32 S=512 D=128 (keys {kv_len.tolist()}): bit-equal to "
+          f"B2 over dequantize(), |diff| to plain {err:.3g}; kernel {ms:.4f} ms, B2 "
+          f"{b2_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa over "
+          f"dequantized K/V {sdpa_ms:.4f} ms (yardstick)")
+    del cold
+    return {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms, "sdpa_dequantized_ms": sdpa_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
+def _check_containers(torch, DF, per_tensor_scale, model, label: str) -> list:
+    """One full-shape decode call (M=4) of B1 on a served container of each
+    distinct config in ``model``: bit-equal to its plain version."""
+    from repro_torch.spec.draft import projection_keys
+
+    seen = {}
+    for key, pw in projection_keys(model):
+        seen.setdefault(pw.cfg, (key, pw))
+    gen = torch.Generator(device="cuda").manual_seed(len(seen))
+    for cfg, (key, pw) in seen.items():
+        x = torch.randn(4, pw.k, generator=gen, device="cuda")
+        ts = per_tensor_scale(x, cfg.input_cfg.fmt).reshape(1)
+        tw = pw.tscale.reshape(-1).contiguous()
+        y = DF.dsbp_fused(x, ts, pw.ka, pw.kscale, tw, cfg.input_cfg)
+        ref = DF.dsbp_fused_plain(x, ts, pw.ka, pw.kscale, tw, cfg.input_cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ref):
+            raise AssertionError(f"{label}: B1 != plain on {key} ({cfg}): max |diff| "
+                                 f"{float((y - ref).abs().max())}")
+    return [key for key, _ in seen.values()]
+
+
+def _step_launches(torch, eng, kernels, toks, lens) -> dict:
+    """Each kernel's launches over one full-width decode step of ``eng``."""
+    with torch.inference_mode():
+        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), 512,
+                                         lengths=lens, quant=eng.quant, kv=eng.kv_spec)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        _reset_launches(kernels)
+        eng.model.decode_step(tok, cache, torch.as_tensor(lens, device="cuda"), eng.quant)
+        torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in kernels.items() if fn.launches}
+
+
+def phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tensor_scale,
+                 KVQ, kernels, cfg, ref5, card: str):
+    print("== phase 17: the DSBP policy loop at full width: calibrate, price, autotune, "
+          "then serve phase 5's traffic under a uniform 'precise', the mixed and the "
+          "autotuned policy")
+    import numpy as np
+
+    from repro_torch.eval import harness
+    from repro_torch.policy.cost import input_bitwidth_ladder
+
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    raw = TM.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {card}: raw f32 model of {n_layers} layers drawn in "
+          f"{time.perf_counter() - t0:.2f} s ({sum(p.numel() for p in raw.parameters()) / 1e9:.3f}"
+          f" G parameters, resident through the phase for gold labels and trials)")
+
+    # ---- 1. calibrate ----
+    torch.cuda.reset_peak_memory_stats()
+    batches = P.synthetic_calibration_batches(cfg, CAL_BATCHES, CAL_ROWS, CAL_SEQ, seed=0)
+    t0 = time.perf_counter()
+    report = P.calibrate(raw, cfg, batches)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    cal_peak = torch.cuda.max_memory_allocated()
+    shares = {p: report.flop_share(p) for p in sorted(report.layers)}
+    if len(shares) != 7 or abs(sum(shares.values()) - 1.0) > 1e-9:
+        raise AssertionError(f"calibration paths {shares}")
+    print(f"  calibrate: {CAL_BATCHES} batches of {CAL_ROWS} x {CAL_SEQ} tokens in "
+          f"{cal_s:.2f} s, peak {cal_peak / 2**30:.2f} GiB; flop shares sum to "
+          f"{sum(shares.values()):.12f}")
+    for p, sh in shares.items():
+        s = report.layers[p]
+        print(f"    {p:18s} K={s.k:5d} N={s.n:5d} flop share {sh:.6f} nz_frac "
+              f"{s.nz_frac:.6f} w_nz_frac {s.w_nz_frac:.6f}")
+
+    # ---- 2. price every uniform rung on the macro model ----
+    rungs = dict(P.candidate_ladder() + input_bitwidth_ladder((6, 4, 3, 2)))
+    priced = {}
+    for name, c in rungs.items():
+        cost = P.assignment_cost(report, {p: c for p in report.layers})
+        priced[name] = {k: cost[k] for k in ("avg_i", "avg_w", "eff_tops_w")}
+        print(f"  price {name:10s}: modeled avg I/W {cost['avg_i']:.3f}/{cost['avg_w']:.3f}, "
+              f"{cost['eff_tops_w']:.2f} TOPS/W (the paper's 28 nm macro model, not this card)")
+
+    # ---- 3. autotune: gold labels from the raw float model, then the walk ----
+    t0 = time.perf_counter()
+    tasks, golds = harness.decided_tasks(raw, cfg, EVAL_ITEMS)
+    gold_s = time.perf_counter() - t0
+    suite = [f"{t.name} {len(t.items)}/{t.meta['subset_of']}" for t in tasks]
+    print(f"  eval suite: {suite} decided items (margins >= "
+          f"{harness.STANDARD_MARGIN_FLOORS}), gold labels from the float model in "
+          f"{gold_s:.2f} s")
+    log = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tuned = P.autotune(raw, cfg, report, tasks, ladder=input_bitwidth_ladder((6, 4, 3, 2)),
+                       max_drop=0.0, log=log.append)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune_peak = torch.cuda.max_memory_allocated()
+    n_trials = sum(len(t["trials"]) for t in tuned.meta["trace"])
+    print(f"  autotune (ladder i6/i4/i3/i2 at w7, max_drop 0, full depth, {n_layers} layers):"
+          f" {n_trials} trials + the baseline in {tune_s:.2f} s, peak "
+          f"{tune_peak / 2**30:.2f} GiB")
+    for line in log:
+        print(f"    {line}")
+    print("  autotuned policy:\n" + "\n".join(f"    {ln}" for ln in tuned.summary().splitlines()))
+    m = tuned.meta["modeled"]
+    print(f"  accuracies {tuned.meta['final_acc']} against the baseline "
+          f"{tuned.meta['baseline_acc']}; modeled avg I/W {m['avg_i']:.3f}/{m['avg_w']:.3f}, "
+          f"{m['eff_tops_w']:.2f} TOPS/W (macro model)")
+    if any(a < b for a, b in zip(tuned.meta["final_acc"], tuned.meta["baseline_acc"])):
+        raise AssertionError("the autotuned policy fell below its floor")
+
+    # ---- 4. serve phase 5's traffic under three policies ----
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    mixed = mixed_policy(P, Q.PRESETS, report.layers)
+    served = {}
+    for label, pol in (("uniform precise", P.DSBPPolicy.uniform("precise")),
+                       ("mixed + kv4", mixed), ("autotuned", tuned)):
+        eng = Engine(TM.shared(raw), ServeConfig(max_len=512, batch_size=4, pack_preset=pol,
+                                                  kv_quant=pol), device="cuda")
+        if eng.cfg.quant != "policy" or eng.pack_report["layers_packed"] != 7 * n_layers:
+            raise AssertionError(f"{label}: {eng.cfg.quant}, {eng.pack_report}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(kernels)
+        out = eng.generate(toks, 16, lengths=lens)
+        gst = dict(eng.last_stats)
+        got = eng.serve(reqs, max_new_tokens=16)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        peak = torch.cuda.max_memory_allocated()
+        sst = dict(eng.last_stats)
+        if out.shape != (4, 16) or sorted(got) != list(range(8)) or any(
+                len(t) != 16 for t in got.values()):
+            raise AssertionError(f"{label}: generate {out.shape}, serve {sorted(got)}")
+        attn = "packed_flash_attention" if eng.kv_spec is not None else "flash_attention"
+        if launches.get("dsbp_fused", 0) <= 0 or launches.get(attn, 0) <= 0:
+            raise AssertionError(f"{label}: kernels of the path not launched: {launches}")
+        step = _step_launches(torch, eng, kernels, toks, lens)
+        if step != {"dsbp_fused": 7 * n_layers, attn: n_layers}:
+            raise AssertionError(f"{label}: one decode step launched {step}, want B1 "
+                                 f"{7 * n_layers} and {attn} {n_layers}")
+        keys = _check_containers(torch, DF, per_tensor_scale, eng.model, label)
+        res = {"launches": launches, "step_launches": step, "peak": peak,
+               "ms_step": 1e3 * sst["decode_time_s"] / sst["decode_steps"],
+               "tps": sst["decode_tps"], "gen_ms_step": 1e3 * gst["decode_s"] /
+               gst["decode_steps"], "prefill_s": sst["prefill_time_s"],
+               "kv_bytes_per_token": sst["kv_bytes_per_token"], "configs": len(keys)}
+        print(f"  {label}: serve {sst['decode_steps']} steps, {res['ms_step']:.2f} ms/step, "
+              f"{res['tps']:.1f} tok/s, prefill {res['prefill_s']:.3f} s; generate "
+              f"{res['gen_ms_step']:.2f} ms/step; peak {peak / 2**30:.2f} GiB; KV bytes per "
+              f"token {res['kv_bytes_per_token']:.0f}; one decode step: {step}; B1 bit-equal "
+              f"to plain on a served container of each of its {len(keys)} configs; launches "
+              f"over generate + serve {launches}")
+        if label == "uniform precise":
+            calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, got)
+            if len(calls) != len(ref5["calls"]) or not all(
+                    torch.equal(a, b) and torch.equal(ta, tb)
+                    for (a, ta), (b, tb) in zip(calls, ref5["calls"])):
+                raise AssertionError("the uniform 'precise' policy's sampled logits are not "
+                                     "bit-equal to phase 5's preset serve")
+            if not np.array_equal(out, ref5["generate"]) or any(
+                    not np.array_equal(got[u], t) for u, t in ref5["serve"].items()):
+                raise AssertionError("uniform 'precise' policy: streams differ from phase 5's")
+            print(f"    every one of {len(calls)} sampled batches bit-equal to phase 5's "
+                  f"preset serve (logits and tokens)")
+            # the same decode steps as phase 5's trace: device time against host time
+            trace = trace_decode(torch, eng, toks, lens, TRACE_FUSED)
+            res["trace"] = {k: trace[k] for k in ("wall_ms", "busy_ms", "idle_share")}
+            t5 = ref5["trace"]
+            print(f"    phase 5's trace in this run: window {t5['wall_ms']:.2f} ms, busy "
+                  f"{t5['busy_ms']:.2f} ms, idle share {t5['idle_share']}")
+        if label == "mixed + kv4":
+            # ---- 5. batch invariance of the scores under the mixed policy ----
+            sub = tasks[0]
+            seqs = [s for item in sub.items[:8] for s, _ in item.sequences()]
+            plens = [p for item in sub.items[:8] for _, p in item.sequences()]
+            batched = eng.score_continuations(seqs, plens)
+            alone = np.concatenate([eng.score_continuations([s], [p])
+                                    for s, p in zip(seqs, plens)])
+            copies = np.concatenate([eng.score_continuations([s] * 4, [p] * 4)[:1]
+                                     for s, p in zip(seqs, plens)])
+            top = float(np.abs(alone).max())
+            rel_copies = float(np.abs(copies - alone).max()) / top
+            rel = float(np.abs(batched - alone).max()) / top
+            if not np.isfinite(batched).all() or rel_copies > BATCH_TOL or rel > SCORE_TIE:
+                raise AssertionError(
+                    f"scores alone vs in a batch of copies differ by {rel_copies} (limit "
+                    f"{BATCH_TOL}), vs in a batch of other rows by {rel} (limit "
+                    f"{SCORE_TIE}) of max|score|")
+            res.update(batch_rel=rel, copies_rel=rel_copies,
+                       bit_equal_rows=int((batched == alone).sum()),
+                       bit_equal_copies=int((copies == alone).sum()))
+            print(f"    batch invariance: {len(seqs)} sequences, each alone vs in a batch "
+                  f"of 4 copies of itself: {res['bit_equal_copies']} bit-equal, largest "
+                  f"difference {rel_copies:.3g} of max|score| (limit {BATCH_TOL}); vs in "
+                  f"one batch of all {len(seqs)}: {res['bit_equal_rows']} bit-equal, "
+                  f"largest difference {rel:.3g} (limit {SCORE_TIE}: the shared "
+                  f"per-tensor input scale)")
+        served[label] = res
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- B1 under every rung and preset the phase served, B5 at kv4: times ----
+    b1_rows = b1_rung_rows(torch, Q, DF, per_tensor_scale,
+                           {**rungs, **{n: Q.PRESETS[n] for n in MIXED_PRESETS}})
+    b5_kv4 = b5_kv4_row(torch, FA, KVQ)
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = {"card": card, "calibrate_s": cal_s, "calibrate_peak_gib": cal_peak / 2**30,
+              "flop_shares": shares, "priced": priced, "gold_s": gold_s,
+              "autotune_s": tune_s, "autotune_trials": n_trials,
+              "autotune_peak_gib": tune_peak / 2**30, "rungs": tuned.meta["rungs"],
+              "baseline_acc": tuned.meta["baseline_acc"], "final_acc": tuned.meta["final_acc"],
+              "decided_items": [len(t.items) for t in tasks],
+              "serve": {k: {f: (v / 2**30 if f == "peak" else v) for f, v in r.items()}
+                        for k, r in served.items()}}
+    print("policy (phase 17): " + json.dumps(record))
+    return {"served": served, "b1_rows": b1_rows, "b5_kv4": b5_kv4, "record": record}
+
+
+# ---------------------------------------------------------------------------
 # phases 14-15: the mesh, its ranks as processes sharing the one card
 # ---------------------------------------------------------------------------
 
@@ -1961,6 +2429,7 @@ def _mesh_serve_rank(mesh, n_layers):
     from repro_torch.kernels import dsbp_fused as DF
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import model as TM
+    from repro_torch import policy as P
     from repro_torch.serve.engine import Engine, Request, ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2143,6 +2612,7 @@ def main() -> int:
     from repro_torch.kernels import ops as TO
     from repro_torch.models import blocks
     from repro_torch.models import model as TM
+    from repro_torch import policy as P
     from repro_torch.serve.engine import Engine, Request, ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
@@ -2183,6 +2653,20 @@ def main() -> int:
                          kernels, model, cfg, ref5, paged)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--policy"]:  # phases 1, 5, 17a and 17: the policy loop
+        cfg = get_config("llama-7b-paper")
+        model, _, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+                   "packed_flash_attention": FA.packed_flash_attention}
+        phase_policy_cross_device(torch, P, TM, Engine, ServeConfig, Request, Q.PRESETS,
+                                  kernels, cfg)
+        phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tensor_scale,
+                     KVQ, kernels, cfg, ref5, card)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -2192,38 +2676,69 @@ def main() -> int:
                     get_config("llama-7b-paper"), ref5)
         print(smi())
         return 0
+    t_run = time.perf_counter()
+
+    def stamp(done: str) -> None:  # the run's timeline against its time limit
+        print(f"  [{done} done at {time.perf_counter() - t_run:.0f} s]")
+
     b1_rows, b1_err = phase_b1(torch, Q, DF, per_tensor_scale)
+    stamp("phase 2")
     b2 = phase_b2(torch, FA)
+    stamp("phase 3")
     cfg = get_config("llama-7b-paper")
     models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
+    stamp("phase 4")
     model, launches, float_bpt, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request,
                                                    DF, FA, cfg)
+    stamp("phase 5")
     b3_rows, floor_ms = phase_b3(torch, Q, QA, per_tensor_scale, build)
+    stamp("phase 6")
     b4_rows, b4_err = phase_b4(torch, Q, DM, TO)
+    stamp("phase 7")
     b5 = phase_b5(torch, FA, KVQ)
+    stamp("phase 8")
     phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
+    stamp("phase 9")
     kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
                "packed_flash_attention": FA.packed_flash_attention,
                "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul}
     kv_launches, _, trace10 = phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels,
                                     model, cfg, float_bpt)
+    stamp("phase 10")
     b67 = phase_b6_b7(torch, FA, KVQ)
+    stamp("phase 11")
     phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cfg)
+    stamp("phase 12")
     kernels.update(paged_flash_attention=FA.paged_flash_attention,
                    paged_packed_flash_attention=FA.paged_packed_flash_attention)
     paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
                               model, cfg)
+    stamp("phase 13")
     spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
+    stamp("phase 16a")
     spec = phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
                             kernels, model, cfg, ref5, paged)
+    stamp("phase 16")
     spec_dense, spec_kv8 = spec["dense float, draft bits 4"], spec[
         "dense kv8, draft bits 4, kv_draft_bits 6"]
 
-    # the mesh: its ranks are processes of their own, each drawing a whole
-    # model in turn; the models above are freed first
+    # the policy loop, then the mesh (its ranks are processes of their own,
+    # each drawing a whole model in turn): the models above are freed first
     ref5["launches"] = launches
     del model, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    policy_kernels = {k: kernels[k] for k in ("dsbp_fused", "flash_attention",
+                                              "packed_flash_attention")}
+    phase_policy_cross_device(torch, P, TM, Engine, ServeConfig, Request, Q.PRESETS,
+                              policy_kernels, cfg)
+    stamp("phase 17a")
+    pol = phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tensor_scale,
+                       KVQ, policy_kernels, cfg, ref5, card)
+    stamp("phase 17")
+    mixed = pol["served"]["mixed + kv4"]
     b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
+    stamp("phase 14-15b")
 
     b1 = next(r for r in b1_rows if (r["M"], r["K"], r["N"]) == (4, 4096, 11008))
     b3 = next(r for r in b3_rows if (r["M"], r["K"]) == (4, 4096))
@@ -2239,7 +2754,11 @@ def main() -> int:
                                          for k, v in spec_dense["b1_m"].items()},
          "spec_path": "phase 16 (dense float, spec_k 3, draft bits 4, draft dsbp_fused)",
          "shape": "decode M=4 K=4096 N=11008", "path": "phase 5 (float KV, dsbp_fused)",
-         "trace_ms_per_step": ref5["trace"]["B1_ms"] / ref5["trace"]["steps"]},
+         "trace_ms_per_step": ref5["trace"]["B1_ms"] / ref5["trace"]["steps"],
+         "policy_launches": mixed["launches"]["dsbp_fused"],
+         "policy_launches_per_step": mixed["step_launches"]["dsbp_fused"],
+         "policy_path": "phase 17 (mixed policy + kv4, generate + serve)",
+         "rungs": pol["b1_rows"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -2255,6 +2774,8 @@ def main() -> int:
             for tag, model in (("gemma3_12b_d256", "gemma3-12b"), ("d320", "d320"),
                                ("d512", "d512"))},
          "spec_launches": spec_dense["launches"]["flash_attention"],
+         "policy_launches": mixed["launches"]["flash_attention"],
+         "policy_path": "phase 17 (mixed policy + kv4: prefill)",
          "shape": "prefill B=4 H=32 S=512 D=128", "path": "phase 5 (float KV, dsbp_fused)",
          "trace_ms_per_step": ref5["trace"]["B2_ms"] / ref5["trace"]["steps"]},
         {"name": "fp8_quant_align", "route": "cuda",
@@ -2287,6 +2808,9 @@ def main() -> int:
             for tag, model in (("gemma3_12b_d256", "gemma3-12b"), ("d320", "d320"),
                                ("d512", "d512"))},
          "spec_launches": spec_kv8["launches"]["packed_flash_attention"],
+         "policy_launches": mixed["launches"]["packed_flash_attention"],
+         "policy_launches_per_step": mixed["step_launches"]["packed_flash_attention"],
+         "policy_path": "phase 17 (mixed policy, kv4 cache)", "kv4": pol["b5_kv4"],
          "shape": "decode B=4 H=32 S=2048 D=128, ragged", "path": "phase 10 (kv8, dsbp_kernel)",
          "trace_ms_per_step": trace10["B5_ms"] / trace10["steps"]},
     ]

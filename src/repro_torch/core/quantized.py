@@ -1,7 +1,8 @@
 """DSBP-quantized matmul: the macro's datapath as PyTorch ops.
 
 Port of ``repro.core.quantized`` (forward paths only; the straight-through
-training estimator, energy model and stats wait for the training slice):
+training estimator and the stats wait for the training slice; the energy
+model is :mod:`repro_torch.core.energy`):
 
   weights  offline:    FP8 -> group fields -> Algorithm-1 B_w -> int8 A_w, σ_w
   inputs   on the fly: FP8 -> group fields -> MPU B_i (Eq. 1) -> A_i, σ_i
@@ -41,6 +42,11 @@ class QuantizedMatmulConfig:
     input_cfg: DSBPConfig = DSBPConfig(fmt="e4m3", side="input", k=1.0, b_fix=6)
     weight_cfg: DSBPConfig = DSBPConfig(fmt="e2m5", side="weight", k=1.0,
                                         b_fix=5, scale_granularity="row")
+
+    @property
+    def mode(self) -> str:
+        """The macro's power mode of this config (``core.energy``)."""
+        return "fp_dsbp" if self.input_cfg.mode == "dsbp" else "fp_fixed"
 
 
 def _preset(k, b_in, b_w, mode="dsbp", fmt_i="e4m3", fmt_w="e2m5"):

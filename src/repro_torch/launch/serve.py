@@ -4,7 +4,8 @@
       --packed [--ragged] [--kv-quant kv8] [--method dsbp_kernel] \\
       [--paged --kv-block-size 16 [--kv-blocks N] [--max-active N]] \\
       [--spec-k 3 [--spec-draft-bits 4] [--spec-draft-method dsbp_fused] \\
-       [--kv-draft-bits 6]] [--mesh DxM] [--smoke --device cpu]
+       [--kv-draft-bits 6]] [--mesh DxM] [--policy POLICY.json] \
+      [--smoke --device cpu]
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead (use it with ``--smoke``).  ``--ragged`` draws mixed-length
@@ -17,6 +18,13 @@ through ``--spec-draft-method``), verifies them in one target forward and
 commits the longest greedy-matching prefix; with a packed KV cache
 ``--kv-draft-bits`` narrows the draft's view of it.  It implies
 ``--ragged``.
+
+``--policy POLICY.json`` serves a per-layer ``DSBPPolicy`` artifact, as
+``DSBPPolicy.to_json`` writes it in either package (the JAX package's
+``repro.policy.DSBPPolicy`` or the port's): each projection packs under
+the policy's config for its stacked key and the KV cache takes the
+policy's ``kv_layers`` / ``kv_default`` unless ``--kv-quant`` or
+``--kv-bits`` is given.
 
 ``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
 counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
@@ -92,6 +100,9 @@ def main():
                          "weights cut per rank (Megatron split over model), the "
                          "fused GEMM on each rank's shards (B8), the slot pool "
                          "split over data; one process per rank")
+    ap.add_argument("--policy", default=None, metavar="POLICY.json",
+                    help="serve a DSBPPolicy JSON artifact (per-layer configs, "
+                         "and its KV side unless --kv-quant/--kv-bits is set)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
@@ -123,8 +134,17 @@ def _run(mesh, args):
     max_len = args.prompt_len + args.new_tokens + args.spec_k + 8
     if args.paged:  # block pools need block-aligned ring lengths
         max_len = -(-max_len // args.kv_block_size) * args.kv_block_size
-    scfg = ServeConfig(max_len=max_len, batch_size=args.batch,
-                       quant_method=args.method, kv_quant=args.kv_quant,
+    policy = None
+    if args.policy is not None:
+        from repro_torch.policy import DSBPPolicy
+
+        with open(args.policy) as f:
+            policy = DSBPPolicy.from_json(f.read())
+    kv_quant = args.kv_quant
+    if policy is not None and args.kv_quant is None and args.kv_bits is None:
+        kv_quant = policy
+    scfg = ServeConfig(max_len=max_len, batch_size=args.batch, pack_preset=policy,
+                       quant_method=args.method, kv_quant=kv_quant,
                        kv_bits=args.kv_bits, paged=args.paged,
                        kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
                        max_active=args.max_active, spec_k=args.spec_k,
@@ -151,7 +171,9 @@ def _run(mesh, args):
         rep = eng.pack_report
         say(f"packed weights: {rep['raw_nbytes']/1e6:.1f} -> "
             f"{rep['packed_nbytes']/1e6:.1f} MB (avg W bits "
-            f"{rep['avg_w_bits']:.2f}, preset {rep['preset']})")
+            f"{rep['avg_w_bits']:.2f}, "
+            + (f"policy of {len(policy)} layer entries)" if policy is not None
+               else f"preset {rep['preset']})"))
     if eng.kv_spec is not None:
         say(f"packed KV cache: {eng.kv_spec}")
     if eng.spec_report:

@@ -29,33 +29,53 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.T
 class Quant:
     """The active quantization: a PRESETS key (or config, or None) and the
     registry method that executes it.  ``method=None`` auto-selects
-    'dsbp_ref' when a config is set, 'dense_bf16' otherwise."""
+    'dsbp_ref' when a config (or policy mode) is set, 'dense_bf16'
+    otherwise.
+
+    ``preset`` may be the string ``"policy"``: per-layer mode.  No global
+    config is active; every packed weight runs under the config its own
+    container was packed with (``pw.cfg``), so one model serves the mixed
+    configs of a :class:`~repro_torch.policy.DSBPPolicy`.  Raw (unpacked)
+    weights take the float matmul in that mode: a policy quantizes exactly
+    the projections it packed."""
 
     def __init__(self, preset, method: str | None = None):
-        if isinstance(preset, str):
+        self.per_layer = preset == "policy"
+        if self.per_layer:
+            self.cfg = None
+        elif isinstance(preset, str):
             if preset not in PRESETS:
                 raise ValueError(f"unknown quant preset {preset!r}; valid: "
-                                 f"{sorted(PRESETS)}")
+                                 f"{sorted(PRESETS)} or 'policy' (per-layer "
+                                 f"packed configs)")
             self.cfg = PRESETS[preset]
         else:
             self.cfg = preset
         if method is None:
-            method = "dsbp_ref" if self.cfg is not None else "dense_bf16"
+            method = "dsbp_ref" if bool(self) else "dense_bf16"
         self.method = get_quant_method(method)
 
     def __bool__(self):
-        return self.cfg is not None
+        return self.cfg is not None or self.per_layer
+
+    def cfg_for(self, w):
+        """The config one projection runs under: the global preset, or
+        (policy mode) the config its packed container was built with."""
+        if self.per_layer:
+            return w.cfg if isinstance(w, PackedDSBPWeight) else None
+        return self.cfg
 
 
 def dense(w, x: torch.Tensor, quant: Quant | None = None,
           name: str | None = None) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) through the active quant method;
-    ``w`` is a raw tensor or a :class:`PackedDSBPWeight`, ``name`` the
-    projection's weight name (the key of its tensor-parallel split under a
-    mesh: a quantized projection's method folds its own partials, a float
-    row-parallel one's partials are summed here)."""
+    """x (..., d_in) @ w (d_in, d_out) through the active quant method
+    under ``quant.cfg_for(w)``; ``w`` is a raw tensor or a
+    :class:`PackedDSBPWeight`, ``name`` the projection's weight name (the
+    key of its tensor-parallel split under a mesh: a quantized
+    projection's method folds its own partials, a float row-parallel
+    one's partials are summed here)."""
     if quant is not None and quant:
-        return quant.method.apply(w, x, quant.cfg, name=name)
+        return quant.method.apply(w, x, quant.cfg_for(w), name=name)
     if isinstance(w, PackedDSBPWeight):
         return get_quant_method("dsbp_ref").apply(w, x, None, name=name)
     return fold_partials(torch.matmul(x, w), name)

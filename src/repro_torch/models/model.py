@@ -23,13 +23,14 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig
+from repro_torch.core.packed import PackedDSBPWeight
 from repro_torch.kvq import kv_policy_cfg
 from repro_torch.parallel.context import gather_columns
 
 from . import blocks
 from .layers import Quant, rms_norm
 
-__all__ = ["Model", "init"]
+__all__ = ["Model", "init", "shared"]
 
 NEG_INF = -1e30
 
@@ -301,3 +302,26 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Model:
                 fan_in = cfg.d_model if name == "embed" else p.shape[0]
                 p.normal_(generator=gen).mul_(fan_in ** -0.5)
     return model
+
+
+def shared(model: Model, cfg: ArchConfig | None = None) -> Model:
+    """A second :class:`Model` over the SAME tensors as ``model`` (no copy,
+    nothing allocated: it is built on the meta device and then handed the
+    parameters and packed containers of ``model``), under ``cfg`` (default
+    ``model.cfg``).  Swapping a projection of one (packing it, or
+    replacing its container) leaves the other as it was: the JAX package's
+    functional trees, where a packed tree shares the raw tree's other
+    leaves.  The policy loop runs its trial models and its float
+    reference this way over one resident raw model."""
+    view = Model(cfg or model.cfg, torch.device("meta"))
+    for mod_name, module in model.named_modules():
+        if isinstance(module, PackedDSBPWeight):
+            continue  # set as its parent's child below
+        target = view.get_submodule(mod_name) if mod_name else view
+        for name, p in module.named_parameters(recurse=False):
+            setattr(target, name, p)
+        for name, child in module.named_children():
+            if isinstance(child, PackedDSBPWeight):
+                delattr(target, name)
+                setattr(target, name, child)
+    return view

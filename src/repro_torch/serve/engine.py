@@ -15,7 +15,13 @@ priority-ordered ``_build_queue`` (:721), and the paged scheduler
 schedulers: ``_spec_advance`` (:1109), ``_spec_advance_paged`` (:1836)
 and ``_spec_summary`` (:1097).  The JAX scheduler's fault plans,
 deadlines, cancellation, numeric guards and observability hooks are not
-ported yet (ROADMAP A10, A11).  Multi-rank
+ported yet (ROADMAP A10, A11).  The DSBP policy loop's serving side is
+here too: ``pack_weights_int8`` (:229) under a per-layer policy (each
+projection under ``policy.config_for`` of its stacked key, served in the
+``"policy"`` quant mode), ``ServeConfig.pack_preset`` / ``kv_quant``
+taking a ``repro_torch.policy.DSBPPolicy`` (``_norm_kv`` :364), and
+``score_continuations`` (:904), the likelihood scoring of the eval
+harness and the autotuner.  Multi-rank
 serving (``mesh_shape``) ports ``_build_mesh`` (:605), ``_trace_ctx``
 (:624) and ``_shard_cache`` (:638) for the dense float-KV scheduler and
 ``generate``; the pool is ``batch_size`` slots (JAX's
@@ -90,6 +96,7 @@ from repro_torch.parallel import sharding as SH
 from repro_torch.serve import blocks as SB
 from repro_torch.spec import (acceptance_summary, build_spec_round,
                               build_spec_round_paged)
+from repro_torch.spec.draft import stacked_key
 
 __all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES",
            "pack_weights_int8", "sample_tokens"]
@@ -108,10 +115,12 @@ class ServeConfig:
     temperature: float = 0.0     # 0 = greedy
     seed: int = 0
     # pack projections once at Engine.__init__ when a preset is configured
-    # (cfg.quant, or pack_preset: a PRESETS name); False serves raw weights,
-    # quantizing them on every matmul call
+    # (cfg.quant, or pack_preset: a PRESETS name, a QuantizedMatmulConfig,
+    # or a repro_torch.policy.DSBPPolicy of per-layer configs, served in
+    # the 'policy' quant mode); False serves raw weights, quantizing them
+    # on every matmul call
     pack: bool = True
-    pack_preset: str | None = None
+    pack_preset: object = None
     # quantized-linear method; None = 'dsbp_fused' when the config quantizes
     quant_method: str | None = None
     eos_id: int | None = None    # serve(): a slot frees when this is sampled
@@ -119,7 +128,8 @@ class ServeConfig:
     # DSBP-quantized KV cache: a preset name ('kv8'/'kv6'/'kv4'), an int
     # total bitwidth in [2, 8], a repro_torch.kvq.KVQuantConfig, True (kv8)
     # or a per-entry mapping {'units.<i>': spec, 'tail.<i>': spec,
-    # 'default': spec}; None serves the float cache
+    # 'default': spec}; a DSBPPolicy is read by its kv_layers / kv_default;
+    # None serves the float cache
     kv_quant: object = None
     kv_bits: int | None = None   # uniform shorthand for kv_quant (exclusive)
     # --- self-speculative decoding ---
@@ -190,29 +200,47 @@ def pack_weights_int8(model: Model, preset="precise", mesh=None) -> dict:
     the same device.  Returns the average packed weight width (incl. the
     sign bit) and the number of projections packed.
 
+    ``preset`` is a ``PRESETS`` name, a ``QuantizedMatmulConfig`` (one
+    config everywhere) or a :class:`~repro_torch.policy.DSBPPolicy`: each
+    projection packs under ``policy.config_for`` of its stacked key
+    (``units/<i % P>/attn/wq``, :func:`repro_torch.spec.draft.stacked_key`),
+    and projections the policy does not cover stay raw.
+
     With ``mesh`` (a rank mesh) each projection becomes this rank's shard
     (``parallel.sharding.serve_cuts``): its columns pack straight into
     kernel layout (:func:`pack_weights_sharded`, bit-identical to slicing
     the global pack), a row-parallel weight packs whole and keeps its
     group-aligned K rows (the per-column scales span the whole K), and the
     global raw weight is freed."""
-    if isinstance(preset, str):
+    policy = preset if hasattr(preset, "config_for") else None
+    if policy is None and isinstance(preset, str):
         if preset not in PRESETS:
             raise ValueError(f"unknown quant preset {preset!r}: valid presets "
-                             f"are {sorted(PRESETS)}")
+                             f"are {sorted(PRESETS)}; pass a "
+                             f"repro_torch.policy.DSBPPolicy for per-layer configs "
+                             f"(serving then runs with quant='policy')")
         preset = PRESETS[preset]
+    if policy is not None and mesh is not None:
+        raise NotImplementedError("a DSBPPolicy under a mesh is not ported yet "
+                                  "(ROADMAP A13)")
     cuts = SH.serve_cuts(model.cfg, mesh) if mesh is not None else {}
     bits_sum, groups, layers = 0, 0, 0
-    for module in list(model.modules()):
+    for mod_name, module in list(model.named_modules()):
         for name, p in list(module.named_parameters(recurse=False)):
-            if (name not in PROJ_NAMES or p.ndim < 2
-                    or p.shape[-2] < preset.weight_cfg.group_size):
+            if name not in PROJ_NAMES or p.ndim < 2:
+                continue
+            cfg = preset
+            if policy is not None:
+                cfg = policy.config_for(stacked_key(model.cfg, f"{mod_name}.{name}"))
+                if cfg is None:
+                    continue
+            if p.shape[-2] < cfg.weight_cfg.group_size:
                 continue
             cut = cuts.get(name)
             if cut is None:
-                pw = pack_weights(p.data, preset)
+                pw = pack_weights(p.data, cfg)
             else:
-                pw = pack_weights_sharded(p.data, preset, mesh, cols=cut.cols)
+                pw = pack_weights_sharded(p.data, cfg, mesh, cols=cut.cols)
                 if cut.rows != slice(0, cut.k):
                     pw = pw.slice(rows=cut.rows)
             delattr(module, name)  # frees the raw weight as we go
@@ -253,6 +281,11 @@ class Engine:
         self.device = resolve_device(device)
         cfg = model.cfg
         preset = scfg.pack_preset if scfg.pack_preset is not None else cfg.quant
+        packed = any(isinstance(m, PackedDSBPWeight) for m in model.modules())
+        # a DSBPPolicy to pack with flips serving into the per-layer
+        # 'policy' quant mode: each container runs under its own config
+        if hasattr(preset, "config_for") or (cfg.quant == "policy" and packed):
+            cfg = cfg.replace(quant="policy")
         # serving default: the fused one-pass kernel — its per-rank form
         # (B8) under a mesh — unless the arch config or ServeConfig pins one
         if cfg.quant is not None and (scfg.quant_method or cfg.quant_method) is None:
@@ -272,7 +305,6 @@ class Engine:
             self._init_paged()
         self.model = model.to(self.device)
         self.pack_report = None
-        packed = any(isinstance(m, PackedDSBPWeight) for m in model.modules())
         if scfg.pack and preset is not None and not packed:
             raw = _nbytes(self.model)
             with torch.no_grad():
@@ -309,6 +341,8 @@ class Engine:
             missing.append("per-call quantization of raw weights (pack=False)")
         if scfg.spec_k:
             missing.append("speculative rounds (spec_k > 0)")
+        if cfg.quant == "policy":
+            missing.append("a DSBPPolicy (per-layer configs)")
         if missing:
             raise NotImplementedError(
                 "under a mesh the port serves the dense float-KV scheduler only; not "
@@ -438,6 +472,15 @@ class Engine:
                 raise ValueError("kv_bits is a uniform shorthand for kv_quant: "
                                  "set one, not both")
             kv = int(scfg.kv_bits)
+        # a DSBPPolicy: its per-entry mapping, plus kv_default for the
+        # entries it does not name; a policy without a KV side serves a
+        # float cache
+        if hasattr(kv, "kv_layers"):
+            pol = kv
+            kv = dict(pol.kv_layers or {})
+            kv.setdefault("default", pol.kv_default)
+            if not any(v is not None for v in kv.values()):
+                kv = None
         if isinstance(kv, Mapping):
             kv = {str(k): resolve_kv_spec(v) for k, v in kv.items()}
         else:
@@ -511,6 +554,46 @@ class Engine:
                            "decode_tokens": b * (n_new - 1),
                            **self._mesh_stats(coll, n_new - 1)}
         return out
+
+    # ------------------------------------------------------------------
+    # likelihood scoring (multiple-choice eval, repro_torch.eval.harness)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def score_continuations(self, sequences, prompt_lens) -> np.ndarray:
+        """Sum of continuation log-probs under the engine's weights.
+
+        ``sequences`` are 1-D token arrays (context + continuation),
+        ``prompt_lens`` each one's context length.  Returns (B,) f32:
+        the sum of log P(tok_p | tok_<p) over p in [prompt_len, len).  The
+        sequences right-pad to a shared length, a multiple of
+        ``prefill_bucket``, and run one :meth:`Model.forward`: causal
+        attention keeps the pad out of every real position, so each row's
+        score equals scoring it alone up to the per-tensor input scale
+        the batch shares (batch invariance, which the eval harness and the
+        autotuner rely on)."""
+        if self.mesh is not None:
+            raise NotImplementedError("score_continuations under a mesh is not "
+                                      "ported yet (ROADMAP A13)")
+        seqs = [np.asarray(s, np.int64) for s in sequences]
+        lens = np.asarray([len(s) for s in seqs], np.int32)
+        plens = np.asarray(prompt_lens, np.int32)
+        if np.any(plens >= lens):
+            raise ValueError("every sequence needs >= 1 continuation token")
+        bucket = self.scfg.prefill_bucket
+        width = max(-(-int(lens.max()) // bucket) * bucket, bucket)
+        toks = np.zeros((len(seqs), width), np.int64)
+        for i, s in enumerate(seqs):
+            toks[i, : lens[i]] = s
+        dev = self.device
+        toks_d = torch.as_tensor(toks, device=dev)
+        logits = self.model.forward(toks_d, quant=self.quant)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        lp = torch.gather(logp[:, :-1], -1, toks_d[:, 1:, None])[..., 0]
+        p = torch.arange(1, width, device=dev)[None]
+        mask = ((p >= torch.as_tensor(plens, device=dev)[:, None])
+                & (p < torch.as_tensor(lens, device=dev)[:, None]))
+        return (lp * mask).sum(dim=1).cpu().numpy().astype(np.float32)
 
     # ------------------------------------------------------------------
     # continuous batching

@@ -24,7 +24,7 @@ from __future__ import annotations
 from repro_torch.core.packed import PackedDSBPWeight, QuantMethod, draft_view
 from repro_torch.models.layers import Quant
 
-__all__ = ["DEFAULT_DRAFT_BITS", "resolve_draft_bits", "projection_keys",
+__all__ = ["DEFAULT_DRAFT_BITS", "resolve_draft_bits", "stacked_key", "projection_keys",
            "draft_params", "DraftMethod", "draft_quant"]
 
 DEFAULT_DRAFT_BITS = 4
@@ -43,23 +43,29 @@ def resolve_draft_bits(spec, path_key: str) -> int:
     return bits
 
 
-def projection_keys(model):
-    """(JAX path key, container) of every packed projection of ``model``:
-    module ``layers.<i>.<sub>.<name>`` is ``units/<i % P>/<sub>/<name>``,
-    or ``tail/<j>/...`` for the layers after the ``n_units * P`` of the
-    scanned stack."""
-    cfg = model.cfg
+def stacked_key(cfg, module_name: str) -> str:
+    """JAX's stacked path of the port's module path: module
+    ``layers.<i>.<sub>.<name>`` is ``units/<i % P>/<sub>/<name>``, or
+    ``tail/<j>/...`` for the layers after the ``n_units * P`` of the
+    scanned stack.  THE mapping from the port's per-layer modules to the
+    keys of per-layer artifacts (draft widths, ``DSBPPolicy`` entries,
+    calibration statistics)."""
+    parts = module_name.split(".")
+    if parts[0] != "layers":
+        raise ValueError(f"projection {module_name!r} outside the layers")
     p = len(cfg.pattern)
     base = cfg.n_units * p
+    i = int(parts[1])
+    unit = f"units/{i % p}" if i < base else f"tail/{i - base}"
+    return "/".join([unit, *parts[2:]])
+
+
+def projection_keys(model):
+    """(JAX path key, container) of every packed projection of ``model``,
+    keyed by :func:`stacked_key`."""
     for name, mod in model.named_modules():
-        if not isinstance(mod, PackedDSBPWeight):
-            continue
-        parts = name.split(".")
-        if parts[0] != "layers":
-            raise ValueError(f"packed projection {name!r} outside the layers")
-        i = int(parts[1])
-        unit = f"units/{i % p}" if i < base else f"tail/{i - base}"
-        yield "/".join([unit, *parts[2:]]), mod
+        if isinstance(mod, PackedDSBPWeight):
+            yield stacked_key(model.cfg, name), mod
 
 
 def draft_params(model, draft_bits=DEFAULT_DRAFT_BITS) -> dict:

@@ -591,3 +591,66 @@ def test_spec_serve_card_equals_cpu(cuda, paged, kv):
         np.testing.assert_array_equal(out["gpu"][uid], out["cpu"][uid])
         np.testing.assert_array_equal(out["gpu"][uid], plain[uid])
     assert hist["gpu"] == hist["cpu"]
+
+
+# ---- the policy loop's configs: every ladder rung, kv4 and kv6 ----
+
+def _ladder_rungs():
+    from repro_torch.policy.cost import candidate_ladder, input_bitwidth_ladder
+
+    return input_bitwidth_ladder((6, 4, 3, 2)) + candidate_ladder()
+
+
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("rung", range(8), ids=lambda i: _ladder_rungs()[i][0])
+def test_dsbp_fused_bit_equal_plain_at_every_ladder_rung(cuda, m, rung):
+    """B1 under each rung the autotuner serves (inputs at B_fix 6/4/3/2
+    against weights packed at B_fix 7; Table I's precise / efficient and
+    the balanced / aggressive points), at decode and prefill, K=4096:
+    the kernel carries the rung's k, B_fix and mode, bit-equal to plain."""
+    name, cfg = _ladder_rungs()[rung]
+    x, ts, ka, kscale, tw = _device_operands(m, 4096, 4096, cfg, cuda, seed=m + rung)
+    y = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused_plain(x, ts, ka, kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref), (name, float((y - ref).abs().max()))
+
+
+@pytest.mark.parametrize("kv", ["kv4", "kv6"])
+@pytest.mark.parametrize("sq,hkv", [(1, 4), (1, 2), (17, 2)])
+def test_packed_attention_at_narrow_kv_bits(cuda, kv, sq, hkv):
+    """B5 over a kv4 / kv6 cache equals B2 over its dequantize() bit for
+    bit, and B7 over the same entries in a block pool equals B5 over the
+    gathered view: the packed load is bits-agnostic (int8 mantissa times a
+    pow2 scale)."""
+    g = torch.Generator().manual_seed(len(kv) * 10 + sq + hkv)
+    b, hq, d, bs, mb = 3, 4, 128, 16, 6
+    s = bs * mb
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    k = quantize_kv(torch.randn(b, hkv, s, d, generator=g).to(cuda), KV_PRESETS[kv])
+    v = quantize_kv(torch.randn(b, hkv, s, d, generator=g).to(cuda), KV_PRESETS[kv])
+    kv_len = torch.randint(sq, s + 1, (b,), generator=g)
+    kv_len, q0 = kv_len.to(cuda, torch.int32), (kv_len - sq).to(cuda, torch.int32)
+    o = FA.packed_flash_attention(q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
+    b2 = FA.flash_attention(q, k.dequantize(), v.dequantize(), kv_len, q0)
+    torch.cuda.synchronize()
+    assert torch.equal(o, b2), float((o - b2).abs().max())
+    torch.testing.assert_close(o, FA.packed_flash_attention_plain(
+        q, k.qm, k.scale, v.qm, v.scale, kv_len, q0), rtol=1e-5, atol=1e-5)
+    # the same entries scattered over a shuffled block pool (B7)
+    nb = b * mb + 2
+    # distinct blocks per row: each row's entries land in blocks of its own
+    table = torch.randperm(nb, generator=g)[:b * mb].reshape(b, mb)
+    pools = []
+    for t in (k.qm, k.scale, v.qm, v.scale):
+        pool = torch.zeros((nb, hkv, bs, t.shape[-1]), dtype=t.dtype)
+        for r in range(b):
+            pool[table[r]] = t[r].cpu().reshape(hkv, mb, bs, -1).transpose(0, 1)
+        pools.append(pool.to(cuda))
+    table = table.to(cuda, torch.int32)
+    o7 = FA.paged_packed_flash_attention(q, *pools, table, kv_len, q0)
+    gathered = [FA.gather_blocks(t, table) for t in pools]
+    o5 = FA.packed_flash_attention(q, *gathered, kv_len, q0)
+    torch.cuda.synchronize()
+    assert torch.equal(o7, o5), float((o7 - o5).abs().max())
+    assert torch.equal(o5, o)
