@@ -131,9 +131,29 @@ Phases (each raises on failure; nothing falls back to the CPU):
      on a served container of each config); a row's score alone vs among
      copies of itself and vs in a batch of other rows; B1 under every rung
      and B5 at kv4 timed cold; a `policy (phase 17):` JSON line.
+  18. fault-tolerant, observable serving on phase 5's model: (a) phase 5's
+     traffic observed, under numeric_guard 'quarantine', and both, tokens
+     bit-equal to phase 5's, one guard check per decode step and admission,
+     every request 'ok' with a complete span tree, the metrics snapshot
+     round-tripping, TTFT / total / tokens/s per request, ms per decode step
+     of each beside phase 5's, and device kernels per decode step of the
+     engine's own step (observe: as many as without; the guard: at most 2
+     more, its finiteness reduction); (b) NaN plans under 'quarantine',
+     'fallback' (transient and persistent) and 'fail-fast', a cancel and a
+     deadline; (c) phase 13's traffic and pool, float then kv8, under
+     FaultPlan.seeded(5, ...): a status for every uid, no lost request,
+     invariant checks after every iteration, the recorder's fault tally
+     equal to the plan's, the same trace when the plan replays; (d) phase
+     16's dense traffic at draft bits 7 under spec-mismatch rounds and a NaN
+     round; (e) QuantHealth.sample_cache over full-width float and kv8
+     caches (timed), a NaN in one layer's K named as entry units.0, and a
+     uniform 'precise' policy repriced from that trip.  Every stream is
+     held to its fault-free reference under phase 9's rule (a stream that
+     ended early against the reference's head); one `robust (phase 18):`
+     JSON line per case.
   The ranks of 14-15 time-slice the one card: their step times are not
-  multi-card numbers.  16a, 16, 17a and 17 run after 13, before 14-15b,
-  for which the models are freed.
+  multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
+  14-15b, for which the models are freed.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 
@@ -155,6 +175,10 @@ runs phases 1, 4, 5, 13 (the references of phase 16), 16a and 16 alone.
 
 runs phases 1, 5 (the reference of phase 17), 17a and 17 alone.
 
+    python3 chip_smoke.py --robust
+
+runs phases 1, 5, 13 (the references of phase 18) and 18 alone.
+
 Kernel times are cold: each timed loop cycles through copies of the
 operands that a call reads (weights, K/V, pools) that together overflow
 the 50 MB L2 twice, so every call reads them from device memory, as on the
@@ -162,6 +186,7 @@ main path, where ~7 GB of weights pass between two calls of one kernel.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import gc
@@ -436,8 +461,8 @@ class SampleTape:
         self._eng, self._calls = eng, []
         sample = eng._sample
 
-        def take(logits, gen):
-            tok = sample(logits, gen)
+        def take(logits, gen, **kw):
+            tok = sample(logits, gen, **kw)
             self._calls.append((logits[:, :vocab].float().clone(), tok.clone()))
             return tok
         eng._sample = take
@@ -1161,76 +1186,65 @@ def check_streams(torch, ref, got, prompts, ref_eng, other_eng, kv=None):
     return ties
 
 
-class LogitTape:
-    """Keeps, for every token a serve emits, the logit row it was drawn
-    from: ``rows[uid]`` lists them in emission order.  It wraps the
-    engine's own sampling (one call per sampled batch) and completion test
-    (one call per emitted token, in the batch's row order).  A decode
-    step's emitting rows are its live lanes, read from the step's
-    ``write_len`` (paged) or the serve's slot list (dense); every other
-    sampled batch emits all its rows.  Copying the rows to the host costs
-    a 1 MB transfer per step, against steps of 100 ms or more."""
+class GuardTape:
+    """For every token a serve emits, the logit row it was drawn from:
+    ``rows[uid]`` lists them in emission order.  It wraps the engine's one
+    sampling site for served tokens (``Engine._apply_guard``: admissions,
+    decode steps, chunk finishes; one call per sampled batch, one row per
+    lane it names), with or without a guard: a row the guard rejects emits
+    nothing, and a 'fallback' retry's call replaces its step's first.  Each
+    call's batch crosses to the host in one copy (1 MB at full width, 4
+    lanes), after the call's own sync."""
 
     def __init__(self, eng, vocab: int):
-        import numpy as np
-
         self.rows: dict = {}
-        emit, batch, slots = [], [], []
-        model, sample, done, admit = eng.model, eng._sample, eng._done, eng._admit
-        self._undo = [(eng, "_sample"), (eng, "_done"), (eng, "_admit")]
+        self._eng, pending = eng, []
+        apply = eng._apply_guard
 
-        def take_sample(logits, gen):
-            tok = sample(logits, gen)
-            batch[:] = [logits[:, :vocab].float().cpu()]
-            if not emit:  # not a decode step: every row emits
-                emit.extend(range(logits.shape[0]))
-            return tok
+        def take(last, occ, uid_of, ctl, **kw):
+            toks, bad = apply(last, occ, uid_of, ctl, **kw)
+            if not kw.get("retry"):
+                self._commit(pending)
+            host = last[:, :vocab].float().cpu()
+            pending[:] = [(uid_of(i), host[i], int(toks[i])) for i in occ if i not in bad]
+            return toks, bad
 
-        def take_done(t, emitted, r):
-            row = batch[0][emit.pop(0)]
+        self._pending = pending
+        eng._apply_guard = take
+
+    def _commit(self, pending) -> None:
+        for uid, row, t in pending:
             if int(row.argmax()) != t:
-                raise AssertionError(f"logit tape out of step at request {r.uid}")
-            self.rows.setdefault(r.uid, []).append(row)
-            return done(t, emitted, r)
+                raise AssertionError(f"logit tape out of step at request {uid}")
+            self.rows.setdefault(uid, []).append(row)
+        pending.clear()
 
-        def take_admit(pool, queue, free, active, *rest):
-            slots[:] = [active]
-            return admit(pool, queue, free, active, *rest)
-
-        def decode_live(name, live):
-            step = getattr(model, name)
-
-            def wrapped(*args, **kw):
-                emit[:] = live(args)
-                return step(*args, **kw)
-            setattr(model, name, wrapped)
-            self._undo.append((model, name))
-
-        eng._sample, eng._done, eng._admit = take_sample, take_done, take_admit
-        decode_live("decode_step_paged", lambda a: np.flatnonzero(a[4]).tolist())
-        decode_live("decode_step", lambda a: [i for i, r in enumerate(slots[0])
-                                              if r is not None])
-
-    def close(self):
-        for obj, name in self._undo:
-            delattr(obj, name)
+    def close(self) -> dict:
+        self._commit(self._pending)
+        del self._eng._apply_guard
+        return self.rows
 
 
-def check_recorded(torch, ref, got, ref_rows, got_rows):
+def check_recorded(torch, ref, got, ref_rows, got_rows, prefix=()):
     """Phase 9's rule on logits the two serves computed: each stream of
     ``got`` equals ``ref``'s up to its first differing token t; at every
     step up to t (the same context in both) the two rows differ by at most
     KV_TIE * max|logit|, and at t the reference's top-2 gap is below
-    max(TIE * max|logit|, twice the difference there).  Returns the near
-    ties taken and each stream's largest difference relative to
-    max|logit|."""
+    max(TIE * max|logit|, twice the difference there).  A stream of a uid
+    in ``prefix`` (one that ended early: cancelled, expired, quarantined)
+    is held so against the head of the reference.  Returns the near ties
+    taken and each stream's largest difference relative to max|logit|."""
     import numpy as np
 
     ties, worst = [], {}
     for uid, want in ref.items():
         have = got[uid]
+        if uid in prefix and len(have) <= len(want):
+            want = want[:len(have)]
         if len(want) != len(have):
             raise AssertionError(f"request {uid}: {len(have)} tokens vs {len(want)}")
+        if not len(have):
+            continue
         bad = np.flatnonzero(want != have)
         t = int(bad[0]) if bad.size else len(want) - 1
         for step in range(t + 1):
@@ -1323,7 +1337,7 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
         torch.cuda.reset_peak_memory_stats()
 
         # ---- this slice's main path: counts from 0 over exactly this run ----
-        tape = LogitTape(eng, cfg.vocab_size)
+        tape = GuardTape(eng, cfg.vocab_size)
         _reset_launches(kernels)
         out = eng.serve(reqs)
         torch.cuda.synchronize()
@@ -1358,7 +1372,7 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
         # ---- the dense engine on the same requests, 8 slots ----
         dense = Engine(model, ServeConfig(max_len=512, batch_size=8, kv_quant=kv),
                        device="cuda")
-        dense_tape = LogitTape(dense, cfg.vocab_size)
+        dense_tape = GuardTape(dense, cfg.vocab_size)
         ref = dense.serve(reqs)
         dense_tape.close()
         dst = dict(dense.last_stats)
@@ -1376,7 +1390,7 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
                             KVQ.quantize_kv(v, spec).dequantize(), **kw)
 
             blocks.blockwise_attention = qdq_attention
-            qdq_tape = LogitTape(dense, cfg.vocab_size)
+            qdq_tape = GuardTape(dense, cfg.vocab_size)
             try:
                 ref.update(dense.serve([r for r in reqs if len(r.tokens) > chunk]))
             finally:
@@ -1484,11 +1498,11 @@ class SpecTape:
             self._undo.append((obj, name, orig))
 
         def take_sample(orig):
-            def f(logits, gen):
+            def f(logits, gen, **kw):
                 batch[:] = [logits[:, :vocab].float().cpu()]
                 emit[:] = range(logits.shape[0])
                 verify[0] = None
-                return orig(logits, gen)
+                return orig(logits, gen, **kw)
             return f
 
         def lane_of(r):
@@ -1613,10 +1627,12 @@ TRACE_ROUND = {"B1": TRACE_FUSED["B1"], "B2": TRACE_FUSED["B2"], "draft_view shi
 
 
 def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, ref_rows,
-                scfg: dict, label: str, trace=None):
+                scfg: dict, label: str, trace=None, faults=None):
     """One speculative serve of phase 16 against its spec_k=0 reference:
     tokens under phase 9's rule, containers untouched, B1's M per step
-    kind and the attention kernels' launches per draft step."""
+    kind and the attention kernels' launches per draft step.  Under a
+    fault plan (phase 18) a stream that ended early is held against the
+    head of its reference."""
     eng = Engine(model, ServeConfig(spec_k=3, spec_draft_method="dsbp_fused", **scfg),
                  device="cuda")
     if eng.spec_report["extra_weight_nbytes"] != 0:
@@ -1627,7 +1643,7 @@ def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, 
     tape = SpecTape(eng, cfg.vocab_size, TO)
     _reset_launches(kernels)
     try:
-        out = eng.serve(reqs)
+        out = eng.serve(reqs, faults=faults)
         torch.cuda.synchronize()
     finally:
         tape.close()
@@ -1636,7 +1652,8 @@ def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, 
     st = dict(eng.last_stats)
     if _containers(eng.model) != before:
         raise AssertionError(f"{label}: the engine's containers changed")
-    ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows)
+    early = {u for u, s in st["request_status"].items() if s not in ("ok", "preempted")}
+    ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows, prefix=early)
     n_layers = cfg.n_layers
     lanes = eng.lanes if scfg.get("paged") else eng.scfg.batch_size
     rounds, drafts = st["spec_rounds"], tape.calls["draft"]
@@ -1666,7 +1683,7 @@ def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, 
           f"spec_k=0 up to near ties in {len(ties)} of {len(ref)} streams (largest logit "
           f"difference {max(worst.values()):.4f} of max|logit|)")
     res = {"stats": st, "launches": launches, "b1_m": m, "peak": peak, "ms_round": ms_round,
-           "ms_token": ms_token, "ties": len(ties)}
+           "ms_token": ms_token, "ties": len(ties), "out": out}
     if trace is not None:
         res["trace"] = trace_round(torch, eng, *trace, TRACE_ROUND)
     del eng
@@ -1783,7 +1800,7 @@ def phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tenso
     for kv, bits, kv_draft in ((None, 4, None), (None, 7, None), ("kv8", 4, 6)):
         base = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant=kv),
                       device="cuda")
-        tape = LogitTape(base, cfg.vocab_size)
+        tape = GuardTape(base, cfg.vocab_size)
         try:
             ref = base.serve(reqs)
         finally:
@@ -1827,6 +1844,411 @@ def phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tenso
         out[f"paged {name}"] = res
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: fault-tolerant, observable serving (guards, fault plans,
+# cancellation and deadlines, the recorder, quantization health, repricing)
+# ---------------------------------------------------------------------------
+
+def robust_line(tag: str, rec: dict, t0: float) -> None:
+    print("robust (phase 18): " + json.dumps({"case": tag, **rec,
+                                              "at_s": time.perf_counter() - t0}))
+
+
+def device_op_counter(torch):
+    """A dispatch mode that counts, exactly, what the code under it sends to
+    the card: ``ops`` every ATen op by overload (host ones and views
+    included), ``work`` the ops on a CUDA tensor that launch device work, by
+    op (views and other aliases, a ``to`` that returns its input, and
+    ``empty*`` allocations launch none), and ``copies`` the ops that move
+    data between the card and the host (under inference mode ``.cpu()``
+    dispatches ``to``, whose schema marks its result an alias).
+    Hand-written kernels dispatch no ATen op; their wrappers count their own
+    launches.  A tensor made on the card from host data (``torch.as_tensor``)
+    is copied outside the dispatcher and is not seen."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    no_kernel = {"empty", "empty_strided", "empty_like", "new_empty", "new_empty_strided"}
+    moves = {"to", "_to_copy", "copy_", "_local_scalar_dense"}
+
+    class DeviceOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.work, self.copies = collections.Counter(), collections.Counter(), 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops[str(func)] += 1
+            ts = [t for t in tree_leaves((args, kwargs, out)) if isinstance(t, torch.Tensor)]
+            name = func.overloadpacket.__name__
+            alias = any(r.alias_info is not None and not r.alias_info.is_write
+                        for r in func._schema.returns)
+            if not any(t.is_cuda for t in ts):
+                return out
+            if name in moves and (name == "_local_scalar_dense"
+                                  or not all(t.is_cuda for t in ts)):
+                self.copies += 1
+            elif (name == "to" and out is not args[0]) or (
+                    not alias and name not in no_kernel):
+                self.work[name] += 1
+            return out
+
+    return DeviceOps()
+
+
+def trace_serve_window(torch, eng, reqs, kernels, start: int = 2, steps: int = 8) -> dict:
+    """What one iteration of the dense serve loop sends to the card: one
+    ``eng.serve(reqs)`` with a window from the start of its decode call
+    ``start`` to the start of call ``start + steps``, so the window holds
+    ``steps`` whole iterations (the model step, the guard, the sampling and
+    the tokens' copy to the host, the recorder's hooks and the loop's
+    control between steps).  The window must hold no admission, so every
+    iteration does the same work.  Returns the serve's tokens too (``out``).
+
+    Exact counts, which the gates read: :func:`device_op_counter` over the
+    window (``ops`` / ``work`` / ``copies``) and the hand-written kernels'
+    launches (``hand``).  Measured beside them by torch.profiler (device
+    activity only) in the same window: device ms and kernels per iteration,
+    each kernel name's launches over the window / ``steps``, rounded up.
+    The trace loses events and never adds one (on the H100 from 40-45 to
+    more than 144 of ~37,200 kernels over 8 steps, spread over many names,
+    from run to run), so its kernel count is a lower bound, printed and not
+    gated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    counter = device_op_counter(torch)
+    decode, calls, admitted, hand = eng._decode_slots, [0], [], []
+
+    def windowed(pool, active, tok, pos, ctl, rows):
+        if calls[0] in (start, start + steps):
+            torch.cuda.synchronize()
+            admitted.append(ctl.stats["admissions"])
+            hand.append({k: fn.launches for k, fn in kernels.items()})
+            if calls[0] == start:
+                prof.start()
+                counter.__enter__()
+            else:
+                counter.__exit__(None, None, None)
+                prof.stop()
+        calls[0] += 1
+        return decode(pool, active, tok, pos, ctl, rows)
+
+    eng._decode_slots = windowed
+    try:
+        out = eng.serve([dataclasses.replace(r) for r in reqs])
+    finally:
+        del eng._decode_slots
+        if len(admitted) == 1:  # the serve ended inside the window
+            counter.__exit__(None, None, None)
+            prof.stop()
+    if len(admitted) != 2 or admitted[0] != admitted[1]:
+        raise AssertionError(f"profiled serve: admissions {admitted} around the window")
+    events = device_events(prof)
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    by_name = {e.key: math.ceil(e.count / steps) for e in events if e not in copies}
+    return {"out": out, "ops": counter.ops, "work": counter.work,
+            "hand": {k: hand[1][k] - hand[0][k] for k in kernels if hand[1][k] != hand[0][k]},
+            "device_ops": (sum(counter.work.values())
+                           + sum(hand[1][k] - hand[0][k] for k in kernels)) / steps,
+            "host_copies": counter.copies / steps,
+            "profiled_kernels": sum(by_name.values()),
+            "profiled_launches_in_window": sum(e.count for e in events if e not in copies),
+            "profiled_copies": sum(e.count for e in copies) / steps,
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3 / steps}
+
+
+def phase_robust(torch, Engine, ServeConfig, Request, DF, FA, TO, kernels, model, cfg, ref5,
+                 paged):
+    print("== phase 18: fault-tolerant, observable serving at full width: guards, fault "
+          "plans, cancellation and deadlines, the recorder, quantization health, repricing")
+    import numpy as np
+
+    from repro_torch.obs import MetricsRegistry, QuantHealth
+    from repro_torch.policy import DSBPPolicy, reprice_from_telemetry
+    from repro_torch.serve.engine import REQUEST_STATES
+    from repro_torch.serve.faults import FaultPlan, NumericFault
+    from repro_torch.spec.draft import projection_keys
+
+    t_phase = time.perf_counter()
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    want = ref5["serve"]
+    base = dict(max_len=512, batch_size=4)
+
+    def fresh():
+        return [dataclasses.replace(r) for r in reqs]
+
+    # ---- 18a: the healthy path, observed and guarded ----
+    # four serves of phase 5's traffic back to back, so their step times
+    # share conditions; the last also keeps the rows 18b and 18d compare
+    # with (its tape adds one copy of each sampled batch to the host)
+    runs, engines = {}, {}
+    for tag, kw in (("plain", {}), ("observe", dict(observe=True)),
+                    ("guard", dict(numeric_guard="quarantine")),
+                    ("observe+guard", dict(observe=True, numeric_guard="quarantine"))):
+        eng = Engine(model, ServeConfig(**base, **kw), device="cuda")
+        tape = GuardTape(eng, cfg.vocab_size) if tag == "observe+guard" else None
+        _reset_launches(kernels)
+        out = eng.serve(fresh())
+        torch.cuda.synchronize()
+        ref_rows = tape.close() if tape else None
+        st = dict(eng.last_stats)
+        for uid, t in want.items():
+            if not np.array_equal(out[uid], t):
+                raise AssertionError(f"18a {tag}: request {uid} {out[uid]} != phase 5's {t}")
+        runs[tag] = {"ms_step": 1e3 * st["decode_time_s"] / st["decode_steps"],
+                     "launches": {k: fn.launches for k, fn in kernels.items()
+                                  if k in ("dsbp_fused", "flash_attention")},
+                     "guard_checks": st["guard_checks"], "decode_steps": st["decode_steps"]}
+        engines[tag] = eng
+    eng = engines["observe+guard"]
+    st, obs = eng.last_stats, eng.obs
+    groups = len({e.step for e in obs.trace.events if e.phase == "prefill" and e.kind == "B"})
+    if st["guard_checks"] != st["decode_steps"] + groups or st["numeric_faults"]:
+        raise AssertionError(f"18a: guard_checks {st['guard_checks']} for "
+                             f"{st['decode_steps']} decode steps and {groups} admissions")
+    if set(st["request_status"].values()) != {"ok"} or not obs.complete_spans(
+            st["request_status"]):
+        raise AssertionError(f"18a: statuses {st['request_status']} or open spans")
+    snap = obs.metrics.snapshot()
+    if MetricsRegistry.from_snapshot(json.loads(json.dumps(snap))).snapshot() != snap:
+        raise AssertionError("18a: the metrics snapshot does not round-trip")
+    summary = {str(u): {k: (round(v, 4) if isinstance(v, float) else v) for k, v in s.items()}
+               for u, s in obs.request_summary().items()}
+    # profiled: the first admission group alone, whose decode batches are
+    # the whole traffic's while those four requests run (15 steps)
+    t_trace = time.perf_counter()
+    first = reqs[:base["batch_size"]]
+    counts = {tag: trace_serve_window(torch, engines[tag], first, kernels)
+              for tag in ("plain", "observe", "guard")}
+    t_trace = time.perf_counter() - t_trace
+    for tag, c in counts.items():
+        got = c.pop("out")
+        if set(got) != {r.uid for r in first} or any(
+                not np.array_equal(t, want[u]) for u, t in got.items()):
+            raise AssertionError(f"18a: the profiled {tag} serve's tokens are not phase 5's")
+    plain = counts["plain"]
+    extra = {tag: {n: c["work"][n] - plain["work"][n]
+                   for n in set(c["work"]) | set(plain["work"])
+                   if c["work"][n] != plain["work"][n]}
+             for tag, c in counts.items() if tag != "plain"}
+    ops_per_step = {t: c["device_ops"] for t, c in counts.items()}
+    # observe: exactly the plain loop's ops (every op, host ones too) and
+    # kernels; guard: at most the two kernels of its reduction more, and no
+    # copy of its own (its flags ride in the tokens' copy)
+    if (counts["observe"]["ops"] != plain["ops"] or counts["observe"]["hand"] != plain["hand"]
+            or counts["guard"]["hand"] != plain["hand"]
+            or not ops_per_step["plain"] < ops_per_step["guard"] <= ops_per_step["plain"] + 2
+            or counts["guard"]["host_copies"] != plain["host_copies"]):
+        raise AssertionError(f"18a: device ops per serve loop iteration {ops_per_step}, "
+                             f"copies { {t: c['host_copies'] for t, c in counts.items()} }, "
+                             f"hand-written launches { {t: c['hand'] for t, c in counts.items()} }, "
+                             f"extra ops {extra}")
+    robust_line("18a healthy dense", {
+        "ms_per_decode_step": {"phase 5": ref5["decode_ms"],
+                               **{tag: r["ms_step"] for tag, r in runs.items()}},
+        "device_ops_per_decode_step": ops_per_step,
+        "host_copies_per_decode_step": {t: c["host_copies"] for t, c in counts.items()},
+        "extra_ops_per_window": extra,
+        "hand_written_launches_per_window": plain["hand"],
+        "profiled_kernels_per_decode_step": {t: c["profiled_kernels"]
+                                             for t, c in counts.items()},
+        "profiled_kernel_launches_per_window": {t: c["profiled_launches_in_window"]
+                                                for t, c in counts.items()},
+        "profiled_copies_per_decode_step": {t: c["profiled_copies"]
+                                            for t, c in counts.items()},
+        "device_ms_per_decode_step": {t: c["device_ms"] for t, c in counts.items()},
+        "guard_checks": st["guard_checks"], "decode_steps": st["decode_steps"],
+        "admission_groups": groups, "launches": runs["observe+guard"]["launches"],
+        "trace_s": t_trace,
+        "trace_events": len(obs.trace.events), "dropped": obs.trace.dropped,
+        "requests": summary}, t_phase)
+    print(f"  18a: tokens bit-equal to phase 5 observed and/or guarded; ms per decode step "
+          f"{ {t: round(r['ms_step'], 2) for t, r in runs.items()} } (phase 5 in this run "
+          f"{ref5['decode_ms']:.2f}; the observe+guard serve carries the logit tape); "
+          f"device ops per serve loop iteration {ops_per_step}, profiled kernels (a lower "
+          f"bound) { {t: c['profiled_kernels'] for t, c in counts.items()} }")
+    del engines
+
+    # ---- 18b: dense faults on phase 5's traffic ----
+    def dense_run(tag, guard, plan, requests=None):
+        e = Engine(model, ServeConfig(**base, numeric_guard=guard, observe=True),
+                   device="cuda")
+        gt = GuardTape(e, cfg.vocab_size)
+        try:
+            o = e.serve(requests or fresh(), faults=plan)
+        finally:
+            rows = gt.close()
+        s = dict(e.last_stats)
+        early = {u for u, v in s["request_status"].items() if v not in ("ok", "preempted")}
+        ties, _ = check_recorded(torch, want, o, ref_rows, rows, prefix=early)
+        exact = sum(np.array_equal(o[u], want[u][:len(o[u])]) for u in want)
+        rec = {"status": {str(u): v for u, v in s["request_status"].items()},
+               **{k: s[k] for k in ("quarantined", "numeric_faults", "guard_checks",
+                                    "fallback_steps", "cancelled", "deadline_expired")},
+               "tokens": {str(u): len(v) for u, v in o.items()},
+               "streams_exact": exact, "near_ties": len(ties),
+               "complete_spans": e.obs.complete_spans(s["request_status"])}
+        if not rec["complete_spans"]:
+            raise AssertionError(f"18b {tag}: open spans")
+        robust_line(f"18b {tag}", rec, t_phase)
+        return o, s, e
+
+    lane1 = reqs[1].uid  # slot 1 holds request 1 at decode call 2
+    o, s, _ = dense_run("quarantine", "quarantine", FaultPlan(nan_steps={2: (1,)}))
+    if s["request_status"][lane1] != "quarantined" or s["quarantined"] != 1 or any(
+            v != "ok" for u, v in s["request_status"].items() if u != lane1):
+        raise AssertionError(f"18b quarantine: {s['request_status']}")
+    if not 0 < len(o[lane1]) < 16:
+        raise AssertionError(f"18b quarantine: {len(o[lane1])} tokens kept")
+    o, s, _ = dense_run("fallback", "fallback", FaultPlan(nan_steps={2: (1,)}))
+    if s["fallback_steps"] != 1 or set(s["request_status"].values()) != {"ok"}:
+        raise AssertionError(f"18b fallback: {s['fallback_steps']} {s['request_status']}")
+    # 'fallback' keeps every lane, and its retry through dsbp_ref computes
+    # B1's numbers: every stream is phase 5's
+    for uid, t in want.items():
+        if not np.array_equal(o[uid], t):
+            raise AssertionError(f"18b fallback: request {uid} {o[uid]} != phase 5's {t}")
+    o, s, _ = dense_run("fallback persistent", "fallback",
+                        FaultPlan(nan_steps={2: (1,)}, persistent_nan=True))
+    if s["fallback_steps"] != 1 or s["request_status"][lane1] != "quarantined":
+        raise AssertionError(f"18b persistent: {s['request_status']}")
+    e = Engine(model, ServeConfig(**base, numeric_guard="fail-fast"), device="cuda")
+    try:
+        e.serve(fresh(), faults=FaultPlan(nan_steps={2: (1, 3)}))
+        raise AssertionError("18b fail-fast: no NumericFault")
+    except NumericFault as err:
+        if err.uids != [reqs[1].uid, reqs[3].uid] or e.last_stats["completed"]:
+            raise AssertionError(f"18b fail-fast: uids {err.uids}") from err
+        robust_line("18b fail-fast", {"uids": err.uids, "step": err.step,
+                                      "completed": e.last_stats["completed"]}, t_phase)
+    del e
+    ctl_reqs = fresh()
+    ctl_reqs[6] = dataclasses.replace(ctl_reqs[6], deadline_steps=4)
+    o, s, _ = dense_run("cancel + deadline", None,
+                        FaultPlan(cancels={5: (reqs[2].uid,)}), requests=ctl_reqs)
+    if (s["request_status"][reqs[2].uid] != "cancelled"
+            or s["request_status"][reqs[6].uid] != "deadline"
+            or s["cancelled"] != 1 or s["deadline_expired"] != 1):
+        raise AssertionError(f"18b cancel/deadline: {s['request_status']}")
+
+    # ---- 18c: the paged scheduler under a seeded plan, float then kv8 ----
+    for name, kv in (("float", None), ("kv8", "kv8")):
+        p13 = paged[name]
+        uids = [r.uid for r in p13["reqs"]]
+        scfg = ServeConfig(max_len=512, batch_size=4, max_active=8, paged=True,
+                           kv_block_size=16, chunk_prefill_tokens=256, kv_quant=kv,
+                           numeric_guard="quarantine", observe=True)
+        sigs = []
+        for rep in range(2 if kv is None else 1):  # the float pool replays its plan
+            plan = FaultPlan.seeded(5, uids=uids, n_alloc=2, n_cow=2, n_nan=1, n_cancel=1,
+                                    decode_calls=12, alloc_calls=10, steps=8, lanes=4)
+            e = Engine(model, scfg, device="cuda")
+            gt = GuardTape(e, cfg.vocab_size)
+            try:
+                o = e.serve([dataclasses.replace(r) for r in p13["reqs"]], faults=plan)
+            finally:
+                rows = gt.close()
+            s = dict(e.last_stats)
+            sigs.append(e.obs.trace.signature())
+            if rep:
+                continue
+            status = s["request_status"]
+            if not (s["completed"] and set(status) == set(uids) and set(o) == set(uids)
+                    and set(status.values()) <= set(REQUEST_STATES)
+                    and s["invariant_checks"] > 0 and s["blocks_in_use_at_exit"] == 0):
+                raise AssertionError(f"18c {name}: {s}")
+            early = {u for u, v in status.items() if v not in ("ok", "preempted")}
+            ties, _ = check_recorded(torch, p13["out"], o, p13["rows"], rows, prefix=early)
+            injected = {k: e.obs.metrics.value("serve_faults_injected_total", kind=k) or 0
+                        for k in plan.injected}
+            if injected != plan.injected or not all(
+                    plan.injected[k] for k in ("alloc", "cow", "nan", "cancel")):
+                raise AssertionError(f"18c {name}: recorder {injected} vs plan "
+                                     f"{plan.injected}")
+            rec = {"status": {str(u): v for u, v in status.items()},
+                   "injected": plan.injected,
+                   **{k: s[k] for k in ("preemptions", "resumed", "quarantined", "cancelled",
+                                        "invariant_checks", "cow_splits",
+                                        "admission_blocked", "decode_steps")},
+                   "streams_exact": sum(np.array_equal(o[u], p13["out"][u][:len(o[u])])
+                                        for u in uids),
+                   "near_ties": len(ties),
+                   "trace_events": len(e.obs.trace.events)}
+        if sigs[0] != sigs[-1]:
+            raise AssertionError(f"18c {name}: the replayed plan gave another trace")
+        robust_line(f"18c paged {name}", {**rec, "replayed": len(sigs) == 2}, t_phase)
+        del e
+
+    # ---- 18d: speculation (phase 16's dense float traffic, draft bits 7):
+    # its first admission group, whose decode batches equal the whole
+    # traffic's while those four requests run ----
+    spec = dict(max_len=512, batch_size=4, spec_draft_bits=7)
+    head = fresh()[:4]
+    head_ref = {r.uid: want[r.uid] for r in head}
+    for tag, guard, plan in (("mismatch", None, FaultPlan(spec_mismatch_rounds={0, 2, 3})),
+                             ("nan", "quarantine", FaultPlan(nan_steps={1: (0,)}))):
+        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg,
+                          [dataclasses.replace(r) for r in head], head_ref, ref_rows,
+                          dict(spec, numeric_guard=guard), f"18d spec {tag}", faults=plan)
+        s = res["stats"]
+        status = s["request_status"]
+        if tag == "mismatch" and (plan.injected["spec"] != 3
+                                  or set(status.values()) != {"ok"}):
+            raise AssertionError(f"18d mismatch: {plan.injected} {status}")
+        if tag == "nan" and (status[reqs[0].uid] != "quarantined" or any(
+                v != "ok" for u, v in status.items() if u != reqs[0].uid)):
+            raise AssertionError(f"18d nan: {status}")
+        robust_line(f"18d spec {tag}", {
+            "status": {str(u): v for u, v in status.items()}, "injected": plan.injected,
+            "accepted_hist": s["accepted_hist"], "guard_checks": s["guard_checks"],
+            "spec_rounds": s["spec_rounds"], "near_ties": res["ties"],
+            "ms_round": res["ms_round"]}, t_phase)
+
+    # ---- 18e: quantization health on full-width pools, a trip, repricing ----
+    health = {}
+    for name, kv in (("float", None), ("kv8", "kv8")):
+        with torch.inference_mode():
+            _, cache, _ = model.prefill(torch.as_tensor(toks, device="cuda"), 512,
+                                        lengths=lens, kv=kv)
+            qh = QuantHealth()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qh.sample_cache(model.cache_tree(cache))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            ent = qh.entries["units.0"]
+            if not (ent.total == 2 * cfg.n_layers * 4 * cfg.n_kv_heads * 512 * cfg.d_head
+                    and ent.shift_hist.sum() > 0 and ent.nonfinite == 0):
+                raise AssertionError(f"18e {name}: {ent.snapshot()}")
+            leaf = cache[cfg.n_layers // 4]["k"]
+            (leaf.scale if kv else leaf)[1, cfg.n_kv_heads - 1, int(lens[1]) - 1, 0] = \
+                float("nan")
+            t0 = time.perf_counter()
+            culprits = qh.attribute_trip(model.cache_tree(cache))
+            trip_ms = 1e3 * (time.perf_counter() - t0)
+        if culprits != ["units.0"] or qh.trips() != {"units.0": 1}:
+            raise AssertionError(f"18e {name}: attribute_trip {culprits} {qh.trips()}")
+        health[name] = {"sample_cache_ms": ms, "attribute_trip_ms": trip_ms,
+                        "entry": {k: v for k, v in ent.snapshot().items()
+                                  if k != "shift_hist"},
+                        "shift_hist_nonzero": {i: int(c) for i, c in enumerate(ent.shift_hist)
+                                               if c}}
+        del cache
+    keys = sorted({k for k, _ in projection_keys(model)})
+    pol = DSBPPolicy.uniform("precise", keys).with_kv({"units.0": "kv4"})
+    new = reprice_from_telemetry(pol, qh)
+    if new.kv_spec_for("units.0").bits != 6 or any(
+            new.layers[k] == pol.layers[k] for k in keys):
+        raise AssertionError(f"18e reprice: {new.to_json()}")
+    robust_line("18e health", {"health": health, "repriced_policy": json.loads(new.to_json())},
+                t_phase)
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 18 took {seconds:.1f} s")
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "runs": runs, "counts": counts, "health": health}
 
 
 # ---------------------------------------------------------------------------
@@ -2653,6 +3075,20 @@ def main() -> int:
                          kernels, model, cfg, ref5, paged)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--robust"]:  # phases 1, 5, 13 and 18: robust serving
+        cfg = get_config("llama-7b-paper")
+        model, _, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
+        kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+                   "packed_flash_attention": FA.packed_flash_attention,
+                   "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul,
+                   "paged_flash_attention": FA.paged_flash_attention,
+                   "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+        paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks,
+                                  kernels, model, cfg)
+        phase_robust(torch, Engine, ServeConfig, Request, DF, FA, TO, kernels, model, cfg,
+                     ref5, paged)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--policy"]:  # phases 1, 5, 17a and 17: the policy loop
         cfg = get_config("llama-7b-paper")
         model, _, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
@@ -2719,6 +3155,9 @@ def main() -> int:
     spec = phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
                             kernels, model, cfg, ref5, paged)
     stamp("phase 16")
+    phase_robust(torch, Engine, ServeConfig, Request, DF, FA, TO, kernels, model, cfg, ref5,
+                 paged)
+    stamp("phase 18")
     spec_dense, spec_kv8 = spec["dense float, draft bits 4"], spec[
         "dense kv8, draft bits 4, kv_draft_bits 6"]
 

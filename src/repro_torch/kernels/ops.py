@@ -4,9 +4,12 @@ Port of ``repro.kernels.ops``: ``fp8_quant_align`` (:92),
 ``dsbp_matmul_packed`` (:102), ``dsbp_matmul_fused`` (:150),
 ``dsbp_matmul_fused_sharded`` (:190),
 ``dsbp_matmul`` (:274), and the two dispatch contracts
-``count_weight_transposes`` (:52) and ``count_kv_dequants`` (:386), plus
-the paged cache's ``count_kv_gathers`` (no JAX counterpart: the JAX model
-reads a paged pool through a gathered view).  Each
+``count_weight_transposes`` (:52) and ``count_kv_dequants`` (:386),
+``quant_sat_stats`` (:444, the quantize-path health statistic of
+``repro_torch.obs.health``), plus the paged cache's ``count_kv_gathers``
+(no JAX counterpart: the JAX model reads a paged pool through a gathered
+view) and the numeric guard's reduction ``finite_flags`` (JAX's engine
+jits its own).  Each
 wrapper dispatches by the device of its tensors: a CUDA tensor goes to the
 hand-written kernel, a CPU tensor to the kernel's plain PyTorch version.
 (The JAX GQA attention wrappers, :333 and :354, have no counterpart: the
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.dsbp import DSBPConfig
-from repro_torch.core.formats import per_tensor_scale, scale_for_amax
+from repro_torch.core.formats import get_format, per_tensor_scale, scale_for_amax
 from repro_torch.core.packed import PackedDSBPWeight
 
 from . import build
@@ -29,7 +32,8 @@ from .dsbp_matmul import dsbp_matmul as _dsbp_matmul
 
 __all__ = ["fp8_quant_align", "dsbp_matmul_packed", "dsbp_matmul_fused",
            "dsbp_matmul_fused_sharded", "dsbp_matmul",
-           "count_weight_transposes", "count_kv_dequants", "count_kv_gathers"]
+           "count_weight_transposes", "count_kv_dequants", "count_kv_gathers",
+           "quant_sat_stats", "sat_counts", "finite_flags"]
 
 
 def _check_packed_2d(pw: PackedDSBPWeight, x: torch.Tensor, name: str) -> None:
@@ -134,6 +138,55 @@ def dsbp_matmul(x: torch.Tensor, w: torch.Tensor, cfg, folded: bool = True) -> t
     from repro_torch.core.quantized import pack_weights
 
     return dsbp_matmul_packed(x, pack_weights(w, cfg), folded=folded)
+
+
+def sat_counts(x: torch.Tensor, fmt, tscale: torch.Tensor) -> tuple:
+    """Device-side body of :func:`quant_sat_stats`: int64 0-d tensors
+    (overflow, underflow, nonfinite) of ``x`` against ``fmt`` under
+    ``tscale`` (a 0-d f32 tensor; <= 0 takes the per-call scale of the
+    finite values), and the scale used.  Nothing crosses to the host."""
+    f = get_format(fmt)
+    x = x.to(torch.float32)
+    finite = torch.isfinite(x)
+    xz = torch.where(finite, x, torch.zeros_like(x))
+    ts = torch.where(tscale > 0, tscale, per_tensor_scale(xz, f))
+    ax = xz.abs() * ts
+    overflow = ((ax > f.max_value) & finite).sum()
+    underflow = ((ax > 0) & (ax < 2.0 ** f.emin) & finite).sum()
+    return overflow, underflow, (~finite).sum(), ts
+
+
+def quant_sat_stats(x: torch.Tensor, cfg, tscale: float | None = None) -> dict:
+    """Overflow / underflow / non-finite counts of ``x`` against a target
+    FP format, the quantize-path health statistic of "FP8 Formats for Deep
+    Learning" (read by :mod:`repro_torch.obs.health`).
+
+    ``cfg`` is a :class:`DSBPConfig` (its ``fmt``), an ``FPFormat`` or a
+    format name.  With ``tscale=None`` the per-call power-of-two scale
+    applies (then nothing overflows by construction), so a caller tracking
+    a distribution's shift passes a frozen scale; overflow = ``|x|*tscale``
+    above the format's max, underflow = non-zero magnitudes below its
+    smallest normal ``2**emin``.  The counts are reduced on ``x``'s device
+    and cross to the host as four numbers."""
+    fmt = getattr(cfg, "fmt", None)
+    if fmt is None:
+        fmt = cfg if isinstance(cfg, str) else getattr(cfg, "name", str(cfg))
+    x = torch.as_tensor(x)
+    ts = torch.tensor(0.0 if tscale is None else tscale, dtype=torch.float32,
+                      device=x.device)
+    overflow, underflow, nonfinite, used = sat_counts(x, fmt, ts)
+    overflow, underflow, nonfinite, used = torch.stack(
+        [overflow.double(), underflow.double(), nonfinite.double(), used.double()]).tolist()
+    return {"overflow": int(overflow), "underflow": int(underflow),
+            "nonfinite": int(nonfinite), "total": int(x.numel()), "tscale": float(used)}
+
+
+def finite_flags(logits: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The numeric guard's reduction: one f32 per row of ``logits`` (B,
+    ...), 0 where every value of the row is finite and NaN where any is not
+    (x * 0 is a signed zero for finite x and NaN for NaN and +-inf, and a
+    sum keeps a NaN).  Two kernels on the logits' device."""
+    return torch.sum((logits * 0).flatten(1), dim=-1, out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@
       [--paged --kv-block-size 16 [--kv-blocks N] [--max-active N]] \\
       [--spec-k 3 [--spec-draft-bits 4] [--spec-draft-method dsbp_fused] \\
        [--kv-draft-bits 6]] [--mesh DxM] [--policy POLICY.json] \
-      [--smoke --device cpu]
+      [--deadline-steps N] [--numeric-guard quarantine-lane] \
+      [--observe [--metrics-json M.json] [--trace T.json]] [--smoke --device cpu]
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead (use it with ``--smoke``).  ``--ragged`` draws mixed-length
@@ -25,6 +26,14 @@ commits the longest greedy-matching prefix; with a packed KV cache
 the policy's config for its stacked key and the KV cache takes the
 policy's ``kv_layers`` / ``kv_default`` unless ``--kv-quant`` or
 ``--kv-bits`` is given.
+
+``--deadline-steps N`` releases a request N scheduler iterations after its
+admission (status 'deadline'); ``--numeric-guard`` checks every step's
+sampling logits for non-finite values (fail-fast, quarantine-lane or
+fallback); ``--observe`` records lifecycle spans, metrics and guard
+telemetry and prints each request's TTFT, total time and tokens/s, and
+``--metrics-json`` / ``--trace`` write the metrics snapshot and the
+Chrome trace (both imply ``--observe``).  All of them imply ``--ragged``.
 
 ``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
 counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
@@ -103,12 +112,34 @@ def main():
     ap.add_argument("--policy", default=None, metavar="POLICY.json",
                     help="serve a DSBPPolicy JSON artifact (per-layer configs, "
                          "and its KV side unless --kv-quant/--kv-bits is set)")
+    ap.add_argument("--deadline-steps", type=int, default=None,
+                    help="scheduler iterations a request may stay resident after "
+                         "admission before it is released with status 'deadline' "
+                         "(implies --ragged)")
+    ap.add_argument("--observe", action="store_true",
+                    help="observability: per-request lifecycle spans, a metrics "
+                         "registry and guard telemetry; prints a per-request "
+                         "TTFT/total/tok-s summary (implies --ragged)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="dump the obs registry + health snapshot as JSON after "
+                         "serving (implies --observe)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="dump the Chrome trace-event timeline after serving, for "
+                         "Perfetto / chrome://tracing (implies --observe)")
+    ap.add_argument("--numeric-guard", default=None,
+                    choices=["off", "fail-fast", "quarantine-lane", "fallback"],
+                    help="per-step finiteness guard on sampling logits: fail-fast "
+                         "raises, quarantine-lane releases the bad lane with its "
+                         "partial output, fallback retries the step through the "
+                         "dsbp_ref reference path")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
     args = ap.parse_args()
-    if args.paged or args.spec_k:
-        args.ragged = True  # both live in the serve() scheduler
+    if args.metrics_json or args.trace:
+        args.observe = True
+    if args.paged or args.spec_k or args.deadline_steps or args.observe:
+        args.ragged = True  # all of them live in the serve() scheduler
     if args.mesh is None:
         _run(None, args)
         return
@@ -151,6 +182,7 @@ def _run(mesh, args):
                        spec_draft_bits=args.spec_draft_bits,
                        spec_draft_method=args.spec_draft_method,
                        kv_draft_bits=args.kv_draft_bits,
+                       numeric_guard=args.numeric_guard, observe=args.observe,
                        mesh_shape=None if mesh is None else tuple(mesh.shape.values()))
     eng = None
     # ranks that share a card draw the whole model one after another, each
@@ -185,7 +217,7 @@ def _run(mesh, args):
     if args.ragged:
         lens = rng.integers(args.prompt_len // 2, args.prompt_len + 1, 2 * args.batch)
         reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, (int(n),)),
-                        max_new_tokens=args.new_tokens)
+                        max_new_tokens=args.new_tokens, deadline_steps=args.deadline_steps)
                 for i, n in enumerate(lens)]
         t0 = time.monotonic()
         out = eng.serve(reqs, max_new_tokens=args.new_tokens)
@@ -208,6 +240,29 @@ def _run(mesh, args):
                 f"{st['accepted_hist']})")
         if mesh is not None:
             say(f"collectives per decode step: {st['collectives_per_decode_step']}")
+        if args.deadline_steps or args.numeric_guard:
+            by_state: dict = {}
+            for status in st["request_status"].values():
+                by_state[status] = by_state.get(status, 0) + 1
+            say(f"lifecycle: {by_state} (deadline_expired {st['deadline_expired']}, "
+                f"quarantined {st['quarantined']}, preemptions {st['preemptions']}, "
+                f"guard_checks {st['guard_checks']})")
+        if args.observe:
+            summ = eng.obs.request_summary()
+            for uid in sorted(summ, key=str):
+                q = summ[uid]
+                ttft = f"{q['ttft_s'] * 1e3:7.1f}ms" if q["ttft_s"] is not None else "      -"
+                total = (f"{q['total_s'] * 1e3:7.1f}ms" if q["total_s"] is not None
+                         else "      -")
+                say(f"  req{uid}: {str(q['status']):<11} ttft {ttft}  total {total}  "
+                    f"{q['tokens']:>3} tok  {q['tok_s']:6.1f} tok/s")
+        if args.metrics_json:
+            eng.obs.save_metrics(args.metrics_json)
+            say(f"metrics snapshot -> {args.metrics_json}")
+        if args.trace:
+            eng.obs.save_trace(args.trace)
+            say(f"chrome trace ({len(eng.obs.trace.events)} events) -> {args.trace} "
+                f"(open in Perfetto / chrome://tracing)")
         for uid in list(out)[:2]:
             say(f"  req{uid}: {out[uid].tolist()}")
         return

@@ -138,6 +138,16 @@ class Model(nn.Module):
         base = self.cfg.n_units * p
         return f"units.{i % p}" if i < base else f"tail.{i - base}"
 
+    def cache_tree(self, cache: list[dict]) -> dict:
+        """The per-layer cache grouped by JAX cache entry: ``{"units": [the
+        layers at pattern position p, ...], "tail": [[layer], ...]}`` (no
+        copy), the granularity of ``repro_torch.obs.health``."""
+        tree = {"units": [[] for _ in self.cfg.pattern], "tail": [[] for _ in self.cfg.tail]}
+        for i, c in enumerate(cache):
+            fam, _, j = self.cache_entry_name(i).partition(".")
+            tree[fam][int(j)].append(c)
+        return tree
+
     def init_cache(self, batch: int, max_len: int, kv=None) -> list[dict]:
         """Per-layer ``{'k', 'v'}`` caches; ``kv`` an optional KV-quant spec
         (preset name / bits / config, or a mapping keyed ``units.<i>`` /

@@ -12,14 +12,14 @@
                    entry -> spec, provenance), JSON shared with JAX
   spec_bits.py  -- per-layer draft widths (ServeConfig.spec_draft_bits)
   kv_bits.py    -- per-entry KV widths (DSBPPolicy.kv_layers)
-
-JAX's ``reprice.py`` (telemetry-driven widening) needs the observability
-layer and comes with it (ROADMAP A11).
+  reprice.py    -- telemetry-driven widening: obs.QuantHealth guard-trip /
+                   drift signals -> a new DSBPPolicy
 """
 from .calibrate import CalibrationReport, LayerStats, calibrate, synthetic_calibration_batches
 from .cost import assignment_cost, candidate_ladder, predict_layer_bits
 from .kv_bits import KVEntryStats, collect_kv_stats, kv_dropped_bits, price_kv_bits
 from .policy import DSBPPolicy
+from .reprice import KV_WIDEN_LADDER, WIDEN_LADDER, reprice_from_telemetry, widen_config
 from .search import autotune
 from .spec_bits import price_draft_bits
 
@@ -38,4 +38,8 @@ __all__ = [
     "collect_kv_stats",
     "kv_dropped_bits",
     "price_kv_bits",
+    "reprice_from_telemetry",
+    "widen_config",
+    "WIDEN_LADDER",
+    "KV_WIDEN_LADDER",
 ]

@@ -100,6 +100,15 @@ class BlockAllocator:
         """Used fraction of the usable pool (scratch block 0 excluded)."""
         return self.used_blocks / max(self.num_blocks - 1, 1)
 
+    def stats(self) -> dict:
+        """Point-in-time gauges (the obs recorder samples them every paged
+        scheduler iteration)."""
+        return {"used": self.used_blocks,
+                "free": self.free_blocks,
+                "shared": self.shared_blocks(),
+                "peak_used": self.peak_used,
+                "utilization": self.utilization}
+
     def alloc(self, n: int = 1) -> list[int]:
         if n > len(self._free):
             raise BlockError(

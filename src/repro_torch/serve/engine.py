@@ -13,9 +13,17 @@ priority-ordered ``_build_queue`` (:721), and the paged scheduler
 ``_cow_writable`` (:1683), ``_chunk_step`` (:1755) and ``_requeue``
 (:851); and self-speculative decoding (``spec_k > 0``) in both
 schedulers: ``_spec_advance`` (:1109), ``_spec_advance_paged`` (:1836)
-and ``_spec_summary`` (:1097).  The JAX scheduler's fault plans,
-deadlines, cancellation, numeric guards and observability hooks are not
-ported yet (ROADMAP A10, A11).  The DSBP policy loop's serving side is
+and ``_spec_summary`` (:1097).  The robustness and observability layers
+of both schedulers are here as well: ``REQUEST_STATES`` and the guard
+policies (:51), ``ServeConfig.numeric_guard`` / ``invariant_checks`` /
+``observe`` / ``obs_max_events``, ``Request.deadline_steps``,
+``_ServeControl`` (:217), ``_norm_guard`` (:655), ``cancel`` (:707),
+``_robust_stats`` (:716), ``_drain_control`` (:738), ``_apply_guard``
+(:777), ``_quarantine`` (:806), the 'fallback' retry through
+``dsbp_ref`` (:814, :829), ``_finish`` (:843), ``serve(faults=)`` with
+``serve/faults.FaultPlan`` and ``check_invariants``, and the
+``obs.ServeRecorder`` hooks (``Engine.obs``).  The DSBP policy loop's
+serving side is
 here too: ``pack_weights_int8`` (:229) under a per-layer policy (each
 projection under ``policy.config_for`` of its stacked key, served in the
 ``"policy"`` quant mode), ``ServeConfig.pack_preset`` / ``kv_quant``
@@ -57,6 +65,17 @@ stream is the non-speculative one (up to near ties between the batched
 verify and sequential decode).  ``kv_draft_bits`` lets the draft attend a
 narrower view of a packed KV cache.
 
+Every request ends in one of ``REQUEST_STATES`` (``last_stats
+['request_status']``, set even when the loop raises).  Requests can be
+cancelled (:meth:`Engine.cancel`, or a plan's schedule) and expire
+(``deadline_steps``); a ``numeric_guard`` checks the sampling logits of
+every step on the device, its verdict crossing to the host in the same
+copy as the tokens, and fails fast, quarantines the lane, or retries the
+step through ``dsbp_ref``.  That retry rewrites the same slots the failed
+step wrote (the cache updates in place) before any attention reads them,
+so it equals JAX's retry from the pre-step cache.  ``observe=True``
+records lifecycle spans, metrics and guard-trip health (``Engine.obs``).
+
 With ``mesh_shape=(D, M)`` the engine is one rank of a ``torch.distributed``
 group of ``D*M`` processes (``launch.mesh.spawn``), each running the same
 host scheduler in lockstep.  Weights are cut and packed per rank
@@ -69,13 +88,15 @@ splits over 'data' (where the data axis divides it): each data rank decodes
 the slots it holds, and the sampled tokens assemble with one all_reduce.
 Admission prefills run the whole group on every data rank (the input
 scale then spans the group as on one device); each rank keeps the K/V of
-its own slots.
+its own slots.  Guards, fault plans and the recorder are not ported to
+the mesh (ROADMAP A13).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import functools
 import time
 from collections import deque
 from collections.abc import Mapping
@@ -86,20 +107,29 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.packed import PackedDSBPWeight, pack_weights_sharded
 from repro_torch.core.quantized import PRESETS, pack_weights
+from repro_torch.kernels.ops import finite_flags
 from repro_torch.kvq import (KV_MAX_BITS, KV_MIN_BITS, kv_cache_nbytes, resolve_kv_spec,
                              tree_has_packed_kv)
 from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
+from repro_torch.obs import ServeRecorder
 from repro_torch.parallel import context as PC
 from repro_torch.parallel import sharding as SH
 from repro_torch.serve import blocks as SB
+from repro_torch.serve import faults as FA
 from repro_torch.spec import (acceptance_summary, build_spec_round,
                               build_spec_round_paged)
 from repro_torch.spec.draft import stacked_key
 
-__all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES",
+__all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES", "REQUEST_STATES",
            "pack_weights_int8", "sample_tokens"]
+
+# terminal request lifecycle states: every served uid ends in exactly one,
+# reported in last_stats["request_status"]
+REQUEST_STATES = ("ok", "preempted", "cancelled", "deadline", "quarantined")
+
+_GUARD_POLICIES = ("fail-fast", "quarantine", "fallback")
 
 # projection leaf names that carry a DSBP-quantizable GEMM
 PROJ_NAMES = frozenset({
@@ -180,6 +210,28 @@ class ServeConfig:
     # 4 * prefill_bucket); chunked admissions skip prefix sharing
     chunk_prefill_tokens: int | None = None
     prefix_sharing: bool = True  # hash-chained prefix cache + COW splits
+    # --- robustness layer ---
+    # per-step finiteness check of the logits every sampling decision reads,
+    # with a policy for non-finite lanes:
+    #   None / 'off'  -- no guard (no check runs at all)
+    #   'fail-fast'   -- raise serve.faults.NumericFault (whole batch)
+    #   'quarantine'  -- release the lane, keep its partial output, status
+    #                    'quarantined' ('quarantine-lane' alias)
+    #   'fallback'    -- retry the step through the dsbp_ref reference path
+    #                    (it rewrites the slots the step wrote), then
+    #                    quarantine if still non-finite; not with spec_k
+    numeric_guard: str | None = None
+    # paged scheduler: assert serve.faults.check_invariants after every
+    # iteration (always on while a FaultPlan is active)
+    invariant_checks: bool = False
+    # --- observability ---
+    # observe=True threads repro_torch.obs.ServeRecorder through the
+    # scheduler: lifecycle spans (Engine.obs.trace), a metrics registry
+    # (Engine.obs.metrics) and guard-trip health (Engine.obs.health);
+    # last_stats is the same either way
+    observe: bool = False
+    # trace-event capacity; past it events are counted as dropped
+    obs_max_events: int = 200_000
 
 
 @dataclasses.dataclass
@@ -191,6 +243,23 @@ class Request:
     # higher admits first and is never preempted by a lower value; the
     # paged scheduler only evicts a victim strictly below the contender
     priority: int = 0
+    # scheduler iterations the request may stay resident after its first
+    # admission before it is released with status 'deadline' (None: none)
+    deadline_steps: int | None = None
+
+
+@dataclasses.dataclass
+class _ServeControl:
+    """Per-serve() bookkeeping shared by both schedulers and every helper
+    they call."""
+    stats: dict
+    out: dict                    # uid -> emitted token list
+    status: dict                 # uid -> lifecycle state (REQUEST_STATES)
+    faults: object | None = None
+    step: int = 0                # scheduler iteration counter
+    admit_step: dict = dataclasses.field(default_factory=dict)
+    preempts: dict = dataclasses.field(default_factory=dict)
+    gen: torch.Generator | None = None  # the serve's sampling generator
 
 
 def pack_weights_int8(model: Model, preset="precise", mesh=None) -> dict:
@@ -257,13 +326,16 @@ def _nbytes(model: Model) -> int:
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """THE token selection: greedy argmax (temperature 0, first maximum on
-    ties) or categorical sampling from ``generator``.  logits: (B, V)."""
+    ties) or categorical sampling from ``generator``.  logits: (B, V);
+    ``out`` an optional (B,) int64 tensor the tokens are written into."""
     if temperature <= 0:
-        return torch.argmax(logits, dim=-1)
+        return torch.argmax(logits, dim=-1, out=out)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return tok if out is None else out.copy_(tok)
 
 
 class Engine:
@@ -297,6 +369,21 @@ class Engine:
         self.scfg = scfg
         self.kv_spec = self._norm_kv(scfg)
         self.quant = Quant(cfg.quant, cfg.quant_method)
+        # --- robustness layer ---
+        self._guard = self._norm_guard(scfg.numeric_guard)
+        if self._guard == "fallback" and scfg.spec_k:
+            raise ValueError(
+                "numeric_guard='fallback' retries a decode step through the "
+                "reference path, but a speculative round commits its tokens "
+                "inside one jit and cannot be re-run — use 'quarantine' or "
+                "'fail-fast' with spec_k")
+        self._cancel_pending: set = set()
+        # the guard's device reduction (None: no guard, no check runs)
+        self._finite = finite_flags if self._guard else None
+        self._last_alloc = self._last_prefix = None  # post-serve conservation checks
+        # --- observability: one recorder for both schedulers, a bag of
+        # no-ops unless observe=True
+        self.obs = ServeRecorder(enabled=scfg.observe, max_events=scfg.obs_max_events)
         if scfg.mesh_shape is not None:
             self._check_mesh_config(preset)
         self.mesh = self._build_mesh(scfg, self.device)
@@ -343,6 +430,10 @@ class Engine:
             missing.append("speculative rounds (spec_k > 0)")
         if cfg.quant == "policy":
             missing.append("a DSBPPolicy (per-layer configs)")
+        if self._guard is not None:
+            missing.append(f"the numeric guard (numeric_guard={scfg.numeric_guard!r})")
+        if scfg.observe:
+            missing.append("the serve recorder (observe=True)")
         if missing:
             raise NotImplementedError(
                 "under a mesh the port serves the dense float-KV scheduler only; not "
@@ -420,11 +511,12 @@ class Engine:
                 f"({cfg.window}): a verify pass must not wrap its own "
                 f"tokens around the SWA ring cache")
         args = (cfg, scfg.spec_k, scfg.spec_draft_bits, scfg.spec_draft_method)
+        guard = self._guard is not None  # the round returns its finiteness mask
         if scfg.paged:
             self._spec_paged = build_spec_round_paged(
-                *args, max_len=scfg.max_len, kv_draft_bits=scfg.kv_draft_bits)
+                *args, max_len=scfg.max_len, guard=guard, kv_draft_bits=scfg.kv_draft_bits)
         else:
-            self._spec = build_spec_round(*args, kv_draft_bits=scfg.kv_draft_bits)
+            self._spec = build_spec_round(*args, guard=guard, kv_draft_bits=scfg.kv_draft_bits)
         # the draft view is derived per projection at call time: the
         # engine's containers are the only weights
         self.spec_report = {
@@ -497,11 +589,23 @@ class Engine:
                     f"{KV_MAX_BITS}], got {db}")
         return kv
 
+    @staticmethod
+    def _norm_guard(policy):
+        if policy in (None, "off"):
+            return None
+        if policy == "quarantine-lane":  # the CLI spelling
+            return "quarantine"
+        if policy not in _GUARD_POLICIES:
+            raise ValueError(
+                f"unknown numeric_guard {policy!r}: pick one of "
+                f"{sorted(_GUARD_POLICIES)} (or 'off')")
+        return policy
+
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.scfg.seed)
 
-    def _sample(self, logits, gen) -> torch.Tensor:
-        return sample_tokens(logits, self.scfg.temperature, gen)
+    def _sample(self, logits, gen, out=None) -> torch.Tensor:
+        return sample_tokens(logits, self.scfg.temperature, gen, out=out)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -599,16 +703,137 @@ class Engine:
     # continuous batching
     # ------------------------------------------------------------------
 
+    # ------------------------------------------------------------------
+    # robustness layer: lifecycle control, numeric guards
+    # ------------------------------------------------------------------
+
+    def cancel(self, uid) -> None:
+        """Request cancellation of ``uid``, queued or mid-generation: the
+        scheduler frees its slot/lane and blocks at the next iteration
+        boundary, keeps the tokens already emitted, and records status
+        'cancelled'.  Unknown or finished uids are ignored."""
+        self._cancel_pending.add(uid)
+
+    @staticmethod
+    def _robust_stats() -> dict:
+        return {"cancelled": 0, "deadline_expired": 0, "quarantined": 0,
+                "numeric_faults": 0, "guard_checks": 0, "fallback_steps": 0,
+                "preemptions": 0, "resumed": 0, "invariant_checks": 0}
+
+    def _drain_control(self, ctl: _ServeControl, queue, live) -> None:
+        """Top-of-iteration control sweep: pending cancellations
+        (:meth:`cancel` and the fault plan's schedule), then expired
+        deadlines.  ``live`` maps uid -> (Request, release_fn); release_fn
+        frees the slot/lane and every block it holds."""
+        cancels = list(self._cancel_pending)
+        self._cancel_pending.clear()
+        if ctl.faults is not None:
+            cancels += list(ctl.faults.cancels_at(ctl.step))
+        for uid in cancels:
+            if uid in live:
+                _, release = live.pop(uid)
+                release()
+            elif any(r.uid == uid for r in queue):
+                rest = [r for r in queue if r.uid != uid]
+                queue.clear()
+                queue.extend(rest)
+            else:
+                continue
+            self._terminal(ctl, uid, "cancelled", "cancelled")
+        for uid, (r, release) in list(live.items()):
+            if r.deadline_steps is None:
+                continue
+            if ctl.step - ctl.admit_step.get(uid, ctl.step) >= r.deadline_steps:
+                live.pop(uid)
+                release()
+                self._terminal(ctl, uid, "deadline", "deadline_expired")
+
+    def _terminal(self, ctl: _ServeControl, uid, status: str, counter: str) -> None:
+        ctl.status[uid] = status
+        ctl.stats[counter] += 1
+        ctl.out.setdefault(uid, [])
+        self.obs.terminal(uid, status, ctl.step, tokens=len(ctl.out[uid]))
+
+    def _apply_guard(self, last, occ, uid_of, ctl: _ServeControl, *, rows=None, n=None,
+                     retry: bool = False, inject: bool = True, cache=None):
+        """Fault injection, sampling and the numeric guard over one step's
+        sampling logits ``last`` (n, V).  ``occ`` are the rows actually
+        serving, ``uid_of(i)`` names them.  Returns (the sampled tokens on
+        the host, the bad row ids) and leaves the policy action to the
+        caller; 'fail-fast' raises here.  The guard's verdict (the
+        :func:`finite_flags` reduction) is computed on the device and
+        crosses to the host in the same copy as the tokens: no sync of its
+        own.  ``cache`` (the post-step cache) lets the recorder attribute a
+        trip to the entry a real numeric fault poisoned."""
+        if ctl.faults is not None and inject:
+            last = ctl.faults.corrupt_logits(last, occ, retry=retry)
+        if self._guard is None:
+            n = last.shape[0] if n is None else n
+            return self._sample_rows(last, ctl.gen, rows, n).cpu().numpy(), []
+        b = last.shape[0]
+        buf = torch.empty((2, b), dtype=torch.int64, device=last.device)
+        self._sample(last, ctl.gen, out=buf[0])
+        self._finite(last, out=buf[1].view(torch.float32)[:b])  # f32 flags in the int64 row
+        host = buf.cpu()
+        finite = host[1].view(torch.float32)[:b].numpy() == 0
+        ctl.stats["guard_checks"] += 1
+        bad = [i for i in occ if not finite[i]]
+        if bad:
+            ctl.stats["numeric_faults"] += len(bad)
+            # telemetry before the policy action, while the cache still
+            # holds whatever the fault wrote
+            self._guard_trip(ctl, [uid_of(i) for i in bad], cache)
+        return host[0].numpy(), bad
+
+    def _guard_trip(self, ctl: _ServeControl, uids, cache) -> None:
+        if self.obs.enabled:
+            self.obs.guard_trip(uids, ctl.step,
+                                cache=None if cache is None else self.model.cache_tree(cache))
+        if self._guard == "fail-fast":
+            raise FA.NumericFault(uids, ctl.step)
+
+    def _quarantine(self, uid, ctl: _ServeControl, release) -> None:
+        release()
+        self._terminal(ctl, uid, "quarantined", "quarantined")
+
+    def _ref_quant(self) -> Quant:
+        """The 'fallback' retry's quantization: the serving config through
+        'dsbp_ref', the plain integer path (on the engine's device; the
+        retry is a policy the user selects, counted in fallback_steps)."""
+        return Quant(self.cfg.quant, "dsbp_ref") if self.cfg.quant is not None else self.quant
+
+    def _finish(self, ctl: _ServeControl, uid) -> None:
+        """A request that completed its stream: 'ok', or 'preempted' when
+        it survived at least one eviction on the way."""
+        ctl.status[uid] = "preempted" if ctl.preempts.get(uid) else "ok"
+        self.obs.terminal(uid, ctl.status[uid], ctl.step, tokens=len(ctl.out.get(uid) or ()))
+
+    # ------------------------------------------------------------------
+    # continuous batching
+    # ------------------------------------------------------------------
+
     @torch.inference_mode()
-    def serve(self, requests, max_new_tokens: int = 32) -> dict:
+    def serve(self, requests, max_new_tokens: int = 32, faults=None) -> dict:
         """Run a queue of requests (:class:`Request` or plain token
         sequences) through the slot pool; returns {uid: generated ids} and
-        records scheduler stats in ``last_stats``."""
+        records scheduler stats in ``last_stats`` (per-request lifecycle
+        states under ``request_status``, set however the loop ends).
+        ``faults`` takes a :class:`~repro_torch.serve.faults.FaultPlan`, a
+        deterministic schedule of injected allocator failures, NaNs and
+        cancellations; invariant checks then run after every paged
+        scheduler iteration."""
         scfg, dev = self.scfg, self.device
+        if faults is not None and self.mesh is not None:
+            raise NotImplementedError("fault plans (serve(faults=...)) under a mesh are not "
+                                      "ported yet (ROADMAP A13)")
         if scfg.paged:
-            return self._serve_paged(requests, max_new_tokens)
+            return self._serve_paged(requests, max_new_tokens, faults)
         queue = self._build_queue(requests, max_new_tokens)
         nreq = len(queue)
+        self.obs.serve_start("dense", [(r.uid, len(r.tokens)) for r in queue])
+        if faults is not None:
+            faults.reset()
+            faults.observer = self.obs.fault_injected
         B = scfg.batch_size
         # this rank's slots of the pool (all of them without a mesh)
         rows = self._shard_cache(B)
@@ -621,11 +846,11 @@ class Engine:
         active: list[Request | None] = [None] * B
         tok = np.zeros(B, np.int64)        # last sampled token per slot
         pos = np.zeros(B, np.int32)        # next absolute position per slot
-        out: dict = {}
-        gen = self._generator()
         stats = {"decode_steps": 0, "occupied_lanes": 0, "admissions": 0,
                  "prefill_tokens": 0, "decode_tokens": 0, "prefill_time_s": 0.0,
-                 "decode_time_s": 0.0}
+                 "decode_time_s": 0.0, **self._robust_stats()}
+        ctl = _ServeControl(stats=stats, out={}, status={r.uid: "queued" for r in queue},
+                            faults=faults, gen=self._generator())
         slot_accepted = slot_rounds = None
         if self._spec is not None:
             # accepted-length histogram over occupied lanes: index j =
@@ -634,63 +859,117 @@ class Engine:
                          accepted_hist=np.zeros(scfg.spec_k + 2, np.int64))
             slot_accepted = np.zeros(B, np.int64)
             slot_rounds = np.zeros(B, np.int64)
-        while queue or any(s is not None for s in active):
-            free = [i for i in range(B) if active[i] is None]
-            if queue and free:
-                t0 = time.perf_counter()
-                self._admit(pool, queue, free, active, tok, pos, out, stats, gen, rows)
-                stats["prefill_time_s"] += time.perf_counter() - t0
-            if not any(s is not None for s in active):
-                continue  # every admitted request finished at token 1
-            stats["decode_steps"] += 1
-            stats["occupied_lanes"] += sum(s is not None for s in active)
-            t0 = time.perf_counter()
+        completed = False
+        try:
+            while queue or any(s is not None for s in active):
+                live = {active[i].uid: (active[i], functools.partial(active.__setitem__, i, None))
+                        for i in range(B) if active[i] is not None}
+                self._drain_control(ctl, queue, live)
+                free = [i for i in range(B) if active[i] is None]
+                if queue and free:
+                    t0 = time.perf_counter()
+                    self._admit(pool, queue, free, active, tok, pos, ctl, rows)
+                    stats["prefill_time_s"] += time.perf_counter() - t0
+                if not any(s is not None for s in active):
+                    ctl.step += 1
+                    continue  # every admitted request finished at token 1
+                stats["decode_steps"] += 1
+                n_occ = sum(s is not None for s in active)
+                stats["occupied_lanes"] += n_occ
+                t_step = time.perf_counter()
+                if self._spec is not None:
+                    pool = self._spec_advance(pool, active, tok, pos, ctl, slot_accepted,
+                                              slot_rounds)
+                    dt = time.perf_counter() - t_step  # the round's tokens are on the host
+                    stats["decode_time_s"] += dt
+                    self.obs.decode_step(ctl.step, n_occ, dt)
+                    ctl.step += 1
+                    continue
+                before = self._collectives()
+                nxt = self._decode_slots(pool, active, tok, pos, ctl, rows)
+                coll += self._collectives() - before
+                dt = time.perf_counter() - t_step  # the step's tokens are on the host
+                stats["decode_time_s"] += dt
+                self.obs.decode_step(ctl.step, n_occ, dt)
+                for i in range(B):
+                    r = active[i]
+                    if r is None:
+                        continue  # idle lane: output ignored, slot unchanged
+                    pos[i] += 1
+                    t = int(nxt[i])
+                    ctl.out[r.uid].append(t)
+                    tok[i] = t
+                    stats["decode_tokens"] += 1
+                    if self._done(t, ctl.out[r.uid], r):
+                        active[i] = None  # freed; the next admission reuses it
+                        self._finish(ctl, r.uid)
+                ctl.step += 1
+            completed = True
+        finally:
+            # last_stats lands even when an exception unwinds the loop
+            self.last_stats = dict(
+                stats, requests=nreq, completed=completed, request_status=dict(ctl.status),
+                occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
+                decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
+                kv_bytes_per_token=kv_bpt, kv_packed=tree_has_packed_kv(pool),
+                **self._mesh_stats(coll, stats["decode_steps"]))
             if self._spec is not None:
-                pool = self._spec_advance(pool, active, tok, pos, out, stats,
-                                          slot_accepted, slot_rounds)
-                stats["decode_time_s"] += time.perf_counter() - t0
-                continue
-            before = self._collectives()
-            with self._trace_ctx(rows is not None):
-                logits, pool = self.model.decode_step(
-                    torch.as_tensor(tok[mine], device=dev)[:, None], pool,
-                    torch.as_tensor(pos[mine], device=dev), self.quant)
-                nxt = self._sample_rows(logits[:, -1], gen, rows, B).cpu().numpy()  # syncs
-            coll += self._collectives() - before
-            stats["decode_time_s"] += time.perf_counter() - t0
-            for i in range(B):
-                r = active[i]
-                if r is None:
-                    continue  # idle lane: output ignored, slot unchanged
-                pos[i] += 1
-                t = int(nxt[i])
-                out[r.uid].append(t)
-                tok[i] = t
-                stats["decode_tokens"] += 1
-                if self._done(t, out[r.uid], r):
-                    active[i] = None  # freed; the next admission reuses it
-        self.last_stats = dict(
-            stats, requests=nreq,
-            occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
-            decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
-            kv_bytes_per_token=kv_bpt, kv_packed=tree_has_packed_kv(pool),
-            **self._mesh_stats(coll, stats["decode_steps"]))
-        if self._spec is not None:
-            self._spec_summary(stats, slot_accepted, slot_rounds)
-        return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
+                self._spec_summary(stats, slot_accepted, slot_rounds)
+            self.obs.serve_end(self.last_stats)
+        for uid in ctl.status:  # every uid reports, however it ended
+            ctl.out.setdefault(uid, [])
+        return {uid: np.asarray(t, np.int64) for uid, t in ctl.out.items()}
+
+    def _decode_guarded(self, step, cache, occ, uid_of, release, ctl: _ServeControl,
+                        **sample) -> np.ndarray:
+        """One decode step ``step(quant) -> logits`` that updates ``cache``
+        in place, then fault injection, sampling and the guard over its
+        last logits, the 'fallback' retry, and the quarantines
+        (``release(i)`` frees lane i).  The retry runs the whole step again
+        through 'dsbp_ref': it rewrites the slots the failed step wrote
+        before its attention reads them, so it decodes from the pre-step
+        cache, as JAX's retry does, and it draws from the generator state
+        the failed step drew from.  Returns the sampled tokens on the host."""
+        state = ctl.gen.get_state() if self._guard == "fallback" else None
+        nxt, bad = self._apply_guard(step(self.quant)[:, -1], occ, uid_of, ctl, cache=cache,
+                                     **sample)
+        if bad and self._guard == "fallback":
+            ctl.stats["fallback_steps"] += 1
+            ctl.gen.set_state(state)
+            nxt, bad = self._apply_guard(step(self._ref_quant())[:, -1], occ, uid_of, ctl,
+                                         retry=True, cache=cache, **sample)
+        for i in bad:
+            self._quarantine(uid_of(i), ctl, functools.partial(release, i))
+        return nxt
+
+    def _decode_slots(self, pool, active, tok, pos, ctl: _ServeControl, rows) -> np.ndarray:
+        """One guarded decode step of the slot pool (this rank's ``rows``
+        of it under a mesh); returns the (B,) sampled tokens on the host."""
+        dev, B = self.device, len(active)
+        mine = slice(None) if rows is None else rows
+        step_tok = torch.as_tensor(tok[mine], device=dev)[:, None]
+        step_pos = torch.as_tensor(pos[mine], device=dev)
+        with self._trace_ctx(rows is not None):
+            return self._decode_guarded(
+                lambda q: self.model.decode_step(step_tok, pool, step_pos, q)[0], pool,
+                [i for i in range(B) if active[i] is not None], lambda i: active[i].uid,
+                lambda i: active.__setitem__(i, None), ctl, rows=rows, n=B)
 
     def _spec_summary(self, stats, slot_accepted=None, slot_rounds=None) -> None:
         """The speculation epilogue of both schedulers: the accepted-length
-        histogram into ``last_stats`` (dense: per-slot means as well)."""
+        histogram into ``last_stats`` (dense: per-slot means as well) and
+        the recorder."""
         self.last_stats.update(acceptance_summary(
             stats["accepted_hist"], self.scfg.spec_k,
             slot_accepted=slot_accepted, slot_rounds=slot_rounds))
+        self.obs.spec_summary(self.last_stats)
 
-    def _commit_round(self, lanes, target, keep, pos, tok, out, stats, release):
+    def _commit_round(self, ctl: _ServeControl, lanes, target, keep, pos, tok, release):
         """Commit one round's accepted tokens per live lane ``i`` of
         ``lanes`` (a list of (i, request)): the first ``keep[i]`` verify
         tokens, dropping any past an EOS or the budget (``release(i)``
-        frees the lane there)."""
+        frees the lane there and the request finishes)."""
+        stats, out = ctl.stats, ctl.out
         for i, r in lanes:
             kp = int(keep[i])
             stats["accepted_hist"][kp] += 1
@@ -702,43 +981,77 @@ class Engine:
                 stats["decode_tokens"] += 1
                 if self._done(t, out[r.uid], r):
                     release(i)  # tokens past EOS / the budget are dropped
+                    self._finish(ctl, r.uid)
                     break
             pos[i] += committed
             tok[i] = int(target[i, committed - 1])
 
-    def _spec_advance(self, pool, active, tok, pos, out, stats, slot_accepted,
+    def _round_guard(self, res, occ, uid_of, release, ctl: _ServeControl, cache):
+        """Fault injection and the guard over one speculation round's
+        result ``res`` ((target, keep, cache[, finite]) on the device):
+        returns (target, keep) on the host.  A lane whose verify logits are
+        not finite is quarantined before any of its round's tokens commit
+        (the round has already put its slots back past its accepted
+        writes)."""
+        target, keep = res[0], res[1]
+        finite = res[3] if self._guard is not None else None
+        if ctl.faults is not None and finite is not None:
+            finite = ctl.faults.corrupt_finite(finite, occ)
+        target, keep = target.cpu().numpy(), keep.cpu().numpy()
+        if ctl.faults is not None:
+            # an injected verify mismatch clamps acceptance to 1: every
+            # committed token is the target's own argmax, so only speed drops
+            keep = ctl.faults.clip_spec_keep(keep)
+        if finite is not None:
+            finite = finite.cpu().numpy()
+            ctl.stats["guard_checks"] += 1
+            bad = [i for i in occ if not finite[i]]
+            if bad:
+                ctl.stats["numeric_faults"] += len(bad)
+                self._guard_trip(ctl, [uid_of(i) for i in bad], cache)
+                for i in bad:
+                    self._quarantine(uid_of(i), ctl, functools.partial(release, i))
+        return target, keep
+
+    def _spec_advance(self, pool, active, tok, pos, ctl: _ServeControl, slot_accepted,
                       slot_rounds):
         """One speculation round for the whole slot pool (draft -> verify
-        -> accept -> rollback), then the accepted greedy tokens of every
-        occupied slot commit."""
+        -> accept -> rollback), the guard, then the accepted greedy tokens
+        of every occupied slot commit."""
         dev = self.device
-        target, keep, pool = self._spec(
-            self.model, pool, torch.as_tensor(tok, device=dev),
-            torch.as_tensor(pos, device=dev))
-        target, keep = target.cpu().numpy(), keep.cpu().numpy()
-        occ = [(i, r) for i, r in enumerate(active) if r is not None]
-        stats["spec_rounds"] += 1
-        stats["draft_tokens"] += self.scfg.spec_k * len(occ)
-        for i, _ in occ:  # idle slots: their rolled-back writes are
+        occ = [i for i, r in enumerate(active) if r is not None]
+        res = self._spec(self.model, pool, torch.as_tensor(tok, device=dev),
+                         torch.as_tensor(pos, device=dev))
+        pool = res[2]
+        target, keep = self._round_guard(res, occ, lambda i: active[i].uid,
+                                         lambda i: active.__setitem__(i, None), ctl, pool)
+        live = [(i, r) for i, r in enumerate(active) if r is not None]
+        ctl.stats["spec_rounds"] += 1
+        ctl.stats["draft_tokens"] += self.scfg.spec_k * len(live)
+        self.obs.spec_round(ctl.step, [int(keep[i]) for i, _ in live])
+        for i, _ in live:  # idle slots: their rolled-back writes are
             # overwritten at the slot's next admission
             slot_accepted[i] += int(keep[i])
             slot_rounds[i] += 1
-        self._commit_round(occ, target, keep, pos, tok, out, stats,
+        self._commit_round(ctl, live, target, keep, pos, tok,
                            lambda i: active.__setitem__(i, None))
         return pool
 
-    def _admit(self, pool, queue, free, active, tok, pos, out, stats, gen,
-               pool_rows=None):
+    def _admit(self, pool, queue, free, active, tok, pos, ctl: _ServeControl, pool_rows=None):
         """Admit up to len(free) queued requests: one ragged group prefill
         (padded to a bucket multiple, per-row lengths), then each continuing
         row's K/V is written straight into its slot of the pool — the JAX
         engine builds a fresh cache and copies its rows in (_cache_insert);
-        writing in place skips that max_len-sized copy.  Under a mesh every
+        writing in place skips that max_len-sized copy.  The guard checks
+        the prefill's logits too (no injection there; 'fallback' degrades to
+        quarantine: there is no per-row prefill retry).  Under a mesh every
         data rank prefills the whole group, and keeps the K/V of the slots
         in its ``pool_rows`` of the pool."""
-        scfg = self.scfg
+        scfg, stats = self.scfg, ctl.stats
         group = [queue.popleft() for _ in range(min(len(free), len(queue)))]
         lens = np.asarray([len(r.tokens) for r in group], np.int32)
+        for j, r in enumerate(group):
+            self.obs.admitted(r.uid, ctl.step, prompt_len=int(lens[j]))
         bucket = scfg.prefill_bucket
         L = max(-(-int(lens.max()) // bucket) * bucket, bucket)
         toks = np.zeros((len(group), L), np.int64)
@@ -748,14 +1061,22 @@ class Engine:
         with self._trace_ctx(False):
             logits, kvs, _ = self.model.prefill_trunk(
                 torch.as_tensor(toks, device=self.device), lens_t, self.quant)
-            first = self._sample_rows(logits[:, -1], gen, None, len(group)).cpu().numpy()
+            first, badrows = self._apply_guard(logits[:, -1], list(range(len(group))),
+                                               lambda j: group[j].uid, ctl, inject=False)
         stats["admissions"] += len(group)
         stats["prefill_tokens"] += int(lens.sum())
+        badset = set(badrows)
         rows, slots = [], []
         for j, r in enumerate(group):
+            if j in badset:
+                self._quarantine(r.uid, ctl, lambda: None)
+                continue
             t = int(first[j])
-            out[r.uid] = [t]
-            if self._done(t, out[r.uid], r):
+            ctl.out[r.uid] = [t]
+            ctl.admit_step.setdefault(r.uid, ctl.step)
+            self.obs.first_token(r.uid, ctl.step)
+            if self._done(t, ctl.out[r.uid], r):
+                self._finish(ctl, r.uid)
                 continue  # finished at its first token: the slot stays free
             slot = free.pop(0)
             rows.append(j)
@@ -776,15 +1097,17 @@ class Engine:
     # priority preemption
     # ------------------------------------------------------------------
 
-    def _serve_paged(self, requests, max_new_tokens: int = 32) -> dict:
+    def _serve_paged(self, requests, max_new_tokens: int = 32, faults=None) -> dict:
         """The paged twin of the dense serve loop: one block pool per
-        layer, one int32 block table per lane.  Per iteration: admit
-        (reserve blocks -> grouped short prefill / chunk-lane setup,
-        preempting a strictly-lower-priority victim when a reservation
-        fails) -> COW-split the shared blocks the step writes -> ONE decode
-        step over every lane -> one chunk step.  Every block returns to
-        the pool and the prefix cache drops its references on any exit."""
-        scfg, dev = self.scfg, self.device
+        layer, one int32 block table per lane.  Per iteration: drain
+        control events (cancellations, deadlines) -> admit (reserve blocks
+        -> grouped short prefill / chunk-lane setup, preempting a
+        strictly-lower-priority victim when a reservation fails) ->
+        COW-split the shared blocks the step writes -> ONE decode step over
+        every lane -> one chunk step -> the invariant check (always under a
+        fault plan).  Every block returns to the pool and the prefix cache
+        drops its references on any exit."""
+        scfg = self.scfg
         queue = self._build_queue(requests, max_new_tokens)
         nreq = len(queue)
         B, bs = self.lanes, scfg.kv_block_size
@@ -799,8 +1122,15 @@ class Engine:
                     f"idle pool: its reservation ({span} blocks) exceeds "
                     f"kv_blocks={self.kv_blocks} ({self.kv_blocks - 1} "
                     f"usable)")
-        alloc = SB.BlockAllocator(self.kv_blocks, bs)
+        self.obs.serve_start("paged", [(r.uid, len(r.tokens)) for r in queue])
+        if faults is not None:
+            faults.reset()
+            faults.observer = self.obs.fault_injected
+        check = scfg.invariant_checks or faults is not None
+        alloc = (faults.allocator(self.kv_blocks, bs) if faults is not None
+                 else SB.BlockAllocator(self.kv_blocks, bs))
         prefix = SB.PrefixCache(alloc) if scfg.prefix_sharing else None
+        self._last_alloc, self._last_prefix = alloc, prefix
         cache = self.model.init_paged_cache(self.kv_blocks, bs, kv=self.kv_spec)
         # bytes one table entry pins across every layer's pool, from the
         # leaves' actual dtypes (both children of a packed pool)
@@ -809,7 +1139,6 @@ class Engine:
         lanes: list[dict | None] = [None] * B
         tok = np.zeros(B, np.int64)
         pos = np.zeros(B, np.int32)
-        gen = self._generator()
         stats = {"decode_steps": 0, "occupied_lanes": 0, "admissions": 0,
                  "prefill_tokens": 0, "decode_tokens": 0, "prefill_time_s": 0.0,
                  "decode_time_s": 0.0, "cow_splits": 0, "chunk_steps": 0,
@@ -818,16 +1147,21 @@ class Engine:
                  # in flight or not: 0 by construction
                  "stalled_decode_steps": 0, "interleaved_decode_steps": 0,
                  "max_concurrent": 0, "shared_blocks_peak": 0,
-                 "admission_blocked": 0, "preemptions": 0, "resumed": 0}
+                 "admission_blocked": 0, **self._robust_stats()}
+        ctl = _ServeControl(stats=stats, out={}, status={r.uid: "queued" for r in queue},
+                            faults=faults, gen=self._generator())
         if self._spec_paged is not None:
             stats.update(spec_rounds=0, draft_tokens=0,
                          accepted_hist=np.zeros(scfg.spec_k + 2, np.int64))
-        out: dict = {}
-        ctl = {"stats": stats, "out": out, "gen": gen}
         idle_spins = 0
         completed = False
         try:
             while queue or any(l is not None for l in lanes):
+                live = {lanes[i]["req"].uid:
+                        (lanes[i]["req"],
+                         functools.partial(self._release_lane, i, lanes, tables, alloc))
+                        for i in range(B) if lanes[i] is not None}
+                self._drain_control(ctl, queue, live)
                 free = [i for i in range(B) if lanes[i] is None]
                 if queue and free:
                     t0 = time.perf_counter()
@@ -846,11 +1180,13 @@ class Engine:
                                 f"scheduler made no progress for {idle_spins} "
                                 f"iterations with an idle pool: request "
                                 f"{queue[0].uid!r} cannot reserve its blocks")
+                    ctl.step += 1
                     continue  # every admitted request finished at token 1
                 idle_spins = 0
                 stats["max_concurrent"] = max(stats["max_concurrent"], len(dec) + len(chk))
                 stats["shared_blocks_peak"] = max(stats["shared_blocks_peak"],
                                                   alloc.shared_blocks())
+                self.obs.pool_sample(ctl.step, alloc, prefix)
                 if dec:
                     t_step = time.perf_counter()
                     # every ring slot this step writes (a round: 1 + spec_k)
@@ -871,27 +1207,32 @@ class Engine:
                         cache = self._spec_advance_paged(cache, lanes, tables, alloc, dec,
                                                          tok, pos, ctl)
                     else:
-                        live = np.zeros(B, np.int32)
-                        live[dec] = 1  # idle and chunk lanes: write_len 0
-                        logits, cache = self.model.decode_step_paged(
-                            torch.as_tensor(tok, device=dev)[:, None], cache, tables, pos,
-                            live, scfg.max_len, self.quant)
-                        nxt = self._sample(logits[:, -1], gen).cpu().numpy()  # syncs
+                        nxt = self._decode_lanes(cache, lanes, tables, alloc, dec, tok, pos,
+                                                 ctl)
                         for i in dec:
+                            if lanes[i] is None:
+                                continue  # quarantined this step
                             r = lanes[i]["req"]
                             pos[i] += 1
                             t = int(nxt[i])
-                            out[r.uid].append(t)
+                            ctl.out[r.uid].append(t)
                             tok[i] = t
                             stats["decode_tokens"] += 1
-                            if self._done(t, out[r.uid], r):
+                            if self._done(t, ctl.out[r.uid], r):
                                 self._release_lane(i, lanes, tables, alloc)
-                    stats["decode_time_s"] += time.perf_counter() - t_step
+                                self._finish(ctl, r.uid)
+                    dt = time.perf_counter() - t_step  # the step's tokens are on the host
+                    stats["decode_time_s"] += dt
+                    self.obs.decode_step(ctl.step, len(dec) + len(chk), dt)
                 if chk:
                     t0 = time.perf_counter()
                     cache = self._chunk_step(cache, lanes, tables, alloc, prefix, queue,
                                              chk, tok, pos, ctl)
                     stats["prefill_time_s"] += time.perf_counter() - t0
+                if check:
+                    FA.check_invariants(alloc, tables, lanes, prefix)
+                    stats["invariant_checks"] += 1
+                ctl.step += 1
             completed = True
         finally:
             # conservation on any exit: every live lane's block references
@@ -905,6 +1246,7 @@ class Engine:
             self.last_stats = dict(
                 stats, requests=nreq, paged=True, lanes=B, kv_block_size=bs,
                 kv_blocks=self.kv_blocks, completed=completed,
+                request_status=dict(ctl.status),
                 occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
                 decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
                 block_peak_used=alloc.peak_used,
@@ -920,23 +1262,47 @@ class Engine:
                 kv_packed=tree_has_packed_kv(cache))
             if self._spec_paged is not None:
                 self._spec_summary(stats)
-        return {uid: np.asarray(t, np.int64) for uid, t in out.items()}
+            self.obs.serve_end(self.last_stats)
+        for uid in ctl.status:  # every uid reports, however it ended
+            ctl.out.setdefault(uid, [])
+        return {uid: np.asarray(t, np.int64) for uid, t in ctl.out.items()}
 
-    def _spec_advance_paged(self, cache, lanes, tables, alloc, dec, tok, pos, ctl):
+    def _decode_lanes(self, cache, lanes, tables, alloc, dec, tok, pos,
+                      ctl: _ServeControl) -> np.ndarray:
+        """One guarded decode step over every decode lane of the block
+        pools (idle and chunk lanes write nothing; a retry writes each live
+        lane's slot at pos again, nothing else); quarantined lanes release
+        their blocks.  Returns the (B,) sampled tokens on the host."""
+        live = np.zeros(self.lanes, np.int32)
+        live[dec] = 1  # idle and chunk lanes: write_len 0
+        step_tok = torch.as_tensor(tok, device=self.device)[:, None]
+        return self._decode_guarded(
+            lambda q: self.model.decode_step_paged(step_tok, cache, tables, pos, live,
+                                                   self.scfg.max_len, q)[0],
+            cache, dec, lambda i: lanes[i]["req"].uid,
+            functools.partial(self._release_lane, lanes=lanes, tables=tables, alloc=alloc),
+            ctl)
+
+    def _spec_advance_paged(self, cache, lanes, tables, alloc, dec, tok, pos,
+                            ctl: _ServeControl):
         """One speculation round through the block tables: the round drafts
         and verifies, and commits only each decode lane's accepted prefix
-        (commit-on-accept); then its tokens commit."""
-        stats = ctl["stats"]
+        (commit-on-accept); then the guard, and the lanes' tokens commit."""
         live = np.zeros(self.lanes, np.int32)
         live[dec] = 1
-        target, keep, cache = self._spec_paged(
-            self.model, cache, tables, torch.as_tensor(tok, device=self.device), pos, live)
-        target, keep = target.cpu().numpy(), keep.cpu().numpy()
-        stats["spec_rounds"] += 1
-        stats["draft_tokens"] += self.scfg.spec_k * len(dec)
-        self._commit_round([(i, lanes[i]["req"]) for i in dec], target, keep, pos, tok,
-                           ctl["out"], stats,
-                           lambda i: self._release_lane(i, lanes, tables, alloc))
+        res = self._spec_paged(self.model, cache, tables,
+                               torch.as_tensor(tok, device=self.device), pos, live)
+        cache = res[2]
+        release = functools.partial(self._release_lane, lanes=lanes, tables=tables,
+                                    alloc=alloc)
+        target, keep = self._round_guard(res, dec, lambda i: lanes[i]["req"].uid,
+                                         release, ctl, cache)
+        dec = [i for i in dec if lanes[i] is not None]
+        ctl.stats["spec_rounds"] += 1
+        ctl.stats["draft_tokens"] += self.scfg.spec_k * len(dec)
+        self.obs.spec_round(ctl.step, [int(keep[i]) for i in dec])
+        self._commit_round(ctl, [(i, lanes[i]["req"]) for i in dec], target, keep, pos,
+                           tok, release)
         return cache
 
     def _reserve_blocks(self, alloc, prefix, r, use_prefix=True, done: int = 0):
@@ -944,7 +1310,8 @@ class Engine:
         min(prompt + remaining budget + spec_k, S_c) ring slots, minus prefix hits
         (``done`` tokens already emitted ride inside a resumed request's
         prompt).  Returns (block_ids, n_hit_blocks), or None when the pool
-        cannot cover it even after evicting cache-only prefix blocks."""
+        cannot cover it even after evicting cache-only prefix blocks (or a
+        fault plan refuses the allocation: the hits go back, atomically)."""
         bs = self.scfg.kv_block_size
         total = min(len(r.tokens) + max(r.max_new_tokens - done, 1) + self.scfg.spec_k,
                     self._s_c)
@@ -960,10 +1327,16 @@ class Engine:
             if hits:
                 alloc.free(hits)
             return None
-        return hits + alloc.alloc(need), len(hits)
+        try:
+            fresh = alloc.alloc(need)
+        except SB.BlockError:
+            if hits:
+                alloc.free(hits)
+            return None
+        return hits + fresh, len(hits)
 
     def _admit_paged(self, cache, queue, free, lanes, tables, alloc, prefix, tok, pos,
-                     ctl):
+                     ctl: _ServeControl):
         """Admit queued requests into free lanes.  Short prompts run one
         grouped :meth:`Model.prefill_paged` (per-row ``write_start`` skips
         prefix-hit blocks); prompts past the chunk threshold become
@@ -972,7 +1345,7 @@ class Engine:
         priority lane exists, which is preempted before the retry.  A
         resumed request re-prefills prompt + emitted and appends."""
         scfg = self.scfg
-        stats, out = ctl["stats"], ctl["out"]
+        stats, out = ctl.stats, ctl.out
         group = []
         while queue and free:
             r = queue[0]
@@ -990,6 +1363,9 @@ class Engine:
             queue.popleft()
             bids, n_hit = res
             lane = free.pop(0)
+            ctl.admit_step.setdefault(r.uid, ctl.step)
+            self.obs.admitted(r.uid, ctl.step, prompt_len=len(r.tokens), resumed=bool(done),
+                              chunked=chunked)
             if done:
                 stats["resumed"] += 1
             tables[lane, :] = 0
@@ -1020,14 +1396,22 @@ class Engine:
                 torch.as_tensor(toks, device=self.device), cache,
                 tables[[ln for ln, _, _ in group]], scfg.max_len, lengths=lens,
                 write_start=starts, quant=self.quant)
-            first = self._sample(logits[:, -1], ctl["gen"]).cpu().numpy()
+            first, badrows = self._apply_guard(logits[:, -1], list(range(len(group))),
+                                               lambda j: group[j][1].uid, ctl, inject=False)
             stats["admissions"] += len(group)
             stats["prefill_tokens"] += int(lens.sum())
+            badset = set(badrows)
             for j, (lane, r, _) in enumerate(group):
+                if j in badset:
+                    self._quarantine(r.uid, ctl, functools.partial(
+                        self._release_lane, lane, lanes, tables, alloc))
+                    continue
                 t = int(first[j])
                 out.setdefault(r.uid, []).append(t)  # a resume continues
+                self.obs.first_token(r.uid, ctl.step)
                 if self._done(t, out[r.uid], r):
                     self._release_lane(lane, lanes, tables, alloc)
+                    self._finish(ctl, r.uid)
                     continue
                 lanes[lane] = {"req": r, "phase": "decode", "done0": lanes[lane]["done0"]}
                 tok[lane] = t
@@ -1043,7 +1427,7 @@ class Engine:
         return min(cand, key=lambda i: (lanes[i]["req"].priority,
                                         -int(np.count_nonzero(tables[i])), i))
 
-    def _preempt_lane(self, lane, lanes, tables, alloc, prefix, queue, ctl):
+    def _preempt_lane(self, lane, lanes, tables, alloc, prefix, queue, ctl: _ServeControl):
         """Evict one lane: register its written prefix (prompt +
         emitted[:-1]) so the resume replays it as prefix hits, release
         every block reference, and re-queue the request with ``tokens =
@@ -1051,7 +1435,7 @@ class Engine:
         exactly where the lane stopped)."""
         l = lanes[lane]
         r = l["req"]
-        emitted = list(ctl["out"].get(r.uid, []))[int(l.get("done0", 0)):]
+        emitted = list(ctl.out.get(r.uid, []))[int(l.get("done0", 0)):]
         if prefix is not None and l.get("phase") == "decode" and emitted:
             written = np.concatenate([np.asarray(r.tokens, np.int64),
                                       np.asarray(emitted[:-1], np.int64)])
@@ -1062,7 +1446,10 @@ class Engine:
                                 np.asarray(emitted, np.int64)])
                 if emitted else np.asarray(r.tokens, np.int64))
         self._requeue(queue, dataclasses.replace(r, tokens=toks))
-        ctl["stats"]["preemptions"] += 1
+        ctl.preempts[r.uid] = ctl.preempts.get(r.uid, 0) + 1
+        ctl.status[r.uid] = "preempted"
+        ctl.stats["preemptions"] += 1
+        self.obs.preempted(r.uid, ctl.step)
 
     @staticmethod
     def _requeue(queue, r: Request) -> None:
@@ -1136,14 +1523,15 @@ class Engine:
                         break  # the writer itself was evicted
         return flush(cache)
 
-    def _chunk_step(self, cache, lanes, tables, alloc, prefix, queue, chk, tok, pos, ctl):
+    def _chunk_step(self, cache, lanes, tables, alloc, prefix, queue, chk, tok, pos,
+                    ctl: _ServeControl):
         """Advance every chunk lane by one <= chunk_T-token slice through
         the verify path (a teacher-forced forward over known prompt
         tokens, every lane in the batch) and commit keep = n_valid.  The
-        final chunk's last logit samples the first token and the lane
-        turns to 'decode'."""
+        final chunk's last logit samples the first token (guarded as an
+        admission's) and the lane turns to 'decode'."""
         scfg = self.scfg
-        stats, out = ctl["stats"], ctl["out"]
+        stats, out = ctl.stats, ctl.out
         B, T = self.lanes, self._chunk_T
         toks = np.zeros((B, T), np.int64)
         posv = np.zeros(B, np.int32)
@@ -1158,6 +1546,7 @@ class Engine:
             posv[i] = start
             keep[i] = n
             l["done"] = start + n
+            self.obs.chunk(r.uid, ctl.step, n, l["done"], len(r.tokens))
             if l["done"] == len(r.tokens):
                 fin.append((i, n))
         cache = self._cow_writable(cache, tables, alloc, prefix,
@@ -1178,17 +1567,26 @@ class Engine:
         if fin:
             sel = logits[torch.as_tensor([i for i, _ in fin], device=self.device),
                          torch.as_tensor([n - 1 for _, n in fin], device=self.device)]
-            first = self._sample(sel, ctl["gen"]).cpu().numpy()
+            first, badrows = self._apply_guard(sel, list(range(len(fin))),
+                                               lambda j: lanes[fin[j][0]]["req"].uid, ctl,
+                                               inject=False)
+            badset = set(badrows)
             for j, (i, _) in enumerate(fin):
                 r = lanes[i]["req"]
+                if j in badset:
+                    self._quarantine(r.uid, ctl, functools.partial(
+                        self._release_lane, i, lanes, tables, alloc))
+                    continue
                 done0 = int(lanes[i].get("done0", 0))
                 t = int(first[j])
                 out.setdefault(r.uid, []).append(t)  # a resume continues
+                self.obs.first_token(r.uid, ctl.step)
                 # register only now: the blocks filled progressively
                 if prefix is not None and len(r.tokens) <= self._s_c:
                     prefix.register(r.tokens, tables[i])
                 if self._done(t, out[r.uid], r):
                     self._release_lane(i, lanes, tables, alloc)
+                    self._finish(ctl, r.uid)
                     continue
                 lanes[i] = {"req": r, "phase": "decode", "done0": done0}
                 tok[i] = t
@@ -1224,13 +1622,24 @@ class Engine:
             r = Request(uid=i, tokens=np.asarray(r, np.int64), max_new_tokens=max_new)
         toks = np.asarray(r.tokens, np.int64)
         if toks.ndim != 1 or toks.shape[0] == 0:
-            raise ValueError(f"request {r.uid!r}: prompt must be a non-empty "
-                             f"1-D token sequence, got shape {tuple(toks.shape)}")
+            raise ValueError(
+                f"request {r.uid!r}: prompt must be a non-empty 1-D token "
+                f"sequence, got shape {tuple(toks.shape)} — an empty prompt "
+                f"has no logits to sample a first token from")
         if int(r.max_new_tokens) < 1:
-            raise ValueError(f"request {r.uid!r}: max_new_tokens must be >= 1, "
-                             f"got {r.max_new_tokens}")
+            raise ValueError(
+                f"request {r.uid!r}: max_new_tokens must be >= 1, got "
+                f"{r.max_new_tokens} (admission samples the first token "
+                f"from the prefill logits, so every request emits >= 1)")
         try:
             hash(r.uid)
         except TypeError:
-            raise ValueError(f"request uid {r.uid!r} is unhashable") from None
+            raise ValueError(
+                f"request uid {r.uid!r} is unhashable: results, statuses "
+                f"and cancellation all key on uid — use a str/int/tuple "
+                f"id") from None
+        if r.deadline_steps is not None and int(r.deadline_steps) < 1:
+            raise ValueError(
+                f"request {r.uid!r}: deadline_steps must be >= 1 scheduler "
+                f"iterations (or None), got {r.deadline_steps}")
         return dataclasses.replace(r, tokens=toks)

@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import finite_flags
 from repro_torch.kvq import kv_narrow_view
 from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
@@ -80,13 +81,15 @@ def greedy_accept(draft: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return 1 + torch.cumprod(match, dim=1).sum(dim=1)
 
 
-def _check(spec_k: int, guard: bool):
+def _check(spec_k: int):
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
-    if guard:
-        raise NotImplementedError(
-            "guard=True (the numeric guard's per-lane finiteness mask) is not ported "
-            "yet (ROADMAP A10)")
+
+
+def _finite(logits: torch.Tensor) -> torch.Tensor:
+    """The numeric guard's per-lane verdict over a verify pass's logits
+    (B, T, V): True where every value is finite, on the device."""
+    return finite_flags(logits) == 0
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -107,9 +110,13 @@ def build_spec_round(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
     gamma + 1), keep (B,), cache)`` over a dense per-slot cache, updated in
     place.  ``cfg`` is the serving config (its preset and method run the
     verify); ``draft_method`` the draft forward's method (None: the
-    serving one).  ``guard`` waits for the numeric guard (ROADMAP A10):
-    only False is taken."""
-    _check(spec_k, guard)
+    serving one).  ``guard=True`` appends a 4th output, ``finite`` (B,)
+    bool on the device: the per-lane all-finiteness of the VERIFY logits
+    (the draft's are not guarded: a bad draft only lowers acceptance).
+    The rollback runs for every lane first, so a lane the guard then
+    quarantines leaves its slots as the round found them plus its
+    accepted writes."""
+    _check(spec_k)
 
     def spec_round(model, cache, tok, pos):
         quant = Quant(cfg.quant, cfg.quant_method)
@@ -129,6 +136,8 @@ def build_spec_round(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
         target = _target(logits, tok)
         keep = greedy_accept(draft, target)
         model.rollback_cache(cache, saved, keep, pos, spec_k + 1)
+        if guard:
+            return target, keep, cache, _finite(logits)
         return target, keep, cache
 
     return spec_round
@@ -143,8 +152,10 @@ def build_spec_round_paged(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
     host arrays (``live`` 0 masks idle and chunk lanes: they write nothing
     and commit nothing).  Commit-on-accept: the verify defers its writes
     and :meth:`~repro_torch.models.model.Model.rollback_cache_paged` writes
-    the ``keep`` accepted entries through the tables."""
-    _check(spec_k, guard)
+    the ``keep`` accepted entries through the tables.  ``guard=True``
+    appends the verify logits' per-lane finiteness mask, as the dense
+    round does."""
+    _check(spec_k)
 
     def spec_round(model, cache, table, tok, pos, live):
         quant = Quant(cfg.quant, cfg.quant_method)
@@ -173,6 +184,8 @@ def build_spec_round_paged(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
         keep = greedy_accept(draft, target) * torch.as_tensor(live, device=target.device)
         cache = model.rollback_cache_paged(cache, table, steps, keep.cpu().numpy(), posh,
                                            max_len)
+        if guard:
+            return target, keep, cache, _finite(logits)
         return target, keep, cache
 
     return spec_round

@@ -654,3 +654,93 @@ def test_packed_attention_at_narrow_kv_bits(cuda, kv, sq, hkv):
     torch.cuda.synchronize()
     assert torch.equal(o7, o5), float((o7 - o5).abs().max())
     assert torch.equal(o5, o)
+
+
+# ---- the numeric guard and quantization health on the card ----
+
+def test_guard_finite_flags_card_equals_cpu(cuda):
+    """The guard's reduction on the card, against isfinite().all() on the
+    CPU: NaN, +-inf, huge finite values and the -1e30 padded-vocab mask."""
+    from repro_torch.kernels.ops import finite_flags
+
+    x = torch.from_numpy(_data((9, 32000), seed=7, spread=20))
+    x[1, 5], x[2, 31999], x[3, 0], x[4, 17] = float("nan"), float("inf"), -float("inf"), 3e38
+    x[5, 31000:] = -1e30
+    want = torch.isfinite(x).all(-1)
+    assert torch.equal((finite_flags(x.to(cuda)) == 0).cpu(), want)
+    assert want.tolist() == [True, False, False, False, True, True, True, True, True]
+
+
+@pytest.mark.parametrize("paged,policy", [(False, "quarantine"), (True, "quarantine"),
+                                          (False, "fallback"), (True, "fallback")])
+def test_guarded_serve_card_equals_cpu(cuda, paged, policy):
+    """The engine's guard end to end on a 2-layer smoke model: the same
+    NaN plan on the card and on the CPU gives the same statuses, counters
+    and streams (the verdict crosses to the host in the tokens' copy)."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    from repro_torch.serve.faults import FaultPlan
+
+    cfg = smoke_config("llama-7b-paper").replace(quant="precise")
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n), max_new_tokens=8)
+            for i, n in enumerate([5, 11, 8, 3])]
+    scfg = ServeConfig(max_len=32, batch_size=3, paged=paged, kv_block_size=4,
+                       numeric_guard=policy, observe=True)
+    gpu = Engine(TM.init(cfg, seed=0, device=cuda), scfg, device=cuda)
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    res = {}
+    for name, eng in (("cpu", cpu), ("gpu", gpu)):
+        out = eng.serve(reqs, faults=FaultPlan(nan_steps={1: (0,), 3: (1, 2)}))
+        st = eng.last_stats
+        res[name] = (out, st["request_status"], st["guard_checks"], st["numeric_faults"],
+                     st["fallback_steps"], eng.obs.trace.signature())
+    for uid in res["cpu"][0]:
+        np.testing.assert_array_equal(res["gpu"][0][uid], res["cpu"][0][uid])
+    assert res["gpu"][1:] == res["cpu"][1:]
+    assert res["gpu"][3] > 0
+
+
+@pytest.mark.parametrize("tscale", [None, 2.0 ** 12])
+def test_quant_sat_stats_card_equals_cpu(cuda, tscale):
+    x = torch.from_numpy(_data((257, 128), seed=5, spread=12))
+    x[0, 0], x[1, 1] = float("nan"), float("inf")
+    assert TO.quant_sat_stats(x.to(cuda), "e5m7", tscale=tscale) == \
+        TO.quant_sat_stats(x, "e5m7", tscale=tscale)
+
+
+@pytest.mark.parametrize("kv", [None, "kv8"])
+def test_sample_cache_card_equals_cpu(cuda, kv):
+    """QuantHealth.sample_cache over a smoke model's cache on the card and
+    over the same cache on the CPU (two samples, the second scaled so the
+    frozen scale overflows): equal snapshots, the histogram built by
+    bincount on each device."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kvq import PackedKVBlock
+    from repro_torch.models import model as TM
+    from repro_torch.obs import QuantHealth
+
+    model = TM.init(smoke_config("llama-7b-paper"), seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (3, 12))).to(cuda)
+    with torch.inference_mode():
+        _, cache, _ = model.prefill(toks, 32, kv=kv)
+
+    def moved(c, dev, scale=1.0):
+        def leaf(x):
+            if isinstance(x, PackedKVBlock):
+                return PackedKVBlock(x.qm.to(dev), x.scale.to(dev) * scale, bits=x.bits,
+                                     fmt=x.fmt)
+            return x.to(dev) * scale
+        return [{n: leaf(layer[n]) for n in ("k", "v")} for layer in c]
+
+    snaps = []
+    for dev in (cuda, torch.device("cpu")):
+        qh = QuantHealth()
+        for scale in (1.0, 4096.0):
+            qh.sample_cache(model.cache_tree(moved(cache, dev, scale)))
+        snaps.append(qh.snapshot())
+    assert snaps[0] == snaps[1]
+    assert snaps[0]["entries"]["units.0"]["overflow"] > 0

@@ -40,7 +40,7 @@ from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import blocks as TB  # noqa: E402
 from repro_torch.serve import blocks as TSB  # noqa: E402
-from repro_torch.serve.engine import Engine, Request, ServeConfig  # noqa: E402
+from repro_torch.serve.engine import Engine, Request, ServeConfig, _ServeControl  # noqa: E402
 from test_torch_engine import PROMPT_SEED, TIE  # noqa: E402
 from test_torch_model import LENS, _assert_close, _prompts, make_pair  # noqa: E402
 
@@ -586,7 +586,9 @@ def test_admission_preempts_only_strictly_lower_priority():
         lanes = [{"req": low, "phase": "decode", "done0": 0}, None]
         stats = {"admissions": 0, "prefill_tokens": 0, "admission_blocked": 0,
                  "chunked_requests": 0, "preemptions": 0, "resumed": 0}
-        ctl = {"stats": stats, "out": {"low": [3]}, "gen": eng._generator()}
+        ctl = _ServeControl(stats=stats, out={"low": [3]},
+                            status={"low": "queued", contender.uid: "queued"},
+                            gen=eng._generator())
         tok, pos = np.zeros(2, np.int64), np.asarray([3, 0], np.int32)
         queue = deque([contender])
         eng._admit_paged(cache, queue, [1], lanes, tables, alloc, None, tok, pos, ctl)
@@ -595,6 +597,7 @@ def test_admission_preempts_only_strictly_lower_priority():
             assert any(l is not None and l["req"].uid == "high" for l in lanes)
             assert queue and queue[0].uid == "low"
             assert len(queue[0].tokens) == len(low.tokens) + 1
+            assert ctl.status["low"] == "preempted"
         else:
             assert stats["preemptions"] == 0 and stats["admission_blocked"] == 1
             assert lanes[0]["req"].uid == "low"
