@@ -151,11 +151,38 @@ Phases (each raises on failure; nothing falls back to the CPU):
      held to its fault-free reference under phase 9's rule (a stream that
      ended early against the reference's head); one `robust (phase 18):`
      JSON line per case.
+  19. the Griffin hybrid, last: B1 at recurrentgemma-2b's and gemma3-12b's
+     decode shapes and B2 (prefill with the window, decode on a wrapped
+     ring: kv_len past the ring bit-equal to kv_len = S_c), B5, B6 and B7
+     at Hq 10, Hkv 1, D 256 against their plain versions, timed cold;
+     19a, recurrentgemma-2b at full width and 3 layers (rglru, rglru,
+     attn_local) with window 64, CPU (plain) vs card (kernels) under phase
+     9's rule; 19, recurrentgemma-2b at full width and depth (26 layers,
+     seeded weights, packed "precise", max_len 4096, so S_c 2048 on the
+     local layers): generate of 4 prompts (64 / 700 / 2100 / 2600 tokens),
+     serve of 8 requests through 4 slots, the same with kv8, paged (bs
+     16, 6 requests sharing a 192-token prefix and 2 chunked prompts past
+     the window) float and kv8, with every kernel's launches over that
+     run; ring decode past the window held to Model.prefill_trunk over
+     the whole context (phase 9's rule), paged held to a dense batch-8
+     serve (phase 13's rule) and to dense at matched batches (exact), B1
+     = 164 and B2 / B5 = 8 launches per decode step, spec_k 3 at draft
+     bits 7 dense and paged against spec_k 0, one NaN step under
+     'fallback' bit-equal to the unfaulted serve; prefill s, ms per step,
+     KV bytes, peak memory, a torch.profiler trace of four decode steps
+     and the wa / wx weight-only products' time per step; 19b, gemma3-12b
+     at full width and 6 layers (5 local at window 1024, 1 global),
+     max_len 2048: local and global rings in one block table, paged ==
+     dense; a `hybrid (phase 19):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
   14-15b, for which the models are freed.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
+
+    python3 chip_smoke.py --hybrid
+
+runs phases 1 and 19 alone.
 
     python3 chip_smoke.py --mesh-only
 
@@ -228,6 +255,20 @@ MESH_DATA_REL = 1e-5
 # input scale, which changes how the smallest inputs round); a kernel or
 # cache fault gives differences of the order of max|logit| itself
 KV_TIE = 0.1
+# a float model's ring decode against its sequence mode over the whole
+# context at full width (phase 19): JAX's CPU test holds 2e-4; on the card
+# the attention kernels sum in another order than the prefill, over 26
+# layers of random weights
+RING_REL = 1e-3
+# phase 19's packed comparisons across batches of other composition (paged
+# vs a dense batch-8 serve, a verify pass vs decode steps): recurrentgemma-2b
+# at full depth on random weights has flat logits (max|logit| ~5), and two
+# equally valid FP8 roundings of its inputs (other rows in a per-tensor
+# scale) moved them by up to 0.19 of max|logit| on an H100 (PERF.md,
+# phase 19); a fault moves them by the order of max|logit|.  The strict
+# checks are elsewhere: paged == dense at matched batches, bit for bit,
+# and the float model's ring decode within RING_REL of its sequence mode
+HYBRID_TIE = 0.3
 
 
 def smi() -> str:
@@ -275,6 +316,40 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n, preset="precise", kw=None) -> dict:
+    """B1 against its plain version at one (M, K, N) on a seeded weight
+    (bit-equal, or it raises), timed cold with its plain version and its
+    bound."""
+    kw = kw or {}
+    cfg = Q.PRESETS[preset]
+    icfg = dataclasses.replace(cfg.input_cfg, **kw)
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    pw = Q.pack_weights(w, cfg)
+    del w
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    ts = per_tensor_scale(x, icfg.fmt).reshape(1)
+    tw = pw.tscale.reshape(-1).contiguous()
+    y = DF.dsbp_fused(x, ts, pw.ka, pw.kscale, tw, icfg)
+    ref = DF.dsbp_fused_plain(x, ts, pw.ka, pw.kscale, tw, icfg)
+    torch.cuda.synchronize()
+    if not torch.equal(y, ref):
+        raise AssertionError(f"B1 kernel != plain at M={m} K={k} N={n} {kw}: max "
+                             f"|diff| {float((y - ref).abs().max())}")
+    wbytes = pw.ka.numel() + pw.kscale.numel() * 4
+    copies = [(x, ts, pw.ka.clone(), pw.kscale.clone(), tw, icfg)
+              for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
+    ms = cuda_ms(DF.dsbp_fused, copies, iters=30 if m <= 4 else 10)
+    plain_ms = cuda_ms(DF.dsbp_fused_plain, copies[:1], iters=3, warmup=1)
+    nbytes = m * pw.padded_k * 4 + wbytes + n * 4 + 4 + m * n * 4
+    b_ms, b_by = bound(nbytes, 2.0 * m * pw.padded_k * n, FP16_OPS)
+    row = {"M": m, "K": k, "N": n, "cfg": kw or "precise e4m3", "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "groups": pw.padded_k // 64, "max_abs_err": float((y - ref).abs().max())}
+    print(f"  B1 M={m:4d} K={k:5d} N={n:5d} {str(row['cfg']):40s} bit-equal; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return row
+
+
 def phase_b1(torch, Q, DF, per_tensor_scale):
     print("== phase 2: B1 dsbp_fused vs plain on the card")
     cases = [(m, k, n, "precise", {}) for m in (4, 512) for k, n in LLAMA_SHAPES]
@@ -282,39 +357,9 @@ def phase_b1(torch, Q, DF, per_tensor_scale):
               (512, 4096, 4096, "precise", {"mode": "fixed", "k": 0.0, "b_fix": 7}),
               (512, 4096, 4096, "precise", {"mantissa_rounding": "trunc"})]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, max_err = [], 0.0
-    for m, k, n, preset, kw in cases:
-        cfg = Q.PRESETS[preset]
-        icfg = dataclasses.replace(cfg.input_cfg, **kw)
-        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
-        pw = Q.pack_weights(w, cfg)
-        del w
-        x = torch.randn(m, k, generator=gen, device="cuda")
-        ts = per_tensor_scale(x, icfg.fmt).reshape(1)
-        tw = pw.tscale.reshape(-1).contiguous()
-        y = DF.dsbp_fused(x, ts, pw.ka, pw.kscale, tw, icfg)
-        ref = DF.dsbp_fused_plain(x, ts, pw.ka, pw.kscale, tw, icfg)
-        torch.cuda.synchronize()
-        if not torch.equal(y, ref):
-            raise AssertionError(f"B1 kernel != plain at M={m} K={k} N={n} {kw}: max "
-                                 f"|diff| {float((y - ref).abs().max())}")
-        max_err = max(max_err, float((y - ref).abs().max()))
-        wbytes = pw.ka.numel() + pw.kscale.numel() * 4
-        copies = [(x, ts, pw.ka.clone(), pw.kscale.clone(), tw, icfg)
-                  for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
-        ms = cuda_ms(DF.dsbp_fused, copies, iters=30 if m <= 4 else 10)
-        plain_ms = cuda_ms(DF.dsbp_fused_plain, copies[:1], iters=3, warmup=1)
-        ng = pw.padded_k // 64
-        nbytes = m * pw.padded_k * 4 + wbytes + n * 4 + 4 + m * n * 4
-        b_ms, b_by = bound(nbytes, 2.0 * m * pw.padded_k * n, FP16_OPS)
-        row = {"M": m, "K": k, "N": n, "cfg": kw or "precise e4m3", "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "groups": ng}
-        rows.append(row)
-        print(f"  B1 M={m:4d} K={k:5d} N={n:5d} {str(row['cfg']):40s} bit-equal; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-        del pw, copies
+    rows = [b1_case(torch, Q, DF, per_tensor_scale, gen, *case) for case in cases]
     torch.cuda.empty_cache()
-    return rows, max_err
+    return rows, max(r["max_abs_err"] for r in rows)
 
 
 def _sdpa(q, k, v, mask):
@@ -544,7 +589,8 @@ def device_events(prof):
             if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
 
 
-def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4) -> dict:
+def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4,
+                 max_len: int = 512) -> dict:
     """Device time by kernel (``kinds``: name -> kernel-name patterns) over
     ``steps`` decode steps of the engine's model (greedy tokens chosen on
     the card, as the engine's loop does without a host sync), in one
@@ -554,7 +600,7 @@ def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), 512,
+        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
                                          lengths=lens, quant=eng.quant, kv=eng.kv_spec)
         pos = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
         tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
@@ -1225,12 +1271,13 @@ class GuardTape:
         return self.rows
 
 
-def check_recorded(torch, ref, got, ref_rows, got_rows, prefix=()):
+def check_recorded(torch, ref, got, ref_rows, got_rows, prefix=(), kv_tie=KV_TIE):
     """Phase 9's rule on logits the two serves computed: each stream of
     ``got`` equals ``ref``'s up to its first differing token t; at every
     step up to t (the same context in both) the two rows differ by at most
-    KV_TIE * max|logit|, and at t the reference's top-2 gap is below
-    max(TIE * max|logit|, twice the difference there).  A stream of a uid
+    ``kv_tie`` (default KV_TIE) * max|logit|, and at t the reference's
+    top-2 gap is below max(TIE * max|logit|, twice the difference there).
+    A stream of a uid
     in ``prefix`` (one that ended early: cancelled, expired, quarantined)
     is held so against the head of the reference.  Returns the near ties
     taken and each stream's largest difference relative to max|logit|."""
@@ -1251,9 +1298,9 @@ def check_recorded(torch, ref, got, ref_rows, got_rows, prefix=()):
             a, b = ref_rows[uid][step], got_rows[uid][step]
             top, delta = float(a.abs().max()), float((a - b).abs().max())
             worst[uid] = max(worst.get(uid, 0.0), delta / top)
-            if delta > KV_TIE * top:
+            if delta > kv_tie * top:
                 raise AssertionError(f"request {uid}: step {step} logits differ by {delta} "
-                                     f"> {KV_TIE} * {top}")
+                                     f"> {kv_tie} * {top}")
         if bad.size:
             top2 = torch.topk(ref_rows[uid][t], 2).values
             gap = float(top2[0] - top2[1])
@@ -1627,12 +1674,15 @@ TRACE_ROUND = {"B1": TRACE_FUSED["B1"], "B2": TRACE_FUSED["B2"], "draft_view shi
 
 
 def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, ref_rows,
-                scfg: dict, label: str, trace=None, faults=None):
+                scfg: dict, label: str, trace=None, faults=None, b1_per_step=None,
+                attn_layers=None, kv_tie=KV_TIE):
     """One speculative serve of phase 16 against its spec_k=0 reference:
     tokens under phase 9's rule, containers untouched, B1's M per step
-    kind and the attention kernels' launches per draft step.  Under a
-    fault plan (phase 18) a stream that ended early is held against the
-    head of its reference."""
+    kind and the attention kernels' launches per draft step
+    (``b1_per_step`` B1 launches in a model step, default 7 per layer;
+    ``attn_layers`` attention layers, default every layer).  Under a fault
+    plan (phase 18) a stream that ended early is held against the head of
+    its reference."""
     eng = Engine(model, ServeConfig(spec_k=3, spec_draft_method="dsbp_fused", **scfg),
                  device="cuda")
     if eng.spec_report["extra_weight_nbytes"] != 0:
@@ -1653,15 +1703,17 @@ def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, 
     if _containers(eng.model) != before:
         raise AssertionError(f"{label}: the engine's containers changed")
     early = {u for u, s in st["request_status"].items() if s not in ("ok", "preempted")}
-    ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows, prefix=early)
-    n_layers = cfg.n_layers
+    ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows, prefix=early,
+                                 kv_tie=kv_tie)
+    n_layers = cfg.n_layers if attn_layers is None else attn_layers
+    per_step = 7 * cfg.n_layers if b1_per_step is None else b1_per_step
     lanes = eng.lanes if scfg.get("paged") else eng.scfg.batch_size
     rounds, drafts = st["spec_rounds"], tape.calls["draft"]
     if drafts != 3 * rounds or tape.calls["verify"] != rounds:
         raise AssertionError(f"{label}: {drafts} draft steps and {tape.calls['verify']} "
                              f"verify passes for {rounds} rounds")
     m = {k: v for k, v in tape.b1_m.items() if k[0] in ("draft", "verify")}
-    want = {("draft", lanes): 7 * n_layers * drafts, ("verify", 4 * lanes): 7 * n_layers * rounds}
+    want = {("draft", lanes): per_step * drafts, ("verify", 4 * lanes): per_step * rounds}
     if m != want:
         raise AssertionError(f"{label}: B1 launches by (step, M) {m}, want {want}")
     attn = ("paged_packed_flash_attention" if scfg.get("paged") and scfg.get("kv_quant")
@@ -2496,10 +2548,10 @@ def _check_containers(torch, DF, per_tensor_scale, model, label: str) -> list:
     return [key for key, _ in seen.values()]
 
 
-def _step_launches(torch, eng, kernels, toks, lens) -> dict:
+def _step_launches(torch, eng, kernels, toks, lens, max_len: int = 512) -> dict:
     """Each kernel's launches over one full-width decode step of ``eng``."""
     with torch.inference_mode():
-        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), 512,
+        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
                                          lengths=lens, quant=eng.quant, kv=eng.kv_spec)
         tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
         torch.cuda.synchronize()
@@ -3016,6 +3068,507 @@ def mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5):
     return b8, mesh15
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the Griffin hybrid (RG-LRU layers, sliding-window rings, tied
+# embeddings): recurrentgemma-2b at full width and depth, gemma3-12b reduced
+# ---------------------------------------------------------------------------
+
+# the B1 shapes of a decode step (M = 4 lanes): (K, N) and the projections
+# that run at it, with their launches per decode step at full depth
+HYBRID_B1 = (
+    ("recurrentgemma-2b", 2560, 2560, "w_gate w_in w_out (18 rglru), wq wo (8 attn_local)", 70),
+    ("recurrentgemma-2b", 2560, 7680, "w1 w3 (26 layers)", 52),
+    ("recurrentgemma-2b", 2560, 256, "wk wv (8 attn_local, MQA)", 16),
+    ("recurrentgemma-2b", 7680, 2560, "w2 (26 layers)", 26),
+    ("gemma3-12b", 3840, 4096, "wq", 48),
+    ("gemma3-12b", 3840, 2048, "wk wv", 96),
+    ("gemma3-12b", 3840, 15360, "w1 w3", 96),
+    ("gemma3-12b", 15360, 3840, "w2", 48),
+)
+# recurrentgemma-2b's attention: Hq 10, Hkv 1 (MQA), d_head 256, window 2048;
+# phase 19's ragged prompts, two past the window
+HYBRID_LENS = [64, 700, 2100, 2600]
+# torch.profiler names of a hybrid decode step: B1, B2 and the library
+# matmuls (the tied head and the weight-only wa / wx products)
+TRACE_HYBRID = {"B1": TRACE_FUSED["B1"], "B2": TRACE_FUSED["B2"],
+                "cuBLAS (head, wa/wx)": ("gemv", "gemm", "xmma", "cutlass")}
+
+
+def phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale) -> dict:
+    """B1 at the hybrids' decode shapes, and B2 (prefill with the window,
+    decode on the ring), B5, B6 and B7 at recurrentgemma-2b's attention
+    shape, each against its plain version, timed cold."""
+    print("== phase 19 (kernels): B1 at recurrentgemma-2b's and gemma3-12b's decode shapes; "
+          "B2 / B5 / B6 / B7 at Hq 10, Hkv 1, D 256, window 2048")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b1 = []
+    for arch, k, n, proj, per_step in HYBRID_B1:
+        row = b1_case(torch, Q, DF, per_tensor_scale, gen, 4, k, n)
+        b1.append({**row, "arch": arch, "proj": proj, "launches_per_step": per_step})
+    torch.cuda.empty_cache()
+    hq, hkv, d, win, s_c, bs = 10, 1, 256, 2048, 2048, 16
+    b = len(HYBRID_LENS)
+    lens = torch.tensor(HYBRID_LENS, dtype=torch.int32, device="cuda")
+    attn = {}
+
+    def record(name, ms, plain_ms, lib_ms, nbytes, visible, err, extra=""):
+        b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
+        attn[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err}
+        print(f"  {name:14s} Hq={hq} Hkv={hkv} D={d}: |diff| to plain {err:.3g}{extra}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})"
+              + (f", sdpa {lib_ms:.4f} ms" if lib_ms is not None else ""))
+
+    # prefill: the prompts at once, causal within the 2048-token window
+    s = max(HYBRID_LENS)
+    q = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+    k = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+    v = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+    q0 = torch.zeros(b, dtype=torch.int32, device="cuda")
+    o = FA.flash_attention(q, k, v, lens, q0, window=win)
+    ref = FA.flash_attention_plain(q, k, v, lens, q0, window=win)
+    # a row's queries past its length are pad (past the window they see no
+    # key at all: undefined output, which no caller reads)
+    real = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    o, ref = o.transpose(1, 2)[real], ref.transpose(1, 2)[real]
+    err = float((o - ref).abs().max())
+    if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"B2 prefill with window: kernel vs plain max |diff| {err}")
+    mask = FA.attention_mask(lens, q0, s, s, causal=True, window=win)
+    nbytes = 2 * q.numel() * 4 + 2 * float(lens.sum()) * hkv * d * 4 + 8 * b
+    args = cold_copies(torch, (q, k, v, lens, q0), nbytes)
+    ms = cuda_ms(lambda *a: FA.flash_attention(*a, window=win), args, iters=5)
+    plain_ms = cuda_ms(lambda *a: FA.flash_attention_plain(*a, window=win), args[:1], iters=2,
+                       warmup=1)
+    lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args], iters=5)
+    record("B2 prefill", ms, plain_ms, lib_ms, nbytes, float(mask.sum()), err)
+    del q, k, v, args, mask, o, ref
+    torch.cuda.empty_cache()
+
+    # decode on a full ring of S_c = 2048 slots: the query at each prompt's
+    # length; a wrapped row passes kv_len = pos + 1 > S_c, which the kernel
+    # reads as S_c (the model clamps it itself)
+    pos = lens
+    kv_len = torch.clamp(pos + 1, max=s_c)
+    q = torch.randn(b, hq, 1, d, generator=gen, device="cuda")
+    k = torch.randn(b, hkv, s_c, d, generator=gen, device="cuda")
+    v = torch.randn(b, hkv, s_c, d, generator=gen, device="cuda")
+    o = FA.flash_attention(q, k, v, kv_len, pos)
+    wrapped = FA.flash_attention(q, k, v, pos + 1, pos)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, pos)
+    err = float((o - ref).abs().max())
+    if not torch.equal(o, wrapped):
+        raise AssertionError("B2 decode: kv_len past the ring != kv_len = S_c")
+    if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"B2 ring decode: kernel vs plain max |diff| {err}")
+    mask = FA.attention_mask(kv_len, pos, 1, s_c, causal=True, window=0)
+    visible = float(mask.sum())
+    nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * d * 4 + 8 * b
+    args = cold_copies(torch, (q, k, v, kv_len, pos), nbytes)
+    ms = cuda_ms(FA.flash_attention, args, iters=20)
+    plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
+    lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args], iters=20)
+    record("B2 decode", ms, plain_ms, lib_ms, nbytes, visible, err,
+           ", kv_len past the ring bit-equal to S_c")
+
+    kv8 = KVQ.KV_PRESETS["kv8"]
+    kq, vq = KVQ.quantize_kv(k, kv8), KVQ.quantize_kv(v, kv8)
+    pargs = (q, kq.qm, kq.scale, vq.qm, vq.scale, kv_len, pos)
+    o5 = FA.packed_flash_attention(*pargs)
+    if not torch.equal(o5, FA.flash_attention(q, kq.dequantize(), vq.dequantize(), kv_len, pos)):
+        raise AssertionError("B5 ring decode != B2 over dequantize()")
+    if not torch.equal(o5, FA.packed_flash_attention(q, kq.qm, kq.scale, vq.qm, vq.scale,
+                                                     pos + 1, pos)):
+        raise AssertionError("B5 decode: kv_len past the ring != kv_len = S_c")
+    ref5 = FA.packed_flash_attention_plain(*pargs)
+    err = float((o5 - ref5).abs().max())
+    if not torch.allclose(o5, ref5, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"B5 ring decode: kernel vs plain max |diff| {err}")
+    nb5 = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * (d + 4) + 8 * b
+    cold = cold_copies(torch, pargs, nb5)
+    ms = cuda_ms(FA.packed_flash_attention, cold, iters=20)
+    plain_ms = cuda_ms(FA.packed_flash_attention_plain, [pargs], iters=5)
+    record("B5 decode", ms, plain_ms, None, nb5, visible, err,
+           ", bit-equal to B2 over dequantize()")
+    del cold
+
+    # paged: the same K/V in a pool of 16-slot blocks, each lane's 128 table
+    # entries a shuffled set of blocks
+    nb = b * (s_c // bs) + 1
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+    table = perm.reshape(b, s_c // bs).contiguous()
+    flat = table.to(torch.int64).reshape(-1)
+
+    def pool_of(x):  # (B, Hkv, S_c, D) -> pool (NB, Hkv, bs, D) through the table
+        p = torch.zeros((nb, *x.shape[1:2], bs, x.shape[-1]), dtype=x.dtype, device="cuda")
+        p[flat] = x.reshape(b, x.shape[1], s_c // bs, bs, x.shape[-1]).permute(
+            0, 2, 1, 3, 4).reshape(-1, x.shape[1], bs, x.shape[-1])
+        return p
+
+    pk, pv = pool_of(k), pool_of(v)
+    qk = [pool_of(t) for t in (kq.qm, kq.scale, vq.qm, vq.scale)]
+    for kname, fn, fargs, plain, want, kvb in (
+            ("B6 decode", FA.paged_flash_attention, (q, pk, pv, table, kv_len, pos),
+             FA.paged_flash_attention_plain, o, 4 * d),
+            ("B7 decode", FA.paged_packed_flash_attention, (q, *qk, table, kv_len, pos),
+             FA.paged_packed_flash_attention_plain, o5, d + 4)):
+        got = fn(*fargs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kname} != its dense kernel over the same K/V")
+        pl = plain(*fargs)
+        err = float((got - pl).abs().max())
+        if not torch.allclose(got, pl, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{kname}: kernel vs plain max |diff| {err}")
+        nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * kvb + table.numel() * 4
+        cold = cold_copies(torch, fargs, nbytes)
+        ms = cuda_ms(fn, cold, iters=20)
+        plain_ms = cuda_ms(plain, [fargs], iters=5)
+        record(kname, ms, plain_ms, None, nbytes, visible, err,
+               ", bit-equal to the dense kernel over the same K/V")
+        del cold
+    del q, k, v, kq, vq, pk, pv, qk
+    torch.cuda.empty_cache()
+    return {"b1": b1, "attn": attn}
+
+
+def phase_hybrid_cross_device(torch, TM, Engine, ServeConfig, cfg):
+    """19a: 3 layers (rglru, rglru, attn_local) at full width, window 64,
+    the same packed weights served on the CPU (plain versions) and the
+    card (kernels): greedy tokens equal under phase 9's near-tie rule."""
+    print("== phase 19a: recurrentgemma-2b at full width, 3 layers, window 64: CPU (plain) "
+          "vs card (kernels)")
+    cfg3 = cfg.replace(n_layers=3, window=64)
+    gpu_model = TM.Model(cfg3, "cuda")
+    gpu_model.load_state_dict(TM.init(cfg3, seed=19, device="cpu").state_dict())
+    scfg = ServeConfig(max_len=192, batch_size=2)
+    gpu = Engine(gpu_model, scfg, device="cuda")
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    toks, lens = _prompts(cfg.vocab_size, [100, 30, 75, 9], seed=19)
+    t_cpu = cpu.generate(toks, 10, lengths=lens)
+    t_gpu = gpu.generate(toks, 10, lengths=lens)
+    prompts = {r: toks[r, :lens[r]] for r in range(len(lens))}
+    ties = check_streams(torch, dict(enumerate(t_cpu)), dict(enumerate(t_gpu)), prompts, cpu,
+                         gpu)
+    from repro_torch.serve.engine import Request
+
+    reqs = [Request(uid=i, tokens=prompts[i], max_new_tokens=6) for i in range(len(lens))]
+    s_cpu, s_gpu = cpu.serve(reqs), gpu.serve(reqs)
+    ties += check_streams(torch, s_cpu, s_gpu, prompts, cpu, gpu)
+    print(f"  generate (lens {lens.tolist()}, past the window) and serve (4 requests, 2 "
+          f"slots): CPU vs card tokens equal, {len(ties)} near ties taken: "
+          f"{t_gpu.tolist()}")
+    del cpu, gpu, gpu_model
+    torch.cuda.empty_cache()
+
+
+def _hybrid_requests(Request, vocab, lens, new, seed, prefix=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, prefix)
+    reqs = []
+    for i, n in enumerate(lens):
+        t = rng.integers(0, vocab, n)
+        if prefix and n > prefix:
+            t[:prefix] = shared
+        reqs.append(Request(uid=i, tokens=t, max_new_tokens=new))
+    return reqs
+
+
+def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) -> dict:
+    """19: recurrentgemma-2b at full width and depth (26 layers), seeded
+    weights packed "precise", f32, max_len 4096 (S_c 2048 on the local
+    layers)."""
+    print("== phase 19: recurrentgemma-2b at full width and depth, packed 'precise': "
+          "generate, serve, kv8, paged, speculation, a fallback retry")
+    import numpy as np
+    from repro_torch.serve.faults import FaultPlan
+
+    t0 = time.perf_counter()
+    model = TM.init(cfg, seed=0, device="cuda")
+    eng = Engine(model, ServeConfig(max_len=4096, batch_size=4), device="cuda")
+    torch.cuda.synchronize()
+    rep = eng.pack_report
+    print(f"  init + pack {time.perf_counter() - t0:.2f} s: {rep['layers_packed']} "
+          f"projections, {rep['raw_nbytes'] / 1e9:.3f} -> {rep['packed_nbytes'] / 1e9:.3f} GB "
+          f"(the tied f32 embedding {4 * cfg.padded_vocab_size * cfg.d_model / 1e9:.3f} GB "
+          f"of it), avg W bits {rep['avg_w_bits']:.3f}")
+    model = eng.model
+    n_rec = sum(layer.kind == "rglru" for layer in model.layers)
+    n_attn = len(model.layers) - n_rec
+    b1_step, attn_step = 6 * n_rec + 7 * n_attn, n_attn
+    toks, lens = _prompts(cfg.vocab_size, HYBRID_LENS, seed=191)
+    reqs = _hybrid_requests(Request, cfg.vocab_size, [64, 700, 2100, 2600, 300, 1500, 2200,
+                                                      900], new=12, seed=192)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the hybrid path: counts from 0 over exactly these runs ----
+    _reset_launches(kernels)
+    tape = SampleTape(eng, cfg.vocab_size)
+    out = eng.generate(toks, 16, lengths=lens)
+    calls = tape.close()
+    gst = dict(eng.last_stats)
+    gtape = GuardTape(eng, cfg.vocab_size)
+    served = eng.serve(reqs)
+    gtape.close()
+    sst = dict(eng.last_stats)
+    ref_rows = dict(gtape.rows)
+    kv8 = Engine(model, ServeConfig(max_len=4096, batch_size=4, kv_quant="kv8"), device="cuda")
+    served8 = kv8.serve(reqs)
+    kst = dict(kv8.last_stats)
+    pcfg = dict(max_len=4096, batch_size=4, max_active=8, paged=True, kv_block_size=16,
+                chunk_prefill_tokens=512, prefill_bucket=64)
+    preqs = _hybrid_requests(Request, cfg.vocab_size, [208] * 6 + [2300, 2400], new=12,
+                             seed=193, prefix=192)
+    paged = Engine(model, ServeConfig(**pcfg), device="cuda")
+    ptape = GuardTape(paged, cfg.vocab_size)
+    pout = paged.serve(preqs)
+    ptape.close()
+    pst = dict(paged.last_stats)
+    paged8 = Engine(model, ServeConfig(kv_quant="kv8", **pcfg), device="cuda")
+    pout8 = paged8.serve(preqs)
+    p8st = dict(paged8.last_stats)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the hybrid path")
+    for label, st, n in (("paged", pst, launches["paged_flash_attention"]),
+                         ("paged kv8", p8st, launches["paged_packed_flash_attention"])):
+        if n != attn_step * st["decode_steps"]:
+            raise AssertionError(f"{label}: {n} paged attention launches for "
+                                 f"{st['decode_steps']} decode steps of {attn_step} layers")
+    if sorted(pout8) != sorted(pout) or any(len(t) != 12 for t in pout8.values()):
+        raise AssertionError("paged kv8 serve did not return 12 tokens for each request")
+
+    # ---- output shape and range, per-step launches ----
+    if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"generate output {out.shape} out of range")
+    for label, o in (("serve", served), ("kv8 serve", served8)):
+        if sorted(o) != list(range(8)) or any(len(t) != 12 for t in o.values()):
+            raise AssertionError(f"{label} did not return 12 tokens for each of 8 requests")
+    step = _step_launches(torch, eng, kernels, toks, lens, max_len=4096)
+    if step != {"dsbp_fused": b1_step, "flash_attention": attn_step}:
+        raise AssertionError(f"launches in one decode step {step}: want B1 {b1_step}, B2 "
+                             f"{attn_step}")
+    step8 = _step_launches(torch, kv8, kernels, toks, lens, max_len=4096)
+    if step8 != {"dsbp_fused": b1_step, "packed_flash_attention": attn_step}:
+        raise AssertionError(f"kv8: launches in one decode step {step8}")
+    if pst["chunked_requests"] != 2 or pst["prefix_hit_blocks"] < 5 * 12 or not pst["completed"]:
+        raise AssertionError(f"paged stats {pst}")
+
+    # ---- ring decode past the window == sequence mode over the whole context ----
+    def context(cont, t):  # each prompt followed by the first t tokens of cont
+        ctx = np.zeros((4, toks.shape[1] + t), np.int64)
+        for r in range(4):
+            ctx[r, :lens[r]] = toks[r, :lens[r]]
+            ctx[r, lens[r]:lens[r] + t] = cont[r, :t]
+        return torch.as_tensor(ctx, device="cuda"), torch.as_tensor(lens + t, device="cuda")
+
+    # (a) the float model (cuBLAS products, the attention kernels), teacher
+    # forced: JAX's test_sliding_window_ring_cache_decode at full width
+    fmodel = TM.init(cfg.replace(quant=None), seed=0, device="cuda")
+    cont = np.random.default_rng(196).integers(0, cfg.vocab_size, (4, 16))
+    ring_rel = {}
+    with torch.inference_mode():
+        _, fcache, _ = fmodel.prefill(torch.as_tensor(toks, device="cuda"), 4096,
+                                      lengths=lens)
+        posd = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+        for t in range(16):
+            lg, fcache = fmodel.decode_step(torch.as_tensor(cont[:, t:t + 1], device="cuda"),
+                                            fcache, posd + t)
+            if t in (0, 15):
+                seq, _, _ = fmodel.prefill_trunk(*context(cont, t + 1))
+                seq, lg = seq[..., :cfg.vocab_size], lg[..., :cfg.vocab_size]
+                ring_rel[t] = float((seq - lg).abs().max() / seq.abs().max())
+    del fmodel, fcache
+    torch.cuda.empty_cache()
+    if max(ring_rel.values()) > RING_REL:
+        raise AssertionError(f"float ring decode vs sequence mode: {ring_rel} of max|logit| "
+                             f"> {RING_REL}")
+    # (b) the packed model's greedy stream, printed: each decode step
+    # quantizes its own inputs (per-tensor scales over 4 rows), where one
+    # prefill pass quantizes the whole context at once
+    packed_rel = {}
+    for t in (1, 15):
+        with torch.inference_mode():
+            lg, _, _ = model.prefill_trunk(*context(out, t), eng.quant)
+        seq = lg[:, 0, :cfg.vocab_size].float().cpu()
+        dec = calls[t][0]
+        packed_rel[t] = float((seq - dec).abs().max() / dec.abs().max())
+    seq_err = packed_rel[1]
+    print(f"  ring decode past the window (rows at {lens.tolist()} + t, S_c 2048) vs "
+          f"Model.prefill_trunk over the whole context: float model, teacher forced, "
+          f"{ring_rel[0]:.2e} / {ring_rel[15]:.2e} of max|logit| at decode steps 1 / 16 "
+          f"(limit {RING_REL}); the packed greedy stream, not gated: {packed_rel[1]:.4f} "
+          f"at step 1 and {packed_rel[15]:.4f} at step 15 (other FP8 input roundings)")
+
+    # ---- paged == dense: matched batches exactly, the full traffic by rule ----
+    dense8 = Engine(model, ServeConfig(max_len=4096, batch_size=8, prefill_bucket=64),
+                    device="cuda")
+    dtape = GuardTape(dense8, cfg.vocab_size)
+    dref = dense8.serve(preqs)
+    dtape.close()
+    ties_p, worst_p = check_recorded(torch, dref, pout, dtape.rows, ptape.rows,
+                                     kv_tie=HYBRID_TIE)
+    same = _hybrid_requests(Request, cfg.vocab_size, HYBRID_LENS, new=12, seed=194)
+    exact = {}
+    for kv in (None, "kv8"):
+        for pg in (True, False):
+            e = Engine(model, ServeConfig(max_len=4096, batch_size=4, paged=pg,
+                                          kv_block_size=16, chunk_prefill_tokens=4096,
+                                          prefix_sharing=False, kv_quant=kv), device="cuda")
+            exact[kv, pg] = e.serve(same)
+            del e
+        for uid, t in exact[kv, False].items():
+            if not np.array_equal(exact[kv, True][uid], t):
+                raise AssertionError(f"{kv or 'float'} matched batches, request {uid}: paged "
+                                     f"{exact[kv, True][uid]} != dense {t}")
+    # ---- speculation (draft bits 7) against spec_k 0, dense and paged ----
+    spec = {}
+    for label, scfg, rq, ref, rows in (
+            ("dense", dict(max_len=4096, batch_size=4, spec_draft_bits=7), reqs, served,
+             ref_rows),
+            ("paged", dict(pcfg, spec_draft_bits=7), preqs, pout, ptape.rows)):
+        spec[label] = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, rq, ref,
+                                  rows, scfg, f"spec_k 3, draft bits 7, {label}",
+                                  b1_per_step=b1_step, attn_layers=attn_step,
+                                  kv_tie=HYBRID_TIE)
+
+    # ---- one NaN step under 'fallback': the retry decodes from the pre-step state ----
+    fb = Engine(model, ServeConfig(max_len=4096, batch_size=4, numeric_guard="fallback"),
+                device="cuda")
+    fout = fb.serve(reqs, faults=FaultPlan(nan_steps={2: (1,)}))
+    fst = fb.last_stats
+    if fst["fallback_steps"] != 1 or set(fst["request_status"].values()) != {"ok"}:
+        raise AssertionError(f"fallback: {fst['fallback_steps']} {fst['request_status']}")
+    for uid, t in served.items():
+        if not np.array_equal(fout[uid], t):
+            raise AssertionError(f"fallback: request {uid} {fout[uid]} != unfaulted {t}")
+
+    trace = trace_decode(torch, eng, toks, lens, TRACE_HYBRID, max_len=4096)
+    # the weight-only wa / wx products (dequantize + f32 matmul) of one
+    # decode step, timed cold on the served containers
+    from repro_torch.models.layers import dense as dense_fn
+
+    rec = [layer.rec for layer in model.layers if layer.kind == "rglru"]
+    x = torch.randn(4, 1, cfg.rnn_dim, device="cuda")
+    wawx = [(r.wa, x) for r in rec] + [(r.wx, x) for r in rec]
+    wawx_ms = cuda_ms(lambda w, xx: dense_fn(w, xx), wawx, iters=len(wawx)) * len(wawx)
+    ms_step = 1e3 * gst["decode_s"] / gst["decode_steps"]
+    bpt_ring = 2 * n_attn * cfg.n_kv_heads * cfg.d_head * 4
+    print(f"  generate: 4 prompts (lens {lens.tolist()}), 16 new tokens: prefill "
+          f"{gst['prefill_s']:.3f} s, {ms_step:.2f} ms per decode step")
+    print(f"  serve: 8 requests through 4 slots: {sst['decode_steps']} steps, prefill "
+          f"{sst['prefill_time_s']:.3f} s, {1e3 * sst['decode_time_s'] / sst['decode_steps']:.2f}"
+          f" ms/step; kv8: {1e3 * kst['decode_time_s'] / kst['decode_steps']:.2f} ms/step")
+    print(f"  paged (bs 16, 6 requests sharing a 192-token prefix, 2 chunked 2300/2400-token "
+          f"prompts): {pst['decode_steps']} decode steps, {pst['chunk_steps']} chunk steps, "
+          f"prefix hits {pst['prefix_hit_blocks']}, "
+          f"{1e3 * pst['decode_time_s'] / pst['decode_steps']:.2f} ms/step; against a dense "
+          f"batch-8 serve (limit {HYBRID_TIE}): {len(ties_p)} near ties, largest logit "
+          f"difference {max(worst_p.values()):.4f} of max|logit|; matched batches (4 prompts "
+          f"past the window, one group) paged == dense token for token, float and kv8")
+    bpt_ring8 = 2 * n_attn * cfg.n_kv_heads * (cfg.d_head + 4)
+    print(f"  KV bytes: {bpt_ring} per cached position in float ({bpt_ring8} in kv8) "
+          f"over {n_attn} ring layers of 2048 slots; last_stats kv_bytes_per_token "
+          f"{sst['kv_bytes_per_token']:.0f} (float) / {kst['kv_bytes_per_token']:.0f} (kv8) "
+          f"per max_len position; recurrent state "
+          f"{n_rec * (cfg.rnn_dim * 4 + (cfg.d_conv - 1) * cfg.rnn_dim * 4)} bytes per lane; "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    print(f"  launches over the hybrid path (generate, serve, kv8, paged float and kv8): "
+          f"{launches}; per decode step B1 {b1_step} (6 x {n_rec} rglru + 7 x {n_attn} "
+          f"attn_local; wa / wx weight-only), B2 / B5 / B6 / B7 {attn_step}")
+    print(f"  fallback: one NaN step retried through dsbp_ref, every stream bit-equal to "
+          f"the unfaulted serve; wa / wx weight-only products {wawx_ms:.3f} ms per decode "
+          f"step ({len(wawx)} calls, timed cold)")
+    res = {"launches": launches, "b1_step": b1_step, "attn_step": attn_step, "trace": trace,
+           "prefill_s": gst["prefill_s"], "decode_ms": ms_step,
+           "serve_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"],
+           "kv8_ms": 1e3 * kst["decode_time_s"] / kst["decode_steps"],
+           "paged_ms": 1e3 * pst["decode_time_s"] / pst["decode_steps"],
+           "peak": peak, "kv_bytes_per_position": bpt_ring, "wawx_ms_step": wawx_ms,
+           "seq_vs_ring": seq_err, "ring_float": ring_rel, "ring_packed": packed_rel,
+           "paged_ties": len(ties_p),
+           "spec": {k: {"accepted_hist": v["stats"]["accepted_hist"],
+                        "mean_accepted": v["stats"]["mean_accepted"],
+                        "ms_round": v["ms_round"], "ms_token": v["ms_token"],
+                        "ties": v["ties"]} for k, v in spec.items()}}
+    del eng, kv8, paged, paged8, dense8, fb, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, kernels, cfg) -> dict:
+    """19b: gemma3-12b at full width, one unit of 6 layers (5 attn_local at
+    window 1024, 1 attn_full), max_len 2048: local (S_c 1024) and global
+    (S_c 2048) rings share one block table."""
+    print("== phase 19b: gemma3-12b at full width, 6 layers (5 local at window 1024, 1 "
+          "global; reduced from 48), max_len 2048, dense and paged")
+    import numpy as np
+
+    cfg6 = cfg.replace(n_layers=6)
+    model = TM.init(cfg6, seed=0, device="cuda")
+    dense = Engine(model, ServeConfig(max_len=2048, batch_size=4), device="cuda")
+    model = dense.model
+    reqs = _hybrid_requests(Request, cfg.vocab_size, [1500, 64, 1100, 1900], new=12,
+                            seed=195)
+    dout = dense.serve(reqs)
+    dst = dict(dense.last_stats)
+    paged = Engine(model, ServeConfig(max_len=2048, batch_size=4, paged=True,
+                                      kv_block_size=16, chunk_prefill_tokens=2048,
+                                      prefix_sharing=False), device="cuda")
+    if paged._kv_scs != [1024, 2048] or paged._table_width != 128:
+        raise AssertionError(f"ring lengths {paged._kv_scs}, table {paged._table_width}")
+    b6 = kernels["paged_flash_attention"].launches
+    pout = paged.serve(reqs)
+    pst = dict(paged.last_stats)
+    b6 = kernels["paged_flash_attention"].launches - b6
+    if b6 != 6 * pst["decode_steps"]:
+        raise AssertionError(f"B6 launches {b6} for {pst['decode_steps']} paged decode steps")
+    for uid, t in dout.items():
+        if not np.array_equal(pout[uid], t):
+            raise AssertionError(f"gemma3 request {uid}: paged {pout[uid]} != dense {t}")
+    print(f"  4 requests (lens {[len(r.tokens) for r in reqs]}, three past the 1024 window) "
+          f"in one group: paged == dense token for token; dense "
+          f"{1e3 * dst['decode_time_s'] / dst['decode_steps']:.2f} ms/step, paged "
+          f"{1e3 * pst['decode_time_s'] / pst['decode_steps']:.2f} ms/step, prefill "
+          f"{dst['prefill_time_s']:.3f} s; B6 {b6} launches ({pst['decode_steps']} steps x 6 "
+          f"layers)")
+    res = {"b6_launches": b6, "dense_ms": 1e3 * dst["decode_time_s"] / dst["decode_steps"],
+           "paged_ms": 1e3 * pst["decode_time_s"] / pst["decode_steps"],
+           "prefill_s": dst["prefill_time_s"]}
+    del dense, paged, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
+                  per_tensor_scale, get_config) -> dict:
+    """Phase 19 whole: the kernels at the hybrids' shapes, 19a, 19 and 19b;
+    returns their records (one ``hybrid (phase 19):`` JSON line printed)."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+               "packed_flash_attention": FA.packed_flash_attention,
+               "paged_flash_attention": FA.paged_flash_attention,
+               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+    t0 = time.perf_counter()
+    rows = phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale)
+    # the paper's "precise" preset on both (their configs carry none)
+    rg = get_config("recurrentgemma-2b").replace(quant="precise")
+    phase_hybrid_cross_device(torch, TM, Engine, ServeConfig, rg)
+    main = phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, rg)
+    g3 = phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, kernels,
+                             get_config("gemma3-12b").replace(quant="precise"))
+    rec = {"kernels": rows, "recurrentgemma-2b": main, "gemma3-12b (6 layers)": g3,
+           "seconds": time.perf_counter() - t0}
+    print("hybrid (phase 19): " + json.dumps(rec, default=str))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3103,6 +3656,11 @@ def main() -> int:
                      KVQ, kernels, cfg, ref5, card)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--hybrid"]:  # phases 1 and 19: the Griffin hybrid
+        hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
+                      per_tensor_scale, get_config)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -3178,6 +3736,13 @@ def main() -> int:
     mixed = pol["served"]["mixed + kv4"]
     b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
     stamp("phase 14-15b")
+    hyb = hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
+                        per_tensor_scale, get_config)
+    stamp("phase 19")
+    # each kernel's launches on the hybrid path (phase 19's counted run:
+    # generate, serve, kv8, paged float and kv8 at full depth); B3, B4 and
+    # B8 are not on it (dsbp_kernel and the mesh serve dense llama only)
+    hyb_launches = hyb["recurrentgemma-2b"]["launches"]
 
     b1 = next(r for r in b1_rows if (r["M"], r["K"], r["N"]) == (4, 4096, 11008))
     b3 = next(r for r in b3_rows if (r["M"], r["K"]) == (4, 4096))
@@ -3293,6 +3858,17 @@ def main() -> int:
          "shape": "decode M=4, w2 row-parallel K=11008 N=4096 over 2 ranks (rank 0's "
                   "whole call, collectives included)",
          "path": "phase 15 (mesh (1, 2), two ranks on the one card, per rank)"})
+    hyb_rows = hyb["kernels"]["attn"]
+    for k in kernels:
+        k["hybrid_launches"] = hyb_launches.get(k["name"], 0)
+        k["hybrid_path"] = "phase 19 (recurrentgemma-2b, 26 layers, full width)"
+    by_name = {k["name"]: k for k in kernels}
+    by_name["dsbp_fused"]["hybrid_rows"] = hyb["kernels"]["b1"]
+    for name, rows in (("flash_attention", ("B2 prefill", "B2 decode")),
+                       ("packed_flash_attention", ("B5 decode",)),
+                       ("paged_flash_attention", ("B6 decode",)),
+                       ("paged_packed_flash_attention", ("B7 decode",))):
+        by_name[name]["hybrid_rows"] = {r: hyb_rows[r] for r in rows}
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

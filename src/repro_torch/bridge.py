@@ -5,15 +5,18 @@ nested dicts/lists of numpy arrays (``np.asarray`` on each leaf) and a
 packed container into its four arrays plus its static fields.
 
 * :func:`model_from_jax` builds a :class:`~repro_torch.models.model.Model`
-  from a JAX param tree ``{"embed", "final_norm": {"scale"}, "lm_head",
-  "units": [...], "tail": [...]}``.  Unit leaves carry a leading ``R``
-  axis (the scanned stack) and are split per layer: layer ``r * P + p``
-  is unit ``r`` at pattern position ``p``; tail layers follow.  A packed
+  from a JAX param tree ``{"embed", "final_norm": {"scale"}, "lm_head"
+  (absent when the embeddings are tied), "units": [...], "tail": [...]}``.
+  Unit leaves carry a leading ``R`` axis (the scanned stack) and are split
+  per layer: layer ``r * P + p`` is unit ``r`` at pattern position ``p``;
+  tail layers follow.  An attention layer carries ``attn`` and ``ffn``, a
+  recurrent one ``rec`` (``w_in`` ... ``bx``) and ``ffn``.  A packed
   projection leaf is a dict with the keys of :func:`packed_from_jax`.
 * :func:`packed_from_jax` turns a JAX ``PackedDSBPWeight``'s children and
   static fields into the port's container.
 * :func:`cache_from_jax` turns a JAX KV cache tree ``{"units": [...],
-  "tail": [...]}`` into the port's per-layer ``{'k', 'v'}`` list; a packed
+  "tail": [...]}`` into the port's per-layer list of ``{'k', 'v'}`` (KV
+  layers) and ``{'h', 'conv'}`` (recurrent state) entries; a packed
   leaf (a JAX ``PackedKVBlock``) arrives as a dict of its ``qm``/``scale``
   children and static ``bits``/``fmt`` and becomes a
   :class:`~repro_torch.kvq.PackedKVBlock`.
@@ -74,11 +77,18 @@ def _set(module, name: str, value) -> None:
         getattr(module, name).data.copy_(value.to(torch.float32))
 
 
+_REC_NAMES = ("w_in", "w_gate", "w_out", "conv_w", "wa", "wx", "lam", "ba", "bx")
+
+
 def _fill_layer(layer, tree: dict, index, device) -> None:
     _set(layer, "norm1", _leaf(tree["norm1"]["scale"], index, device))
     _set(layer, "norm2", _leaf(tree["norm2"]["scale"], index, device))
-    for name in ("wq", "wk", "wv", "wo"):
-        _set(layer.attn, name, _leaf(tree["attn"][name], index, device))
+    if layer.kind == "rglru":
+        for name in _REC_NAMES:
+            _set(layer.rec, name, _leaf(tree["rec"][name], index, device))
+    else:
+        for name in ("wq", "wk", "wv", "wo"):
+            _set(layer.attn, name, _leaf(tree["attn"][name], index, device))
     for name in ("w1", "w3", "w2"):
         _set(layer.ffn, name, _leaf(tree["ffn"][name], index, device))
 
@@ -91,7 +101,8 @@ def model_from_jax(params: dict, cfg: ArchConfig, *, device) -> Model:
     with torch.no_grad():
         _set(model, "embed", _leaf(params["embed"], None, device))
         _set(model, "final_norm", _leaf(params["final_norm"]["scale"], None, device))
-        _set(model, "lm_head", _leaf(params["lm_head"], None, device))
+        if not cfg.tie_embeddings:
+            _set(model, "lm_head", _leaf(params["lm_head"], None, device))
         p_len = len(cfg.pattern)
         for p, unit in enumerate(params["units"]):
             for r in range(cfg.n_units):
@@ -117,16 +128,17 @@ def _kv_leaf(value, index, device):
 
 
 def cache_from_jax(cache: dict, cfg: ArchConfig, *, device) -> list[dict]:
-    """The port's per-layer KV cache holding a JAX cache tree's contents
+    """The port's per-layer cache holding a JAX cache tree's contents
     (unit leaves carry the stacked ``R`` axis, split per layer as the
-    weights are)."""
+    weights are): K/V entries, and the ``{h, conv}`` state of recurrent
+    layers."""
     device = torch.device(device)
     p_len = len(cfg.pattern)
     base = cfg.n_units * p_len
     out: list = [None] * (base + len(cfg.tail))
     for p, unit in enumerate(cache["units"]):
         for r in range(cfg.n_units):
-            out[r * p_len + p] = {n: _kv_leaf(unit[n], r, device) for n in ("k", "v")}
+            out[r * p_len + p] = {n: _kv_leaf(leaf, r, device) for n, leaf in unit.items()}
     for i, entry in enumerate(cache["tail"]):
-        out[base + i] = {n: _kv_leaf(entry[n], None, device) for n in ("k", "v")}
+        out[base + i] = {n: _kv_leaf(leaf, None, device) for n, leaf in entry.items()}
     return out

@@ -3,8 +3,11 @@
 
 The fields, defaults and derived properties are the JAX package's, field
 for field (tests/test_torch_engine.py compares them), so one config value
-means the same model in both packages.  Only the two configs this slice
-serves are copied; the others join as their layer families are ported.
+means the same model in both packages.  The configs copied are the ones
+the ported layer families serve: the dense ``attn_full`` decoders, the
+Griffin hybrid (RG-LRU + ``attn_local`` rings, tied embeddings) and
+gemma3's 5:1 local:global pattern; the others join as their families are
+ported (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -70,6 +73,10 @@ class ArchConfig:
         return self.pattern[: self.n_layers % len(self.pattern)]
 
     @property
+    def rnn_dim(self) -> int:
+        return self.rnn_width or self.d_model
+
+    @property
     def padded_vocab_size(self) -> int:
         """Vocab rounded up to a multiple of 256; padded logit rows are
         masked in the head."""
@@ -111,6 +118,75 @@ _CONFIGS = {
         vocab_size=64_000,
         pattern=("attn_full",),
         source="arXiv:2403.04652; hf",
+    ),
+    # Gemma3-12B: dense decoder, 5:1 local:global attention
+    # 48L d_model=3840 16H (GQA kv=8, head_dim=256) d_ff=15360 vocab=262144
+    # [hf:google/gemma-3-12b-pt; unverified]; local window 1024, tied
+    "gemma3-12b": ArchConfig(
+        name="gemma3-12b",
+        family="dense",
+        n_layers=48,
+        d_model=3840,
+        n_heads=16,
+        n_kv_heads=8,
+        d_head=256,
+        d_ff=15360,
+        vocab_size=262_144,
+        pattern=("attn_local",) * 5 + ("attn_full",),
+        window=1024,
+        tie_embeddings=True,
+        rope_theta=1_000_000.0,
+        source="hf:google/gemma-3-12b-pt; unverified",
+    ),
+    # DeepSeek-Coder-33B: llama-architecture dense decoder
+    # 62L d_model=7168 56H (GQA kv=8) d_ff=19200 vocab=32256 [arXiv:2401.14196]
+    "deepseek-coder-33b": ArchConfig(
+        name="deepseek-coder-33b",
+        family="dense",
+        n_layers=62,
+        d_model=7168,
+        n_heads=56,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=19200,
+        vocab_size=32_256,
+        pattern=("attn_full",),
+        source="arXiv:2401.14196; hf",
+    ),
+    # Phi-3-medium-14B: dense decoder, RoPE + SwiGLU + GQA
+    # 40L d_model=5120 40H (GQA kv=10) d_ff=17920 vocab=100352
+    # [arXiv:2404.14219; unverified]
+    "phi3-medium-14b": ArchConfig(
+        name="phi3-medium-14b",
+        family="dense",
+        n_layers=40,
+        d_model=5120,
+        n_heads=40,
+        n_kv_heads=10,
+        d_head=128,
+        d_ff=17920,
+        vocab_size=100_352,
+        pattern=("attn_full",),
+        source="arXiv:2404.14219; unverified",
+    ),
+    # RecurrentGemma-2B (Griffin): (rglru, rglru, attn_local) x 8 + 2
+    # recurrent tail; 26L d_model=2560 10H (kv=1, head_dim=256) d_ff=7680
+    # vocab=256000, window 2048, tied [arXiv:2402.19427]
+    "recurrentgemma-2b": ArchConfig(
+        name="recurrentgemma-2b",
+        family="hybrid",
+        n_layers=26,
+        d_model=2560,
+        n_heads=10,
+        n_kv_heads=1,
+        d_head=256,
+        d_ff=7680,
+        vocab_size=256_000,
+        pattern=("rglru", "rglru", "attn_local"),
+        window=2048,
+        rnn_width=2560,
+        tie_embeddings=True,
+        source="arXiv:2402.19427; hf",
     ),
 }
 

@@ -13,8 +13,8 @@ only vmapped a single-head kernel over heads; the port's kernels index
 heads themselves.
 
 The paged cache adds :func:`gather_kv_view` (:66), :func:`verify_attention`
-(:173, with the packed ``qk_logits`` / ``pv_out`` branches) and
-:func:`paged_decode_attention`, which reads a block pool through the
+(:173, with the packed ``qk_logits`` / ``pv_out`` branches and the
+sliding window) and :func:`paged_decode_attention`, which reads a block pool through the
 lanes' block tables with B6 (float pool) or B7 (packed pool), where the
 JAX model attends over the gathered view.
 """
@@ -35,27 +35,31 @@ def _rows(value, b: int, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.int32, device=device).expand(b).contiguous()
 
 
-def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        kv_lens=None) -> torch.Tensor:
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_lens=None) -> torch.Tensor:
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); ``q_offset`` is the absolute
     position of q[0], ``kv_lens`` (B,) the valid key length of each
-    right-padded row (default: all Skv)."""
+    right-padded row (default: all Skv); ``window`` > 0 masks keys at or
+    before ``query - window`` (sliding-window layers)."""
     b, skv = q.shape[0], k.shape[2]
     kv_len = _rows(skv if kv_lens is None else kv_lens, b, q.device)
     return flash_attention(q, k, v, kv_len, _rows(q_offset, b, q.device),
-                           causal=causal)
+                           causal=causal, window=window)
 
 
-def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, pos, kv_len=None) -> torch.Tensor:
     """q (B, Hq, 1, D) over caches (B, Hkv, S, D), float tensors or
     :class:`PackedKVBlock` leaves: tokens < pos (scalar or (B,), per row)
-    are valid, and the query sits at position pos - 1."""
+    are valid, and the query sits at position pos - 1.  A ring cache (JAX
+    ``_ring_decode_attention``) passes ``kv_len`` = min(pos, S): its slots
+    hold positions, not in order, that all precede the query."""
     b = q.shape[0]
     pos = _rows(pos, b, q.device)
+    n = pos if kv_len is None else _rows(kv_len, b, q.device)
     if isinstance(k_cache, PackedKVBlock):
         return packed_flash_attention(q, k_cache.qm, k_cache.scale, v_cache.qm,
-                                      v_cache.scale, pos, pos - 1, causal=True)
-    return flash_attention(q, k_cache, v_cache, pos, pos - 1, causal=True)
+                                      v_cache.scale, n, pos - 1, causal=True)
+    return flash_attention(q, k_cache, v_cache, n, pos - 1, causal=True)
 
 
 # ---------------- paged: block pools through block tables ----------------
@@ -79,18 +83,21 @@ def gather_kv_view(pool, table: torch.Tensor, s_c: int):
     return gather_blocks(pool, table)
 
 
-def paged_decode_attention(q, pool_k, pool_v, table: torch.Tensor, pos) -> torch.Tensor:
+def paged_decode_attention(q, pool_k, pool_v, table: torch.Tensor, pos,
+                           kv_len=None) -> torch.Tensor:
     """q (B, Hq, 1, D) at absolute position ``pos`` (B,) of each lane over
     a pool read through ``table`` (B, MB): the keys at positions <= pos are
     valid, the semantics of ``decode_attention(q, ck, cv, pos + 1)`` over
-    the gathered view (JAX ``models/blocks.py:413``).  A float pool goes to
-    B6, a packed one to B7."""
+    the gathered view (JAX ``models/blocks.py:413``; a ring passes
+    ``kv_len`` = min(pos + 1, MB * bs)).  A float pool goes to B6, a packed
+    one to B7."""
     b = q.shape[0]
     pos = _rows(pos, b, q.device)
+    n = pos + 1 if kv_len is None else _rows(kv_len, b, q.device)
     if isinstance(pool_k, PackedKVBlock):
         return paged_packed_flash_attention(q, pool_k.qm, pool_k.scale, pool_v.qm,
-                                            pool_v.scale, table, pos + 1, pos, causal=True)
-    return paged_flash_attention(q, pool_k, pool_v, table, pos + 1, pos, causal=True)
+                                            pool_v.scale, table, n, pos, causal=True)
+    return paged_flash_attention(q, pool_k, pool_v, table, n, pos, causal=True)
 
 
 def _qk_logits(qg, kv) -> torch.Tensor:

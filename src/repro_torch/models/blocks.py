@@ -30,6 +30,17 @@ by every layer (they share one ring length).  The plan is what tells JAX's
 three paged writes apart: :func:`write_plan` gives decode's and
 commit-on-accept's entries, :func:`fill_plan` a prompt fill's, with its
 ``write_start`` prefix skip.
+
+The Griffin hybrid adds two kinds: ``attn_local``, whose cache is a ring
+of :func:`cache_len` = min(max_len, window) slots (JAX :168; prefill masks
+the window, decode reads the first min(pos + 1, S_c) slots, which are the
+ones JAX's ``_ring_decode_attention`` (:380) keeps valid once S_c <=
+window), and ``rglru`` (JAX :78-81): norm1, the recurrent block
+(:mod:`.recurrent`), norm2, ffn, whose cache is a dense per-lane state
+``{'h', 'conv'}`` in the paged pool as well (:194-204).  A recurrent
+step replaces the entries of that dict with new tensors and never
+writes into the old ones; :func:`select_state_step` (:573) and
+:func:`freeze_state` (:590) select rows exactly.
 """
 from __future__ import annotations
 
@@ -45,19 +56,30 @@ from repro_torch.kvq import PackedKVBlock, init_packed_kv, quantize_like
 from .attention import (blockwise_attention, decode_attention, gather_kv_view,
                         paged_decode_attention, verify_attention)
 from .layers import dense, rms_norm, rope
+from .layers import weight as _weight
+from .recurrent import RGLRU, init_rglru_state, rglru_block, rglru_decode_step, rglru_verify
 
 __all__ = ["Layer", "layer_seq", "layer_decode", "init_layer_cache",
            "fill_kv_cache", "layer_verify", "kv_slots", "rollback_kv_cache",
            "init_layer_cache_paged", "WritePlan", "write_plan", "fill_plan",
            "write_kv_blocks", "layer_decode_paged", "layer_verify_paged",
-           "pool_entries", "restore_pool_entries"]
+           "pool_entries", "restore_pool_entries", "pool_block_size", "cache_len", "KIND_HAS_KV",
+           "select_state_step", "freeze_state"]
 
-SUPPORTED_KINDS = ("attn_full",)
+SUPPORTED_KINDS = ("attn_full", "attn_local", "rglru")
+KIND_HAS_KV = {"attn_full": True, "attn_local": True, "rglru": False, "ssd": False}
 
 
-def _weight(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
-                        requires_grad=False)
+def cache_len(cfg, kind: str, max_len: int) -> int:
+    """A KV layer's ring length S_c: the window of an ``attn_local`` layer
+    when it is shorter than ``max_len``, else ``max_len``."""
+    if kind == "attn_local" and cfg.window:
+        return min(max_len, cfg.window)
+    return max_len
+
+
+def _window(cfg, kind: str) -> int:
+    return cfg.window if kind == "attn_local" else 0
 
 
 class _Attn(nn.Module):
@@ -85,20 +107,31 @@ def out_features(w) -> int:
 
 
 class Layer(nn.Module):
-    """One ``attn_full`` decoder layer: norm1, attn {wq, wk, wv, wo},
-    norm2, ffn {w1, w3, w2}.  Projection weights are raw (d_in, d_out)
-    parameters or, once packed, :class:`PackedDSBPWeight` modules."""
+    """One decoder layer of kind ``attn_full`` / ``attn_local`` (norm1,
+    attn {wq, wk, wv, wo}, norm2, ffn {w1, w3, w2}) or ``rglru`` (norm1,
+    rec (:class:`~.recurrent.RGLRU`), norm2, ffn).  Projection weights are
+    raw (d_in, d_out) parameters or, once packed,
+    :class:`PackedDSBPWeight` modules."""
 
     def __init__(self, cfg, kind: str, device):
         super().__init__()
         if kind not in SUPPORTED_KINDS or cfg.n_experts:
             raise NotImplementedError(
                 f"the port serves dense {SUPPORTED_KINDS} layers; {kind!r}"
-                f"{' with MoE' if cfg.n_experts else ''} is not ported yet")
+                f"{' with MoE' if cfg.n_experts else ''} is not ported yet "
+                f"(ROADMAP A6)")
+        self.kind = kind
         self.norm1 = _weight((cfg.d_model,), device)
-        self.attn = _Attn(cfg, device)
+        if kind == "rglru":
+            self.rec = RGLRU(cfg, device)
+        else:
+            self.attn = _Attn(cfg, device)
         self.norm2 = _weight((cfg.d_model,), device)
         self.ffn = _FFN(cfg, device)
+
+    @property
+    def has_kv(self) -> bool:
+        return KIND_HAS_KV[self.kind]
 
     def kv_heads(self, cfg) -> int:
         """The KV heads this layer's weights produce (a rank's share)."""
@@ -136,7 +169,8 @@ def _qkv(attn: _Attn, y, cfg, quant, positions):
 def _attn_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
     y = rms_norm(layer.norm1, x, cfg.norm_eps)
     q, k, v = _qkv(layer.attn, y, cfg, quant, positions)
-    o = blockwise_attention(q, k, v, causal=True, kv_lens=lengths)
+    o = blockwise_attention(q, k, v, causal=True, window=_window(cfg, layer.kind),
+                            kv_lens=lengths)
     b, s, _ = x.shape
     o = o.transpose(1, 2).reshape(b, s, -1)
     x = x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
@@ -144,9 +178,15 @@ def _attn_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
 
 
 def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
-    """One layer in sequence mode: returns (x_out, (k, v)) — the layer's
-    keys and values for cache construction.  ``lengths`` (B,) marks
-    right-padded rows: keys at/after each row's length are masked."""
+    """One layer in sequence mode: returns (x_out, aux), aux the layer's
+    keys and values (k, v) for cache construction, or a recurrent layer's
+    end state {h, conv} from a zero state.  ``lengths`` (B,) marks
+    right-padded rows: keys at/after each row's length are masked, and
+    recurrent state freezes across the pad."""
+    if layer.kind == "rglru":
+        y = rms_norm(layer.norm1, x, cfg.norm_eps)
+        o, st = rglru_block(layer.rec, y, cfg, quant, lengths=lengths)
+        return _mlp_part(layer, x + o, cfg, quant), st
     x, kv = _attn_seq(layer, x, cfg, quant, positions, lengths)
     return _mlp_part(layer, x, cfg, quant), kv
 
@@ -154,12 +194,16 @@ def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
 # ---------------- caches ----------------
 
 def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None,
-                     n_kv_heads: int | None = None) -> dict:
-    """One {'k', 'v'} cache entry: float tensors, or packed blocks when a
-    resolved ``kv`` spec (:class:`~repro_torch.kvq.KVQuantConfig`) is set.
-    ``n_kv_heads`` is the layer's own (a rank's under a mesh; default
+                     n_kv_heads: int | None = None, kind: str = "attn_full") -> dict:
+    """One {'k', 'v'} cache entry of :func:`cache_len` slots: float
+    tensors, or packed blocks when a resolved ``kv`` spec
+    (:class:`~repro_torch.kvq.KVQuantConfig`) is set; or a recurrent
+    layer's zero state {h, conv} (``kv`` does not apply).  ``n_kv_heads``
+    is the layer's own (a rank's under a mesh; default
     ``cfg.n_kv_heads``)."""
-    shp = (batch, n_kv_heads or cfg.n_kv_heads, max_len, cfg.d_head)
+    if not KIND_HAS_KV[kind]:
+        return init_rglru_state(batch, cfg, device)
+    shp = (batch, n_kv_heads or cfg.n_kv_heads, cache_len(cfg, kind, max_len), cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
     return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
@@ -217,6 +261,14 @@ def fill_kv_cache(cache: dict, k, v, lengths, slots=None, rows=None) -> dict:
 
 # ---------------- decode ----------------
 
+def _ring_len(layer: Layer, pos, s_c: int):
+    """The valid slots of a decode read at positions ``pos`` (B,): pos + 1,
+    bounded by the ring length for an ``attn_local`` ring (after it wraps,
+    every slot holds one of the last S_c <= window positions)."""
+    n = pos + 1
+    return torch.clamp(n, max=s_c) if layer.kind == "attn_local" else n
+
+
 def _attn_decode(layer: Layer, x, cfg, quant, cache: dict, pos: torch.Tensor):
     """x: (B, 1, d); pos: (B,) int32 absolute position of the incoming
     token per row (ragged slots advance independently).  The new K/V are
@@ -232,13 +284,25 @@ def _attn_decode(layer: Layer, x, cfg, quant, cache: dict, pos: torch.Tensor):
         fresh = quantize_like(cache[name], fresh)
         for leaf, fl in _leaf_pairs(cache[name], fresh):
             leaf[bidx, :, slot] = fl[:, :, 0]
-    o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    o = decode_attention(q, cache["k"], cache["v"], pos + 1, kv_len=_ring_len(layer, pos, s_c))
     o = o.transpose(1, 2).reshape(b, 1, -1)
     return x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
 
 
+def _rec_decode(layer: Layer, x, cfg, quant, state: dict):
+    """A recurrent layer's decode step: (x, the new state)."""
+    y = rms_norm(layer.norm1, x, cfg.norm_eps)
+    o, new = rglru_decode_step(layer.rec, y, state, cfg, quant)
+    return _mlp_part(layer, x + o, cfg, quant), new
+
+
 def layer_decode(layer: Layer, x, cfg, cache: dict, pos, quant=None):
-    """One decode step through one layer; the cache updates in place."""
+    """One decode step through one layer; the cache updates in place (a
+    recurrent layer's entries are replaced by its new state)."""
+    if layer.kind == "rglru":
+        x, new = _rec_decode(layer, x, cfg, quant, cache)
+        cache.update(new)
+        return x
     x = _attn_decode(layer, x, cfg, quant, cache, pos)
     return _mlp_part(layer, x, cfg, quant)
 
@@ -267,7 +331,7 @@ def _verify_attend(layer: Layer, x, cfg, quant, like: dict, ck, cv, posb):
     q, k, v = _qkv(layer.attn, y, cfg, quant, positions)
     kq = quantize_like(like["k"], k)
     vq = quantize_like(like["v"], v)
-    o = verify_attention(q, kq, vq, ck, cv, posb)
+    o = verify_attention(q, kq, vq, ck, cv, posb, window=_window(cfg, layer.kind))
     o = o.transpose(1, 2).reshape(b, t, -1)
     return x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo"), kq, vq
 
@@ -283,14 +347,25 @@ def _attn_verify(layer: Layer, x, cfg, quant, cache: dict, posb):
     return x
 
 
+def _rec_verify(layer: Layer, x, cfg, quant, state: dict):
+    y = rms_norm(layer.norm1, x, cfg.norm_eps)
+    o, new, steps = rglru_verify(layer.rec, y, cfg, quant, state)
+    return _mlp_part(layer, x + o, cfg, quant), new, steps
+
+
 def layer_verify(layer: Layer, x, cfg, cache: dict, pos, quant=None):
     """T tokens through one layer in verify mode (x (B, T, d), ``pos`` (B,)
     the position of token 0 of each row); the cache advances by all T
-    tokens, in place.  What a rollback needs of an attention layer is the
-    old content of those slots (:func:`kv_slots`); the per-step states of
-    recurrent layers (JAX ``select_state_step``) come with their families."""
+    tokens, in place.  Returns (x, steps): what a rollback needs of an
+    attention layer is the old content of its slots (:func:`kv_slots`,
+    taken before), so ``steps`` is empty; a recurrent layer's are its
+    per-step states, for :func:`select_state_step`."""
+    if layer.kind == "rglru":
+        x, new, steps = _rec_verify(layer, x, cfg, quant, cache)
+        cache.update(new)
+        return x, steps
     x = _attn_verify(layer, x, cfg, quant, cache, pos)
-    return _mlp_part(layer, x, cfg, quant)
+    return _mlp_part(layer, x, cfg, quant), {}
 
 
 def kv_slots(cache: dict, pos, n: int) -> dict:
@@ -321,14 +396,24 @@ def rollback_kv_cache(cache: dict, old: dict, keep, pos, n_new: int) -> dict:
 # ---------------- paged cache: block pools through block tables ----------------
 
 def init_layer_cache_paged(cfg, num_blocks: int, block_size: int, device,
-                           kv=None) -> dict:
+                           kv=None, kind: str = "attn_full", batch: int = 0) -> dict:
     """One layer's block pool ``{'k', 'v'}`` (NB, Hkv, bs, D): no batch
-    axis; lanes address it through their block tables."""
+    axis; lanes address it through their block tables.  A recurrent
+    layer keeps its dense state of ``batch`` lanes (nothing to page in an
+    O(1) state)."""
+    if not KIND_HAS_KV[kind]:
+        return init_rglru_state(batch, cfg, device)
     shp = (num_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
     return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
             "v": torch.zeros(shp, dtype=torch.float32, device=device)}
+
+
+def pool_block_size(cache: list[dict]) -> int:
+    """The block size of a paged cache: the slot axis of its first pool
+    (1 when the model has no KV layer)."""
+    return next((c["k"].shape[2] for c in cache if "k" in c), 1)
 
 
 def to_host(x) -> np.ndarray:
@@ -431,16 +516,24 @@ def _attn_decode_paged(layer: Layer, x, cfg, quant, pool: dict, table, posb,
     y = rms_norm(layer.norm1, x, cfg.norm_eps)
     q, k, v = _qkv(layer.attn, y, cfg, quant, posb[:, None])
     write_kv_blocks(pool, k, v, plan)
-    o = paged_decode_attention(q, pool["k"], pool["v"], table, posb)
+    s_c = table.shape[1] * pool["k"].shape[2]
+    o = paged_decode_attention(q, pool["k"], pool["v"], table, posb,
+                               kv_len=_ring_len(layer, posb, s_c))
     o = o.transpose(1, 2).reshape(b, 1, -1)
     return x + dense(layer.attn.wo, o.to(x.dtype), quant, name="wo")
 
 
 def layer_decode_paged(layer: Layer, x, cfg, pool: dict, table, pos,
-                       plan: WritePlan, quant=None):
+                       plan: WritePlan, quant=None, live=None):
     """One paged decode step through one layer; the pool updates in place.
-    ``table`` (B, MB) and ``pos`` (B,) on the device, ``plan`` the step's
-    :func:`write_plan`."""
+    ``table`` (B, S_c / bs) and ``pos`` (B,) on the device, ``plan`` the
+    step's :func:`write_plan` for this layer's ring.  A recurrent layer's
+    lanes advance where ``live`` (B,) is set and keep their state bit for
+    bit elsewhere (:func:`freeze_state`)."""
+    if layer.kind == "rglru":
+        x, new = _rec_decode(layer, x, cfg, quant, pool)
+        pool.update(freeze_state(pool, new, live))
+        return x
     x = _attn_decode_paged(layer, x, cfg, quant, pool, table, pos, plan)
     return _mlp_part(layer, x, cfg, quant)
 
@@ -461,7 +554,37 @@ def layer_verify_paged(layer: Layer, x, cfg, pool: dict, table, pos, quant=None,
                        s_c: int = 0):
     """T tokens through one layer in paged verify mode (chunked prefill
     rides this path): returns (x, steps) with the fresh per-layer K/V in
-    ``steps``; :func:`write_kv_blocks` commits what is kept."""
+    ``steps`` (:func:`write_kv_blocks` commits what is kept), or a
+    recurrent layer's per-step states (:func:`select_state_step`).
+    Nothing is written."""
+    if layer.kind == "rglru":
+        x, _, steps = _rec_verify(layer, x, cfg, quant, pool)
+        return x, steps
     x, steps = _attn_verify_paged(layer, x, cfg, quant, pool, table, pos, s_c)
     return _mlp_part(layer, x, cfg, quant), steps
 
+
+# ---------------- recurrent state: exact row selection ----------------
+
+def _rows_mask(m: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return m.reshape(-1, *([1] * (like.ndim - 1)))
+
+
+def freeze_state(old: dict, new: dict, write_len) -> dict:
+    """Rows with ``write_len`` > 0 take ``new``, the rest keep ``old`` bit
+    for bit: how paged decode and verify freeze the state of idle and
+    chunk-phase lanes (their KV twin writes nothing)."""
+    m = torch.as_tensor(write_len, device=new["h"].device) > 0
+    return {k: torch.where(_rows_mask(m, n), n, old[k].to(n.dtype)) for k, n in new.items()}
+
+
+def select_state_step(steps: dict, keep, old: dict | None = None) -> dict:
+    """Per-row state after the accepted prefix: entry ``keep[b] - 1`` of
+    every per-step leaf (B, T, ...) of a verify pass.  With ``old`` (the
+    pre-verify state), rows with ``keep`` 0 keep it bit for bit."""
+    h = steps["h"]
+    keep = torch.as_tensor(keep, device=h.device).to(torch.int64)
+    idx = torch.clamp(keep - 1, min=0)
+    rows = torch.arange(h.shape[0], device=h.device)
+    picked = {k: leaf[rows, idx] for k, leaf in steps.items()}
+    return picked if old is None else freeze_state(old, picked, keep)

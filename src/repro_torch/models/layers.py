@@ -11,7 +11,14 @@ from repro_torch.core.packed import PackedDSBPWeight, get_quant_method
 from repro_torch.core.quantized import PRESETS
 from repro_torch.parallel.context import fold_partials
 
-__all__ = ["rms_norm", "rope", "Quant", "dense"]
+__all__ = ["rms_norm", "rope", "Quant", "dense", "weight"]
+
+
+def weight(shape, device) -> torch.nn.Parameter:
+    """An uninitialized f32 parameter (no gradient: the port serves), which
+    ``model.init`` or ``repro_torch.bridge`` fills."""
+    return torch.nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
+                              requires_grad=False)
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -8,7 +8,13 @@ Port of the dense main path of ``repro.models.model``: :func:`init` (:46),
 speculative decoding, and the paged
 cache's ``init_paged_cache`` (:286), ``prefill_paged`` (:314),
 ``decode_step_paged`` (:405), ``verify_step_paged`` (:539) and
-``rollback_cache_paged`` (:581).  Under a mesh (``parallel``) a rank's
+``rollback_cache_paged`` (:581).  The Griffin hybrid's layers
+(``rglru``, ``attn_local``) and tied embeddings (``_head`` :94 reads
+``embed.T``) run through all of them: each KV layer keeps its own ring
+length (``blocks.cache_len``, as JAX :425-430), the paged steps plan
+their writes and cut their tables once per ring length, and recurrent
+state rides in the same per-layer list (``select_state_step`` in the
+rollbacks, JAX :505-537 and :581-613).  Under a mesh (``parallel``) a rank's
 layers hold its head and column shards, its caches its own rows and KV
 heads, and :meth:`Model.head` assembles the vocab over 'model'.  The JAX
 ``lax.scan`` over stacked units becomes a loop over ``Model.layers``
@@ -28,46 +34,59 @@ from repro_torch.kvq import kv_policy_cfg
 from repro_torch.parallel.context import gather_columns
 
 from . import blocks
-from .layers import Quant, rms_norm
+from .layers import Quant, rms_norm, weight
 
 __all__ = ["Model", "init", "shared"]
 
 NEG_INF = -1e30
 
 
-def _step_inputs(table, pos, max_len: int, block_size: int, device):
-    """A paged step's device inputs, uploaded once for every layer: the
-    block table cut to the ring's ``max_len // block_size`` entries and
-    the (B,) positions."""
-    nb = max_len // block_size
-    if nb * block_size != max_len:
-        raise ValueError(f"cache length {max_len} not a multiple of block size "
-                         f"{block_size}")
+def _step_tables(table, scs, block_size: int, device) -> dict:
+    """A paged step's block tables on the device, uploaded once for every
+    layer: for each ring length S_c of the model, the (B, S_c / bs) int32
+    table (one table entry spans ``block_size`` ring slots of every KV
+    layer, so a shorter ring reads the first entries)."""
     tab = blocks.to_host(table)
-    b = tab.shape[0]
-    posb = np.broadcast_to(blocks.to_host(pos).astype(np.int32), (b,))
-    return (torch.as_tensor(np.ascontiguousarray(tab[:, :nb], np.int32), device=device),
-            torch.as_tensor(np.array(posb), device=device), posb)
+    out = {}
+    for s_c in scs:
+        nb = s_c // block_size
+        if nb * block_size != s_c:
+            raise ValueError(f"cache length {s_c} not a multiple of block size "
+                             f"{block_size}")
+        out[s_c] = torch.as_tensor(np.ascontiguousarray(tab[:, :nb], np.int32),
+                                   device=device)
+    return out
+
+
+def _host_pos(table, pos) -> np.ndarray:
+    b = blocks.to_host(table).shape[0]
+    return np.array(np.broadcast_to(blocks.to_host(pos).astype(np.int32), (b,)))
 
 
 class Model(nn.Module):
     """Parameters (JAX tree names): ``embed`` (Vp, d), ``final_norm`` (d,),
-    ``lm_head`` (d, Vp), ``layers[i]`` (:class:`blocks.Layer`).  The
-    constructor allocates them uninitialized; :func:`init` or
-    ``repro_torch.bridge`` fills them."""
+    ``lm_head`` (d, Vp) unless the embeddings are tied (the head is then
+    ``embed.T``), ``layers[i]`` (:class:`blocks.Layer`).  The constructor
+    allocates them uninitialized; :func:`init` or ``repro_torch.bridge``
+    fills them.
+
+    The cache is one entry per layer: a KV layer's ``{'k', 'v'}`` (dense:
+    (B, Hkv, S_c, D) with S_c = :func:`blocks.cache_len`; paged: a block
+    pool) or a recurrent layer's per-lane state ``{'h', 'conv'}``."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
-        if cfg.frontend != "none" or cfg.tie_embeddings or cfg.dtype != "float32":
+        if cfg.frontend != "none" or cfg.dtype != "float32":
             raise NotImplementedError(
-                "the port serves untied float32 text decoders; frontend "
-                f"{cfg.frontend!r}, tie_embeddings={cfg.tie_embeddings}, dtype "
-                f"{cfg.dtype!r} are not ported yet")
+                "the port serves float32 text decoders; frontend "
+                f"{cfg.frontend!r}, dtype {cfg.dtype!r} are not ported yet "
+                "(ROADMAP A6)")
         self.cfg = cfg
         vp, d = cfg.padded_vocab_size, cfg.d_model
-        self.embed = blocks._weight((vp, d), device)
-        self.final_norm = blocks._weight((d,), device)
-        self.lm_head = blocks._weight((d, vp), device)
+        self.embed = weight((vp, d), device)
+        self.final_norm = weight((d,), device)
+        if not cfg.tie_embeddings:
+            self.lm_head = weight((d, vp), device)
         kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail)
         self.layers = nn.ModuleList(blocks.Layer(cfg, kind, device) for kind in kinds)
 
@@ -78,6 +97,17 @@ class Model(nn.Module):
     def default_quant(self) -> Quant:
         return Quant(self.cfg.quant, self.cfg.quant_method)
 
+    def ring_lens(self, max_len: int) -> list:
+        """Each layer's ring length S_c under ``max_len`` (None for a
+        recurrent layer)."""
+        return [blocks.cache_len(self.cfg, layer.kind, max_len) if layer.has_kv else None
+                for layer in self.layers]
+
+    def kv_ring_lens(self, max_len: int) -> list[int]:
+        """The distinct ring lengths of the KV layers, ascending (JAX's
+        ``Engine._kv_scs``)."""
+        return sorted({s for s in self.ring_lens(max_len) if s is not None})
+
     # ---------------- embedding / head ----------------
 
     def embed_tokens(self, tokens: torch.Tensor):
@@ -87,10 +117,15 @@ class Model(nn.Module):
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Logits over the padded vocab; padded rows masked to -1e30.
-        Under a mesh a rank holds its own vocab columns of ``lm_head`` (the
-        JAX placement) and the logits assemble over 'model'."""
-        logits = gather_columns(torch.matmul(x, self.lm_head.to(x.dtype)), "lm_head",
-                                self.cfg.padded_vocab_size)
+        Tied embeddings read ``embed.T`` (a plain matmul, as JAX's
+        ``_head``).  Under a mesh a rank holds its own vocab columns of
+        ``lm_head`` (the JAX placement) and the logits assemble over
+        'model'."""
+        if self.cfg.tie_embeddings:
+            logits = torch.matmul(x, self.embed.to(x.dtype).T)
+        else:
+            logits = gather_columns(torch.matmul(x, self.lm_head.to(x.dtype)), "lm_head",
+                                    self.cfg.padded_vocab_size)
         vp, v = self.cfg.padded_vocab_size, self.cfg.vocab_size
         if vp != v:
             valid = torch.arange(logits.shape[-1], device=logits.device) % vp < v
@@ -110,24 +145,25 @@ class Model(nn.Module):
     def prefill_trunk(self, tokens: torch.Tensor, lengths=None,
                       quant: Quant | None = None):
         """The prompt forward: returns (per-row last-valid-token logits
-        (B, 1, Vp), per-layer (k, v), fill_len) with fill_len the (B,)
-        lengths, or the int prompt width when ``lengths`` is None."""
+        (B, 1, Vp), per-layer aux — (k, v) of a KV layer, the end state of
+        a recurrent one — and fill_len) with fill_len the (B,) lengths, or
+        the int prompt width when ``lengths`` is None."""
         quant = self.default_quant() if quant is None else quant
         x, positions = self.embed_tokens(tokens)
         length = x.shape[1]
         if lengths is not None:
             lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
-        kvs = []
+        auxs = []
         for layer in self.layers:
-            x, kv = blocks.layer_seq(layer, x, self.cfg, quant, positions, lengths)
-            kvs.append(kv)
+            x, aux = blocks.layer_seq(layer, x, self.cfg, quant, positions, lengths)
+            auxs.append(aux)
         x = rms_norm(self.final_norm, x, self.cfg.norm_eps)
         if lengths is None:
             x_last = x[:, -1:]
         else:  # per-row last valid position, not the pad slot
             idx = (lengths.to(torch.int64) - 1).clamp(0, length - 1)
             x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-        return self.head(x_last), kvs, (length if lengths is None else lengths)
+        return self.head(x_last), auxs, (length if lengths is None else lengths)
 
     # ---------------- caches / serving ----------------
 
@@ -149,23 +185,40 @@ class Model(nn.Module):
         return tree
 
     def init_cache(self, batch: int, max_len: int, kv=None) -> list[dict]:
-        """Per-layer ``{'k', 'v'}`` caches; ``kv`` an optional KV-quant spec
-        (preset name / bits / config, or a mapping keyed ``units.<i>`` /
-        ``tail.<i>`` with a ``default``) makes them packed."""
+        """Per-layer caches: ``{'k', 'v'}`` of each KV layer's ring length,
+        zero ``{'h', 'conv'}`` of each recurrent one; ``kv`` an optional
+        KV-quant spec (preset name / bits / config, or a mapping keyed
+        ``units.<i>`` / ``tail.<i>`` with a ``default``) makes the KV ones
+        packed."""
         return [blocks.init_layer_cache(self.cfg, batch, max_len, self.device,
                                         kv=kv_policy_cfg(kv, self.cache_entry_name(i)),
-                                        n_kv_heads=layer.kv_heads(self.cfg))
+                                        n_kv_heads=layer.kv_heads(self.cfg) if layer.has_kv
+                                        else None, kind=layer.kind)
                 for i, layer in enumerate(self.layers)]
+
+    def fill_cache(self, cache: list[dict], auxs, fill_len, slots=None, rows=None) -> list[dict]:
+        """Write a prefill's per-layer aux into the cache in place: all rows,
+        or fresh rows ``rows`` into cache rows ``slots`` (one each); a KV
+        layer through :func:`blocks.fill_kv_cache`, a recurrent one's end
+        state row for row."""
+        for layer, c, aux in zip(self.layers, cache, auxs):
+            if layer.has_kv:
+                blocks.fill_kv_cache(c, *aux, fill_len, slots=slots, rows=rows)
+            elif slots is None:
+                c.update(aux)
+            else:
+                sl = torch.as_tensor(slots, device=self.device)
+                for name, leaf in c.items():
+                    leaf[sl] = aux[name][rows].to(leaf.dtype)
+        return cache
 
     def prefill(self, tokens: torch.Tensor, max_len: int, lengths=None,
                 quant: Quant | None = None, kv=None):
         """Run the prompt; returns (last-valid-position logits, a fresh
-        cache of ``max_len`` slots holding each row's prefix, fill_len)."""
-        logits, kvs, fill_len = self.prefill_trunk(tokens, lengths, quant)
+        cache of ``max_len`` positions holding each row's prefix, fill_len)."""
+        logits, auxs, fill_len = self.prefill_trunk(tokens, lengths, quant)
         cache = self.init_cache(tokens.shape[0], max_len, kv=kv)
-        for c, (k, v) in zip(cache, kvs):
-            blocks.fill_kv_cache(c, k, v, fill_len)
-        return logits, cache, fill_len
+        return logits, self.fill_cache(cache, auxs, fill_len), fill_len
 
     def decode_step(self, tokens: torch.Tensor, cache: list[dict], pos,
                     quant: Quant | None = None):
@@ -180,134 +233,274 @@ class Model(nn.Module):
             x = blocks.layer_decode(layer, x, self.cfg, c, pos, quant)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), cache
 
+    # ---------------- recurrent state: keep and restore ----------------
+
+    def state_refs(self, cache: list[dict]) -> list:
+        """The current state tensors of every recurrent layer (a shallow
+        copy of its dict; None for KV layers): no copy of any tensor, since
+        a step replaces state and never writes into it."""
+        return [None if layer.has_kv else dict(c) for layer, c in zip(self.layers, cache)]
+
+    def restore_states(self, cache: list[dict], refs: list) -> list[dict]:
+        """Put back the recurrent states of :meth:`state_refs` (or of
+        :meth:`kv_slots` / :meth:`pool_entries`), in place; KV layers are
+        left as they are."""
+        for layer, c, r in zip(self.layers, cache, refs):
+            if not layer.has_kv:
+                c.update(r)
+        return cache
+
+    def undo_draft(self, cache: list[dict], saved: list, pos, n: int) -> list[dict]:
+        """Undo a speculative draft's writes to a dense cache before the
+        verify, in place, from :meth:`kv_slots`' ``saved``: recurrent
+        layers get their pre-round state back, and ``attn_local`` rings
+        their slots pos .. pos+n-1.  On a ring those slots hold live
+        history once it has wrapped (slot r reads as the last position
+        below pos congruent to r), which the verify's earlier queries still
+        attend; a full-length cache needs nothing, since the verify masks
+        every slot at or past pos there."""
+        b = _batch(cache)
+        posd = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
+        zero = torch.zeros(b, dtype=torch.int64, device=self.device)
+        for layer, c, old in zip(self.layers, cache, saved):
+            if not layer.has_kv:
+                c.update(old)
+            elif layer.kind == "attn_local":
+                blocks.rollback_kv_cache(c, old, zero, posd, n)
+        return cache
+
     # ---------------- speculative verification ----------------
 
     def verify_step(self, tokens: torch.Tensor, cache: list[dict], pos,
-                    quant: Quant | None = None, collect_rollback: bool = False):
+                    quant: Quant | None = None, collect_rollback: bool = False,
+                    saved: list | None = None):
         """T tokens per row in one forward (token j of row b at position
-        pos[b] + j; T <= the cache length): logits (B, T, Vp) equal to T
+        pos[b] + j; T <= every ring length): logits (B, T, Vp) equal to T
         chained :meth:`decode_step` calls, the cache advanced by all T
-        tokens in place.  With ``collect_rollback`` also the old content
-        of the T slots of every layer (:meth:`kv_slots`, taken before the
-        writes), for :meth:`rollback_cache`.  Returns (logits, cache) or
-        (logits, cache, rollback)."""
+        tokens in place.  With ``collect_rollback`` also what
+        :meth:`rollback_cache` needs: per KV layer the old content of its
+        T slots (:meth:`kv_slots`, taken before the writes, or ``saved``
+        when the caller took them earlier), per recurrent layer the pass's
+        per-step states.  Returns (logits, cache) or (logits, cache,
+        rollback)."""
         quant = self.default_quant() if quant is None else quant
         b, t = tokens.shape[:2]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device).expand(b)
-        rollback = self.kv_slots(cache, pos, t) if collect_rollback else None
+        rollback = None
+        if collect_rollback:
+            rollback = list(saved if saved is not None else self.kv_slots(cache, pos, t))
         x = self.embed[tokens]
-        for layer, c in zip(self.layers, cache):
-            x = blocks.layer_verify(layer, x, self.cfg, c, pos, quant)
+        for i, (layer, c) in enumerate(zip(self.layers, cache)):
+            x, steps = blocks.layer_verify(layer, x, self.cfg, c, pos, quant)
+            if rollback is not None and not layer.has_kv:
+                rollback[i] = steps
         logits = self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps))
         return (logits, cache, rollback) if collect_rollback else (logits, cache)
 
-    def kv_slots(self, cache: list[dict], pos, n: int) -> list[dict]:
-        """Copies of ring slots pos .. pos+n-1 of every row and layer (every
-        child of a packed leaf): what a speculative round overwrites, a
-        few kilobytes per row and layer."""
-        b = cache[0]["k"].shape[0]
+    def kv_slots(self, cache: list[dict], pos, n: int) -> list:
+        """What a speculative round overwrites: copies of ring slots pos ..
+        pos+n-1 of every row of each KV layer (every child of a packed
+        leaf, a few kilobytes per row and layer), and the state of each
+        recurrent layer (:meth:`state_refs`, no copy)."""
+        b = _batch(cache)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
-        return [blocks.kv_slots(c, pos, n) for c in cache]
+        return [blocks.kv_slots(c, pos, n) if layer.has_kv else dict(c)
+                for layer, c in zip(self.layers, cache)]
 
-    def rollback_cache(self, cache: list[dict], rollback: list[dict], keep, pos,
+    def rollback_cache(self, cache: list[dict], rollback: list, keep, pos,
                        n_new: int) -> list[dict]:
         """Roll a :meth:`verify_step`-advanced cache back to the accepted
         prefix in place: row b keeps its first ``keep[b]`` (1 .. n_new)
-        verified tokens, and the slots of the rest get ``rollback`` (their
-        content before the round) back, so the cache equals the pre-round
-        cache plus the accepted writes, bit for bit."""
-        b = cache[0]["k"].shape[0]
+        verified tokens.  KV layers get the old content of the rejected
+        slots back (``rollback`` from :meth:`kv_slots`), recurrent layers
+        take the per-step state at ``keep[b] - 1`` of the verify pass, so
+        the cache equals the pre-round cache plus the accepted tokens, bit
+        for bit."""
+        b = _batch(cache)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
-        for c, old in zip(cache, rollback):
-            blocks.rollback_kv_cache(c, old, keep, pos, n_new)
+        for layer, c, old in zip(self.layers, cache, rollback):
+            if layer.has_kv:
+                blocks.rollback_kv_cache(c, old, keep, pos, n_new)
+            else:
+                c.update(blocks.select_state_step(old, keep))
         return cache
 
     # ---------------- paged cache ----------------
 
-    def init_paged_cache(self, num_blocks: int, block_size: int, kv=None) -> list[dict]:
+    def init_paged_cache(self, num_blocks: int, block_size: int, kv=None,
+                         batch: int = 0) -> list[dict]:
         """Per-layer block pools ``{'k', 'v'}`` (NB, Hkv, bs, D), shared by
-        every lane and addressed through per-lane block tables; one block
-        id spans ``block_size`` ring slots of every layer at once."""
+        every lane and addressed through per-lane block tables (one block
+        id spans ``block_size`` ring slots of every KV layer at once), and
+        the dense zero state of ``batch`` lanes of each recurrent layer."""
         return [blocks.init_layer_cache_paged(
                     self.cfg, num_blocks, block_size, self.device,
-                    kv=kv_policy_cfg(kv, self.cache_entry_name(i)))
-                for i in range(len(self.layers))]
+                    kv=kv_policy_cfg(kv, self.cache_entry_name(i)), kind=layer.kind,
+                    batch=batch)
+                for i, layer in enumerate(self.layers)]
+
+    def write_plans(self, table, pos, write_len, t: int, max_len: int, *,
+                    block_size: int) -> dict:
+        """One :func:`blocks.write_plan` per ring length S_c of the model:
+        T tokens per lane from ``pos``, the first ``write_len[b]`` of lane b."""
+        return {s_c: blocks.write_plan(table, pos, write_len, t, s_c, block_size=block_size,
+                                       device=self.device)
+                for s_c in self.kv_ring_lens(max_len)}
+
+    def pool_entries(self, cache: list[dict], plans: dict, max_len: int) -> list:
+        """Copies of the pool rows ``plans`` write (:meth:`write_plans`) of
+        each KV layer, and each recurrent layer's state (no copy): what a
+        paged speculative draft overwrites."""
+        return [blocks.pool_entries(c, plans[s]) if s is not None else dict(c)
+                for c, s in zip(cache, self.ring_lens(max_len))]
+
+    def restore_pool_entries(self, cache: list[dict], plans: dict, saved: list,
+                             max_len: int) -> list[dict]:
+        """Put :meth:`pool_entries`' copies and states back, in place."""
+        for c, s, old in zip(cache, self.ring_lens(max_len), saved):
+            if s is None:
+                c.update(old)
+            else:
+                blocks.restore_pool_entries(c, plans[s], old)
+        return cache
+
+    def insert_states(self, cache: list[dict], src: list[dict], rows, lanes) -> list[dict]:
+        """Write rows ``rows`` of the recurrent states in ``src`` (the
+        per-layer output of :meth:`prefill_paged`) into the lanes ``lanes``
+        of the pool's recurrent layers, in place; KV layers were written
+        through the block tables already (JAX ``_cache_insert``, mode
+        'src').  ``src`` None writes zeros: a lane that starts a chunked
+        prefill from the pristine state (mode 'pool')."""
+        if not len(lanes):
+            return cache
+        ln = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        rw = None if src is None else torch.as_tensor(np.asarray(rows, np.int64),
+                                                      device=self.device)
+        for i, (layer, c) in enumerate(zip(self.layers, cache)):
+            if layer.has_kv:
+                continue
+            for name, leaf in c.items():
+                leaf[ln] = 0 if src is None else src[i][name][rw].to(leaf.dtype)
+        return cache
 
     def prefill_paged(self, tokens: torch.Tensor, cache: list[dict], table, max_len: int,
                       lengths=None, write_start=None, quant: Quant | None = None):
         """Prompt admission into the block pools: the same trunk as
-        :meth:`prefill` (the same logits), each layer's K/V scattered
+        :meth:`prefill` (the same logits), each KV layer's K/V scattered
         through ``table`` (B_adm, MB) in place; ``write_start`` (B_adm,)
         skips positions below it (prefix hits stay shared).  Returns
-        (logits, cache, fill_len)."""
-        logits, kvs, fill_len = self.prefill_trunk(tokens, lengths, quant)
-        bs = cache[0]["k"].shape[2]
-        # the plan from the host's lengths: no device-to-host copy
-        plan = blocks.fill_plan(table, fill_len if lengths is None else lengths, max_len,
-                                block_size=bs, device=self.device, write_start=write_start)
-        for c, (k, v) in zip(cache, kvs):
-            blocks.write_kv_blocks(c, k, v, plan)
-        return logits, cache, fill_len
+        (logits, per-layer entries, fill_len): the pools of the KV layers,
+        and in place of each recurrent layer's lane state the admitted
+        rows' end states (B_adm, ...), for :meth:`insert_states`, as JAX's
+        ``prefill_paged`` returns them."""
+        logits, auxs, fill_len = self.prefill_trunk(tokens, lengths, quant)
+        bs = blocks.pool_block_size(cache)
+        # the plans from the host's lengths: no device-to-host copy
+        lens = fill_len if lengths is None else lengths
+        plans = {s_c: blocks.fill_plan(table, lens, s_c, block_size=bs, device=self.device,
+                                       write_start=write_start)
+                 for s_c in self.kv_ring_lens(max_len)}
+        out = list(cache)
+        for i, (c, s_c, aux) in enumerate(zip(cache, self.ring_lens(max_len), auxs)):
+            if s_c is None:
+                out[i] = aux
+            else:
+                blocks.write_kv_blocks(c, *aux, plans[s_c])
+        return logits, out, fill_len
 
     def decode_step_paged(self, tokens: torch.Tensor, cache: list[dict], table, pos,
                           write_len, max_len: int, quant: Quant | None = None):
         """One token per lane through the block pools: ``table`` (B, MB),
         ``pos`` and ``write_len`` (B,) as host arrays (the plan of the
-        step's writes is computed once on the host; the table and the
-        positions go to the device once for all layers).  Lanes with
-        ``write_len`` 0 write nothing and their logits are to be ignored.
-        Returns (logits (B, 1, Vp), cache)."""
+        step's writes is computed once per ring length on the host; the
+        tables and the positions go to the device once for all layers).
+        Lanes with ``write_len`` 0 write nothing, keep their recurrent
+        state, and their logits are to be ignored.  Returns (logits (B, 1,
+        Vp), cache)."""
         quant = self.default_quant() if quant is None else quant
-        bs = cache[0]["k"].shape[2]
-        tab, posd, posb = _step_inputs(table, pos, max_len, bs, self.device)
-        plan = blocks.write_plan(table, posb, write_len, 1, max_len, block_size=bs,
-                                 device=self.device)
+        bs = blocks.pool_block_size(cache)
+        scs = self.ring_lens(max_len)
+        tabs = _step_tables(table, self.kv_ring_lens(max_len), bs, self.device)
+        posb = _host_pos(table, pos)
+        posd = torch.as_tensor(posb, device=self.device)
+        plans = self.write_plans(table, posb, write_len, 1, max_len, block_size=bs)
+        live = None
+        if any(s is None for s in scs):
+            live = torch.as_tensor(blocks.to_host(write_len) > 0, device=self.device)
         x = self.embed[tokens]
-        for layer, c in zip(self.layers, cache):
-            x = blocks.layer_decode_paged(layer, x, self.cfg, c, tab, posd, plan, quant)
+        for layer, c, s_c in zip(self.layers, cache, scs):
+            x = blocks.layer_decode_paged(layer, x, self.cfg, c, tabs.get(s_c), posd,
+                                          plans.get(s_c), quant, live=live)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), cache
 
     def verify_step_paged(self, tokens: torch.Tensor, cache: list[dict], table, pos,
                           max_len: int, quant: Quant | None = None):
         """T tokens per lane (token j of lane b at position pos[b] + j) in
         one forward with deferred commit: returns (logits (B, T, Vp),
-        steps), ``steps`` the per-layer fresh K/V for
-        :meth:`rollback_cache_paged`.  Nothing is written."""
+        steps), ``steps`` the per-layer fresh K/V or per-step recurrent
+        states for :meth:`rollback_cache_paged`.  Nothing is written."""
         quant = self.default_quant() if quant is None else quant
-        bs = cache[0]["k"].shape[2]
-        tab, posd, _ = _step_inputs(table, pos, max_len, bs, self.device)
+        bs = blocks.pool_block_size(cache)
+        scs = self.ring_lens(max_len)
+        tabs = _step_tables(table, self.kv_ring_lens(max_len), bs, self.device)
+        posd = torch.as_tensor(_host_pos(table, pos), device=self.device)
         x = self.embed[tokens]
         steps = []
-        for layer, c in zip(self.layers, cache):
-            x, st = blocks.layer_verify_paged(layer, x, self.cfg, c, tab, posd, quant,
-                                              s_c=max_len)
+        for layer, c, s_c in zip(self.layers, cache, scs):
+            x, st = blocks.layer_verify_paged(layer, x, self.cfg, c, tabs.get(s_c), posd,
+                                              quant, s_c=s_c or 0)
             steps.append(st)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), steps
 
     def rollback_cache_paged(self, cache: list[dict], table, steps, keep, pos,
                              max_len: int) -> list[dict]:
         """Commit the first ``keep[b]`` fresh entries of each lane of a
-        :meth:`verify_step_paged` pass (0 freezes a lane), in place."""
-        bs = cache[0]["k"].shape[2]
-        plan = blocks.write_plan(table, pos, keep, steps[0]["k"].shape[2], max_len,
-                                 block_size=bs, device=self.device)
-        for c, st in zip(cache, steps):
-            blocks.write_kv_blocks(c, st["k"], st["v"], plan)
+        :meth:`verify_step_paged` pass (0 freezes a lane), in place: KV
+        layers write them through the tables, recurrent layers take the
+        state at step ``keep[b] - 1`` (the old state where ``keep`` is 0)."""
+        bs = blocks.pool_block_size(cache)
+        scs = self.ring_lens(max_len)
+        t = next(st["k"].shape[2] if s is not None else st["h"].shape[1]
+                 for st, s in zip(steps, scs))
+        plans = self.write_plans(table, pos, keep, t, max_len, block_size=bs)
+        keep_d = None
+        for c, st, s_c in zip(cache, steps, scs):
+            if s_c is not None:
+                blocks.write_kv_blocks(c, st["k"], st["v"], plans[s_c])
+                continue
+            if keep_d is None:
+                keep_d = torch.as_tensor(np.asarray(blocks.to_host(keep), np.int64),
+                                         device=self.device)
+            c.update(blocks.select_state_step(st, keep_d, old=c))
         return cache
+
+
+def _batch(cache: list[dict]) -> int:
+    """The rows of a dense cache (every leaf has the batch axis first)."""
+    return next(iter(cache[0].values())).shape[0]
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Model:
     """Random weights with the JAX package's shapes and scales: every
-    projection and embedding ~ N(0, 1) * d_in**-0.5, norms 1.  Drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the target device (the
-    numbers differ from ``jax.random``'s; parity tests bridge weights)."""
+    projection and embedding ~ N(0, 1) * d_in**-0.5, norms 1; a recurrent
+    block's ``conv_w`` ~ N(0, 1) * 0.1, ``lam`` ~ U(2, 6), ``ba`` and ``bx``
+    zero (JAX ``init_rglru_block``).  Drawn from a ``torch.Generator``
+    seeded with ``seed`` on the target device (the numbers differ from
+    ``jax.random``'s; parity tests bridge weights)."""
     device = resolve_device(device)
     model = Model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name == "final_norm" or name.endswith("norm1") or name.endswith("norm2"):
+            leaf = name.rpartition(".")[2]
+            if leaf in ("final_norm", "norm1", "norm2"):
                 p.fill_(1.0)
+            elif leaf in ("ba", "bx"):
+                p.zero_()
+            elif leaf == "lam":
+                p.uniform_(2.0, 6.0, generator=gen)
+            elif leaf == "conv_w":
+                p.normal_(generator=gen).mul_(0.1)
             else:  # embed rows are (Vp, d): its fan-in is d as well
                 fan_in = cfg.d_model if name == "embed" else p.shape[0]
                 p.normal_(generator=gen).mul_(fan_in ** -0.5)

@@ -77,7 +77,8 @@ def collect_kv_stats(model, cfg, batches,
         _, cache, _ = model.prefill(toks, seq, quant=quant)
         by_entry: dict[str, list] = {}
         for i, c in enumerate(cache):
-            by_entry.setdefault(model.cache_entry_name(i), []).append(c)
+            if "k" in c:  # K/V entries only: recurrent state is not a KV leaf
+                by_entry.setdefault(model.cache_entry_name(i), []).append(c)
         for name, entries in by_entry.items():
             bpt = 0.0
             for leaf_name in ("k", "v"):

@@ -268,6 +268,8 @@ def _pool_leaves(pool):
     """The block-axis-leading KV tensors of a per-layer pool list: float
     ``k``/``v`` pools and both children of packed ones."""
     for entry in pool:
+        if "k" not in entry:
+            continue  # a recurrent layer's lane state: nothing in blocks
         for name in ("k", "v"):
             leaf = entry[name]
             if isinstance(leaf, PackedKVBlock):

@@ -34,7 +34,13 @@ serving (``mesh_shape``) ports ``_build_mesh`` (:605), ``_trace_ctx``
 (:624) and ``_shard_cache`` (:638) for the dense float-KV scheduler and
 ``generate``; the pool is ``batch_size`` slots (JAX's
 ``per_device_batch_size`` and ``mesh_axes`` are not ported: the axes are
-('data', 'model') until the expert axis is).
+('data', 'model') until the expert axis is).  The Griffin hybrid's layers
+ride in both schedulers as JAX's ``_cache_insert`` modes (:306) have
+them: a dense admission scatters recurrent state rows like K/V rows, a
+paged one inserts only the lanes' states (its K/V went through the
+tables), a chunk lane starts from the pristine state, and idle and
+chunk-phase lanes keep theirs through a decode step; the paged pool
+takes every KV ring length of the layer kinds (``_kv_scs``, :522).
 
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
@@ -110,7 +116,6 @@ from repro_torch.core.quantized import PRESETS, pack_weights
 from repro_torch.kernels.ops import finite_flags
 from repro_torch.kvq import (KV_MAX_BITS, KV_MIN_BITS, kv_cache_nbytes, resolve_kv_spec,
                              tree_has_packed_kv)
-from repro_torch.models import blocks
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
 from repro_torch.obs import ServeRecorder
@@ -389,7 +394,7 @@ class Engine:
         self.mesh = self._build_mesh(scfg, self.device)
         self._init_spec()
         if scfg.paged:
-            self._init_paged()
+            self._init_paged(model)
         self.model = model.to(self.device)
         self.pack_report = None
         if scfg.pack and preset is not None and not packed:
@@ -428,6 +433,12 @@ class Engine:
             missing.append("per-call quantization of raw weights (pack=False)")
         if scfg.spec_k:
             missing.append("speculative rounds (spec_k > 0)")
+        kinds = sorted(set(cfg.pattern) - {"attn_full"})
+        if kinds:
+            missing.append(f"layer kinds {kinds} (the Griffin hybrid's rings and "
+                           f"recurrent state)")
+        if cfg.tie_embeddings:
+            missing.append("tied embeddings (the head over embed.T)")
         if cfg.quant == "policy":
             missing.append("a DSBPPolicy (per-layer configs)")
         if self._guard is not None:
@@ -527,22 +538,28 @@ class Engine:
             "extra_weight_nbytes": 0,
         }
 
-    def _init_paged(self):
+    def _init_paged(self, model: Model):
         """Pool geometry of the paged scheduler, validated at
-        construction.  Every layer the port serves is ``attn_full``, so
-        every layer's KV ring is ``max_len`` slots long (JAX takes the set
-        of ring lengths of its layer kinds)."""
-        scfg = self.scfg
+        construction: the ring lengths S_c of the model's KV layers
+        (``blocks.cache_len``; an ``attn_local`` ring is min(max_len,
+        window) slots long), each a multiple of the block size."""
+        scfg, cfg = self.scfg, self.cfg
         bs = int(scfg.kv_block_size)
         if bs < 1:
             raise ValueError(f"kv_block_size must be >= 1, got {bs}")
-        self._s_c = s_c = scfg.max_len
-        if s_c % bs:
-            raise ValueError(
-                f"kv_block_size {bs} must divide every KV cache length; "
-                f"layer S_c {s_c} (max_len {scfg.max_len}, window "
-                f"{self.cfg.window}) is not a multiple")
-        # one table entry spans kv_block_size ring slots of EVERY layer
+        self._kv_scs = model.kv_ring_lens(scfg.max_len)
+        for s_c in self._kv_scs:
+            if s_c % bs:
+                raise ValueError(
+                    f"kv_block_size {bs} must divide every KV cache length; "
+                    f"layer S_c {s_c} (max_len {scfg.max_len}, window "
+                    f"{cfg.window}) is not a multiple")
+        self._s_c = s_c = self._kv_scs[-1]
+        # prefix sharing is sound only while no KV ring has wrapped during
+        # the prompt: prompts longer than the shortest ring neither take
+        # nor register hits
+        self._share_limit = self._kv_scs[0]
+        # one table entry spans kv_block_size ring slots of EVERY KV layer
         self._table_width = SB.block_span(s_c, bs)
         self.kv_blocks = (int(scfg.kv_blocks) if scfg.kv_blocks is not None
                           else scfg.batch_size * self._table_width + 1)
@@ -552,7 +569,7 @@ class Engine:
         self._chunk_threshold = int(scfg.chunk_prefill_tokens
                                     or 4 * scfg.prefill_bucket)
         # chunk width: a verify pass must keep its ring slots distinct
-        self._chunk_T = min(scfg.prefill_bucket, s_c)
+        self._chunk_T = min(scfg.prefill_bucket, *self._kv_scs)
 
     @staticmethod
     def _norm_kv(scfg: ServeConfig):
@@ -926,16 +943,22 @@ class Engine:
         in place, then fault injection, sampling and the guard over its
         last logits, the 'fallback' retry, and the quarantines
         (``release(i)`` frees lane i).  The retry runs the whole step again
-        through 'dsbp_ref': it rewrites the slots the failed step wrote
-        before its attention reads them, so it decodes from the pre-step
-        cache, as JAX's retry does, and it draws from the generator state
-        the failed step drew from.  Returns the sampled tokens on the host."""
-        state = ctl.gen.get_state() if self._guard == "fallback" else None
+        through 'dsbp_ref': it rewrites the KV slots the failed step wrote
+        before its attention reads them, and it starts from the recurrent
+        states the failed step started from (kept by reference: a step
+        replaces state and never writes into it), so it decodes from the
+        pre-step cache, as JAX's retry does, and it draws from the
+        generator state the failed step drew from.  Returns the sampled
+        tokens on the host."""
+        state = refs = None
+        if self._guard == "fallback":
+            state, refs = ctl.gen.get_state(), self.model.state_refs(cache)
         nxt, bad = self._apply_guard(step(self.quant)[:, -1], occ, uid_of, ctl, cache=cache,
                                      **sample)
         if bad and self._guard == "fallback":
             ctl.stats["fallback_steps"] += 1
             ctl.gen.set_state(state)
+            self.model.restore_states(cache, refs)
             nxt, bad = self._apply_guard(step(self._ref_quant())[:, -1], occ, uid_of, ctl,
                                          retry=True, cache=cache, **sample)
         for i in bad:
@@ -1042,7 +1065,8 @@ class Engine:
         (padded to a bucket multiple, per-row lengths), then each continuing
         row's K/V is written straight into its slot of the pool — the JAX
         engine builds a fresh cache and copies its rows in (_cache_insert);
-        writing in place skips that max_len-sized copy.  The guard checks
+        writing in place skips that max_len-sized copy (the rows of
+        recurrent layers' states go in the same way).  The guard checks
         the prefill's logits too (no injection there; 'fallback' degrades to
         quarantine: there is no per-row prefill retry).  Under a mesh every
         data rank prefills the whole group, and keeps the K/V of the slots
@@ -1087,10 +1111,11 @@ class Engine:
         lo, hi = (0, len(active)) if pool_rows is None else (pool_rows.start, pool_rows.stop)
         keep = [(j, s - lo) for j, s in zip(rows, slots) if lo <= s < hi]
         if keep:
+            # K/V rows and recurrent state rows scatter alike (JAX
+            # _cache_insert, mode 'scatter')
             rows_t = torch.as_tensor([j for j, _ in keep], device=self.device)
-            for c, (k, v) in zip(pool, kvs):
-                blocks.fill_kv_cache(c, k, v, lens_t[rows_t], slots=[s for _, s in keep],
-                                     rows=rows_t)
+            self.model.fill_cache(pool, kvs, lens_t[rows_t], slots=[s for _, s in keep],
+                                  rows=rows_t)
 
     # ------------------------------------------------------------------
     # paged serving: block tables, COW prefix sharing, chunked prefill,
@@ -1131,7 +1156,7 @@ class Engine:
                  else SB.BlockAllocator(self.kv_blocks, bs))
         prefix = SB.PrefixCache(alloc) if scfg.prefix_sharing else None
         self._last_alloc, self._last_prefix = alloc, prefix
-        cache = self.model.init_paged_cache(self.kv_blocks, bs, kv=self.kv_spec)
+        cache = self.model.init_paged_cache(self.kv_blocks, bs, kv=self.kv_spec, batch=B)
         # bytes one table entry pins across every layer's pool, from the
         # leaves' actual dtypes (both children of a packed pool)
         blk_bytes = kv_cache_nbytes(cache) // self.kv_blocks
@@ -1317,7 +1342,7 @@ class Engine:
                     self._s_c)
         span = SB.block_span(total, bs)
         hits = []
-        if use_prefix and prefix is not None and len(r.tokens) <= self._s_c:
+        if use_prefix and prefix is not None and len(r.tokens) <= self._share_limit:
             hits = prefix.lookup(r.tokens)
         need = span - len(hits)
         while need > alloc.free_blocks:
@@ -1346,7 +1371,7 @@ class Engine:
         resumed request re-prefills prompt + emitted and appends."""
         scfg = self.scfg
         stats, out = ctl.stats, ctl.out
-        group = []
+        group, chunk_new = [], []
         while queue and free:
             r = queue[0]
             done = len(out.get(r.uid, []))
@@ -1374,6 +1399,7 @@ class Engine:
             # re-queues prompt + out[uid][done0:]
             if chunked:
                 lanes[lane] = {"req": r, "phase": "chunk", "done": 0, "done0": done}
+                chunk_new.append(lane)
                 stats["chunked_requests"] += 1
                 stats["admissions"] += 1
                 continue
@@ -1381,9 +1407,12 @@ class Engine:
             # register at reservation time: within one grouped prefill every
             # pool write lands before any lane's first read, so later group
             # members already share these entries
-            if prefix is not None and len(r.tokens) <= self._s_c:
+            if prefix is not None and len(r.tokens) <= self._share_limit:
                 prefix.register(r.tokens, tables[lane])
             group.append((lane, r, n_hit * scfg.kv_block_size))
+        # chunk lanes start from the pristine recurrent state; their KV
+        # arrives chunk by chunk through the block table
+        self.model.insert_states(cache, None, (), chunk_new)
         if group:
             lens = np.asarray([len(r.tokens) for _, r, _ in group], np.int32)
             bucket = scfg.prefill_bucket
@@ -1392,7 +1421,7 @@ class Engine:
             for j, (_, r, _) in enumerate(group):
                 toks[j, : lens[j]] = r.tokens
             starts = np.asarray([s for _, _, s in group], np.int32)
-            logits, cache, _ = self.model.prefill_paged(
+            logits, src, _ = self.model.prefill_paged(
                 torch.as_tensor(toks, device=self.device), cache,
                 tables[[ln for ln, _, _ in group]], scfg.max_len, lengths=lens,
                 write_start=starts, quant=self.quant)
@@ -1401,6 +1430,7 @@ class Engine:
             stats["admissions"] += len(group)
             stats["prefill_tokens"] += int(lens.sum())
             badset = set(badrows)
+            rows, slots = [], []
             for j, (lane, r, _) in enumerate(group):
                 if j in badset:
                     self._quarantine(r.uid, ctl, functools.partial(
@@ -1413,9 +1443,14 @@ class Engine:
                     self._release_lane(lane, lanes, tables, alloc)
                     self._finish(ctl, r.uid)
                     continue
+                rows.append(j)
+                slots.append(lane)
                 lanes[lane] = {"req": r, "phase": "decode", "done0": lanes[lane]["done0"]}
                 tok[lane] = t
                 pos[lane] = int(lens[j])
+            # K/V landed in the pools through the tables; only the
+            # recurrent lane states need the row insert (JAX mode 'src')
+            self.model.insert_states(cache, src, rows, slots)
         return cache
 
     def _pick_victim(self, lanes, tables):
@@ -1439,7 +1474,7 @@ class Engine:
         if prefix is not None and l.get("phase") == "decode" and emitted:
             written = np.concatenate([np.asarray(r.tokens, np.int64),
                                       np.asarray(emitted[:-1], np.int64)])
-            if len(written) <= self._s_c:
+            if len(written) <= self._share_limit:
                 prefix.register(written, tables[lane])
         self._release_lane(lane, lanes, tables, alloc)
         toks = (np.concatenate([np.asarray(r.tokens, np.int64),
@@ -1493,7 +1528,7 @@ class Engine:
         for lane, p0, n in writes:
             if lanes[lane] is None:
                 continue  # victimized earlier in this very pass
-            ent = SB.blocks_written(p0, n, self._s_c, bs)
+            ent = sorted({j for s_c in self._kv_scs for j in SB.blocks_written(p0, n, s_c, bs)})
             while True:
                 try:
                     s, d = alloc.ensure_writable(tables[lane], ent)
@@ -1582,7 +1617,7 @@ class Engine:
                 out.setdefault(r.uid, []).append(t)  # a resume continues
                 self.obs.first_token(r.uid, ctl.step)
                 # register only now: the blocks filled progressively
-                if prefix is not None and len(r.tokens) <= self._s_c:
+                if prefix is not None and len(r.tokens) <= self._share_limit:
                     prefix.register(r.tokens, tables[i])
                 if self._done(t, out[r.uid], r):
                     self._release_lane(i, lanes, tables, alloc)

@@ -22,12 +22,16 @@ value copy of the cache that the round throws away.  The port's steps
 update caches in place, and no cache or pool is copied per round: the
 round saves the bytes of the ring slots the draft and the verify write
 (pos .. pos + gamma of every row, every layer, every child of a packed
-leaf: kilobytes), lets the draft write in place, and puts back what it
-must.
+leaf: kilobytes) and the recurrent layers' states (by reference: a step
+replaces state and never writes into it), lets the draft write in place,
+and puts back what it must: the states right after the draft, so the
+verify starts from the pre-round state.
   dense    the verify masks every slot >= pos (``verify_attention``), so
            the draft's stale writes are invisible to it, and it rewrites
            all gamma + 1 slots; the rollback puts the pre-round bytes back
-           into the rejected ones.
+           into the rejected ones.  A wrapped ``attn_local`` ring and
+           recurrent state are the exceptions: their pre-round content goes
+           back right after the draft (``Model.undo_draft``).
   paged    the engine splits the 1 + spec_k slots of every live lane
            copy-on-write before the round, so no shared block is written;
            the draft's slots are restored right after the draft, and the
@@ -121,7 +125,8 @@ def build_spec_round(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
     def spec_round(model, cache, tok, pos):
         quant = Quant(cfg.quant, cfg.quant_method)
         dquant = draft_quant(model, cfg, draft_bits, draft_method)
-        # the slots the draft and the verify write: their pre-round bytes
+        # the slots the draft and the verify write: their pre-round bytes;
+        # and the recurrent layers' pre-round states, by reference
         saved = model.kv_slots(cache, pos, spec_k + 1)
         dcache = cache if kv_draft_bits is None else kv_narrow_view(cache, kv_draft_bits)
         t, drafts = tok, []
@@ -130,12 +135,17 @@ def build_spec_round(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
             t = _greedy(lg[:, -1]).to(tok.dtype)
             drafts.append(t)
         del dcache
+        # the verify starts from the pre-round cache: recurrent states and
+        # ring slots put back (elsewhere its attention masks the draft's
+        # KV writes, and it rewrites every one of them)
+        model.undo_draft(cache, saved, pos, spec_k + 1)
         draft = torch.stack(drafts, dim=1)                        # (B, gamma)
         toks = torch.cat([tok[:, None], draft], dim=1)            # (B, gamma + 1)
-        logits, cache = model.verify_step(toks, cache, pos, quant)
+        logits, cache, rollback = model.verify_step(toks, cache, pos, quant,
+                                                    collect_rollback=True, saved=saved)
         target = _target(logits, tok)
         keep = greedy_accept(draft, target)
-        model.rollback_cache(cache, saved, keep, pos, spec_k + 1)
+        model.rollback_cache(cache, rollback, keep, pos, spec_k + 1)
         if guard:
             return target, keep, cache, _finite(logits)
         return target, keep, cache
@@ -163,9 +173,9 @@ def build_spec_round_paged(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
         live = blocks.to_host(live).astype(np.int32)
         # the pool rows the draft writes (the engine split them copy-on-
         # write): saved before the draft, put back right after it
-        plan = blocks.write_plan(table, pos, live * spec_k, spec_k, max_len,
-                                 block_size=cache[0]["k"].shape[2], device=model.device)
-        saved = [blocks.pool_entries(c, plan) for c in cache]
+        plans = model.write_plans(table, pos, live * spec_k, spec_k, max_len,
+                                  block_size=blocks.pool_block_size(cache))
+        saved = model.pool_entries(cache, plans, max_len)
         dcache = cache if kv_draft_bits is None else kv_narrow_view(cache, kv_draft_bits)
         t, drafts = tok, []
         posh = blocks.to_host(pos).astype(np.int32)
@@ -175,8 +185,7 @@ def build_spec_round_paged(cfg, spec_k: int, draft_bits=DEFAULT_DRAFT_BITS,
             t = _greedy(lg[:, -1]).to(tok.dtype)
             drafts.append(t)
         del dcache
-        for c, old in zip(cache, saved):
-            blocks.restore_pool_entries(c, plan, old)
+        model.restore_pool_entries(cache, plans, saved, max_len)
         draft = torch.stack(drafts, dim=1)
         toks = torch.cat([tok[:, None], draft], dim=1)
         logits, steps = model.verify_step_paged(toks, cache, table, posh, max_len, quant)

@@ -91,10 +91,15 @@ class DraftMethod(QuantMethod):
         self.method = method
         self.widths = widths
 
+    def weight_view(self, w):
+        """The draft's view of one weight: a packed container at its draft
+        width, a raw weight as it is.  The RG-LRU's weight-only ``wa`` /
+        ``wx`` read it (JAX's draft tree views every container, those two
+        included)."""
+        return draft_view(w, self.widths[w]) if isinstance(w, PackedDSBPWeight) else w
+
     def apply(self, w, x, cfg, name=None):
-        if isinstance(w, PackedDSBPWeight):
-            w = draft_view(w, self.widths[w])
-        return self.method.apply(w, x, cfg, name=name)
+        return self.method.apply(self.weight_view(w), x, cfg, name=name)
 
 
 def draft_quant(model, cfg, draft_bits=DEFAULT_DRAFT_BITS,

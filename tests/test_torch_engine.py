@@ -3,7 +3,8 @@
 Greedy tokens of ``Engine.generate`` on ragged prompts equal the JAX
 ``Engine``'s (quant_method 'dsbp_ref', which the JAX suite holds bit-exact
 and token-equal to its fused kernel) for smoke llama-7b-paper (GQA) and
-its MHA variant, float and packed "precise".  A row may stop being
+its MHA variant, and the copied dense configs (deepseek-coder-33b,
+phi3-medium-14b) at their smoke size, float and packed "precise".  A row may stop being
 compared at the step where the reference's own top-2 logit gap is below
 the logit tolerance (1e-3 · max|logit|, tests/test_torch_model.py): there
 the two argmaxes are a near tie, not a fault.  Plus the ``serve`` slot
@@ -27,7 +28,7 @@ from repro.serve.engine import ServeConfig as JaxServeConfig  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve.engine import Engine, Request, ServeConfig  # noqa: E402
-from test_torch_model import LENS, VARIANTS, _prompts, make_pair  # noqa: E402
+from test_torch_model import COPIED_DENSE, LENS, VARIANTS, _prompts, make_pair  # noqa: E402
 
 TIE = 1e-3
 N_NEW = 6
@@ -51,7 +52,7 @@ def _assert_tokens_match(jtok, ttok, params, jcfg, prompts, lens):
                 f"row {b} diverges at step {t}: {jtok[b]} vs {ttok[b]}")
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("variant", sorted(VARIANTS) + COPIED_DENSE)
 @pytest.mark.parametrize("packed", [False, True], ids=["float", "packed"])
 def test_generate_tokens_match_jax_engine(variant, packed):
     jcfg, params, model = make_pair(variant, packed=False)  # engines pack
@@ -161,7 +162,7 @@ def test_copied_configs_equal_jax(arch):
         tc = dataclasses.asdict(getattr(configs, get)(arch))
         assert tc == jc
     jc, tc = jax_configs.get_config(arch), configs.get_config(arch)
-    for prop in ("n_units", "tail", "padded_vocab_size"):
+    for prop in ("n_units", "tail", "padded_vocab_size", "rnn_dim"):
         assert getattr(tc, prop) == getattr(jc, prop)
 
 

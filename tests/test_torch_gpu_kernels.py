@@ -744,3 +744,90 @@ def test_sample_cache_card_equals_cpu(cuda, kv):
         snaps.append(qh.snapshot())
     assert snaps[0] == snaps[1]
     assert snaps[0]["entries"]["units.0"]["overflow"] > 0
+
+
+# ---- the Griffin hybrid: wrapped rings, windowed prefill at its shape ----
+
+@pytest.mark.parametrize("kernel", ["B2", "B5", "B6", "B7"])
+@pytest.mark.parametrize("hq,hkv,d", [(10, 1, 256), (4, 2, 128)])
+def test_decode_past_a_wrapped_ring_equals_kv_len_s(cuda, kernel, hq, hkv, d):
+    """A ring decode passes kv_len = pos + 1 > S once the ring wraps; every
+    decode variant reads it as S (its key loop and its partials are bounded
+    by S), bit for bit."""
+    g = torch.Generator().manual_seed(hq * 10 + d)
+    b, bs, mb = 3, 16, 8
+    s = bs * mb
+    q = torch.randn(b, hq, 1, d, generator=g).to(cuda)
+    k = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    v = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    pos = torch.tensor([s - 1, s + 5, 3 * s + 17], dtype=torch.int32, device=cuda)
+    if kernel in ("B5", "B7"):
+        kq, vq = (quantize_kv(t, KV_PRESETS["kv8"]) for t in (k, v))
+        ops = (kq.qm, kq.scale, vq.qm, vq.scale)
+    else:
+        ops = (k, v)
+    if kernel in ("B6", "B7"):
+        nb = b * mb + 1
+        table = (torch.randperm(nb - 1, generator=g)[: b * mb] + 1).reshape(b, mb)
+        table = table.to(cuda, torch.int32)
+        flat = table.to(torch.int64).reshape(-1)
+
+        def pool(x):
+            p = torch.zeros((nb, x.shape[1], bs, x.shape[-1]), dtype=x.dtype, device=cuda)
+            p[flat] = x.reshape(b, x.shape[1], mb, bs, x.shape[-1]).permute(
+                0, 2, 1, 3, 4).reshape(-1, x.shape[1], bs, x.shape[-1])
+            return p
+
+        ops = (*(pool(t) for t in ops), table)
+    fn = {"B2": FA.flash_attention, "B5": FA.packed_flash_attention,
+          "B6": FA.paged_flash_attention, "B7": FA.paged_packed_flash_attention}[kernel]
+    full = torch.full_like(pos, s)
+    o_wrapped = fn(q, *ops, pos + 1, pos)
+    o_s = fn(q, *ops, full, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(o_wrapped, o_s)
+    plain = {"B2": FA.flash_attention_plain, "B5": FA.packed_flash_attention_plain,
+             "B6": FA.paged_flash_attention_plain,
+             "B7": FA.paged_packed_flash_attention_plain}[kernel]
+    torch.testing.assert_close(o_s, plain(q, *ops, full, pos), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,lens", [(300, [300, 211, 64]), (130, [130, 1, 97])])
+def test_windowed_prefill_at_the_hybrid_shape(cuda, sq, lens):
+    """B2's prefill with a sliding window at recurrentgemma-2b's heads (Hq
+    10, Hkv 1, D 256), ragged rows, against its plain version."""
+    g = torch.Generator().manual_seed(sq)
+    b, hq, hkv, d, window = len(lens), 10, 1, 256, 64
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    k = torch.randn(b, hkv, sq, d, generator=g).to(cuda)
+    v = torch.randn(b, hkv, sq, d, generator=g).to(cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q0 = torch.zeros(b, dtype=torch.int32, device=cuda)
+    o = FA.flash_attention(q, k, v, kv_len, q0, window=window)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0, window=window)
+    torch.cuda.synchronize()
+    for i, n in enumerate(lens):  # queries past a row's length are pad: not compared
+        torch.testing.assert_close(o[i, :, :n], ref[i, :, :n], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_hybrid_serve_card_equals_cpu(cuda, paged):
+    """Smoke recurrentgemma-2b at window 16 (rings wrap), packed "precise",
+    served on the card and on the CPU: the same tokens."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    cfg = smoke_config("recurrentgemma-2b").replace(quant="precise", window=16)
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n), max_new_tokens=6)
+            for i, n in enumerate([30, 11, 23, 5, 19])]
+    scfg = ServeConfig(max_len=48, batch_size=2, paged=paged, kv_block_size=4,
+                       max_active=3, chunk_prefill_tokens=24)
+    gpu = Engine(TM.init(cfg, seed=0, device=cuda), scfg, device=cuda)
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    a, b = gpu.serve(reqs), cpu.serve(reqs)
+    for uid in b:
+        np.testing.assert_array_equal(a[uid], b[uid])

@@ -29,6 +29,8 @@ from repro_torch.serve.engine import pack_weights_int8  # noqa: E402
 
 LENS = np.asarray([5, 11, 8], np.int32)
 VARIANTS = {"gqa": {}, "mha": {"n_kv_heads": 4}}
+# dense attn_full configs served by the same modules, at their own smoke size
+COPIED_DENSE = ["deepseek-coder-33b", "phi3-medium-14b"]
 
 
 def np_tree(tree, preset="precise"):
@@ -47,13 +49,16 @@ def np_tree(tree, preset="precise"):
 
 
 def make_pair(variant: str, packed: bool, seed: int = 0):
-    """(JAX cfg, JAX params, port model) with the same weights."""
-    kw = dict(VARIANTS[variant], quant="precise" if packed else None)
-    jcfg = jax_smoke_config("llama-7b-paper").replace(
+    """(JAX cfg, JAX params, port model) with the same weights: smoke
+    llama-7b-paper in a ``VARIANTS`` form, or a config of ``COPIED_DENSE``
+    by name."""
+    arch = variant if variant in COPIED_DENSE else "llama-7b-paper"
+    kw = dict(VARIANTS.get(variant, {}), quant="precise" if packed else None)
+    jcfg = jax_smoke_config(arch).replace(
         remat=False, quant_method="dsbp_ref" if packed else None, **kw)
     params = JM.init(jax.random.PRNGKey(seed), jcfg)
     model = bridge.model_from_jax(
-        np_tree(params), smoke_config("llama-7b-paper").replace(
+        np_tree(params), smoke_config(arch).replace(
             quant_method="dsbp_fused" if packed else None, **kw),
         device="cpu")
     if packed:
