@@ -163,17 +163,21 @@ Phases (each raises on failure; nothing falls back to the CPU):
      serve of 8 requests through 4 slots, the same with kv8, paged (bs
      16, 6 requests sharing a 192-token prefix and 2 chunked prompts past
      the window) float and kv8, with every kernel's launches over that
-     run; ring decode past the window held to Model.prefill_trunk over
-     the whole context (phase 9's rule), paged held to a dense batch-8
-     serve (phase 13's rule) and to dense at matched batches (exact), B1
-     = 164 and B2 / B5 = 8 launches per decode step, spec_k 3 at draft
-     bits 7 dense and paged against spec_k 0, one NaN step under
-     'fallback' bit-equal to the unfaulted serve; prefill s, ms per step,
+     run; the float model's ring decode past the window held to
+     Model.prefill_trunk over the whole context (RING_REL), paged held to
+     dense at matched batches token for token (float, kv8, and spec_k 3
+     over the tokens committed before any lane can finish), a planted
+     rollback fault (undo_draft skipped) that must fail the speculative
+     match, B1 = 164 (counted by (K, N) against the containers) and B2 /
+     B5 = 8 launches per decode step, spec_k 3 at draft bits 7 dense and
+     paged against spec_k 0 (HYBRID_TIE), one NaN step under 'fallback'
+     bit-equal to the unfaulted serve; prefill s, ms per step,
      KV bytes, peak memory, a torch.profiler trace of four decode steps
      and the wa / wx weight-only products' time per step; 19b, gemma3-12b
      at full width and 6 layers (5 local at window 1024, 1 global),
      max_len 2048: local and global rings in one block table, paged ==
-     dense; a `hybrid (phase 19):` JSON line.
+     dense, B1 launches per decode step by (K, N); a `hybrid (phase 19):`
+     JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
   14-15b, for which the models are freed.
@@ -260,14 +264,15 @@ KV_TIE = 0.1
 # the attention kernels sum in another order than the prefill, over 26
 # layers of random weights
 RING_REL = 1e-3
-# phase 19's packed comparisons across batches of other composition (paged
-# vs a dense batch-8 serve, a verify pass vs decode steps): recurrentgemma-2b
-# at full depth on random weights has flat logits (max|logit| ~5), and two
-# equally valid FP8 roundings of its inputs (other rows in a per-tensor
-# scale) moved them by up to 0.19 of max|logit| on an H100 (PERF.md,
-# phase 19); a fault moves them by the order of max|logit|.  The strict
-# checks are elsewhere: paged == dense at matched batches, bit for bit,
-# and the float model's ring decode within RING_REL of its sequence mode
+# phase 19's speculative serves against spec_k 0 (a verify pass of 16 rows
+# vs decode steps of 4): recurrentgemma-2b at full depth on random weights
+# has flat logits (max|logit| ~5), and two equally valid FP8 roundings of
+# its inputs (other rows in a per-tensor scale) moved them by up to 0.21
+# of max|logit| on an H100 (PERF.md, phase 19).  The strict checks are
+# elsewhere: paged == dense at matched batches token for token, plain and
+# speculative, which a planted rollback fault (run in every phase 19) must
+# fail, and the float model's ring decode within RING_REL of its sequence
+# mode
 HYBRID_TIE = 0.3
 
 
@@ -2548,17 +2553,51 @@ def _check_containers(torch, DF, per_tensor_scale, model, label: str) -> list:
     return [key for key, _ in seen.values()]
 
 
-def _step_launches(torch, eng, kernels, toks, lens, max_len: int = 512) -> dict:
-    """Each kernel's launches over one full-width decode step of ``eng``."""
-    with torch.inference_mode():
-        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
-                                         lengths=lens, quant=eng.quant, kv=eng.kv_spec)
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        torch.cuda.synchronize()
-        _reset_launches(kernels)
-        eng.model.decode_step(tok, cache, torch.as_tensor(lens, device="cuda"), eng.quant)
-        torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in kernels.items() if fn.launches}
+def _step_launches(torch, eng, kernels, toks, lens, max_len: int = 512, TO=None):
+    """Each kernel's launches over one full-width decode step of ``eng``.
+    With ``TO`` (``kernels.ops``) also returns B1's launches in that step by
+    its weight's (K, N), and each kernel's launches in the prefill before
+    it: (step, b1_by_shape, prefill)."""
+    import collections
+
+    shapes = collections.Counter()
+    if TO is not None:
+        b1 = TO.dsbp_fused
+
+        def count(x, ts, ka, *rest):
+            shapes[tuple(ka.shape)] += 1
+            return b1(x, ts, ka, *rest)
+
+        TO.dsbp_fused = count
+    try:
+        with torch.inference_mode():
+            _reset_launches(kernels)
+            lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
+                                             lengths=lens, quant=eng.quant, kv=eng.kv_spec)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+            prefill = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+            _reset_launches(kernels)
+            shapes.clear()
+            eng.model.decode_step(tok, cache, torch.as_tensor(lens, device="cuda"), eng.quant)
+            torch.cuda.synchronize()
+    finally:
+        if TO is not None:
+            TO.dsbp_fused = b1
+    step = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    return step if TO is None else (step, dict(shapes), prefill)
+
+
+def _b1_shapes(model) -> dict:
+    """B1's launches per decode step by (K, N), from the model's packed
+    containers: every projection but the weight-only ``wa`` / ``wx``."""
+    import collections
+
+    from repro_torch.core.packed import PackedDSBPWeight
+
+    return dict(collections.Counter(
+        tuple(mod.ka.shape) for name, mod in model.named_modules()
+        if isinstance(mod, PackedDSBPWeight) and name.rsplit(".", 1)[-1] not in ("wa", "wx")))
 
 
 def phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tensor_scale,
@@ -3074,16 +3113,18 @@ def mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5):
 # ---------------------------------------------------------------------------
 
 # the B1 shapes of a decode step (M = 4 lanes): (K, N) and the projections
-# that run at it, with their launches per decode step at full depth
+# that run at it; their launches per step are counted in phases 19 / 19b
+# and must cover every shape the served model launches
 HYBRID_B1 = (
-    ("recurrentgemma-2b", 2560, 2560, "w_gate w_in w_out (18 rglru), wq wo (8 attn_local)", 70),
-    ("recurrentgemma-2b", 2560, 7680, "w1 w3 (26 layers)", 52),
-    ("recurrentgemma-2b", 2560, 256, "wk wv (8 attn_local, MQA)", 16),
-    ("recurrentgemma-2b", 7680, 2560, "w2 (26 layers)", 26),
-    ("gemma3-12b", 3840, 4096, "wq", 48),
-    ("gemma3-12b", 3840, 2048, "wk wv", 96),
-    ("gemma3-12b", 3840, 15360, "w1 w3", 96),
-    ("gemma3-12b", 15360, 3840, "w2", 48),
+    ("recurrentgemma-2b", 2560, 2560, "w_gate w_in w_out (rglru), wq wo (attn_local)"),
+    ("recurrentgemma-2b", 2560, 7680, "w1 w3"),
+    ("recurrentgemma-2b", 2560, 256, "wk wv (MQA)"),
+    ("recurrentgemma-2b", 7680, 2560, "w2"),
+    ("gemma3-12b", 3840, 4096, "wq"),
+    ("gemma3-12b", 3840, 2048, "wk wv"),
+    ("gemma3-12b", 4096, 3840, "wo"),
+    ("gemma3-12b", 3840, 15360, "w1 w3"),
+    ("gemma3-12b", 15360, 3840, "w2"),
 )
 # recurrentgemma-2b's attention: Hq 10, Hkv 1 (MQA), d_head 256, window 2048;
 # phase 19's ragged prompts, two past the window
@@ -3102,9 +3143,9 @@ def phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale) -> dict:
           "B2 / B5 / B6 / B7 at Hq 10, Hkv 1, D 256, window 2048")
     gen = torch.Generator(device="cuda").manual_seed(19)
     b1 = []
-    for arch, k, n, proj, per_step in HYBRID_B1:
+    for arch, k, n, proj in HYBRID_B1:
         row = b1_case(torch, Q, DF, per_tensor_scale, gen, 4, k, n)
-        b1.append({**row, "arch": arch, "proj": proj, "launches_per_step": per_step})
+        b1.append({**row, "arch": arch, "proj": proj})
     torch.cuda.empty_cache()
     hq, hkv, d, win, s_c, bs = 10, 1, 256, 2048, 2048, 16
     b = len(HYBRID_LENS)
@@ -3284,6 +3325,14 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     import numpy as np
     from repro_torch.serve.faults import FaultPlan
 
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):  # seconds per part of the phase, for its time budget
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
     t0 = time.perf_counter()
     model = TM.init(cfg, seed=0, device="cuda")
     eng = Engine(model, ServeConfig(max_len=4096, batch_size=4), device="cuda")
@@ -3302,6 +3351,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
                                                       900], new=12, seed=192)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    lap("init + pack")
 
     # ---- the hybrid path: counts from 0 over exactly these runs ----
     _reset_launches(kernels)
@@ -3342,6 +3392,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
                                  f"{st['decode_steps']} decode steps of {attn_step} layers")
     if sorted(pout8) != sorted(pout) or any(len(t) != 12 for t in pout8.values()):
         raise AssertionError("paged kv8 serve did not return 12 tokens for each request")
+    lap("generate, serve, kv8, paged float and kv8")
 
     # ---- output shape and range, per-step launches ----
     if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
@@ -3349,15 +3400,20 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     for label, o in (("serve", served), ("kv8 serve", served8)):
         if sorted(o) != list(range(8)) or any(len(t) != 12 for t in o.values()):
             raise AssertionError(f"{label} did not return 12 tokens for each of 8 requests")
-    step = _step_launches(torch, eng, kernels, toks, lens, max_len=4096)
+    step, b1_shapes, pre = _step_launches(torch, eng, kernels, toks, lens, max_len=4096,
+                                          TO=TO)
     if step != {"dsbp_fused": b1_step, "flash_attention": attn_step}:
         raise AssertionError(f"launches in one decode step {step}: want B1 {b1_step}, B2 "
                              f"{attn_step}")
+    if b1_shapes != _b1_shapes(model):
+        raise AssertionError(f"B1 launches in one decode step by (K, N) {b1_shapes}, the "
+                             f"containers give {_b1_shapes(model)}")
     step8 = _step_launches(torch, kv8, kernels, toks, lens, max_len=4096)
     if step8 != {"dsbp_fused": b1_step, "packed_flash_attention": attn_step}:
         raise AssertionError(f"kv8: launches in one decode step {step8}")
     if pst["chunked_requests"] != 2 or pst["prefix_hit_blocks"] < 5 * 12 or not pst["completed"]:
         raise AssertionError(f"paged stats {pst}")
+    lap("launches per step")
 
     # ---- ring decode past the window == sequence mode over the whole context ----
     def context(cont, t):  # each prompt followed by the first t tokens of cont
@@ -3399,33 +3455,76 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
         dec = calls[t][0]
         packed_rel[t] = float((seq - dec).abs().max() / dec.abs().max())
     seq_err = packed_rel[1]
+    lap("ring decode vs sequence mode")
     print(f"  ring decode past the window (rows at {lens.tolist()} + t, S_c 2048) vs "
           f"Model.prefill_trunk over the whole context: float model, teacher forced, "
           f"{ring_rel[0]:.2e} / {ring_rel[15]:.2e} of max|logit| at decode steps 1 / 16 "
           f"(limit {RING_REL}); the packed greedy stream, not gated: {packed_rel[1]:.4f} "
           f"at step 1 and {packed_rel[15]:.4f} at step 15 (other FP8 input roundings)")
 
-    # ---- paged == dense: matched batches exactly, the full traffic by rule ----
-    dense8 = Engine(model, ServeConfig(max_len=4096, batch_size=8, prefill_bucket=64),
-                    device="cuda")
-    dtape = GuardTape(dense8, cfg.vocab_size)
-    dref = dense8.serve(preqs)
-    dtape.close()
-    ties_p, worst_p = check_recorded(torch, dref, pout, dtape.rows, ptape.rows,
-                                     kv_tie=HYBRID_TIE)
-    same = _hybrid_requests(Request, cfg.vocab_size, HYBRID_LENS, new=12, seed=194)
-    exact = {}
-    for kv in (None, "kv8"):
-        for pg in (True, False):
-            e = Engine(model, ServeConfig(max_len=4096, batch_size=4, paged=pg,
-                                          kv_block_size=16, chunk_prefill_tokens=4096,
-                                          prefix_sharing=False, kv_quant=kv), device="cuda")
-            exact[kv, pg] = e.serve(same)
+    # ---- matched batches (the 4 prompts past the window, one group, as
+    # many lanes as requests): paged == dense token for token, float, kv8
+    # and speculative.  A speculative lane that finishes changes the
+    # batch its neighbours' inputs are quantized in (its row goes on in
+    # a dense pool and freezes in a paged one), so speculative streams
+    # are compared over the tokens committed before any lane can finish:
+    # the prefill's token and one per round for ceil((new - 1) / 4)
+    # rounds ----
+    new = 16
+    same = _hybrid_requests(Request, cfg.vocab_size, HYBRID_LENS, new=new, seed=194)
+    mcfg = dict(max_len=4096, batch_size=4, kv_block_size=16, chunk_prefill_tokens=4096,
+                prefix_sharing=False)
+    spec3 = dict(spec_k=3, spec_draft_bits=7, spec_draft_method="dsbp_fused")
+    horizon = 1 + -(-(new - 1) // 4)
+    exact, rows0 = {}, {}
+    for label, kw in (("float", {}), ("kv8", {"kv_quant": "kv8"}), ("spec_k 3", spec3)):
+        for pg in (False, True):
+            e = Engine(model, ServeConfig(paged=pg, **mcfg, **kw), device="cuda")
+            tape = GuardTape(e, cfg.vocab_size) if (label, pg) == ("float", False) else None
+            exact[label, pg] = e.serve(same)
+            if tape is not None:
+                rows0 = tape.close()
             del e
-        for uid, t in exact[kv, False].items():
-            if not np.array_equal(exact[kv, True][uid], t):
-                raise AssertionError(f"{kv or 'float'} matched batches, request {uid}: paged "
-                                     f"{exact[kv, True][uid]} != dense {t}")
+        n = horizon if kw is spec3 else new
+        for uid, t in exact[label, False].items():
+            if not np.array_equal(exact[label, True][uid][:n], t[:n]):
+                raise AssertionError(f"{label} matched batches, request {uid}: paged "
+                                     f"{exact[label, True][uid]} != dense {t} (first {n})")
+    spec_equal = sum(np.array_equal(exact["spec_k 3", True][u], t)
+                     for u, t in exact["spec_k 3", False].items())
+    lap("matched batches")
+    # ---- the power of the speculative gates: a planted rollback fault
+    # (the dense round's undo_draft skipped, so the verify starts from the
+    # drafted recurrent state and ring slots) must fail the matched-batch
+    # check; whether phase 9's rule at HYBRID_TIE against spec_k 0 fails it
+    # too is printed ----
+    e = Engine(model, ServeConfig(paged=False, **mcfg, **spec3), device="cuda")
+    ftape = SpecTape(e, cfg.vocab_size, TO)
+    e.model.undo_draft = lambda cache, saved, pos, n: cache
+    try:
+        fout = e.serve(same)
+    finally:
+        del e.model.undo_draft
+        ftape.close()
+    del e
+    planted_same = [u for u, t in exact["spec_k 3", True].items()
+                    if np.array_equal(fout[u][:horizon], t[:horizon])]
+    if len(planted_same) == len(same):
+        raise AssertionError(f"a planted rollback fault (undo_draft skipped) left every "
+                             f"stream's first {horizon} tokens equal to the paged round's")
+    try:
+        check_recorded(torch, exact["float", False], fout, rows0, ftape.rows,
+                       kv_tie=HYBRID_TIE)
+        planted_rule = None
+    except AssertionError as err:
+        planted_rule = str(err)
+    print(f"  matched batches (lens {HYBRID_LENS}, one group, {new} new tokens): paged == "
+          f"dense token for token, float and kv8; spec_k 3 over the first {horizon} tokens "
+          f"of each stream ({spec_equal} of {len(same)} streams equal to the end); a planted "
+          f"rollback fault (undo_draft skipped) changes {len(same) - len(planted_same)} of "
+          f"{len(same)} streams there; phase 9's rule at {HYBRID_TIE} against spec_k 0: "
+          + (f"fails it ({planted_rule})" if planted_rule else "passes it"))
+    lap("planted fault")
     # ---- speculation (draft bits 7) against spec_k 0, dense and paged ----
     spec = {}
     for label, scfg, rq, ref, rows in (
@@ -3436,6 +3535,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
                                   rows, scfg, f"spec_k 3, draft bits 7, {label}",
                                   b1_per_step=b1_step, attn_layers=attn_step,
                                   kv_tie=HYBRID_TIE)
+    lap("speculation")
 
     # ---- one NaN step under 'fallback': the retry decodes from the pre-step state ----
     fb = Engine(model, ServeConfig(max_len=4096, batch_size=4, numeric_guard="fallback"),
@@ -3448,7 +3548,9 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
         if not np.array_equal(fout[uid], t):
             raise AssertionError(f"fallback: request {uid} {fout[uid]} != unfaulted {t}")
 
+    lap("fallback")
     trace = trace_decode(torch, eng, toks, lens, TRACE_HYBRID, max_len=4096)
+    lap("trace")
     # the weight-only wa / wx products (dequantize + f32 matmul) of one
     # decode step, timed cold on the served containers
     from repro_torch.models.layers import dense as dense_fn
@@ -3457,6 +3559,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     x = torch.randn(4, 1, cfg.rnn_dim, device="cuda")
     wawx = [(r.wa, x) for r in rec] + [(r.wx, x) for r in rec]
     wawx_ms = cuda_ms(lambda w, xx: dense_fn(w, xx), wawx, iters=len(wawx)) * len(wawx)
+    lap("wa / wx timed")
     ms_step = 1e3 * gst["decode_s"] / gst["decode_steps"]
     bpt_ring = 2 * n_attn * cfg.n_kv_heads * cfg.d_head * 4
     print(f"  generate: 4 prompts (lens {lens.tolist()}), 16 new tokens: prefill "
@@ -3467,10 +3570,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     print(f"  paged (bs 16, 6 requests sharing a 192-token prefix, 2 chunked 2300/2400-token "
           f"prompts): {pst['decode_steps']} decode steps, {pst['chunk_steps']} chunk steps, "
           f"prefix hits {pst['prefix_hit_blocks']}, "
-          f"{1e3 * pst['decode_time_s'] / pst['decode_steps']:.2f} ms/step; against a dense "
-          f"batch-8 serve (limit {HYBRID_TIE}): {len(ties_p)} near ties, largest logit "
-          f"difference {max(worst_p.values()):.4f} of max|logit|; matched batches (4 prompts "
-          f"past the window, one group) paged == dense token for token, float and kv8")
+          f"{1e3 * pst['decode_time_s'] / pst['decode_steps']:.2f} ms/step")
     bpt_ring8 = 2 * n_attn * cfg.n_kv_heads * (cfg.d_head + 4)
     print(f"  KV bytes: {bpt_ring} per cached position in float ({bpt_ring8} in kv8) "
           f"over {n_attn} ring layers of 2048 slots; last_stats kv_bytes_per_token "
@@ -3480,7 +3580,8 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     print(f"  launches over the hybrid path (generate, serve, kv8, paged float and kv8): "
           f"{launches}; per decode step B1 {b1_step} (6 x {n_rec} rglru + 7 x {n_attn} "
-          f"attn_local; wa / wx weight-only), B2 / B5 / B6 / B7 {attn_step}")
+          f"attn_local; wa / wx weight-only), by (K, N) {b1_shapes}, B2 / B5 / B6 / B7 "
+          f"{attn_step}; per prefill {pre}")
     print(f"  fallback: one NaN step retried through dsbp_ref, every stream bit-equal to "
           f"the unfaulted serve; wa / wx weight-only products {wawx_ms:.3f} ms per decode "
           f"step ({len(wawx)} calls, timed cold)")
@@ -3491,18 +3592,28 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
            "paged_ms": 1e3 * pst["decode_time_s"] / pst["decode_steps"],
            "peak": peak, "kv_bytes_per_position": bpt_ring, "wawx_ms_step": wawx_ms,
            "seq_vs_ring": seq_err, "ring_float": ring_rel, "ring_packed": packed_rel,
-           "paged_ties": len(ties_p),
+           "b1_by_shape": {f"K={k} N={n}": c for (k, n), c in b1_shapes.items()},
+           "prefill_launches": pre, "kv8_step_launches": step8,
+           "paged_step_launches": {
+               name: launches[name] / st["decode_steps"]
+               for name, st in (("paged_flash_attention", pst),
+                                ("paged_packed_flash_attention", p8st))},
+           "matched_horizon": horizon, "spec_matched_equal_streams": spec_equal,
+           "planted_fault": {"streams_changed": len(same) - len(planted_same),
+                             "tie_rule": planted_rule},
            "spec": {k: {"accepted_hist": v["stats"]["accepted_hist"],
                         "mean_accepted": v["stats"]["mean_accepted"],
                         "ms_round": v["ms_round"], "ms_token": v["ms_token"],
-                        "ties": v["ties"]} for k, v in spec.items()}}
-    del eng, kv8, paged, paged8, dense8, fb, model
+                        "ties": v["ties"]} for k, v in spec.items()},
+           "seconds_by_part": laps}
+    print(f"  seconds by part: {laps}")
+    del eng, kv8, paged, paged8, fb, model
     gc.collect()
     torch.cuda.empty_cache()
     return res
 
 
-def phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, kernels, cfg) -> dict:
+def phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict:
     """19b: gemma3-12b at full width, one unit of 6 layers (5 attn_local at
     window 1024, 1 attn_full), max_len 2048: local (S_c 1024) and global
     (S_c 2048) rings share one block table."""
@@ -3518,6 +3629,12 @@ def phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, kernels, cfg) -
                             seed=195)
     dout = dense.serve(reqs)
     dst = dict(dense.last_stats)
+    toks, lens = _prompts(cfg.vocab_size, [len(r.tokens) for r in reqs], seed=195)
+    step, b1_shapes, pre = _step_launches(torch, dense, kernels, toks, lens, max_len=2048,
+                                          TO=TO)
+    if step != {"dsbp_fused": 7 * 6, "flash_attention": 6} or b1_shapes != _b1_shapes(model):
+        raise AssertionError(f"gemma3 launches in one decode step {step}, B1 by (K, N) "
+                             f"{b1_shapes}; the containers give {_b1_shapes(model)}")
     paged = Engine(model, ServeConfig(max_len=2048, batch_size=4, paged=True,
                                       kv_block_size=16, chunk_prefill_tokens=2048,
                                       prefix_sharing=False), device="cuda")
@@ -3537,8 +3654,11 @@ def phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, kernels, cfg) -
           f"{1e3 * dst['decode_time_s'] / dst['decode_steps']:.2f} ms/step, paged "
           f"{1e3 * pst['decode_time_s'] / pst['decode_steps']:.2f} ms/step, prefill "
           f"{dst['prefill_time_s']:.3f} s; B6 {b6} launches ({pst['decode_steps']} steps x 6 "
-          f"layers)")
-    res = {"b6_launches": b6, "dense_ms": 1e3 * dst["decode_time_s"] / dst["decode_steps"],
+          f"layers); one dense decode step {step}, B1 by (K, N) {b1_shapes}; a prefill "
+          f"{pre}")
+    res = {"b6_launches": b6, "step_launches": step, "prefill_launches": pre,
+           "b1_by_shape": {f"K={k} N={n}": c for (k, n), c in b1_shapes.items()},
+           "dense_ms": 1e3 * dst["decode_time_s"] / dst["decode_steps"],
            "paged_ms": 1e3 * pst["decode_time_s"] / pst["decode_steps"],
            "prefill_s": dst["prefill_time_s"]}
     del dense, paged, model
@@ -3561,8 +3681,27 @@ def hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     rg = get_config("recurrentgemma-2b").replace(quant="precise")
     phase_hybrid_cross_device(torch, TM, Engine, ServeConfig, rg)
     main = phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, rg)
-    g3 = phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, kernels,
+    g3 = phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, TO, kernels,
                              get_config("gemma3-12b").replace(quant="precise"))
+    # B1's rows carry the launches counted per decode step of the served
+    # model (phase 19's 26 layers, 19b's 6), and every shape it launched
+    # was timed
+    for arch, r, depth in (("recurrentgemma-2b", main, "phase 19, 26 layers"),
+                           ("gemma3-12b", g3, "phase 19b, 6 layers")):
+        timed = {f"K={x['K']} N={x['N']}": x for x in rows["b1"] if x["arch"] == arch}
+        if set(timed) != set(r["b1_by_shape"]):
+            raise AssertionError(f"{arch}: B1 launched at {sorted(r['b1_by_shape'])}, timed "
+                                 f"at {sorted(timed)}")
+        for key, x in timed.items():
+            x["launches_per_step"] = r["b1_by_shape"][key]
+            x["launches_of"] = f"one decode step, {depth}"
+    attn = rows["attn"]
+    attn["B2 prefill"]["launches_per_prefill"] = main["prefill_launches"]["flash_attention"]
+    attn["B2 decode"]["launches_per_step"] = main["attn_step"]
+    attn["B5 decode"]["launches_per_step"] = main["kv8_step_launches"]["packed_flash_attention"]
+    for k, name in (("B6 decode", "paged_flash_attention"),
+                    ("B7 decode", "paged_packed_flash_attention")):
+        attn[k]["launches_per_step"] = main["paged_step_launches"][name]
     rec = {"kernels": rows, "recurrentgemma-2b": main, "gemma3-12b (6 layers)": g3,
            "seconds": time.perf_counter() - t0}
     print("hybrid (phase 19): " + json.dumps(rec, default=str))

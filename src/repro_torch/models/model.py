@@ -262,10 +262,9 @@ class Model(nn.Module):
         b = _batch(cache)
         posd = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
         zero = torch.zeros(b, dtype=torch.int64, device=self.device)
+        self.restore_states(cache, saved)
         for layer, c, old in zip(self.layers, cache, saved):
-            if not layer.has_kv:
-                c.update(old)
-            elif layer.kind == "attn_local":
+            if layer.kind == "attn_local":
                 blocks.rollback_kv_cache(c, old, zero, posd, n)
         return cache
 
@@ -304,8 +303,8 @@ class Model(nn.Module):
         recurrent layer (:meth:`state_refs`, no copy)."""
         b = _batch(cache)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b)
-        return [blocks.kv_slots(c, pos, n) if layer.has_kv else dict(c)
-                for layer, c in zip(self.layers, cache)]
+        return [blocks.kv_slots(c, pos, n) if r is None else r
+                for c, r in zip(cache, self.state_refs(cache))]
 
     def rollback_cache(self, cache: list[dict], rollback: list, keep, pos,
                        n_new: int) -> list[dict]:
@@ -351,16 +350,15 @@ class Model(nn.Module):
         """Copies of the pool rows ``plans`` write (:meth:`write_plans`) of
         each KV layer, and each recurrent layer's state (no copy): what a
         paged speculative draft overwrites."""
-        return [blocks.pool_entries(c, plans[s]) if s is not None else dict(c)
-                for c, s in zip(cache, self.ring_lens(max_len))]
+        return [blocks.pool_entries(c, plans[s]) if r is None else r
+                for c, s, r in zip(cache, self.ring_lens(max_len), self.state_refs(cache))]
 
     def restore_pool_entries(self, cache: list[dict], plans: dict, saved: list,
                              max_len: int) -> list[dict]:
         """Put :meth:`pool_entries`' copies and states back, in place."""
+        self.restore_states(cache, saved)
         for c, s, old in zip(cache, self.ring_lens(max_len), saved):
-            if s is None:
-                c.update(old)
-            else:
+            if s is not None:
                 blocks.restore_pool_entries(c, plans[s], old)
         return cache
 
