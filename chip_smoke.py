@@ -18,9 +18,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
      row slices bit-equal to the whole call and torch's
      scaled_dot_product_attention timed on the same work, cold, as a
      yardstick;
-  4. a 2-layer model at full llama-7b width, the same packed weights served
-     once on the CPU (plain versions) and once on the card (kernels): logits
-     within tolerance, greedy tokens equal;
+  4. a CROSS_LAYERS-layer model (1 layer) at full llama-7b width, the same
+     packed weights served once on the CPU (plain versions) and once on the
+     card (kernels): logits within tolerance, greedy tokens equal;
   5. full-width 32-layer llama-7b-paper with random weights from a seeded
      torch.Generator, packed "precise": one ragged Engine.generate of 4
      prompts and Engine.serve of 8 requests through 4 slots, with each
@@ -40,7 +40,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
      one source, pow2 folds) and its plain version (1e-5), at decode (B=4,
      H=32, S=2048, ragged), a 128-query chunk at q_pos0 > 0, and
      gemma3-12b's decode (Hq=16, Hkv=8, D=256, 320 and 512);
-  9. the 2-layer model of phase 4 served with kv_quant="kv8",
+  9. the model of phase 4 served with kv_quant="kv8",
      quant_method="dsbp_kernel": CPU vs card greedy tokens equal, and on the
      card packed-KV serving equal token for token to serving over a float
      cache whose every write is quantized then dequantized;
@@ -60,10 +60,12 @@ Phases (each raises on failure; nothing falls back to the CPU):
      with a partial last block, and gemma3-12b's decode (Hq=16, Hkv=8,
      D=256, 320 and 512); times beside the gather + SDPA yardstick, bounds
      from the distinct key rows read;
-  12. the 2-layer models of phase 4 served paged (a shared-prefix group and
-     a chunked prompt), float pool and kv8 pool, on the CPU (plain
-     versions) and on the card (kernels): greedy tokens equal under the
-     near-tie rule of phase 9;
+  12. a PAGED_CROSS_LAYERS-layer model (2 layers, so each layer's cache
+     and block-table indexing is compared across devices) at full
+     llama-7b width served paged (a shared-prefix group and a chunked
+     prompt), float pool and kv8 pool, on the CPU (plain versions) and on
+     the card (kernels): greedy tokens equal under the near-tie rule of
+     phase 9;
   13. the full-width model of phase 5 served paged: 8 requests sharing a
      192-token system prompt plus 2 chunked 320-token prompts, 8 lanes on
      the KV blocks of 4 dense slots (129 blocks of 16), float pool and then
@@ -91,7 +93,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
      same at 2 layers on a (2, 2) mesh (data- and tensor-parallel, 4
      ranks) against one device: equal tokens, logits within
      MESH_DATA_REL * max|logit|.
-  16a. the 2-layer models of phase 4 served speculatively (spec_k 3, the
+  16a. the models of phase 4 served speculatively (spec_k 3, the
      draft through dsbp_fused) on the CPU (plain versions) and on the card
      (kernels): tokens equal under phase 9's near-tie rule, the same
      accepted-length histogram where no near tie was taken; then on the
@@ -99,8 +101,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
      path), its time per round beside dsbp_fused's;
   16. self-speculative decoding at full width: B1 over draft_view
      containers bit-equal to plain at the draft's decode shapes and the
-     verify's; the time of deriving every projection's draft view; then
-     phase 5's model, seed and traffic served with spec_k 3 and
+     verify's; the time of deriving every projection's draft view and the
+     narrow kv8 view at full depth; then a SPEC_LAYERS-layer (8) model of
+     phase 5's seed served with phase 5's traffic with spec_k 3 and
      spec_draft_method dsbp_fused at spec_draft_bits 4 and 7, then kv8
      with kv_draft_bits 6 (the narrow view's bytes and time), then phase
      13's paged traffic on a float and a kv8 pool; each held against the
@@ -110,10 +113,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
      untouched, B1 launched at M = lanes in every draft step and M = 4 *
      lanes in every verify, and B2 / B5 / B6 / B7 launched n_layers times
      in every draft step; accepted_hist, mean_accepted, ms per round and
-     per committed token beside the spec_k 0 serve's and phase 5's, peak
-     memory.
-  17a. the DSBP policy loop on 2 layers at full width, CPU (plain) vs card
-     (kernels): calibration reports with equal counts, flops and
+     per committed token beside the spec_k 0 serve's, peak memory.
+  17a. the DSBP policy loop on CROSS_LAYERS layers at full width, CPU
+     (plain) vs card (kernels): calibration reports with equal counts, flops and
      weight-side statistics and input histograms within HIST_TOL; scores of
      a decided synthetic BoolQ subset under a mixed policy (four presets
      cycling over the projection paths, KV units.0 at kv4) within
@@ -178,6 +180,31 @@ Phases (each raises on failure; nothing falls back to the CPU):
      max_len 2048: local and global rings in one block table, paged ==
      dense, B1 launches per decode step by (K, N); a `hybrid (phase 19):`
      JSON line.
+  20. the MoE family, after 19: B1 at mixtral-8x7b's decode shapes (wq /
+     wo K=4096 N=4096, wk / wv K=4096 N=1024) against its plain version,
+     timed cold; 20a, mixtral-8x7b at full width and 2 layers: the
+     streamed packed init (init(pack=), drawn and packed one layer at a
+     time) bit-equal to init followed by pack_weights_int8, and the
+     model's generate of MOE_CROSS_NEW tokens on the CPU (plain versions)
+     and the card (kernels) under phase 9's rule; 20, full width and depth (32 layers,
+     ~187 GB of f32 draws packed into ~51 GB as they are drawn; the init's
+     peak gated below the packed model plus two f32 layers): generate and a
+     dense serve of phase 5's traffic, each kernel's launches over that
+     run, B1 = 128 (wq wk wv wo, counted by (K, N) against the containers;
+     the experts are weight-only, as in the reference) and B2 = 32 per
+     decode step, the MoE FFN of one decode step and its expert
+     dequantizes timed, prefill s, ms per step, peak memory and a
+     torch.profiler trace of two decode steps; 20b, full width at
+     MOE_SERVE_LAYERS layers: kv8 (B5), paged float and kv8 (B6 / B7, one
+     launch per layer and decode step), paged == dense token for token at
+     matched batches (float, kv8, and spec_k 3 over the tokens committed
+     before any lane can finish), spec_k 3 at draft bits 7 against spec_k
+     0: the float model's under phase 9's rule, the packed model's under
+     MOE_TIE, which a planted acceptance fault (every draft kept, so
+     rejected drafts stay in the cache) must fail; the cause behind
+     MOE_TIE counted: the top-2 routes of verify passes that flip against
+     the chained decode steps over the same tokens, and the logit
+     difference with and without a flip; a `moe (phase 20):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
   14-15b, for which the models are freed.
@@ -187,6 +214,14 @@ Prints the kernels' JSON record, the card's name and power limit, and last
     python3 chip_smoke.py --hybrid
 
 runs phases 1 and 19 alone.
+
+    python3 chip_smoke.py --moe
+
+runs phases 1 and 20 alone.
+
+    python3 chip_smoke.py --cross
+
+runs phases 1, 4, 9 and 12 alone (llama-7b-paper's CPU-vs-card checks).
 
     python3 chip_smoke.py --mesh-only
 
@@ -274,6 +309,28 @@ RING_REL = 1e-3
 # fail, and the float model's ring decode within RING_REL of its sequence
 # mode
 HYBRID_TIE = 0.3
+# phase 20b's packed speculative serve against spec_k 0 (mixtral-8x7b, 4
+# layers, random weights, max|logit| ~4.5): the verify pass quantizes 16
+# rows under one per-tensor input scale where a decode step quantizes 4,
+# and an input rounded otherwise can flip a token's top-2 routing at a
+# near tie, which swaps a whole expert's output for that token (0.19 of
+# max|logit| on an H100, PERF.md).  Phase 20b counts those flips between a
+# verify pass and the decode steps it stands for (on an H100: 2 of 512
+# routes; 0.019 of max|logit| where none flipped, which it holds to
+# KV_TIE, and up to 0.28 after a flip), and a planted acceptance fault
+# must fail the rule at this bound (it moved a row by 1.02).  The same serves of the float
+# model, where no input is quantized, are held to phase 9's rule (KV_TIE);
+# the packed rounds are held exactly at matched batches (dense == paged)
+MOE_TIE = HYBRID_TIE
+# the depth phase 16's speculative serves run at (full width; phase 18d
+# serves speculation at full depth); and the layers of the CPU-vs-card
+# models of phases 4, 9, 12, 16a and 17a (full width): cut for the
+# script's time limit, where the CPU's plain versions take most of it
+SPEC_LAYERS = 8
+CROSS_LAYERS = 1
+# phase 12 keeps two layers: the one CPU-vs-card check at full width whose
+# per-layer caches and block tables are indexed past layer 0
+PAGED_CROSS_LAYERS = 2
 
 
 def smi() -> str:
@@ -446,16 +503,25 @@ def _prompts(vocab, lens, seed):
     return toks, np.asarray(lens, np.int32)
 
 
-def phase_cross_device(torch, TM, Engine, ServeConfig, cfg):
-    print("== phase 4: 2-layer full-width model, CPU (plain) vs card (kernels)")
-    import numpy as np
-
-    cfg2 = cfg.replace(n_layers=2)
+def cross_models(torch, TM, Engine, ServeConfig, cfg, n_layers):
+    """``cfg`` cut to ``n_layers``: seeded weights drawn on the CPU, packed
+    on the card by an Engine, and a CPU copy of the packed model:
+    (card model, CPU model)."""
+    cfg2 = cfg.replace(n_layers=n_layers)
     gpu_model = TM.Model(cfg2, "cuda")
     gpu_model.load_state_dict(TM.init(cfg2, seed=0, device="cpu").state_dict())
+    gpu = Engine(gpu_model, ServeConfig(max_len=64), device="cuda")  # packs on the card
+    return gpu.model, copy.deepcopy(gpu.model).to("cpu")
+
+
+def phase_cross_device(torch, TM, Engine, ServeConfig, cfg):
+    print(f"== phase 4: {CROSS_LAYERS}-layer full-width model, CPU (plain) vs card (kernels)")
+    import numpy as np
+
+    models = cross_models(torch, TM, Engine, ServeConfig, cfg, CROSS_LAYERS)
     scfg = ServeConfig(max_len=64)
-    gpu = Engine(gpu_model, scfg, device="cuda")        # packs on the card
-    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    gpu = Engine(models[0], scfg, device="cuda")
+    cpu = Engine(models[1], scfg, device="cpu")
     toks, lens = _prompts(cfg.vocab_size, [5, 17, 9, 12], seed=3)
     logits = {}
     for name, eng in (("cpu", cpu), ("gpu", gpu)):
@@ -487,7 +553,7 @@ def phase_cross_device(torch, TM, Engine, ServeConfig, cfg):
                   f"compared up to it")
     print(f"  prefill logits max |diff| {diff:.3g} (max |logit| {scale:.3g}, "
           f"tolerance {TIE} relative); greedy tokens equal: {t_gpu.tolist()}")
-    return gpu.model, cpu.model  # packed once; phase 9 serves them again
+    return models  # packed once; phases 9, 16a serve them again
 
 
 def _serve_traffic(Request, vocab):
@@ -873,7 +939,7 @@ def phase_b5(torch, FA, KVQ):
 
 
 def phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg):
-    print("== phase 9: 2-layer full width, kv8 + dsbp_kernel: CPU (plain) vs card "
+    print(f"== phase 9: {CROSS_LAYERS}-layer full width, kv8 + dsbp_kernel: CPU (plain) vs card "
           "(kernels); packed KV vs quantize-dequantize oracle on the card")
     import numpy as np
 
@@ -1330,10 +1396,11 @@ def _shared_requests(Request, vocab, n_shared, sys_len, tail, n_long, long_len, 
     return [Request(uid=i, tokens=t, max_new_tokens=new) for i, t in enumerate(toks)]
 
 
-def phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cfg):
-    print("== phase 12: 2-layer full width, paged serve (shared prefix + chunked prompt), "
-          "CPU (plain) vs card (kernels), float pool and kv8 pool")
-    gpu_model, cpu_model = models
+def phase_paged_cross_device(torch, TM, Engine, ServeConfig, Request, FA, cfg):
+    print(f"== phase 12: {PAGED_CROSS_LAYERS}-layer full width, paged serve (shared prefix + "
+          "chunked prompt), CPU (plain) vs card (kernels), float pool and kv8 pool")
+    gpu_model, cpu_model = cross_models(torch, TM, Engine, ServeConfig, cfg,
+                                        PAGED_CROSS_LAYERS)
     reqs = _shared_requests(Request, cfg.vocab_size, n_shared=3, sys_len=32, tail=7,
                             n_long=1, long_len=48, new=6, seed=12)
     prompts = {r.uid: r.tokens for r in reqs}
@@ -1349,10 +1416,11 @@ def phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cf
         gst = dict(gpu.last_stats)
         fired = (FA.paged_flash_attention.launches - b6,
                  FA.paged_packed_flash_attention.launches - b7)
-        if fired != ((2 * gst["decode_steps"], 0) if kv is None
-                     else (0, 2 * gst["decode_steps"])):
+        n = PAGED_CROSS_LAYERS * gst["decode_steps"]
+        if fired != ((n, 0) if kv is None else (0, n)):
             raise AssertionError(f"paged {kv or 'float'}: B6/B7 launches {fired} for "
-                                 f"{gst['decode_steps']} decode steps of 2 layers")
+                                 f"{gst['decode_steps']} decode steps of {PAGED_CROSS_LAYERS} "
+                                 "layers")
         if not (gst["prefix_hit_blocks"] > 0 and gst["chunked_requests"] == 1
                 and gst["stalled_decode_steps"] == 0):
             raise AssertionError(f"paged {kv or 'float'} stats {gst}")
@@ -1364,6 +1432,7 @@ def phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cf
               f"{gst['prefix_hit_blocks']}, chunk steps {gst['chunk_steps']}, decode steps "
               f"{gst['decode_steps']} (CPU {cst['decode_steps']}), B6/B7 launches {fired}")
         del cpu, gpu
+    del gpu_model, cpu_model
     torch.cuda.empty_cache()
 
 
@@ -1719,6 +1788,7 @@ def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, 
                              f"verify passes for {rounds} rounds")
     m = {k: v for k, v in tape.b1_m.items() if k[0] in ("draft", "verify")}
     want = {("draft", lanes): per_step * drafts, ("verify", 4 * lanes): per_step * rounds}
+    want = {k: v for k, v in want.items() if v}  # a float model launches no B1
     if m != want:
         raise AssertionError(f"{label}: B1 launches by (step, M) {m}, want {want}")
     attn = ("paged_packed_flash_attention" if scfg.get("paged") and scfg.get("kv_quant")
@@ -1740,7 +1810,8 @@ def _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref, 
           f"spec_k=0 up to near ties in {len(ties)} of {len(ref)} streams (largest logit "
           f"difference {max(worst.values()):.4f} of max|logit|)")
     res = {"stats": st, "launches": launches, "b1_m": m, "peak": peak, "ms_round": ms_round,
-           "ms_token": ms_token, "ties": len(ties), "out": out}
+           "ms_token": ms_token, "ties": len(ties), "out": out,
+           "worst": max(worst.values())}
     if trace is not None:
         res["trace"] = trace_round(torch, eng, *trace, TRACE_ROUND)
     del eng
@@ -1762,7 +1833,7 @@ def spec_record(spec: dict, two_layer: dict) -> dict:
 
 
 def phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg):
-    print("== phase 16a: 2-layer full width, speculative serve (spec_k 3, draft "
+    print(f"== phase 16a: {CROSS_LAYERS}-layer full width, speculative serve (spec_k 3, draft "
           "dsbp_fused), CPU (plain) vs card (kernels); then the card with draft dsbp_ref")
     import numpy as np
 
@@ -1792,7 +1863,7 @@ def phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg):
     out = {name: 1e3 * st["decode_time_s"] / st["spec_rounds"]
            for name, st in (("dsbp_fused", gst), ("dsbp_ref", rst))}
     print(f"  CPU vs card tokens equal (near ties above excepted), accepted_hist "
-          f"{gst['accepted_hist']} (CPU {h_cpu}); on the card, ms per round over 2 layers: "
+          f"{gst['accepted_hist']} (CPU {h_cpu}); on the card, ms per round over {CROSS_LAYERS} layers: "
           f"draft dsbp_fused {out['dsbp_fused']:.2f}, draft dsbp_ref {out['dsbp_ref']:.2f} "
           f"(accepted_hist {rst['accepted_hist']}, same tokens)")
     del cpu, gpu, ref
@@ -1800,11 +1871,12 @@ def phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg):
     return out
 
 
-def phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
-                     kernels, model, cfg, ref5, paged):
-    print("== phase 16: full-width llama-7b-paper served speculatively (spec_k 3, the "
-          "MSB-slice draft through B1): phase 5's traffic at draft bits 4 and 7, kv8 with "
-          "kv_draft_bits 6, then phase 13's paged traffic on a float and a kv8 pool")
+def phase_spec_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
+                     kernels, model, cfg, paged):
+    print(f"== phase 16: llama-7b-paper served speculatively (spec_k 3, the MSB-slice draft "
+          f"through B1) at full width and {SPEC_LAYERS} layers: phase 5's traffic at draft "
+          f"bits 4 and 7, kv8 with kv_draft_bits 6, then phase 13's paged traffic on a float "
+          f"and a kv8 pool; B1 over the draft views and their cost at full depth")
     from repro_torch.core.packed import draft_view
     from repro_torch.spec.draft import projection_keys
 
@@ -1852,53 +1924,67 @@ def phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tenso
     print(f"  draft_view of all {len(conts)} projections (one draft step): {view_ms:.2f} ms "
           f"device time; {3 * view_ms:.2f} ms per round (3 draft steps)")
 
+    with torch.inference_mode():  # the kv8 cache of 4 slots x 512, full depth
+        cache = model.init_cache(4, 512, kv="kv8")
+        narrow_bytes = KVQ.kv_cache_nbytes(cache)
+        narrow_ms = cuda_ms(lambda: KVQ.kv_narrow_view(cache, 6), [()], iters=5,
+                            sleep=5 * 10**7)
+    del cache
+    print(f"  kv_narrow_view (kv_draft_bits 6): a {narrow_bytes / 2**20:.1f} MiB copy of the "
+          f"kv8 cache (4 slots x 512, 32 layers) per round, {narrow_ms:.3f} ms device time")
+
+    # ---- the serves, at full width and SPEC_LAYERS layers: each held
+    # against spec_k 0 on the same model and traffic ----
+    cfgs = cfg.replace(n_layers=SPEC_LAYERS)
+    smodel = TM.init(cfgs, seed=0, device="cuda", pack="precise")
     toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
-    out = {"draft_view_ms_per_round": 3 * view_ms, "b1_draft_view": b1}
+    out = {"draft_view_ms_per_round": 3 * view_ms, "b1_draft_view": b1,
+           "layers": SPEC_LAYERS}
+    refs = {}
     for kv, bits, kv_draft in ((None, 4, None), (None, 7, None), ("kv8", 4, 6)):
-        base = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant=kv),
-                      device="cuda")
-        tape = GuardTape(base, cfg.vocab_size)
-        try:
-            ref = base.serve(reqs)
-        finally:
-            tape.close()
-        bst = dict(base.last_stats)
+        if kv not in refs:  # spec_k 0, once per cache
+            base = Engine(smodel, ServeConfig(max_len=512, batch_size=4, kv_quant=kv),
+                          device="cuda")
+            tape = GuardTape(base, cfg.vocab_size)
+            try:
+                ref = base.serve(reqs)
+            finally:
+                tape.close()
+            refs[kv] = (ref, tape.rows, dict(base.last_stats))
+            del base
+        ref, rows, bst = refs[kv]
         label = f"dense {kv or 'float'}, draft bits {bits}" + (
             f", kv_draft_bits {kv_draft}" if kv_draft else "")
-        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, ref,
-                          tape.rows, dict(max_len=512, batch_size=4, kv_quant=kv,
-                                          spec_draft_bits=bits, kv_draft_bits=kv_draft),
+        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, smodel, cfgs, reqs, ref,
+                          rows, dict(max_len=512, batch_size=4, kv_quant=kv,
+                                     spec_draft_bits=bits, kv_draft_bits=kv_draft),
                           label, trace=(toks, lens) if bits == 7 else None)
         res["plain_ms_step"] = 1e3 * bst["decode_time_s"] / bst["decode_steps"]
         res["plain_ms_token"] = 1e3 * bst["decode_time_s"] / bst["decode_tokens"]
-        print(f"    spec_k=0, same engine and traffic: {res['plain_ms_step']:.2f} ms per step, "
-              f"{res['plain_ms_token']:.2f} ms per token (phase 5 in this run: "
-              f"{ref5['decode_ms']:.2f} ms per step, {ref5['token_ms']:.2f} per token, peak "
-              f"{ref5['peak'] / 2**30:.2f} GiB)")
-        out[label] = res
-        del base
+        print(f"    spec_k=0, same model and traffic: {res['plain_ms_step']:.2f} ms per step, "
+              f"{res['plain_ms_token']:.2f} ms per token")
         if kv_draft:
-            with torch.inference_mode():
-                cache = model.init_cache(4, 512, kv="kv8")
-                nb = KVQ.kv_cache_nbytes(cache)
-                narrow_ms = cuda_ms(lambda: KVQ.kv_narrow_view(cache, kv_draft), [()],
-                                    iters=5, sleep=5 * 10**7)
-            del cache
-            res["narrow_view_bytes"], res["narrow_view_ms"] = nb, narrow_ms
-            print(f"    kv_narrow_view: a {nb / 2**20:.1f} MiB copy of the kv8 cache (4 slots "
-                  f"x 512) per round, {narrow_ms:.3f} ms device time")
+            res["narrow_view_bytes"], res["narrow_view_ms"] = narrow_bytes, narrow_ms
+        out[label] = res
     for name, kv in (("float", None), ("kv8", "kv8")):
         p13 = paged[name]
         scfg = dict(max_len=512, batch_size=4, max_active=8, paged=True, kv_block_size=16,
                     chunk_prefill_tokens=256, kv_quant=kv)
-        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, p13["reqs"],
-                          p13["out"], p13["rows"], scfg, f"paged {name} pool")
-        st13 = p13["stats"]
-        print(f"    phase 13 in this run ({name} pool, spec_k=0): "
-              f"{1e3 * st13['decode_time_s'] / st13['decode_steps']:.2f} ms per step, "
-              f"{1e3 * st13['decode_time_s'] / st13['decode_tokens']:.2f} ms per token, peak "
-              f"{p13['peak'] / 2**30:.2f} GiB")
+        base = Engine(smodel, ServeConfig(**scfg), device="cuda")
+        tape = GuardTape(base, cfg.vocab_size)
+        try:
+            ref = base.serve(p13["reqs"])
+        finally:
+            tape.close()
+        bst = dict(base.last_stats)
+        del base
+        res = _spec_serve(torch, Engine, ServeConfig, TO, kernels, smodel, cfgs, p13["reqs"],
+                          ref, tape.rows, scfg, f"paged {name} pool")
+        print(f"    spec_k=0 ({name} pool, the same model and traffic): "
+              f"{1e3 * bst['decode_time_s'] / bst['decode_steps']:.2f} ms per step, "
+              f"{1e3 * bst['decode_time_s'] / bst['decode_tokens']:.2f} ms per token")
         out[f"paged {name}"] = res
+    del smodel
     torch.cuda.empty_cache()
     return out
 
@@ -2399,14 +2485,14 @@ def compare_scores(ref, got, label: str) -> float:
 
 def phase_policy_cross_device(torch, P, TM, Engine, ServeConfig, Request, PRESETS, kernels,
                               cfg):
-    print("== phase 17a: 2-layer full width, the policy loop on the CPU (plain) vs the "
+    print(f"== phase 17a: {CROSS_LAYERS}-layer full width, the policy loop on the CPU (plain) vs the "
           "card (kernels): calibration report, scores of a decided BoolQ subset and a "
           "mixed-policy serve with a joint KV side")
     import numpy as np
 
     from repro_torch.eval import boolq_synthetic, harness
 
-    cfg2 = cfg.replace(n_layers=2)
+    cfg2 = cfg.replace(n_layers=CROSS_LAYERS)
     gpu = TM.init(cfg2, seed=0, device="cuda")
     cpu = TM.Model(cfg2, "cpu")
     cpu.load_state_dict(gpu.state_dict())
@@ -2590,14 +2676,16 @@ def _step_launches(torch, eng, kernels, toks, lens, max_len: int = 512, TO=None)
 
 def _b1_shapes(model) -> dict:
     """B1's launches per decode step by (K, N), from the model's packed
-    containers: every projection but the weight-only ``wa`` / ``wx``."""
+    containers: every projection but the weight-only ones, the RG-LRU's
+    ``wa`` / ``wx`` and the MoE's expert stacks (E, K', N)."""
     import collections
 
     from repro_torch.core.packed import PackedDSBPWeight
 
     return dict(collections.Counter(
         tuple(mod.ka.shape) for name, mod in model.named_modules()
-        if isinstance(mod, PackedDSBPWeight) and name.rsplit(".", 1)[-1] not in ("wa", "wx")))
+        if isinstance(mod, PackedDSBPWeight) and mod.ka.ndim == 2
+        and name.rsplit(".", 1)[-1] not in ("wa", "wx")))
 
 
 def phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tensor_scale,
@@ -3708,6 +3796,467 @@ def hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the MoE family: mixtral-8x7b (GShard top-2 over 8 packed
+# weight-only experts, sliding-window rings of 4096) at full width, drawn
+# and packed one layer at a time
+# ---------------------------------------------------------------------------
+
+# B1's shapes in a mixtral decode step (M = 4 lanes): the attention
+# projections; the experts are weight-only (dequantized for cuBLAS), as in
+# the reference
+MOE_B1 = ((4096, 4096, "wq wo"), (4096, 1024, "wk wv (GQA, 8 KV heads)"))
+# torch.profiler names of a mixtral decode step: B1, B2, the expert
+# products and the head (cuBLAS)
+TRACE_MOE = {"B1": TRACE_FUSED["B1"], "B2": TRACE_FUSED["B2"],
+             "cuBLAS (experts, head)": ("gemv", "gemm", "xmma", "cutlass", "bmm")}
+# a depth the 20b serves run at (kv8, paged, speculation): full width
+MOE_SERVE_LAYERS = 4
+# the new tokens of 20a's CPU-vs-card generate (4 prompts)
+MOE_CROSS_NEW = 6
+
+
+def _moe_requests(Request, vocab, lens, new, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, tokens=rng.integers(0, vocab, n), max_new_tokens=new)
+            for i, n in enumerate(lens)]
+
+
+def phase_moe_cross_device(torch, TM, Engine, ServeConfig, cfg) -> dict:
+    """20a: 2 layers at full width.  The streamed packed init equals init
+    followed by pack_weights_int8 bit for bit; the model served on the CPU
+    (plain versions) and on the card (kernels): greedy tokens equal under
+    phase 9's rule."""
+    print("== phase 20a: mixtral-8x7b at full width, 2 layers: init(pack=) == init + "
+          "pack_weights_int8; CPU (plain) vs card (kernels)")
+    from repro_torch.serve.engine import pack_weights_int8
+
+    cfg2 = cfg.replace(n_layers=2)
+    t0 = time.perf_counter()
+    want = TM.init(cfg2, seed=20, device="cuda")
+    pack_weights_int8(want, "precise")
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    want = {n: t for n, t in list(want.named_parameters()) + list(want.named_buffers())}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = TM.init(cfg2, seed=20, device="cuda", pack="precise")
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    got = list(model.named_parameters()) + list(model.named_buffers())
+    if [n for n, _ in got] != list(want):
+        raise AssertionError("streamed init: other parameters than init + pack")
+    for name, t in got:
+        if not torch.equal(t, want[name]):
+            raise AssertionError(f"streamed init != init + pack_weights_int8 at {name}")
+    del want
+    torch.cuda.empty_cache()
+    scfg = ServeConfig(max_len=64, batch_size=4)
+    gpu = Engine(model, scfg, device="cuda")
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    toks, lens = _prompts(cfg.vocab_size, [24, 7, 16, 11], seed=20)
+    prompts = {r: toks[r, :lens[r]] for r in range(len(lens))}
+    # the CPU's decode step dequantizes 6 expert stacks (~70 GB of host
+    # memory traffic): MOE_CROSS_NEW new tokens
+    t0 = time.perf_counter()
+    t_cpu = cpu.generate(toks, MOE_CROSS_NEW, lengths=lens)
+    cpu_s = time.perf_counter() - t0
+    t_gpu = gpu.generate(toks, MOE_CROSS_NEW, lengths=lens)
+    ties = check_streams(torch, dict(enumerate(t_cpu)), dict(enumerate(t_gpu)), prompts,
+                         cpu, gpu)
+    print(f"  {len(got)} tensors bit-equal (init + pack {t_pack:.2f} s, streamed "
+          f"{t_stream:.2f} s); generate (lens {lens.tolist()}, {MOE_CROSS_NEW} new tokens; CPU "
+          f"{cpu_s:.1f} s): CPU vs card tokens equal, {len(ties)} near ties taken: {t_gpu.tolist()}")
+    del cpu, gpu, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tensors_equal": len(got), "init_pack_s": t_pack, "streamed_s": t_stream,
+            "ties": len(ties), "cpu_generate_s": cpu_s}
+
+
+def phase_moe(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict:
+    """20: mixtral-8x7b at full width and depth (32 layers), drawn and
+    packed one layer at a time ("precise"), f32, max_len 512: phase 5's
+    traffic through generate and a dense serve."""
+    print("== phase 20: mixtral-8x7b at full width and depth (32 layers), init(pack=): "
+          "generate + dense serve of phase 5's traffic")
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.serve.engine import _nbytes
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):  # seconds per part of the phase, for its time budget
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    model = TM.init(cfg, seed=0, device="cuda", pack="precise")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    lap("init(pack=)")
+    packed = _nbytes(model)
+    layer_f32 = 4 * sum(p.numel() for p in TM.Model(cfg.replace(n_layers=1), "meta")
+                        .layers[0].parameters())
+    f32_all = 4 * cfg.padded_vocab_size * cfg.d_model * 2 + cfg.n_layers * layer_f32
+    print(f"  init(pack=) {laps['init(pack=)']:.2f} s: {f32_all / 1e9:.1f} GB of f32 draws -> "
+          f"{packed / 1e9:.2f} GB packed; peak {init_peak / 1e9:.2f} GB = packed + "
+          f"{(init_peak - packed) / 1e9:.2f} GB (one layer in f32: {layer_f32 / 1e9:.2f} GB)")
+    if init_peak > packed + 2 * layer_f32:
+        raise AssertionError(f"init(pack=) peaked at {init_peak / 1e9:.2f} GB: more than the "
+                             f"packed model and two f32 layers")
+    eng = Engine(model, ServeConfig(max_len=512, batch_size=4), device="cuda")
+    if eng.pack_report is not None or eng.cfg.quant_method != "dsbp_fused":
+        raise AssertionError("the engine repacked a packed model")
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the MoE path: counts from 0 over exactly this run ----
+    _reset_launches(kernels)
+    out = eng.generate(toks, 16, lengths=lens)
+    gst = dict(eng.last_stats)
+    served = eng.serve(reqs, max_new_tokens=16)
+    sst = dict(eng.last_stats)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lap("generate + serve")
+    for name in ("dsbp_fused", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the MoE path")
+    if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"generate output {out.shape} out of range")
+    if sorted(served) != list(range(8)) or any(len(t) != 16 for t in served.values()):
+        raise AssertionError("serve did not return 16 tokens for each of 8 requests")
+    n_layers = cfg.n_layers
+    step, b1_shapes, pre = _step_launches(torch, eng, kernels, toks, lens, TO=TO)
+    if step != {"dsbp_fused": 4 * n_layers, "flash_attention": n_layers}:
+        raise AssertionError(f"launches in one decode step {step}: want B1 {4 * n_layers} "
+                             f"(the attention projections), B2 {n_layers}")
+    if b1_shapes != _b1_shapes(model):
+        raise AssertionError(f"B1 launches in one decode step by (K, N) {b1_shapes}, the "
+                             f"containers give {_b1_shapes(model)}")
+    lap("launches per step")
+
+    # ---- the MoE FFN of one decode step (4 rows): dequantize + products ----
+    x = torch.randn(4, 1, cfg.d_model, device="cuda")
+    moes = [layer.moe for layer in model.layers]
+
+    def ffn_step():  # each layer's output dropped as the next runs
+        for m in moes:
+            moe_ffn(m, x, cfg, no_drop=True)
+
+    def dequantize_step():
+        for m in moes:
+            for w in ("w1", "w3", "w2"):
+                getattr(m, w).dequantize()
+
+    with torch.inference_mode():
+        moe_ms = cuda_ms(ffn_step, [()], iters=2, warmup=1, sleep=0)
+        deq_ms = cuda_ms(dequantize_step, [()], iters=2, warmup=1, sleep=0)
+    deq_bytes = sum(getattr(m, w).ka.numel() * (1 + 4) for m in moes for w in ("w1", "w3", "w2"))
+    lap("MoE FFN timed")
+    trace = trace_decode(torch, eng, toks, lens, TRACE_MOE, steps=2)  # ~0.75 s per step
+    lap("trace")
+    ms_step = 1e3 * gst["decode_s"] / gst["decode_steps"]
+    serve_ms = 1e3 * sst["decode_time_s"] / sst["decode_steps"]
+    print(f"  generate: 4 prompts (lens {lens.tolist()}), 16 new tokens: prefill "
+          f"{gst['prefill_s']:.3f} s, {ms_step:.2f} ms per decode step")
+    print(f"  serve: 8 requests (lens {[len(r.tokens) for r in reqs]}) through 4 slots: "
+          f"{sst['decode_steps']} steps, {sst['admissions']} admissions, prefill "
+          f"{sst['prefill_time_s']:.3f} s, {serve_ms:.2f} ms/step; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    print(f"  launches over generate + serve: {launches}; per decode step B1 {4 * n_layers} "
+          f"(wq wk wv wo; the experts weight-only), by (K, N) {b1_shapes}, B2 {n_layers}; "
+          f"per prefill {pre}")
+    print(f"  the MoE FFN of one decode step (32 layers, 4 rows, top-2 of 8): {moe_ms:.2f} ms "
+          f"on the device, of it the 96 expert-stack dequantizes {deq_ms:.2f} ms "
+          f"({deq_bytes / 1e9:.1f} GB read + written: bound "
+          f"{1e3 * deq_bytes / HBM_BPS:.2f} ms)")
+    res = {"init_s": laps["init(pack=)"], "init_peak": init_peak, "packed_bytes": packed,
+           "layer_f32_bytes": layer_f32, "launches": launches, "step_launches": step,
+           "b1_by_shape": {f"K={k} N={n}": c for (k, n), c in b1_shapes.items()},
+           "prefill_launches": pre, "prefill_s": gst["prefill_s"], "decode_ms": ms_step,
+           "serve_ms": serve_ms, "serve_prefill_s": sst["prefill_time_s"], "peak": peak,
+           "moe_ffn_ms_step": moe_ms, "dequantize_ms_step": deq_ms,
+           "dequantize_bytes_step": deq_bytes, "trace": trace, "seconds_by_part": laps}
+    print(f"  seconds by part: {laps}")
+    del eng, model, moes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_route_flips(torch, eng, toks, lens, vocab: int, rounds: int) -> dict:
+    """The cause behind MOE_TIE, counted: from one cache, ``rounds`` times
+    the verify pass over each lane's next 4 tokens (16 rows under one
+    per-tensor input scale) against the 4 chained decode steps over the
+    same tokens (4 rows each), as a speculative round and spec_k 0 compute
+    them.  Returns the top-2 routes compared and flipped (a token whose
+    set of two experts differs in a layer), and the logit difference
+    relative to max|logit| at the positions with no flip at or before them
+    in their lane (held to phase 9's KV_TIE: without a flip only the input
+    rounding differs) and at the rest."""
+    import numpy as np
+
+    from repro_torch.models import moe as TMOE
+
+    model, quant, b = eng.model, eng.quant, len(lens)
+    depth, k = len(model.layers), model.cfg.top_k
+    seen, route = [], TMOE.route
+
+    def recorded(*args):
+        out = route(*args)
+        seen.append(out[0].reshape(-1, k))
+        return out
+
+    flips = np.zeros((rounds, depth, b, 4), bool)
+    diffs = np.zeros((rounds, b, 4))
+    TMOE.route = recorded
+    try:
+        with torch.inference_mode():
+            lg, cache, _ = model.prefill(torch.as_tensor(toks, device=eng.device), 512,
+                                         lengths=lens, quant=quant)
+            tok = lg[:, -1, :vocab].argmax(-1)
+            pos = torch.as_tensor(lens, dtype=torch.int32, device=eng.device)
+            for r in range(rounds):
+                before = [{n: t.clone() for n, t in c.items()} for c in cache]
+                seen.clear()
+                chain, rows = [tok], []
+                for j in range(4):
+                    lg, cache = model.decode_step(chain[-1][:, None], cache, pos + j, quant)
+                    rows.append(lg[:, -1, :vocab].float())
+                    chain.append(rows[-1].argmax(-1))
+                dec, seen[:] = list(seen), []
+                vl, _ = model.verify_step(torch.stack(chain[:4], 1), before, pos, quant)
+                if len(dec) != 4 * depth or len(seen) != depth:
+                    raise AssertionError(f"route calls: {len(dec)} over 4 decode steps, "
+                                         f"{len(seen)} in a verify, for {depth} layers")
+                for layer in range(depth):
+                    ver = seen[layer][:4 * b].reshape(b, 4, k).sort(-1).values
+                    for j in range(4):
+                        one = dec[j * depth + layer][:b].sort(-1).values
+                        flips[r, layer, :, j] = (one != ver[:, j]).any(-1).cpu().numpy()
+                ref = torch.stack(rows, 1)
+                diffs[r] = ((vl[..., :vocab].float() - ref).abs().amax(-1)
+                            / ref.abs().amax(-1)).cpu().numpy()
+                tok, pos = chain[4], pos + 4
+                del before
+    finally:
+        TMOE.route = route
+    tainted = np.logical_or.accumulate(flips.any(1), axis=-1)
+    if diffs[~tainted].max(initial=0.0) > KV_TIE:
+        raise AssertionError(f"verify vs decode steps with no route flipped: logits differ "
+                             f"by {diffs[~tainted].max()} > {KV_TIE} of max|logit|")
+    return {"routes": int(flips.size), "flipped": int(flips.sum()),
+            "positions": int(tainted.size), "positions_after_a_flip": int(tainted.sum()),
+            "max_rel_diff_no_flip": float(diffs[~tainted].max(initial=0.0)),
+            "max_rel_diff_after_a_flip": float(diffs[tainted].max(initial=0.0))}
+
+
+def phase_moe_serving(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict:
+    """20b: full width at MOE_SERVE_LAYERS layers: kv8 (B5), paged float
+    and kv8 (B6, B7), paged == dense exactly at matched batches (float,
+    kv8, spec_k 3 over the tokens committed before any lane can finish),
+    and spec_k 3 at draft bits 7 against spec_k 0 under phase 9's rule
+    (MOE_TIE for the packed model), which a planted acceptance fault must
+    fail; the route flips behind MOE_TIE counted."""
+    import numpy as np
+
+    depth = MOE_SERVE_LAYERS
+    print(f"== phase 20b: mixtral-8x7b at full width, {depth} layers: kv8, paged float and "
+          f"kv8, matched batches, speculation")
+    cfgd = cfg.replace(n_layers=depth)
+    model = TM.init(cfgd, seed=0, device="cuda", pack="precise")
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    dense = Engine(model, ServeConfig(max_len=512, batch_size=4), device="cuda")
+    model = dense.model
+    tape = GuardTape(dense, cfg.vocab_size)
+    served = dense.serve(reqs, max_new_tokens=16)
+    ref_rows = tape.close()
+    _reset_launches(kernels)
+    kv8 = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant="kv8"), device="cuda")
+    served8 = kv8.serve(reqs, max_new_tokens=16)
+    kst = dict(kv8.last_stats)
+    pcfg = dict(max_len=512, batch_size=4, paged=True, kv_block_size=16)
+    pst = {}
+    for label, kw in (("float", {}), ("kv8", {"kv_quant": "kv8"})):
+        e = Engine(model, ServeConfig(**pcfg, **kw), device="cuda")
+        pout = e.serve(reqs, max_new_tokens=16)
+        pst[label] = dict(e.last_stats)
+        if sorted(pout) != list(range(8)) or any(len(t) != 16 for t in pout.values()):
+            raise AssertionError(f"paged {label} did not return 16 tokens per request")
+        del e
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for name, n, steps in (("packed_flash_attention", launches["packed_flash_attention"],
+                            kst["decode_steps"]),
+                           ("paged_flash_attention", launches["paged_flash_attention"],
+                            pst["float"]["decode_steps"]),
+                           ("paged_packed_flash_attention",
+                            launches["paged_packed_flash_attention"], pst["kv8"]["decode_steps"])):
+        if n != depth * steps:
+            raise AssertionError(f"{name}: {n} launches for {steps} decode steps of {depth} "
+                                 f"layers")
+    if sorted(served8) != list(range(8)) or any(len(t) != 16 for t in served8.values()):
+        raise AssertionError("kv8 serve did not return 16 tokens for each of 8 requests")
+    step8 = _step_launches(torch, kv8, kernels, toks, lens)
+    if step8 != {"dsbp_fused": 4 * depth, "packed_flash_attention": depth}:
+        raise AssertionError(f"kv8: launches in one decode step {step8}")
+
+    # ---- matched batches (the 4 prompts of generate as 4 requests, one
+    # group, 4 lanes): paged == dense token for token; speculative streams
+    # over the tokens committed before any lane can finish ----
+    new = 16
+    same = _moe_requests(Request, cfg.vocab_size, lens.tolist(), new, seed=201)
+    mcfg = dict(max_len=512, batch_size=4, kv_block_size=16, chunk_prefill_tokens=512,
+                prefix_sharing=False)
+    spec3 = dict(spec_k=3, spec_draft_bits=7, spec_draft_method="dsbp_fused")
+    horizon = 1 + -(-(new - 1) // 4)
+    exact = {}
+    for label, kw in (("float", {}), ("kv8", {"kv_quant": "kv8"}), ("spec_k 3", spec3)):
+        for pg in (False, True):
+            e = Engine(model, ServeConfig(paged=pg, **mcfg, **kw), device="cuda")
+            exact[label, pg] = e.serve(same)
+            del e
+        n = horizon if kw is spec3 else new
+        for uid, t in exact[label, False].items():
+            if not np.array_equal(exact[label, True][uid][:n], t[:n]):
+                raise AssertionError(f"{label} matched batches, request {uid}: paged "
+                                     f"{exact[label, True][uid]} != dense {t} (first {n})")
+    spec_equal = sum(np.array_equal(exact["spec_k 3", True][u], t)
+                     for u, t in exact["spec_k 3", False].items())
+    # ---- speculation (draft bits 7) against spec_k 0: the packed model
+    # under MOE_TIE, the float model (no input quantized: every draft is
+    # the target) under phase 9's rule ----
+    scfg = dict(max_len=512, batch_size=4, spec_draft_bits=7)
+    spec = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfgd, reqs, served,
+                       ref_rows, scfg, "spec_k 3, draft bits 7, dense, packed",
+                       b1_per_step=4 * depth, attn_layers=depth, kv_tie=MOE_TIE)
+    # ---- the power of MOE_TIE: a planted acceptance fault (every draft
+    # kept unverified, so a rejected draft's K/V stays in the cache and the
+    # verify rows after it are committed) must fail phase 9's rule at
+    # MOE_TIE against spec_k 0; at draft bits 4, where drafts are rejected
+    # often enough to give the fault rows to corrupt ----
+    from repro_torch.spec import decode as SD
+
+    accept, rejected = SD.greedy_accept, []
+
+    def keep_all(draft, target):
+        rejected.append(int((accept(draft, target) <= draft.shape[1]).sum()))
+        return torch.full((draft.shape[0],), draft.shape[1] + 1, dtype=torch.int64,
+                          device=draft.device)
+
+    e = Engine(model, ServeConfig(spec_k=3, spec_draft_method="dsbp_fused",
+                                  **dict(scfg, spec_draft_bits=4)), device="cuda")
+    ftape = SpecTape(e, cfg.vocab_size, TO)
+    SD.greedy_accept = keep_all
+    try:
+        fout = e.serve(reqs)
+    finally:
+        SD.greedy_accept = accept
+        ftape.close()
+    del e
+    try:
+        check_recorded(torch, served, fout, ref_rows, ftape.rows, kv_tie=MOE_TIE)
+    except AssertionError as err:
+        planted_rule = str(err)
+    else:
+        raise AssertionError(f"a planted acceptance fault ({sum(rejected)} rejected drafts "
+                             f"kept) passes phase 9's rule at {MOE_TIE} against spec_k 0")
+    changed = sum(not np.array_equal(fout[u], t) for u, t in served.items())
+    print(f"  planted acceptance fault (draft bits 4, every draft kept: {sum(rejected)} of "
+          f"{4 * len(rejected)} lane-rounds kept a rejected draft): {changed} of {len(served)} "
+          f"streams changed; phase 9's rule at {MOE_TIE} against spec_k 0 fails it "
+          f"({planted_rule[:160]})")
+    # ---- what lies behind MOE_TIE: routes that flip between a verify
+    # pass and the decode steps it stands for ----
+    flips = moe_route_flips(torch, dense, toks, lens, cfg.vocab_size, rounds=8)
+    print(f"  route flips, verify (16 rows) vs 4 chained decode steps (4 rows), 8 rounds from "
+          f"generate's prompts: {flips['flipped']} of {flips['routes']} top-2 routes flipped "
+          f"({depth} layers x 4 lanes x 4 positions x 8 rounds); logits differ by at most "
+          f"{flips['max_rel_diff_no_flip']:.4f} of max|logit| at the "
+          f"{flips['positions'] - flips['positions_after_a_flip']} positions with no flip at "
+          f"or before them, {flips['max_rel_diff_after_a_flip']:.4f} at the "
+          f"{flips['positions_after_a_flip']} after a flip")
+    fmodel = TM.init(cfgd.replace(quant=None), seed=0, device="cuda")
+    fdense = Engine(fmodel, ServeConfig(max_len=512, batch_size=4), device="cuda")
+    tape = GuardTape(fdense, cfg.vocab_size)
+    fserved = fdense.serve(reqs, max_new_tokens=16)
+    frows = tape.close()
+    fspec = _spec_serve(torch, Engine, ServeConfig, TO, kernels, fmodel, cfgd, reqs, fserved,
+                        frows, scfg, "spec_k 3, dense, float", b1_per_step=0,
+                        attn_layers=depth)
+    del fdense, fmodel
+    print(f"  kv8: {1e3 * kst['decode_time_s'] / kst['decode_steps']:.2f} ms/step; paged "
+          f"float / kv8: {1e3 * pst['float']['decode_time_s'] / pst['float']['decode_steps']:.2f}"
+          f" / {1e3 * pst['kv8']['decode_time_s'] / pst['kv8']['decode_steps']:.2f} ms/step "
+          f"({depth} layers); B5 / B6 / B7 {depth} per decode step")
+    print(f"  matched batches (lens {lens.tolist()}, one group, {new} new tokens): paged == "
+          f"dense token for token, float and kv8; spec_k 3 over the first {horizon} tokens "
+          f"of each stream ({spec_equal} of {len(same)} streams equal to the end)")
+    res = {"depth": depth, "launches": launches, "kv8_step_launches": step8,
+           "kv8_ms": 1e3 * kst["decode_time_s"] / kst["decode_steps"],
+           "paged_ms": {k: 1e3 * v["decode_time_s"] / v["decode_steps"]
+                        for k, v in pst.items()},
+           "paged_step_launches": {
+               "paged_flash_attention": launches["paged_flash_attention"]
+               / pst["float"]["decode_steps"],
+               "paged_packed_flash_attention": launches["paged_packed_flash_attention"]
+               / pst["kv8"]["decode_steps"]},
+           "matched_horizon": horizon, "spec_matched_equal_streams": spec_equal,
+           "planted_fault": {"rejected_drafts_kept": sum(rejected),
+                             "lane_rounds": 4 * len(rejected), "streams_changed": changed,
+                             "tie_rule": planted_rule},
+           "route_flips": flips,
+           "spec": {label: {"accepted_hist": r["stats"]["accepted_hist"],
+                            "mean_accepted": r["stats"]["mean_accepted"],
+                            "ms_round": r["ms_round"], "ms_token": r["ms_token"],
+                            "ties": r["ties"], "worst": r["worst"]}
+                    for label, r in (("packed", spec), ("float", fspec))}}
+    del dense, kv8, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+               get_config, card: str) -> dict:
+    """Phase 20 whole: B1 at mixtral's shapes, 20a, 20 and 20b; returns
+    their records (one ``moe (phase 20):`` JSON line printed)."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+               "packed_flash_attention": FA.packed_flash_attention,
+               "paged_flash_attention": FA.paged_flash_attention,
+               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+    t0 = time.perf_counter()
+    print("== phase 20 (kernels): B1 at mixtral-8x7b's decode shapes")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b1 = [{**b1_case(torch, Q, DF, per_tensor_scale, gen, 4, k, n), "proj": proj}
+          for k, n, proj in MOE_B1]
+    torch.cuda.empty_cache()
+    cfg = get_config("mixtral-8x7b").replace(quant="precise")
+    cross = phase_moe_cross_device(torch, TM, Engine, ServeConfig, cfg)
+    main = phase_moe(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg)
+    serving = phase_moe_serving(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg)
+    # B1's rows carry the launches counted per decode step of the 32-layer
+    # model, and every shape it launched was timed
+    timed = {f"K={x['K']} N={x['N']}": x for x in b1}
+    if set(timed) != set(main["b1_by_shape"]):
+        raise AssertionError(f"B1 launched at {sorted(main['b1_by_shape'])}, timed at "
+                             f"{sorted(timed)}")
+    for key, x in timed.items():
+        x["launches_per_step"] = main["b1_by_shape"][key]
+        x["launches_of"] = "one decode step, phase 20, 32 layers"
+    rec = {"card": card, "b1": b1, "20a": cross, "20": main, "20b": serving,
+           "seconds": time.perf_counter() - t0}
+    print("moe (phase 20): " + json.dumps(rec, default=str))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3751,10 +4300,18 @@ def main() -> int:
         phase_b6_b7(torch, FA, KVQ)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--cross"]:  # phases 1, 4, 9 and 12: llama's CPU-vs-card checks
+        cfg = get_config("llama-7b-paper")
+        models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
+        phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
+        del models
+        phase_paged_cross_device(torch, TM, Engine, ServeConfig, Request, FA, cfg)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--spec"]:  # phases 1, 4, 5, 13, 16a and 16: speculation
         cfg = get_config("llama-7b-paper")
         models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
-        model, _, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
+        model, _, _, _ = phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg)
         kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
                    "packed_flash_attention": FA.packed_flash_attention,
                    "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul,
@@ -3763,8 +4320,8 @@ def main() -> int:
         paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks,
                                   kernels, model, cfg)
         phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
-        phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
-                         kernels, model, cfg, ref5, paged)
+        phase_spec_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, DF,
+                         per_tensor_scale, kernels, model, cfg, paged)
         print(smi())
         return 0
     if sys.argv[1:] == ["--robust"]:  # phases 1, 5, 13 and 18: robust serving
@@ -3798,6 +4355,11 @@ def main() -> int:
     if sys.argv[1:] == ["--hybrid"]:  # phases 1 and 19: the Griffin hybrid
         hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
                       per_tensor_scale, get_config)
+        print(smi())
+        return 0
+    if sys.argv[1:] == ["--moe"]:  # phases 1 and 20: the MoE family
+        moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+                   get_config, card)
         print(smi())
         return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
@@ -3840,7 +4402,7 @@ def main() -> int:
     stamp("phase 10")
     b67 = phase_b6_b7(torch, FA, KVQ)
     stamp("phase 11")
-    phase_paged_cross_device(torch, Engine, ServeConfig, Request, FA, models, cfg)
+    phase_paged_cross_device(torch, TM, Engine, ServeConfig, Request, FA, cfg)
     stamp("phase 12")
     kernels.update(paged_flash_attention=FA.paged_flash_attention,
                    paged_packed_flash_attention=FA.paged_packed_flash_attention)
@@ -3849,8 +4411,8 @@ def main() -> int:
     stamp("phase 13")
     spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
     stamp("phase 16a")
-    spec = phase_spec_serve(torch, Engine, ServeConfig, Request, TO, KVQ, DF, per_tensor_scale,
-                            kernels, model, cfg, ref5, paged)
+    spec = phase_spec_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, DF,
+                            per_tensor_scale, kernels, model, cfg, paged)
     stamp("phase 16")
     phase_robust(torch, Engine, ServeConfig, Request, DF, FA, TO, kernels, model, cfg, ref5,
                  paged)
@@ -3878,6 +4440,9 @@ def main() -> int:
     hyb = hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
                         per_tensor_scale, get_config)
     stamp("phase 19")
+    moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+                     get_config, card)
+    stamp("phase 20")
     # each kernel's launches on the hybrid path (phase 19's counted run:
     # generate, serve, kv8, paged float and kv8 at full depth); B3, B4 and
     # B8 are not on it (dsbp_kernel and the mesh serve dense llama only)
@@ -3895,7 +4460,8 @@ def main() -> int:
          "bound_by": b1["bound_by"], "library_ms": None,
          "spec_launches_by_step_and_m": {f"{k[0]} M={k[1]}": v
                                          for k, v in spec_dense["b1_m"].items()},
-         "spec_path": "phase 16 (dense float, spec_k 3, draft bits 4, draft dsbp_fused)",
+         "spec_path": f"phase 16 (dense float, {SPEC_LAYERS} layers, spec_k 3, draft bits 4, "
+                      f"draft dsbp_fused)",
          "shape": "decode M=4 K=4096 N=11008", "path": "phase 5 (float KV, dsbp_fused)",
          "trace_ms_per_step": ref5["trace"]["B1_ms"] / ref5["trace"]["steps"],
          "policy_launches": mixed["launches"]["dsbp_fused"],
@@ -4008,6 +4574,16 @@ def main() -> int:
                        ("paged_flash_attention", ("B6 decode",)),
                        ("paged_packed_flash_attention", ("B7 decode",))):
         by_name[name]["hybrid_rows"] = {r: hyb_rows[r] for r in rows}
+    # each kernel's launches on the MoE path: B1 and B2 over phase 20's
+    # counted run (32 layers: generate + serve), B5 / B6 / B7 over 20b's
+    # (4 layers: kv8, paged float and kv8)
+    for k in kernels:
+        part = "20" if k["name"] in ("dsbp_fused", "flash_attention") else "20b"
+        k["moe_launches"] = moe[part]["launches"].get(k["name"], 0)
+        k["moe_path"] = (f"phase {part} (mixtral-8x7b, full width, "
+                         + ("32 layers: generate + serve)" if part == "20" else
+                            f"{moe['20b']['depth']} layers: kv8, paged float and kv8)"))
+    by_name["dsbp_fused"]["moe_rows"] = moe["b1"]
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

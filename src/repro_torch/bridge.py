@@ -9,7 +9,9 @@ packed container into its four arrays plus its static fields.
   (absent when the embeddings are tied), "units": [...], "tail": [...]}``.
   Unit leaves carry a leading ``R`` axis (the scanned stack) and are split
   per layer: layer ``r * P + p`` is unit ``r`` at pattern position ``p``;
-  tail layers follow.  An attention layer carries ``attn`` and ``ffn``, a
+  tail layers follow.  An attention layer carries ``attn`` and ``ffn``
+  (or, in an MoE config, ``moe``: ``router`` and the expert stacks
+  ``w1`` / ``w3`` / ``w2``, raw or packed with their leading E axis), a
   recurrent one ``rec`` (``w_in`` ... ``bx``) and ``ffn``.  A packed
   projection leaf is a dict with the keys of :func:`packed_from_jax`.
 * :func:`packed_from_jax` turns a JAX ``PackedDSBPWeight``'s children and
@@ -89,6 +91,10 @@ def _fill_layer(layer, tree: dict, index, device) -> None:
     else:
         for name in ("wq", "wk", "wv", "wo"):
             _set(layer.attn, name, _leaf(tree["attn"][name], index, device))
+    if hasattr(layer, "moe"):  # the router and the (E, ...) expert stacks
+        for name in ("router", "w1", "w3", "w2"):
+            _set(layer.moe, name, _leaf(tree["moe"][name], index, device))
+        return
     for name in ("w1", "w3", "w2"):
         _set(layer.ffn, name, _leaf(tree["ffn"][name], index, device))
 

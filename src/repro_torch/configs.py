@@ -5,9 +5,9 @@ The fields, defaults and derived properties are the JAX package's, field
 for field (tests/test_torch_engine.py compares them), so one config value
 means the same model in both packages.  The configs copied are the ones
 the ported layer families serve: the dense ``attn_full`` decoders, the
-Griffin hybrid (RG-LRU + ``attn_local`` rings, tied embeddings) and
-gemma3's 5:1 local:global pattern; the others join as their families are
-ported (ROADMAP A6).
+Griffin hybrid (RG-LRU + ``attn_local`` rings, tied embeddings),
+gemma3's 5:1 local:global pattern and the MoE decoder mixtral-8x7b; the
+others join as their families are ported (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -187,6 +187,25 @@ _CONFIGS = {
         rnn_width=2560,
         tie_embeddings=True,
         source="arXiv:2402.19427; hf",
+    ),
+    # Mixtral-8x7B: sparse MoE decoder, 8 experts top-2, sliding-window
+    # attention (window 4096 on every layer); 32L d_model=4096 32H (GQA
+    # kv=8) d_ff=14336 vocab=32000 [arXiv:2401.04088]
+    "mixtral-8x7b": ArchConfig(
+        name="mixtral-8x7b",
+        family="moe",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=14336,
+        vocab_size=32_000,
+        pattern=("attn_local",),
+        window=4096,
+        n_experts=8,
+        top_k=2,
+        source="arXiv:2401.04088; hf",
     ),
 }
 

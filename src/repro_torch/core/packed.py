@@ -123,15 +123,21 @@ class PackedDSBPWeight(nn.Module):
             version=self.version)
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
-        """Back to a dense ``(..., k, n)`` matrix (weight-only consumption)."""
-        deq = self.ka.to(dtype) * torch.repeat_interleave(
-            self.kscale.to(dtype), self.group_size, dim=-2)
+        """Back to a dense ``(..., k, n)`` matrix (weight-only consumption):
+        ``ka * group scale / tscale``, JAX's arithmetic in JAX's order, in
+        place on the one new tensor (the group scale broadcast over its
+        rows, not repeated), so a stack of experts costs three passes."""
+        lead = self.ka.shape[:-2]
+        kp, n = self.ka.shape[-2:]
+        g = self.group_size
+        deq = self.ka.to(dtype, copy=True, memory_format=torch.contiguous_format)
+        deq.view(*lead, kp // g, g, n).mul_(self.kscale.to(dtype)[..., :, None, :])
         ts = self.tscale.to(dtype)
         if ts.ndim >= 2:  # per-channel (..., N, 1) -> (..., 1, N)
             ts = ts.transpose(-1, -2)
         if ts.ndim < deq.ndim:
             ts = ts.reshape(*ts.shape, *([1] * (deq.ndim - ts.ndim)))
-        return (deq / ts)[..., : self.k, :]
+        return deq.div_(ts)[..., : self.k, :]
 
 
 def draft_view(pw: PackedDSBPWeight, draft_bits: int) -> PackedDSBPWeight:

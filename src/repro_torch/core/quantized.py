@@ -99,11 +99,17 @@ def pack_weights(w: torch.Tensor, cfg: QuantizedMatmulConfig | str) -> PackedDSB
     wcfg = cfg.weight_cfg
     k, n = w.shape[-2:]
     lead = w.shape[:-2]
-    # one matrix at a time: a per-tensor weight scale is per matrix
-    qs = [quantize_weights(m, wcfg) for m in w.to(torch.float32).reshape(-1, k, n)]
+    # one matrix at a time: a per-tensor weight scale is per matrix; each
+    # matrix's mantissas narrow to int8 as they come, so a stack of E
+    # experts never holds E wide copies
+    qs = []
+    for m in w.to(torch.float32).reshape(-1, k, n):
+        q = quantize_weights(m, wcfg)
+        qs.append({**q, "a": q["a"].to(torch.int8)})
     q = {key: torch.stack([qq[key] for qq in qs]).reshape(*lead, *qs[0][key].shape)
          for key in ("a", "scale", "tscale", "bits")}
-    ka, kscale = to_kernel_layout(q["a"].to(torch.int8), q["scale"])
+    del qs
+    ka, kscale = to_kernel_layout(q["a"], q["scale"])
     return PackedDSBPWeight(
         ka=ka, kscale=kscale, tscale=q["tscale"].contiguous(),
         bits=q["bits"].to(torch.int8), k=k, n=n,

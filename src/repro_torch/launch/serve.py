@@ -35,6 +35,10 @@ telemetry and prints each request's TTFT, total time and tokens/s, and
 ``--metrics-json`` / ``--trace`` write the metrics snapshot and the
 Chrome trace (both imply ``--observe``).  All of them imply ``--ragged``.
 
+``--packed`` draws and packs the model one layer at a time
+(``models.model.init(pack=)``), so a model larger than the card in f32
+serves packed: ``--arch mixtral-8x7b --packed`` on one H100.
+
 ``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
 counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
 starts one process per rank (``launch.mesh.spawn``; gloo on the CPU or on
@@ -51,7 +55,7 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import model as M
-from repro_torch.serve.engine import Engine, Request, ServeConfig
+from repro_torch.serve.engine import Engine, Request, ServeConfig, _nbytes
 
 
 def main():
@@ -185,11 +189,14 @@ def _run(mesh, args):
                        numeric_guard=args.numeric_guard, observe=args.observe,
                        mesh_shape=None if mesh is None else tuple(mesh.shape.values()))
     eng = None
-    # ranks that share a card draw the whole model one after another, each
-    # keeping only its shards
+    # one device draws and packs a layer at a time (a model larger than the
+    # card in f32 fits packed); ranks that share a card draw the whole
+    # model one after another, each keeping only its shards
+    streamed = args.packed and mesh is None
     for turn in range(1 if mesh is None else mesh.size):
         if mesh is None or mesh.rank == turn:
-            eng = Engine(M.init(cfg, seed=0, device=device), scfg, device=device)
+            pack = (policy if policy is not None else args.preset) if streamed else None
+            eng = Engine(M.init(cfg, seed=0, device=device, pack=pack), scfg, device=device)
         if mesh is not None:
             mesh.barrier()
     say = print if rank0 else (lambda *a, **k: None)  # rank 0 reports for the mesh
@@ -199,6 +206,11 @@ def _run(mesh, args):
     if args.paged:
         say(f"paged KV: {eng.kv_blocks} blocks x {args.kv_block_size} slots, "
             f"{eng.lanes} lanes, table width {eng._table_width}")
+    if streamed:
+        say(f"packed weights: drawn and packed one layer at a time, "
+            f"{_nbytes(eng.model) / 1e6:.1f} MB ("
+            + (f"policy of {len(policy)} layer entries)" if policy is not None
+               else f"preset {args.preset})"))
     if eng.pack_report:
         rep = eng.pack_report
         say(f"packed weights: {rep['raw_nbytes']/1e6:.1f} -> "

@@ -41,6 +41,12 @@ window), and ``rglru`` (JAX :78-81): norm1, the recurrent block
 step replaces the entries of that dict with new tensors and never
 writes into the old ones; :func:`select_state_step` (:573) and
 :func:`freeze_state` (:590) select rows exactly.
+
+An MoE config (``cfg.n_experts``) gives its attention layers a
+:class:`~.moe.MoE` in place of the FFN (JAX :74-75): ``_mlp_part`` (:98)
+routes through :func:`~.moe.moe_ffn`, with the caller's ``no_drop`` in
+sequence mode and ``no_drop=True`` on every cached path (decode, verify,
+paged and chunk steps, JAX :464-645).
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ from .attention import (blockwise_attention, decode_attention, gather_kv_view,
                         paged_decode_attention, verify_attention)
 from .layers import dense, rms_norm, rope
 from .layers import weight as _weight
+from .moe import MoE, moe_ffn
 from .recurrent import RGLRU, init_rglru_state, rglru_block, rglru_decode_step, rglru_verify
 
 __all__ = ["Layer", "layer_seq", "layer_decode", "init_layer_cache",
@@ -108,18 +115,19 @@ def out_features(w) -> int:
 
 class Layer(nn.Module):
     """One decoder layer of kind ``attn_full`` / ``attn_local`` (norm1,
-    attn {wq, wk, wv, wo}, norm2, ffn {w1, w3, w2}) or ``rglru`` (norm1,
-    rec (:class:`~.recurrent.RGLRU`), norm2, ffn).  Projection weights are
-    raw (d_in, d_out) parameters or, once packed,
+    attn {wq, wk, wv, wo}, norm2, and ffn {w1, w3, w2} or, with
+    ``cfg.n_experts``, moe (:class:`~.moe.MoE`)) or ``rglru`` (norm1, rec
+    (:class:`~.recurrent.RGLRU`), norm2, ffn), as JAX ``init_layer``
+    (:66).  Projection weights are raw (d_in, d_out) parameters (an
+    expert stack (E, d_in, d_out)) or, once packed,
     :class:`PackedDSBPWeight` modules."""
 
     def __init__(self, cfg, kind: str, device):
         super().__init__()
-        if kind not in SUPPORTED_KINDS or cfg.n_experts:
+        if kind not in SUPPORTED_KINDS:
             raise NotImplementedError(
-                f"the port serves dense {SUPPORTED_KINDS} layers; {kind!r}"
-                f"{' with MoE' if cfg.n_experts else ''} is not ported yet "
-                f"(ROADMAP A6)")
+                f"the port serves {SUPPORTED_KINDS} layers; {kind!r} is not "
+                f"ported yet (ROADMAP A6)")
         self.kind = kind
         self.norm1 = _weight((cfg.d_model,), device)
         if kind == "rglru":
@@ -127,7 +135,10 @@ class Layer(nn.Module):
         else:
             self.attn = _Attn(cfg, device)
         self.norm2 = _weight((cfg.d_model,), device)
-        self.ffn = _FFN(cfg, device)
+        if cfg.n_experts and kind != "rglru":
+            self.moe = MoE(cfg, device)
+        else:
+            self.ffn = _FFN(cfg, device)
 
     @property
     def has_kv(self) -> bool:
@@ -147,8 +158,13 @@ def _ffn(ffn: _FFN, x, quant):
     return dense(ffn.w2, h, quant, name="w2")
 
 
-def _mlp_part(layer: Layer, x, cfg, quant):
-    return x + _ffn(layer.ffn, rms_norm(layer.norm2, x, cfg.norm_eps), quant)
+def _mlp_part(layer: Layer, x, cfg, quant, no_drop=True):
+    """norm2 and the FFN, or the MoE: ``no_drop`` is the sequence path's
+    choice (JAX :98); every cached path serves with nothing dropped."""
+    y = rms_norm(layer.norm2, x, cfg.norm_eps)
+    if hasattr(layer, "moe"):
+        return x + moe_ffn(layer.moe, y, cfg, quant, no_drop)
+    return x + _ffn(layer.ffn, y, quant)
 
 
 # ---------------- attention, sequence mode ----------------
@@ -177,18 +193,19 @@ def _attn_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
     return x, (k, v)
 
 
-def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None):
+def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None, no_drop=False):
     """One layer in sequence mode: returns (x_out, aux), aux the layer's
     keys and values (k, v) for cache construction, or a recurrent layer's
     end state {h, conv} from a zero state.  ``lengths`` (B,) marks
     right-padded rows: keys at/after each row's length are masked, and
-    recurrent state freezes across the pad."""
+    recurrent state freezes across the pad.  ``no_drop`` lifts the MoE's
+    capacity (a prefill passes True)."""
     if layer.kind == "rglru":
         y = rms_norm(layer.norm1, x, cfg.norm_eps)
         o, st = rglru_block(layer.rec, y, cfg, quant, lengths=lengths)
-        return _mlp_part(layer, x + o, cfg, quant), st
+        return _mlp_part(layer, x + o, cfg, quant, no_drop), st
     x, kv = _attn_seq(layer, x, cfg, quant, positions, lengths)
-    return _mlp_part(layer, x, cfg, quant), kv
+    return _mlp_part(layer, x, cfg, quant, no_drop), kv
 
 
 # ---------------- caches ----------------

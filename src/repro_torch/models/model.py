@@ -1,7 +1,7 @@
 """LM assembly: embedding -> decoder layers -> final norm -> head.
 
 Port of the dense main path of ``repro.models.model``: :func:`init` (:46),
-``embed_tokens`` (:76), ``_head`` (:94), ``forward`` (:125),
+``embed_tokens`` (:76), ``_head`` (:94), ``forward(no_drop=)`` (:125),
 ``init_cache(kv=)`` (:182), ``_prefill_trunk`` / ``prefill(lengths=, kv=)``
 (:206, :242), ``decode_step`` (:370, per-row ``pos``), the dense
 ``verify_step(collect_rollback=)`` (:450) and ``rollback_cache`` (:505) of
@@ -19,7 +19,10 @@ layers hold its head and column shards, its caches its own rows and KV
 heads, and :meth:`Model.head` assembles the vocab over 'model'.  The JAX
 ``lax.scan`` over stacked units becomes a loop over ``Model.layers``
 (layer i is unit i // P at pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
-knobs and have no counterpart here.
+knobs and have no counterpart here.  An MoE config's layers carry
+:class:`~.moe.MoE` blocks; the prefill and every cached step run them with
+nothing dropped (JAX :221, :230).  :func:`init` with ``pack=`` draws and
+packs one layer at a time, for models larger than the card in f32.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.parallel.context import gather_columns
 
 from . import blocks
 from .layers import Quant, rms_norm, weight
+from .packing import pack_weights_int8
 
 __all__ = ["Model", "init", "shared"]
 
@@ -134,12 +138,15 @@ class Model(nn.Module):
 
     # ---------------- sequence mode ----------------
 
-    def forward(self, tokens: torch.Tensor, quant: Quant | None = None) -> torch.Tensor:
-        """Sequence-mode logits (B, S, Vp)."""
+    def forward(self, tokens: torch.Tensor, quant: Quant | None = None,
+                no_drop: bool = False) -> torch.Tensor:
+        """Sequence-mode logits (B, S, Vp).  ``no_drop=True`` lifts the MoE
+        capacity (JAX :126), so a row's logits do not depend on the rest
+        of its batch."""
         quant = self.default_quant() if quant is None else quant
         x, positions = self.embed_tokens(tokens)
         for layer in self.layers:
-            x, _ = blocks.layer_seq(layer, x, self.cfg, quant, positions)
+            x, _ = blocks.layer_seq(layer, x, self.cfg, quant, positions, no_drop=no_drop)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps))
 
     def prefill_trunk(self, tokens: torch.Tensor, lengths=None,
@@ -155,7 +162,8 @@ class Model(nn.Module):
             lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
         auxs = []
         for layer in self.layers:
-            x, aux = blocks.layer_seq(layer, x, self.cfg, quant, positions, lengths)
+            x, aux = blocks.layer_seq(layer, x, self.cfg, quant, positions, lengths,
+                                      no_drop=True)
             auxs.append(aux)
         x = rms_norm(self.final_norm, x, self.cfg.norm_eps)
         if lengths is None:
@@ -478,30 +486,55 @@ def _batch(cache: list[dict]) -> int:
     return next(iter(cache[0].values())).shape[0]
 
 
-def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Model:
+def _draw(module: nn.Module, cfg: ArchConfig, gen: torch.Generator) -> None:
+    """Draw ``module``'s own parameters (all of them, or only its direct
+    ones when it is the :class:`Model`) in registration order."""
+    params = (module.named_parameters(recurse=False) if isinstance(module, Model)
+              else module.named_parameters())
+    for name, p in params:
+        leaf = name.rpartition(".")[2]
+        if leaf in ("final_norm", "norm1", "norm2"):
+            p.fill_(1.0)
+        elif leaf in ("ba", "bx"):
+            p.zero_()
+        elif leaf == "lam":
+            p.uniform_(2.0, 6.0, generator=gen)
+        elif leaf == "conv_w":
+            p.normal_(generator=gen).mul_(0.1)
+        else:  # embed rows are (Vp, d): its fan-in is d as well
+            fan_in = cfg.d_model if name == "embed" else p.shape[-2]
+            p.normal_(generator=gen).mul_(fan_in ** -0.5)
+
+
+def init(cfg: ArchConfig, *, seed: int = 0, device=None, pack=None) -> Model:
     """Random weights with the JAX package's shapes and scales: every
-    projection and embedding ~ N(0, 1) * d_in**-0.5, norms 1; a recurrent
-    block's ``conv_w`` ~ N(0, 1) * 0.1, ``lam`` ~ U(2, 6), ``ba`` and ``bx``
-    zero (JAX ``init_rglru_block``).  Drawn from a ``torch.Generator``
-    seeded with ``seed`` on the target device (the numbers differ from
-    ``jax.random``'s; parity tests bridge weights)."""
+    projection and embedding ~ N(0, 1) * d_in**-0.5 (an expert stack's
+    d_in is its second-to-last axis: ``w1`` / ``w3`` and the router at
+    d**-0.5, ``w2`` at ff**-0.5), norms 1; a recurrent block's ``conv_w``
+    ~ N(0, 1) * 0.1, ``lam`` ~ U(2, 6), ``ba`` and ``bx`` zero (JAX
+    ``init_rglru_block``).  Drawn from a ``torch.Generator`` seeded with
+    ``seed`` on the target device (the numbers differ from
+    ``jax.random``'s; parity tests bridge weights).
+
+    The model is built on the meta device and drawn one layer at a time:
+    each layer is allocated and drawn from the one generator in the order
+    above.  ``pack`` (a ``PRESETS`` name, a ``QuantizedMatmulConfig`` or a
+    ``DSBPPolicy``) packs each layer as :func:`models.packing.pack_weights_int8`
+    packs it before the next is drawn, so the peak is the packed model
+    plus one layer in f32 (a model larger than the card in f32 fits
+    packed).  The result equals ``init`` followed by
+    ``pack_weights_int8``, bit for bit."""
     device = resolve_device(device)
-    model = Model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    model = Model(cfg, torch.device("meta"))
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rpartition(".")[2]
-            if leaf in ("final_norm", "norm1", "norm2"):
-                p.fill_(1.0)
-            elif leaf in ("ba", "bx"):
-                p.zero_()
-            elif leaf == "lam":
-                p.uniform_(2.0, 6.0, generator=gen)
-            elif leaf == "conv_w":
-                p.normal_(generator=gen).mul_(0.1)
-            else:  # embed rows are (Vp, d): its fan-in is d as well
-                fan_in = cfg.d_model if name == "embed" else p.shape[0]
-                p.normal_(generator=gen).mul_(fan_in ** -0.5)
+        for name, p in list(model.named_parameters(recurse=False)):
+            setattr(model, name, weight(p.shape, device))
+        _draw(model, cfg, gen)
+        for i, layer in enumerate(model.layers):
+            _draw(layer.to_empty(device=device), cfg, gen)
+            if pack is not None:
+                pack_weights_int8(model, pack, under=f"layers.{i}")
     return model
 
 

@@ -41,7 +41,7 @@ from repro_torch.core.packed import (PackedDSBPWeight, QuantMethod, get_quant_me
                                      register_quant_method)
 from repro_torch.core.quantized import PRESETS, QuantizedMatmulConfig
 from repro_torch.models.layers import Quant
-from repro_torch.serve.engine import PROJ_NAMES
+from repro_torch.models.packing import PROJ_NAMES
 from repro_torch.spec.draft import stacked_key
 
 __all__ = [
@@ -202,6 +202,16 @@ def _weight_stats(leaves, cfg: DSBPConfig):
     return hist, int(hist.sum()), int(nz_sum) / max(total, 1)
 
 
+def refuse_moe(cfg: ArchConfig, what: str) -> None:
+    """The policy loop does not price expert stacks yet: JAX folds each
+    expert stack into one policy entry (``repro.policy.calibrate``
+    :210-226), the port does not."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{what} on an MoE model ({cfg.name}, {cfg.n_experts} experts) is not "
+            f"ported yet (ROADMAP A12)")
+
+
 def synthetic_calibration_batches(cfg: ArchConfig, n_batches: int = 2,
                                   batch: int = 2, seq: int = 32,
                                   seed: int = 0) -> list[np.ndarray]:
@@ -239,6 +249,7 @@ def calibrate(model, cfg: ArchConfig, batches,
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"calibration drives plain token batches; frontend={cfg.frontend!r}")
+    refuse_moe(cfg, "calibrate")
     probe = PRESETS[probe] if isinstance(probe, str) else probe
     gsize = probe.input_cfg.group_size
     by_key = raw_projections(model, cfg)

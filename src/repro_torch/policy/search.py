@@ -29,10 +29,11 @@ from __future__ import annotations
 from repro_torch.core.quantized import pack_weights
 from repro_torch.eval import harness
 from repro_torch.models.model import shared
-from repro_torch.serve.engine import Engine, ServeConfig, pack_weights_int8
+from repro_torch.models.packing import pack_weights_int8
+from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.spec.draft import stacked_key
 
-from .calibrate import CalibrationReport, raw_projections
+from .calibrate import CalibrationReport, raw_projections, refuse_moe
 from .cost import assignment_cost, candidate_ladder, resolve_cfg
 from .kv_bits import price_kv_bits
 from .policy import DSBPPolicy
@@ -75,6 +76,7 @@ def autotune(model, cfg, report: CalibrationReport, tasks,
     ``kv_stats`` (a :func:`~repro_torch.policy.kv_bits.collect_kv_stats`
     result) extends the result into a joint weight+KV policy through
     :func:`~repro_torch.policy.kv_bits.price_kv_bits`."""
+    refuse_moe(cfg, "autotune")
     log = log or (lambda *_: None)
     ladder = list(ladder or candidate_ladder())
     names = [n for n, _ in ladder]

@@ -2,7 +2,8 @@
 
 Port of the dense main path of ``repro.serve.engine``: ``ServeConfig``
 (main-path fields and the DSBP-quantized KV cache's ``kv_quant`` /
-``kv_bits``), ``Request``, ``PROJ_NAMES``, ``pack_weights_int8`` (:229),
+``kv_bits``), ``Request``, ``PROJ_NAMES`` and ``pack_weights_int8``
+(:229, both kept in ``models.packing`` and named here as in JAX),
 ``sample_tokens`` (:287) and ``Engine`` with ``__init__`` (pack once,
 ``pack_report``, ``_norm_kv`` :667), ``generate`` (:867), the dense
 ``serve`` slot scheduler (:951) with ``_admit`` (:1175), the
@@ -40,7 +41,11 @@ them: a dense admission scatters recurrent state rows like K/V rows, a
 paged one inserts only the lanes' states (its K/V went through the
 tables), a chunk lane starts from the pristine state, and idle and
 chunk-phase lanes keep theirs through a decode step; the paged pool
-takes every KV ring length of the layer kinds (``_kv_scs``, :522).
+takes every KV ring length of the layer kinds (``_kv_scs``, :522).  The
+MoE family (mixtral-8x7b) serves through all of them: its expert stacks
+pack as one container each with a leading E axis and run weight-only
+(``models.moe``); under a mesh it raises naming ROADMAP A13 (the expert
+axis).
 
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
@@ -111,13 +116,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.packed import PackedDSBPWeight, pack_weights_sharded
-from repro_torch.core.quantized import PRESETS, pack_weights
+from repro_torch.core.packed import PackedDSBPWeight
 from repro_torch.kernels.ops import finite_flags
 from repro_torch.kvq import (KV_MAX_BITS, KV_MIN_BITS, kv_cache_nbytes, resolve_kv_spec,
                              tree_has_packed_kv)
 from repro_torch.models.layers import Quant
 from repro_torch.models.model import Model
+from repro_torch.models.packing import PROJ_NAMES, pack_weights_int8
 from repro_torch.obs import ServeRecorder
 from repro_torch.parallel import context as PC
 from repro_torch.parallel import sharding as SH
@@ -125,7 +130,6 @@ from repro_torch.serve import blocks as SB
 from repro_torch.serve import faults as FA
 from repro_torch.spec import (acceptance_summary, build_spec_round,
                               build_spec_round_paged)
-from repro_torch.spec.draft import stacked_key
 
 __all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES", "REQUEST_STATES",
            "pack_weights_int8", "sample_tokens"]
@@ -135,13 +139,6 @@ __all__ = ["ServeConfig", "Request", "Engine", "PROJ_NAMES", "REQUEST_STATES",
 REQUEST_STATES = ("ok", "preempted", "cancelled", "deadline", "quarantined")
 
 _GUARD_POLICIES = ("fail-fast", "quarantine", "fallback")
-
-# projection leaf names that carry a DSBP-quantizable GEMM
-PROJ_NAMES = frozenset({
-    "wq", "wk", "wv", "wo", "w1", "w2", "w3", "w_in", "w_gate", "w_out",
-    "wa", "wx",
-})
-
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -267,64 +264,6 @@ class _ServeControl:
     gen: torch.Generator | None = None  # the serve's sampling generator
 
 
-def pack_weights_int8(model: Model, preset="precise", mesh=None) -> dict:
-    """Offline DSBP pass over every projection, run ONCE and in place:
-    each raw 2-D projection parameter named in :data:`PROJ_NAMES` (with at
-    least one full group of rows) becomes a :class:`PackedDSBPWeight` on
-    the same device.  Returns the average packed weight width (incl. the
-    sign bit) and the number of projections packed.
-
-    ``preset`` is a ``PRESETS`` name, a ``QuantizedMatmulConfig`` (one
-    config everywhere) or a :class:`~repro_torch.policy.DSBPPolicy`: each
-    projection packs under ``policy.config_for`` of its stacked key
-    (``units/<i % P>/attn/wq``, :func:`repro_torch.spec.draft.stacked_key`),
-    and projections the policy does not cover stay raw.
-
-    With ``mesh`` (a rank mesh) each projection becomes this rank's shard
-    (``parallel.sharding.serve_cuts``): its columns pack straight into
-    kernel layout (:func:`pack_weights_sharded`, bit-identical to slicing
-    the global pack), a row-parallel weight packs whole and keeps its
-    group-aligned K rows (the per-column scales span the whole K), and the
-    global raw weight is freed."""
-    policy = preset if hasattr(preset, "config_for") else None
-    if policy is None and isinstance(preset, str):
-        if preset not in PRESETS:
-            raise ValueError(f"unknown quant preset {preset!r}: valid presets "
-                             f"are {sorted(PRESETS)}; pass a "
-                             f"repro_torch.policy.DSBPPolicy for per-layer configs "
-                             f"(serving then runs with quant='policy')")
-        preset = PRESETS[preset]
-    if policy is not None and mesh is not None:
-        raise NotImplementedError("a DSBPPolicy under a mesh is not ported yet "
-                                  "(ROADMAP A13)")
-    cuts = SH.serve_cuts(model.cfg, mesh) if mesh is not None else {}
-    bits_sum, groups, layers = 0, 0, 0
-    for mod_name, module in list(model.named_modules()):
-        for name, p in list(module.named_parameters(recurse=False)):
-            if name not in PROJ_NAMES or p.ndim < 2:
-                continue
-            cfg = preset
-            if policy is not None:
-                cfg = policy.config_for(stacked_key(model.cfg, f"{mod_name}.{name}"))
-                if cfg is None:
-                    continue
-            if p.shape[-2] < cfg.weight_cfg.group_size:
-                continue
-            cut = cuts.get(name)
-            if cut is None:
-                pw = pack_weights(p.data, cfg)
-            else:
-                pw = pack_weights_sharded(p.data, cfg, mesh, cols=cut.cols)
-                if cut.rows != slice(0, cut.k):
-                    pw = pw.slice(rows=cut.rows)
-            delattr(module, name)  # frees the raw weight as we go
-            setattr(module, name, pw)
-            bits_sum += int((pw.bits.to(torch.int64) + 1).sum())
-            groups += pw.bits.numel()
-            layers += 1
-    return {"avg_w_bits": bits_sum / max(groups, 1), "layers_packed": layers}
-
-
 def _nbytes(model: Model) -> int:
     return sum(t.numel() * t.element_size()
                for t in list(model.parameters()) + list(model.buffers()))
@@ -439,6 +378,8 @@ class Engine:
                            f"recurrent state)")
         if cfg.tie_embeddings:
             missing.append("tied embeddings (the head over embed.T)")
+        if cfg.n_experts:
+            missing.append(f"MoE layers ({cfg.n_experts} experts: the expert axis)")
         if cfg.quant == "policy":
             missing.append("a DSBPPolicy (per-layer configs)")
         if self._guard is not None:
@@ -688,8 +629,10 @@ class Engine:
         ``prompt_lens`` each one's context length.  Returns (B,) f32:
         the sum of log P(tok_p | tok_<p) over p in [prompt_len, len).  The
         sequences right-pad to a shared length, a multiple of
-        ``prefill_bucket``, and run one :meth:`Model.forward`: causal
-        attention keeps the pad out of every real position, so each row's
+        ``prefill_bucket``, and run one :meth:`Model.forward` with the MoE
+        capacity lifted (``no_drop``, JAX :933): causal attention keeps the
+        pad out of every real position and no row takes another's expert
+        slot, so each row's
         score equals scoring it alone up to the per-tensor input scale
         the batch shares (batch invariance, which the eval harness and the
         autotuner rely on)."""
@@ -708,7 +651,7 @@ class Engine:
             toks[i, : lens[i]] = s
         dev = self.device
         toks_d = torch.as_tensor(toks, device=dev)
-        logits = self.model.forward(toks_d, quant=self.quant)
+        logits = self.model.forward(toks_d, quant=self.quant, no_drop=True)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         lp = torch.gather(logp[:, :-1], -1, toks_d[:, 1:, None])[..., 0]
         p = torch.arange(1, width, device=dev)[None]

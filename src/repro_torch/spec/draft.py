@@ -93,9 +93,9 @@ class DraftMethod(QuantMethod):
 
     def weight_view(self, w):
         """The draft's view of one weight: a packed container at its draft
-        width, a raw weight as it is.  The RG-LRU's weight-only ``wa`` /
-        ``wx`` read it (JAX's draft tree views every container, those two
-        included)."""
+        width, a raw weight as it is.  The weight-only consumers read it,
+        the RG-LRU's ``wa`` / ``wx`` and the MoE's expert stacks (JAX's
+        draft tree views every container, those included)."""
         return draft_view(w, self.widths[w]) if isinstance(w, PackedDSBPWeight) else w
 
     def apply(self, w, x, cfg, name=None):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
 
 from repro_torch.core import quantized as Q  # noqa: E402
 from repro_torch.core.formats import per_tensor_scale  # noqa: E402
@@ -269,6 +270,7 @@ def _device_operands(m, k, n, cfg, device, seed):
     (4, 11008, 4096, {}), (64, 11008, 4096, {}),           # w2's 172 groups
     (4, 4096, 44, {}), (17, 4096, 44, {}),                 # N padded to 48
     (4, 4096, 11008, {}), (17, 4096, 11008, {}),           # w1/w3's width
+    (4, 4096, 1024, {}), (64, 4096, 1024, {}),             # mixtral-8x7b's wk/wv
     (4, 4096, 4096, {"fmt": "e5m2"}), (64, 4096, 4096, {"fmt": "e5m2"}),
     (4, 4096, 4096, {"mode": "fixed", "k": 0.0, "b_fix": 7}),
     (64, 4096, 4096, {"mode": "fixed", "k": 0.0, "b_fix": 7}),
@@ -827,6 +829,52 @@ def test_hybrid_serve_card_equals_cpu(cuda, paged):
     scfg = ServeConfig(max_len=48, batch_size=2, paged=paged, kv_block_size=4,
                        max_active=3, chunk_prefill_tokens=24)
     gpu = Engine(TM.init(cfg, seed=0, device=cuda), scfg, device=cuda)
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    a, b = gpu.serve(reqs), cpu.serve(reqs)
+    for uid in b:
+        np.testing.assert_array_equal(a[uid], b[uid])
+
+
+# ---- the MoE family: mixtral-8x7b ----
+
+def test_streamed_packed_init_bit_equal_at_full_width(cuda):
+    """mixtral-8x7b at full width and 2 layers: ``init(pack=)``, drawn and
+    packed one layer at a time, equals ``init`` followed by
+    ``pack_weights_int8`` on the card, every parameter and container
+    child bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import pack_weights_int8
+
+    cfg = get_config("mixtral-8x7b").replace(n_layers=2)
+    want = TM.init(cfg, seed=7, device=cuda)
+    pack_weights_int8(want, "precise")
+    want = {n: t.cpu() for n, t in list(want.named_parameters()) + list(want.named_buffers())}
+    torch.cuda.empty_cache()
+    got = TM.init(cfg, seed=7, device=cuda, pack="precise")
+    got = list(got.named_parameters()) + list(got.named_buffers())
+    assert [n for n, _ in got] == list(want)
+    for name, t in got:
+        assert torch.equal(t.cpu(), want[name]), name
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_moe_serve_card_equals_cpu(cuda, paged):
+    """Smoke mixtral-8x7b at window 8 (rings wrap), packed "precise",
+    served on the card and on the CPU: the same tokens."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    cfg = smoke_config("mixtral-8x7b").replace(quant="precise", window=8)
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n), max_new_tokens=6)
+            for i, n in enumerate([6, 14, 10, 12, 9])]
+    scfg = ServeConfig(max_len=24, batch_size=2, prefill_bucket=8, paged=paged,
+                       kv_block_size=4)
+    gpu = Engine(TM.init(cfg, seed=0, device=cuda, pack="precise"), scfg, device=cuda)
     cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
     a, b = gpu.serve(reqs), cpu.serve(reqs)
     for uid in b:

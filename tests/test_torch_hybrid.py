@@ -18,8 +18,9 @@ the port by ``repro_torch.bridge``; inputs are numpy from a seed.
   and tests/test_torch_hybrid_paged.py, which share these helpers.
 * The 'fallback' retry's recurrent state: restored from the refs a step
   leaves untouched, it decodes from the pre-step state bit for bit.
-* The refusals: MoE, SSD and frontends name ROADMAP A6; the new kinds and
-  tied embeddings under a mesh name A13."""
+* The refusals: SSD, frontends and non-f32 dtypes name ROADMAP A6 (the
+  MoE family is served: tests/test_torch_moe.py); the new kinds and tied
+  embeddings under a mesh name A13."""
 import copy
 import functools
 
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -265,9 +267,9 @@ def test_generate_float_matches_jax_engine():
 # refusals
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(n_experts=4, top_k=2), dict(pattern=("ssd",)),
+@pytest.mark.parametrize("kw", [dict(dtype="bfloat16"), dict(pattern=("ssd",)),
                                 dict(frontend="audio_codebooks", n_codebooks=4)],
-                         ids=["moe", "ssd", "frontend"])
+                         ids=["dtype", "ssd", "frontend"])
 def test_unported_families_name_roadmap_a6(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TM.Model(smoke_config("llama-7b-paper").replace(**kw), torch.device("cpu"))

@@ -9,6 +9,7 @@ JAX's."""
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
 
 from test_torch_hybrid_paged import check_paged_serve  # noqa: E402
 

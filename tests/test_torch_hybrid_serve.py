@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
 
 from repro.serve import faults as JF  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402

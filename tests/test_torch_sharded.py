@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
