@@ -12,9 +12,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
      kernel, plain and bound times;
   3. B2, flash attention, against its plain version at prefill (B=4, S=512,
      ragged lengths) and decode (per-row positions), at llama-7b's width
-     (H=32, D=128), gemma3-12b's (Hq=16, Hkv=8, D=256) and gemma3-12b's
+     (H=32, D=128), gemma3-12b's (Hq=16, Hkv=8, D=256), gemma3-12b's
      heads at D=320 and D=512 (no config has them: the kernel of one warp
-     per query row above 256), with head and
+     per query row above 256) and mixtral-8x7b's (Hq=32, Hkv=8, D=128), with head and
      row slices bit-equal to the whole call and torch's
      scaled_dot_product_attention timed on the same work, cold, as a
      yardstick;
@@ -205,6 +205,27 @@ Phases (each raises on failure; nothing falls back to the CPU):
      MOE_TIE counted: the top-2 routes of verify passes that flip against
      the chained decode steps over the same tokens, and the logit
      difference with and without a flip; a `moe (phase 20):` JSON line.
+  21. the SSD family, after 20: B1 at mamba2-370m's shapes (w_in K=1024
+     N=4384, w_out K=2048 N=1024) at M 4 and 2048 (w_in's prefill tile
+     ends in a partial column block of 32) against its plain version,
+     timed cold; 21a, mamba2-370m at full width and 2 layers, packed
+     "precise" from one seed, on the CPU (plain versions) and the card
+     (kernels): generate's logits within KV_TIE, generate's and a serve's
+     tokens under phase 9's rule; 21, full width and depth (48 layers,
+     d_inner 2048, 32 SSD heads of 64, state 128, tied embeddings over a
+     vocab padded to 50,432), drawn and packed by init(pack=), max_len
+     1024, prefill_bucket 128 (the SSD chunk, which every padded prompt
+     batch must be a multiple of): generate of 4 prompts (37 / 130 / 300 /
+     500 tokens: several chunks and a carried state), a dense serve of 8
+     requests through 4 slots, the same with kv8 (token-equal: nothing to
+     quantize), paged (no pool, kv_blocks 0, a 600-token prompt in chunk
+     steps) under phase 9's rule against the dense serve, paged == dense
+     token for token at matched batches, spec_k 3 at draft bits 7 against
+     spec_k 0 under phase 9's rule; B1 = 96 per decode step (48 at each
+     shape, counted by (K, N) against the containers) and no attention
+     kernel launched; prefill s, ms per step, peak memory, a
+     torch.profiler trace of four decode steps; an `ssd (phase 21):` JSON
+     line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
   14-15b, for which the models are freed.
@@ -218,6 +239,10 @@ runs phases 1 and 19 alone.
     python3 chip_smoke.py --moe
 
 runs phases 1 and 20 alone.
+
+    python3 chip_smoke.py --ssd
+
+runs phases 1 and 21 alone.
 
     python3 chip_smoke.py --cross
 
@@ -322,6 +347,19 @@ HYBRID_TIE = 0.3
 # model, where no input is quantized, are held to phase 9's rule (KV_TIE);
 # the packed rounds are held exactly at matched batches (dense == paged)
 MOE_TIE = HYBRID_TIE
+# phase 21's packed serves against the dense spec_k 0 serve (mamba2-370m,
+# 48 layers of random weights): a paged chunk step quantizes a 128-token
+# slice of a prompt beside the other lanes' rows, where the dense prefill
+# quantizes the whole padded prompt at once, and a verify pass 16 rows
+# where a decode step quantizes 4; each per-tensor input scale then
+# rounds every FP8 input otherwise, through 48 layers: on an H100 the
+# chunked 600-token prompt's first logits moved by 0.15 of max|logit|,
+# the speculative rows by 0.10 (PERF.md, phase 21).  The strict checks
+# are elsewhere: paged == dense token for token at matched batches, and
+# the float model's paged serve (its chunk steps through the verify path)
+# within RING_REL of its dense serve (7.8e-6 on the H100), which two
+# planted commit faults must fail (by more than max|logit|)
+SSD_TIE = HYBRID_TIE
 # the depth phase 16's speculative serves run at (full width; phase 18d
 # serves speculation at full depth); and the layers of the CPU-vs-card
 # models of phases 4, 9, 12, 16a and 17a (full width): cut for the
@@ -434,11 +472,11 @@ def _sdpa(q, k, v, mask):
 
 # (name, Hq, Hkv, D) of phase 3's attention shapes at full width: the main
 # path's llama-7b, gemma3-12b (src/repro/configs/gemma3_12b.py), whose
-# d_head 256 takes the kernels' second head-dim class, and gemma3-12b's
-# heads at d_head 320 and 512, which no config has (the one-warp-per-row
-# kernel above 256)
+# d_head 256 takes the kernels' second head-dim class, gemma3-12b's heads
+# at d_head 320 and 512, which no config has (the one-warp-per-row kernel
+# above 256), and mixtral-8x7b's GQA at D 128 (phase 20's B2)
 B2_MODELS = (("llama-7b", 32, 32, 128), ("gemma3-12b", 16, 8, 256), ("d320", 16, 8, 320),
-             ("d512", 16, 8, 512))
+             ("d512", 16, 8, 512), ("mixtral-8x7b", 32, 8, 128))
 
 
 def phase_b2(torch, FA):
@@ -4257,6 +4295,300 @@ def moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tenso
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# phase 21: the SSD family: mamba2-370m (attention-free: 48 Mamba-2 SSD
+# layers, tied embeddings, vocab padded 50,280 -> 50,432) at full width
+# and depth
+# ---------------------------------------------------------------------------
+
+# B1's shapes in a mamba2-370m step: the fused in-projection (z, x, B, C,
+# dt: 2 * 2048 + 2 * 128 + 32 columns, a multiple of 32 but not of 128,
+# so the prefill tile ends in a partial column block of 32) and the
+# out-projection
+SSD_B1 = ((1024, 4384, "w_in"), (2048, 1024, "w_out"))
+# torch.profiler names of a mamba2 decode step: B1, and the library
+# products (the tied head, the state's C . h contraction)
+TRACE_SSD = {"B1": TRACE_FUSED["B1"],
+             "cuBLAS (head, C.h)": ("gemv", "gemm", "xmma", "cutlass", "bmm")}
+# the chunk of the chunked scan (cfg.ssd_chunk), which every padded
+# prompt batch must be a multiple of: the serves' prefill_bucket
+SSD_BUCKET = 128
+# generate's 4 prompts (several chunks, and a state carried across them)
+# and the serves' 8 requests, one past the paged chunk threshold (4 *
+# SSD_BUCKET = 512 tokens)
+SSD_LENS = [37, 130, 300, 500]
+SSD_SERVE_LENS = [37, 130, 300, 500, 64, 600, 200, 90]
+
+
+def phase_ssd_cross_device(torch, TM, Engine, ServeConfig, Request, cfg) -> dict:
+    """21a: 2 layers at full width, packed "precise" from one seed, on the
+    CPU (plain versions) and on the card (kernels): generate's sampled
+    logits within KV_TIE * max|logit| up to the first differing token,
+    and the greedy tokens of generate and a dense serve equal under phase
+    9's near-tie rule."""
+    print("== phase 21a: mamba2-370m at full width, 2 layers: CPU (plain) vs card (kernels)")
+    model = TM.init(cfg.replace(n_layers=2), seed=21, device="cuda", pack="precise")
+    scfg = ServeConfig(max_len=256, batch_size=2, prefill_bucket=SSD_BUCKET)
+    gpu = Engine(model, scfg, device="cuda")
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    toks, lens = _prompts(cfg.vocab_size, [128, 30, 75, 9], seed=21)
+    prompts = {r: toks[r, :lens[r]] for r in range(len(lens))}
+    t0 = time.perf_counter()
+    tapes = []
+    outs = []
+    for eng in (cpu, gpu):
+        tape = SampleTape(eng, cfg.vocab_size)
+        outs.append(eng.generate(toks, 10, lengths=lens))
+        tapes.append(tape.close())
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for (lc, tc), (lg, tg) in zip(*tapes):
+        top = float(lc.abs().max())
+        worst = max(worst, float((lc - lg).abs().max()) / top)
+        if worst > KV_TIE:
+            raise AssertionError(f"CPU vs card generate logits differ by {worst} of max|logit|")
+        if not torch.equal(tc, tg):
+            break  # later steps decode other tokens
+    ties = check_streams(torch, dict(enumerate(outs[0])), dict(enumerate(outs[1])), prompts,
+                         cpu, gpu)
+    reqs = [Request(uid=i, tokens=prompts[i], max_new_tokens=6) for i in range(len(lens))]
+    s_cpu, s_gpu = cpu.serve(reqs), gpu.serve(reqs)
+    ties += check_streams(torch, s_cpu, s_gpu, prompts, cpu, gpu)
+    print(f"  generate (lens {lens.tolist()}, 10 new tokens) and serve (4 requests, 2 slots): "
+          f"logits within {worst:.4f} of max|logit| (limit {KV_TIE}), CPU vs card tokens "
+          f"equal, {len(ties)} near ties taken: {outs[1].tolist()}")
+    del cpu, gpu, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_rel_logit_diff": worst, "ties": len(ties), "generate_s": cpu_s}
+
+
+def phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict:
+    """21: mamba2-370m at full width and depth (48 layers), seeded,
+    packed "precise" as it is drawn, f32, max_len 1024, prefill_bucket
+    128: generate, a dense serve, kv8, paged, matched batches and spec_k 3
+    at draft bits 7."""
+    print("== phase 21: mamba2-370m at full width and depth, packed 'precise': generate, "
+          "serve, kv8, paged, speculation")
+    import numpy as np
+
+    from repro_torch.serve.engine import _nbytes
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):  # seconds per part of the phase, for its time budget
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    model = TM.init(cfg, seed=0, device="cuda", pack="precise")
+    scfg = dict(max_len=1024, batch_size=4, prefill_bucket=SSD_BUCKET)
+    eng = Engine(model, ServeConfig(**scfg), device="cuda")
+    if eng.pack_report is not None or eng.cfg.quant_method != "dsbp_fused":
+        raise AssertionError("the engine repacked a packed model")
+    model, n = eng.model, cfg.n_layers
+    packed = _nbytes(model)
+    embed = 4 * cfg.padded_vocab_size * cfg.d_model
+    print(f"  init(pack=): {packed / 1e9:.3f} GB (the tied f32 embedding {embed / 1e9:.3f} GB "
+          f"of it), {len(_containers(model))} packed projections")
+    toks, lens = _prompts(cfg.vocab_size, SSD_LENS, seed=211)
+    width = -(-toks.shape[1] // SSD_BUCKET) * SSD_BUCKET  # generate takes its width as given
+    toks = np.pad(toks, ((0, 0), (0, width - toks.shape[1])))
+    reqs = _moe_requests(Request, cfg.vocab_size, SSD_SERVE_LENS, 16, seed=212)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lap("init(pack=)")
+
+    # ---- the SSD path: counts from 0 over exactly these runs ----
+    _reset_launches(kernels)
+    out = eng.generate(toks, 16, lengths=lens)
+    gst = dict(eng.last_stats)
+    tape = GuardTape(eng, cfg.vocab_size)
+    served = eng.serve(reqs)
+    ref_rows = tape.close()
+    sst = dict(eng.last_stats)
+    kv8 = Engine(model, ServeConfig(kv_quant="kv8", **scfg), device="cuda")
+    served8 = kv8.serve(reqs)
+    kst = dict(kv8.last_stats)
+    paged = Engine(model, ServeConfig(paged=True, kv_block_size=16, **scfg), device="cuda")
+    tape = GuardTape(paged, cfg.vocab_size)
+    pout = paged.serve(reqs)
+    prows = tape.close()
+    pst = dict(paged.last_stats)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lap("generate, serve, kv8, paged")
+    if launches["dsbp_fused"] <= 0:
+        raise AssertionError("B1 was not launched on the SSD path")
+    attn = {k: v for k, v in launches.items() if k != "dsbp_fused" and v}
+    if attn:
+        raise AssertionError(f"attention kernels launched on the attention-free model: {attn}")
+    if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"generate output {out.shape} out of range")
+    for label, o in (("serve", served), ("kv8 serve", served8), ("paged serve", pout)):
+        if sorted(o) != list(range(8)) or any(len(t) != 16 for t in o.values()):
+            raise AssertionError(f"{label} did not return 16 tokens for each of 8 requests")
+    for uid, t in served.items():  # nothing to quantize: the float serve's tokens
+        if not np.array_equal(served8[uid], t):
+            raise AssertionError(f"kv8 request {uid}: {served8[uid]} != float {t}")
+    if kst["kv_packed"] or kst["kv_bytes_per_token"] != 0:
+        raise AssertionError(f"kv8 stats on a model with no KV layer: {kst}")
+    if (pst["kv_blocks"] != 0 or paged._last_alloc is not None or pst["chunked_requests"] != 1
+            or pst["stalled_decode_steps"] or not pst["completed"]):
+        raise AssertionError(f"paged stats on a model with no KV layer: {pst}")
+    # every stream's largest difference first, then the gate
+    _, pworst = check_recorded(torch, served, pout, ref_rows, prows, kv_tie=math.inf)
+    print(f"  paged vs dense, packed: largest logit difference per request, of max|logit|: "
+          f"{ {u: round(w, 4) for u, w in pworst.items()} } (limit SSD_TIE {SSD_TIE})")
+    pties, pworst = check_recorded(torch, served, pout, ref_rows, prows, kv_tie=SSD_TIE)
+
+    # ---- launches per step, by (K, N) against the containers ----
+    step, b1_shapes, pre = _step_launches(torch, eng, kernels, toks, lens, max_len=1024, TO=TO)
+    want = {(k, nn): n for k, nn, _ in SSD_B1}
+    if step != {"dsbp_fused": 2 * n} or b1_shapes != want or _b1_shapes(model) != want:
+        raise AssertionError(f"launches in one decode step {step}, B1 by (K, N) {b1_shapes}; "
+                             f"want B1 {2 * n}: {want} (the containers give "
+                             f"{_b1_shapes(model)})")
+    lap("launches per step")
+
+    # ---- matched batches (generate's 4 prompts as 4 requests, one group,
+    # 4 lanes, no chunk): paged == dense token for token ----
+    same = _moe_requests(Request, cfg.vocab_size, SSD_LENS, 16, seed=213)
+    mcfg = dict(scfg, chunk_prefill_tokens=1024)
+    exact = {pg: Engine(model, ServeConfig(paged=pg, **mcfg), device="cuda").serve(same)
+             for pg in (False, True)}
+    for uid, t in exact[False].items():
+        if not np.array_equal(exact[True][uid], t):
+            raise AssertionError(f"matched batches, request {uid}: paged {exact[True][uid]} != "
+                                 f"dense {t}")
+    lap("matched batches")
+
+    # ---- the chunk path without FP8: the float model's paged serve (the
+    # 600-token prompt in chunk steps through the verify path, the other
+    # lanes frozen) against its dense serve (the chunked scan over the
+    # whole prompt) within RING_REL; two planted faults in the chunk
+    # steps' commit must fail it ----
+    from repro_torch.models import blocks as TB
+
+    fmodel = TM.init(cfg.replace(quant=None), seed=0, device="cuda")
+    fdense = Engine(fmodel, ServeConfig(**scfg), device="cuda")
+    tape = GuardTape(fdense, cfg.vocab_size)
+    fserved = fdense.serve(reqs)
+    frows = tape.close()
+
+    def fpaged():
+        e = Engine(fmodel, ServeConfig(paged=True, kv_block_size=16, **scfg), device="cuda")
+        tape = GuardTape(e, cfg.vocab_size)
+        o = e.serve(reqs)
+        return o, tape.close(), e.last_stats["chunk_steps"]
+
+    fout, fprows, fchunks = fpaged()
+    fties, fworst = check_recorded(torch, fserved, fout, frows, fprows, kv_tie=RING_REL)
+    select, planted = TB.select_state_step, {}
+    for label, fault in (
+            ("a chunk commits keep - 1 tokens",
+             lambda st, keep, old=None: select(st, (keep - 1).clamp(min=0), old)),
+            ("the frozen lanes take the chunk's first step",
+             lambda st, keep, old=None: select(st, keep))):
+        TB.select_state_step = fault
+        try:
+            o, rows, _ = fpaged()
+        finally:
+            TB.select_state_step = select
+        try:
+            check_recorded(torch, fserved, o, frows, rows, kv_tie=RING_REL)
+        except AssertionError as err:
+            planted[label] = str(err)[:160]
+        else:
+            raise AssertionError(f"a planted fault ({label}) passes the float paged check at "
+                                 f"{RING_REL}")
+    del fdense, fmodel
+    torch.cuda.empty_cache()
+    print(f"  float model, paged ({fchunks} chunk steps) vs dense: largest logit difference "
+          f"{max(fworst.values()):.2e} of max|logit| (limit RING_REL {RING_REL}), "
+          f"{len(fties)} near ties; planted faults fail it: {planted}")
+    lap("float paged vs dense, planted faults")
+
+    # ---- speculation (spec_k 3, draft bits 7) against spec_k 0 ----
+    spec = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, reqs, served,
+                       ref_rows, dict(scfg, spec_draft_bits=7),
+                       "spec_k 3, draft bits 7, dense, packed", b1_per_step=2 * n,
+                       attn_layers=0, kv_tie=SSD_TIE)
+    lap("speculation")
+    trace = trace_decode(torch, eng, toks, lens, TRACE_SSD, steps=4, max_len=1024)
+    lap("trace")
+    ms_step = 1e3 * gst["decode_s"] / gst["decode_steps"]
+    serve_ms = 1e3 * sst["decode_time_s"] / sst["decode_steps"]
+    paged_ms = 1e3 * pst["decode_time_s"] / pst["decode_steps"]
+    state_bytes = 4 * n * cfg.n_ssd_heads * cfg.ssm_headdim * cfg.ssm_state  # per lane
+    print(f"  generate: 4 prompts (lens {lens.tolist()}, padded to {width}), 16 new tokens: "
+          f"prefill {gst['prefill_s']:.3f} s, {ms_step:.2f} ms per decode step")
+    print(f"  serve: 8 requests (lens {SSD_SERVE_LENS}) through 4 slots: {sst['decode_steps']} "
+          f"steps, prefill {sst['prefill_time_s']:.3f} s, {serve_ms:.2f} ms/step; kv8 the same "
+          f"tokens, {1e3 * kst['decode_time_s'] / kst['decode_steps']:.2f} ms/step; paged (no "
+          f"pool: kv_blocks 0; {pst['chunk_steps']} chunk steps for the {SSD_SERVE_LENS[5]}-token "
+          f"prompt) {paged_ms:.2f} ms/step, held to the dense serve under phase 9's rule at "
+          f"SSD_TIE ({len(pties)} near ties, largest logit difference "
+          f"{max(pworst.values()):.4f} of max|logit|); matched batches paged == dense token "
+          f"for token")
+    print(f"  peak memory {peak / 2**30:.2f} GiB over generate, serve, kv8 and paged "
+          f"(max_memory_allocated; the state: {state_bytes / 2**20:.0f} MiB per lane)")
+    print(f"  launches over that run: {launches}; per decode step B1 {2 * n} by (K, N) "
+          f"{b1_shapes}; per prefill {pre}")
+    res = {"packed_bytes": packed, "launches": launches, "step_launches": step,
+           "b1_by_shape": {f"K={k} N={nn}": c for (k, nn), c in b1_shapes.items()},
+           "prefill_launches": pre, "prefill_s": gst["prefill_s"], "decode_ms": ms_step,
+           "serve_ms": serve_ms, "serve_prefill_s": sst["prefill_time_s"],
+           "kv8_ms": 1e3 * kst["decode_time_s"] / kst["decode_steps"], "paged_ms": paged_ms,
+           "paged_chunk_steps": pst["chunk_steps"], "paged_prefill_s": pst["prefill_time_s"],
+           "paged_ties": len(pties), "paged_worst": pworst,
+           "float_paged_worst": max(fworst.values()), "float_paged_ties": len(fties),
+           "planted_faults": planted, "peak": peak,
+           "state_bytes_per_lane": state_bytes, "trace": trace,
+           "spec": {"accepted_hist": spec["stats"]["accepted_hist"],
+                    "mean_accepted": spec["stats"]["mean_accepted"],
+                    "ms_round": spec["ms_round"], "ms_token": spec["ms_token"],
+                    "ties": spec["ties"], "worst": spec["worst"], "peak": spec["peak"]},
+           "seconds_by_part": laps}
+    print(f"  seconds by part: {laps}")
+    del eng, kv8, paged, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+               get_config, card: str) -> dict:
+    """Phase 21 whole: B1 at mamba2-370m's shapes, 21a and 21; returns
+    their records (one ``ssd (phase 21):`` JSON line printed)."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+               "packed_flash_attention": FA.packed_flash_attention,
+               "paged_flash_attention": FA.paged_flash_attention,
+               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+    t0 = time.perf_counter()
+    print("== phase 21 (kernels): B1 at mamba2-370m's shapes, decode and prefill (M=2048: "
+          "w_in's partial prefill column tile)")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b1 = [{**b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n), "proj": proj}
+          for k, n, proj in SSD_B1 for m in (4, 2048)]
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-370m").replace(quant="precise")
+    cross = phase_ssd_cross_device(torch, TM, Engine, ServeConfig, Request, cfg)
+    main = phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg)
+    for x in b1:
+        if x["M"] == 4:
+            x["launches_per_step"] = main["b1_by_shape"][f"K={x['K']} N={x['N']}"]
+            x["launches_of"] = "one decode step, phase 21, 48 layers"
+    rec = {"card": card, "b1": b1, "21a": cross, "21": main,
+           "seconds": time.perf_counter() - t0}
+    print(f"  phase 21: {rec['seconds']:.1f} s")
+    print("ssd (phase 21): " + json.dumps(rec, default=str))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4362,6 +4694,11 @@ def main() -> int:
                    get_config, card)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--ssd"]:  # phases 1 and 21: the SSD family
+        ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+                   get_config, card)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -4443,6 +4780,9 @@ def main() -> int:
     moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
                      get_config, card)
     stamp("phase 20")
+    ssd = ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+                     get_config, card)
+    stamp("phase 21")
     # each kernel's launches on the hybrid path (phase 19's counted run:
     # generate, serve, kv8, paged float and kv8 at full depth); B3, B4 and
     # B8 are not on it (dsbp_kernel and the mesh serve dense llama only)
@@ -4481,7 +4821,7 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
              for case in ("prefill", "decode")}
             for tag, model in (("gemma3_12b_d256", "gemma3-12b"), ("d320", "d320"),
-                               ("d512", "d512"))},
+                               ("d512", "d512"), ("mixtral_8x7b_gqa", "mixtral-8x7b"))},
          "spec_launches": spec_dense["launches"]["flash_attention"],
          "policy_launches": mixed["launches"]["flash_attention"],
          "policy_path": "phase 17 (mixed policy + kv4: prefill)",
@@ -4584,6 +4924,13 @@ def main() -> int:
                          + ("32 layers: generate + serve)" if part == "20" else
                             f"{moe['20b']['depth']} layers: kv8, paged float and kv8)"))
     by_name["dsbp_fused"]["moe_rows"] = moe["b1"]
+    # each kernel's launches on the SSD path (phase 21's counted run, 48
+    # layers: generate, serve, kv8, paged): B1 alone, the model attends
+    # nowhere
+    for k in kernels:
+        k["ssd_launches"] = ssd["21"]["launches"].get(k["name"], 0)
+        k["ssd_path"] = "phase 21 (mamba2-370m, 48 layers, full width)"
+    by_name["dsbp_fused"]["ssd_rows"] = ssd["b1"]
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

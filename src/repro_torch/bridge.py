@@ -12,7 +12,9 @@ packed container into its four arrays plus its static fields.
   tail layers follow.  An attention layer carries ``attn`` and ``ffn``
   (or, in an MoE config, ``moe``: ``router`` and the expert stacks
   ``w1`` / ``w3`` / ``w2``, raw or packed with their leading E axis), a
-  recurrent one ``rec`` (``w_in`` ... ``bx``) and ``ffn``.  A packed
+  recurrent one ``rec`` (``w_in`` ... ``bx``) and ``ffn``, an SSD one
+  ``ssd`` (``w_in``, ``conv_w``, ``w_out``, ``a_log``, ``dt_bias``,
+  ``d_skip``) and no ``norm2`` or ``ffn``.  A packed
   projection leaf is a dict with the keys of :func:`packed_from_jax`.
 * :func:`packed_from_jax` turns a JAX ``PackedDSBPWeight``'s children and
   static fields into the port's container.
@@ -80,10 +82,15 @@ def _set(module, name: str, value) -> None:
 
 
 _REC_NAMES = ("w_in", "w_gate", "w_out", "conv_w", "wa", "wx", "lam", "ba", "bx")
+_SSD_NAMES = ("w_in", "conv_w", "w_out", "a_log", "dt_bias", "d_skip")
 
 
 def _fill_layer(layer, tree: dict, index, device) -> None:
     _set(layer, "norm1", _leaf(tree["norm1"]["scale"], index, device))
+    if layer.kind == "ssd":  # norm1 and the block: no norm2, no FFN
+        for name in _SSD_NAMES:
+            _set(layer.ssd, name, _leaf(tree["ssd"][name], index, device))
+        return
     _set(layer, "norm2", _leaf(tree["norm2"]["scale"], index, device))
     if layer.kind == "rglru":
         for name in _REC_NAMES:

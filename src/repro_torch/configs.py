@@ -6,8 +6,9 @@ for field (tests/test_torch_engine.py compares them), so one config value
 means the same model in both packages.  The configs copied are the ones
 the ported layer families serve: the dense ``attn_full`` decoders, the
 Griffin hybrid (RG-LRU + ``attn_local`` rings, tied embeddings),
-gemma3's 5:1 local:global pattern and the MoE decoder mixtral-8x7b; the
-others join as their families are ported (ROADMAP A6).
+gemma3's 5:1 local:global pattern, the MoE decoder mixtral-8x7b and the
+attention-free Mamba-2 SSD stack mamba2-370m; the others join as their
+families are ported (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -73,6 +74,14 @@ class ArchConfig:
         return self.pattern[: self.n_layers % len(self.pattern)]
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssd_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def rnn_dim(self) -> int:
         return self.rnn_width or self.d_model
 
@@ -81,6 +90,10 @@ class ArchConfig:
         """Vocab rounded up to a multiple of 256; padded logit rows are
         masked in the head."""
         return -(-self.vocab_size // 256) * 256
+
+    @property
+    def is_attention_free(self) -> bool:
+        return all(k == "ssd" for k in self.pattern)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -206,6 +219,29 @@ _CONFIGS = {
         n_experts=8,
         top_k=2,
         source="arXiv:2401.04088; hf",
+    ),
+    # Mamba2-370M: attention-free SSM via SSD (state-space duality); 48L
+    # d_model=1024, vocab=50280 (padded to 50432), ssm_state=128,
+    # headdim=64, expand=2 (d_inner=2048, 32 SSD heads), tied
+    # [arXiv:2405.21060; unverified]; ssd_chunk 128 as in the JAX package's
+    # config (the paper's listing chunks by 256)
+    "mamba2-370m": ArchConfig(
+        name="mamba2-370m",
+        family="ssm",
+        n_layers=48,
+        d_model=1024,
+        n_heads=0,
+        n_kv_heads=0,
+        d_head=0,
+        d_ff=0,
+        vocab_size=50_280,
+        pattern=("ssd",),
+        ssd_chunk=128,
+        ssm_state=128,
+        ssm_headdim=64,
+        ssm_expand=2,
+        tie_embeddings=True,
+        source="arXiv:2405.21060; unverified",
     ),
 }
 

@@ -39,6 +39,11 @@ Chrome trace (both imply ``--observe``).  All of them imply ``--ragged``.
 (``models.model.init(pack=)``), so a model larger than the card in f32
 serves packed: ``--arch mixtral-8x7b --packed`` on one H100.
 
+An SSD model (``--arch mamba2-370m``) serves with ``prefill_bucket`` set
+to its ``ssd_chunk``: every padded prompt batch is then a multiple of the
+chunk, which the chunked scan needs (an uncut ``generate`` prompt of
+``--prompt-len`` tokens must be shorter than the chunk or a multiple).
+
 ``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
 counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
 starts one process per rank (``launch.mesh.spawn``; gloo on the CPU or on
@@ -178,6 +183,8 @@ def _run(mesh, args):
     kv_quant = args.kv_quant
     if policy is not None and args.kv_quant is None and args.kv_bits is None:
         kv_quant = policy
+    # the SSD scan's chunk must divide every padded prompt batch
+    bucket = {"prefill_bucket": cfg.ssd_chunk} if "ssd" in cfg.pattern else {}
     scfg = ServeConfig(max_len=max_len, batch_size=args.batch, pack_preset=policy,
                        quant_method=args.method, kv_quant=kv_quant,
                        kv_bits=args.kv_bits, paged=args.paged,
@@ -187,7 +194,8 @@ def _run(mesh, args):
                        spec_draft_method=args.spec_draft_method,
                        kv_draft_bits=args.kv_draft_bits,
                        numeric_guard=args.numeric_guard, observe=args.observe,
-                       mesh_shape=None if mesh is None else tuple(mesh.shape.values()))
+                       mesh_shape=None if mesh is None else tuple(mesh.shape.values()),
+                       **bucket)
     eng = None
     # one device draws and packs a layer at a time (a model larger than the
     # card in f32 fits packed); ranks that share a card draw the whole
@@ -203,7 +211,9 @@ def _run(mesh, args):
     if mesh is not None:
         say(f"mesh {tuple(mesh.shape.values())}: {mesh.size} ranks, "
             f"{scfg.batch_size} slots, {eng.cfg.quant_method or 'float'} projections")
-    if args.paged:
+    if args.paged and not eng._kv_scs:
+        say(f"paged: no KV layer, no block pool; {eng.lanes} lanes of dense state")
+    elif args.paged:
         say(f"paged KV: {eng.kv_blocks} blocks x {args.kv_block_size} slots, "
             f"{eng.lanes} lanes, table width {eng._table_width}")
     if streamed:
@@ -239,7 +249,7 @@ def _run(mesh, args):
             f"in {dt:.2f}s ({st['decode_tps']:.1f} decode tok/s, occupancy "
             f"{st['occupancy']*100:.0f}%, {st['decode_steps']} pool steps, "
             f"{st['kv_bytes_per_token']:.0f} KV bytes/token)")
-        if args.paged:
+        if args.paged and st["kv_blocks"]:
             say(f"block pool: peak {st['block_peak_used']}/{st['kv_blocks'] - 1} used "
                 f"({st['block_utilization'] * 100:.0f}%), {st['shared_blocks_peak']} "
                 f"shared at peak, {st['prefix_hit_blocks']} prefix hits, "

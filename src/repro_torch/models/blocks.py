@@ -42,6 +42,11 @@ step replaces the entries of that dict with new tensors and never
 writes into the old ones; :func:`select_state_step` (:573) and
 :func:`freeze_state` (:590) select rows exactly.
 
+The Mamba-2 family adds ``ssd`` (JAX :82-83): norm1 and the SSD block
+(:mod:`.ssd`) only, no norm2 and no FFN; its cache is a dense per-lane
+state ``{'h', 'conv'}`` like the RG-LRU's, and it follows the same rules
+(JAX :158-161, :472-474, :530-532, :618-620, :647-649).
+
 An MoE config (``cfg.n_experts``) gives its attention layers a
 :class:`~.moe.MoE` in place of the FFN (JAX :74-75): ``_mlp_part`` (:98)
 routes through :func:`~.moe.moe_ffn`, with the caller's ``no_drop`` in
@@ -65,6 +70,7 @@ from .layers import dense, rms_norm, rope
 from .layers import weight as _weight
 from .moe import MoE, moe_ffn
 from .recurrent import RGLRU, init_rglru_state, rglru_block, rglru_decode_step, rglru_verify
+from .ssd import SSD, init_ssd_state, ssd_block, ssd_decode_step, ssd_verify
 
 __all__ = ["Layer", "layer_seq", "layer_decode", "init_layer_cache",
            "fill_kv_cache", "layer_verify", "kv_slots", "rollback_kv_cache",
@@ -73,7 +79,7 @@ __all__ = ["Layer", "layer_seq", "layer_decode", "init_layer_cache",
            "pool_entries", "restore_pool_entries", "pool_block_size", "cache_len", "KIND_HAS_KV",
            "select_state_step", "freeze_state"]
 
-SUPPORTED_KINDS = ("attn_full", "attn_local", "rglru")
+SUPPORTED_KINDS = ("attn_full", "attn_local", "rglru", "ssd")
 KIND_HAS_KV = {"attn_full": True, "attn_local": True, "rglru": False, "ssd": False}
 
 
@@ -116,11 +122,11 @@ def out_features(w) -> int:
 class Layer(nn.Module):
     """One decoder layer of kind ``attn_full`` / ``attn_local`` (norm1,
     attn {wq, wk, wv, wo}, norm2, and ffn {w1, w3, w2} or, with
-    ``cfg.n_experts``, moe (:class:`~.moe.MoE`)) or ``rglru`` (norm1, rec
-    (:class:`~.recurrent.RGLRU`), norm2, ffn), as JAX ``init_layer``
-    (:66).  Projection weights are raw (d_in, d_out) parameters (an
-    expert stack (E, d_in, d_out)) or, once packed,
-    :class:`PackedDSBPWeight` modules."""
+    ``cfg.n_experts``, moe (:class:`~.moe.MoE`)), ``rglru`` (norm1, rec
+    (:class:`~.recurrent.RGLRU`), norm2, ffn) or ``ssd`` (norm1, ssd
+    (:class:`~.ssd.SSD`)), as JAX ``init_layer`` (:66).  Projection
+    weights are raw (d_in, d_out) parameters (an expert stack (E, d_in,
+    d_out)) or, once packed, :class:`PackedDSBPWeight` modules."""
 
     def __init__(self, cfg, kind: str, device):
         super().__init__()
@@ -130,6 +136,9 @@ class Layer(nn.Module):
                 f"ported yet (ROADMAP A6)")
         self.kind = kind
         self.norm1 = _weight((cfg.d_model,), device)
+        if kind == "ssd":  # no norm2 and no FFN (JAX :82-83)
+            self.ssd = SSD(cfg, device)
+            return
         if kind == "rglru":
             self.rec = RGLRU(cfg, device)
         else:
@@ -167,6 +176,14 @@ def _mlp_part(layer: Layer, x, cfg, quant, no_drop=True):
     return x + _ffn(layer.ffn, y, quant)
 
 
+def _residual(layer: Layer, x, o, cfg, quant):
+    """A state layer's cached-path output ``o`` added to the stream, then
+    norm2 and the FFN where the layer has them (an ``ssd`` layer has
+    none)."""
+    x = x + o
+    return x if layer.kind == "ssd" else _mlp_part(layer, x, cfg, quant)
+
+
 # ---------------- attention, sequence mode ----------------
 
 def _qkv(attn: _Attn, y, cfg, quant, positions):
@@ -200,6 +217,10 @@ def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None, no_drop=Fals
     right-padded rows: keys at/after each row's length are masked, and
     recurrent state freezes across the pad.  ``no_drop`` lifts the MoE's
     capacity (a prefill passes True)."""
+    if layer.kind == "ssd":
+        y = rms_norm(layer.norm1, x, cfg.norm_eps)
+        o, st = ssd_block(layer.ssd, y, cfg, quant, chunk=cfg.ssd_chunk, lengths=lengths)
+        return x + o, st
     if layer.kind == "rglru":
         y = rms_norm(layer.norm1, x, cfg.norm_eps)
         o, st = rglru_block(layer.rec, y, cfg, quant, lengths=lengths)
@@ -210,6 +231,11 @@ def layer_seq(layer: Layer, x, cfg, quant, positions, lengths=None, no_drop=Fals
 
 # ---------------- caches ----------------
 
+def _init_state(cfg, kind: str, batch: int, device) -> dict:
+    """A state layer's zero state {h, conv} of ``batch`` lanes."""
+    return (init_ssd_state if kind == "ssd" else init_rglru_state)(batch, cfg, device)
+
+
 def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None,
                      n_kv_heads: int | None = None, kind: str = "attn_full") -> dict:
     """One {'k', 'v'} cache entry of :func:`cache_len` slots: float
@@ -219,7 +245,7 @@ def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None,
     is the layer's own (a rank's under a mesh; default
     ``cfg.n_kv_heads``)."""
     if not KIND_HAS_KV[kind]:
-        return init_rglru_state(batch, cfg, device)
+        return _init_state(cfg, kind, batch, device)
     shp = (batch, n_kv_heads or cfg.n_kv_heads, cache_len(cfg, kind, max_len), cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
@@ -307,16 +333,19 @@ def _attn_decode(layer: Layer, x, cfg, quant, cache: dict, pos: torch.Tensor):
 
 
 def _rec_decode(layer: Layer, x, cfg, quant, state: dict):
-    """A recurrent layer's decode step: (x, the new state)."""
+    """A state layer's decode step: (x, the new state)."""
     y = rms_norm(layer.norm1, x, cfg.norm_eps)
-    o, new = rglru_decode_step(layer.rec, y, state, cfg, quant)
-    return _mlp_part(layer, x + o, cfg, quant), new
+    if layer.kind == "ssd":
+        o, new = ssd_decode_step(layer.ssd, y, state, cfg, quant)
+    else:
+        o, new = rglru_decode_step(layer.rec, y, state, cfg, quant)
+    return _residual(layer, x, o, cfg, quant), new
 
 
 def layer_decode(layer: Layer, x, cfg, cache: dict, pos, quant=None):
     """One decode step through one layer; the cache updates in place (a
     recurrent layer's entries are replaced by its new state)."""
-    if layer.kind == "rglru":
+    if not layer.has_kv:
         x, new = _rec_decode(layer, x, cfg, quant, cache)
         cache.update(new)
         return x
@@ -366,8 +395,11 @@ def _attn_verify(layer: Layer, x, cfg, quant, cache: dict, posb):
 
 def _rec_verify(layer: Layer, x, cfg, quant, state: dict):
     y = rms_norm(layer.norm1, x, cfg.norm_eps)
-    o, new, steps = rglru_verify(layer.rec, y, cfg, quant, state)
-    return _mlp_part(layer, x + o, cfg, quant), new, steps
+    if layer.kind == "ssd":
+        o, new, steps = ssd_verify(layer.ssd, y, cfg, quant, state)
+    else:
+        o, new, steps = rglru_verify(layer.rec, y, cfg, quant, state)
+    return _residual(layer, x, o, cfg, quant), new, steps
 
 
 def layer_verify(layer: Layer, x, cfg, cache: dict, pos, quant=None):
@@ -377,7 +409,7 @@ def layer_verify(layer: Layer, x, cfg, cache: dict, pos, quant=None):
     attention layer is the old content of its slots (:func:`kv_slots`,
     taken before), so ``steps`` is empty; a recurrent layer's are its
     per-step states, for :func:`select_state_step`."""
-    if layer.kind == "rglru":
+    if not layer.has_kv:
         x, new, steps = _rec_verify(layer, x, cfg, quant, cache)
         cache.update(new)
         return x, steps
@@ -419,7 +451,7 @@ def init_layer_cache_paged(cfg, num_blocks: int, block_size: int, device,
     layer keeps its dense state of ``batch`` lanes (nothing to page in an
     O(1) state)."""
     if not KIND_HAS_KV[kind]:
-        return init_rglru_state(batch, cfg, device)
+        return _init_state(cfg, kind, batch, device)
     shp = (num_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
@@ -547,7 +579,7 @@ def layer_decode_paged(layer: Layer, x, cfg, pool: dict, table, pos,
     step's :func:`write_plan` for this layer's ring.  A recurrent layer's
     lanes advance where ``live`` (B,) is set and keep their state bit for
     bit elsewhere (:func:`freeze_state`)."""
-    if layer.kind == "rglru":
+    if not layer.has_kv:
         x, new = _rec_decode(layer, x, cfg, quant, pool)
         pool.update(freeze_state(pool, new, live))
         return x
@@ -574,7 +606,7 @@ def layer_verify_paged(layer: Layer, x, cfg, pool: dict, table, pos, quant=None,
     ``steps`` (:func:`write_kv_blocks` commits what is kept), or a
     recurrent layer's per-step states (:func:`select_state_step`).
     Nothing is written."""
-    if layer.kind == "rglru":
+    if not layer.has_kv:
         x, _, steps = _rec_verify(layer, x, cfg, quant, pool)
         return x, steps
     x, steps = _attn_verify_paged(layer, x, cfg, quant, pool, table, pos, s_c)

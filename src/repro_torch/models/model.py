@@ -21,7 +21,10 @@ heads, and :meth:`Model.head` assembles the vocab over 'model'.  The JAX
 (layer i is unit i // P at pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
 knobs and have no counterpart here.  An MoE config's layers carry
 :class:`~.moe.MoE` blocks; the prefill and every cached step run them with
-nothing dropped (JAX :221, :230).  :func:`init` with ``pack=`` draws and
+nothing dropped (JAX :221, :230).  The Mamba-2 family's ``ssd`` layers
+carry their state like the RG-LRU's; a model of only such layers has no
+KV entry at all, and its head masks the padded vocab columns as every
+head does (mamba2-370m: 50,280 of 50,432).  :func:`init` with ``pack=`` draws and
 packs one layer at a time, for models larger than the card in f32.
 """
 from __future__ import annotations
@@ -499,6 +502,12 @@ def _draw(module: nn.Module, cfg: ArchConfig, gen: torch.Generator) -> None:
             p.zero_()
         elif leaf == "lam":
             p.uniform_(2.0, 6.0, generator=gen)
+        elif leaf == "a_log":  # an SSD head's decay rate A = -U(1, 16)
+            p.uniform_(1.0, 16.0, generator=gen).log_()
+        elif leaf == "dt_bias":  # softplus(dt_bias) ~ U(1e-3, 0.1)
+            p.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_()
+        elif leaf == "d_skip":
+            p.fill_(1.0)
         elif leaf == "conv_w":
             p.normal_(generator=gen).mul_(0.1)
         else:  # embed rows are (Vp, d): its fan-in is d as well
@@ -512,7 +521,9 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None, pack=None) -> Model:
     d_in is its second-to-last axis: ``w1`` / ``w3`` and the router at
     d**-0.5, ``w2`` at ff**-0.5), norms 1; a recurrent block's ``conv_w``
     ~ N(0, 1) * 0.1, ``lam`` ~ U(2, 6), ``ba`` and ``bx`` zero (JAX
-    ``init_rglru_block``).  Drawn from a ``torch.Generator`` seeded with
+    ``init_rglru_block``); an SSD block's ``conv_w`` the same, ``a_log`` =
+    log U(1, 16), ``dt_bias`` = log(expm1(U(1e-3, 0.1))), ``d_skip`` 1
+    (JAX ``init_ssd_block``).  Drawn from a ``torch.Generator`` seeded with
     ``seed`` on the target device (the numbers differ from
     ``jax.random``'s; parity tests bridge weights).
 

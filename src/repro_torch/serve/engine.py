@@ -45,7 +45,13 @@ takes every KV ring length of the layer kinds (``_kv_scs``, :522).  The
 MoE family (mixtral-8x7b) serves through all of them: its expert stacks
 pack as one container each with a leading E axis and run weight-only
 (``models.moe``); under a mesh it raises naming ROADMAP A13 (the expert
-axis).
+axis).  The SSD family (mamba2-370m) is the first model with no KV layer:
+its state rides like the RG-LRU's, and the paged scheduler runs it as
+JAX's does (:523-551, :1257-1290), with no allocator, no prefix cache, a
+pool of one block and chunks of ``prefill_bucket`` tokens
+(``last_stats['kv_blocks']`` 0).  Its chunked scan needs every padded
+prompt batch shorter than ``ssd_chunk`` or a multiple of it: serve it
+with ``prefill_bucket = cfg.ssd_chunk``.
 
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
@@ -374,8 +380,9 @@ class Engine:
             missing.append("speculative rounds (spec_k > 0)")
         kinds = sorted(set(cfg.pattern) - {"attn_full"})
         if kinds:
-            missing.append(f"layer kinds {kinds} (the Griffin hybrid's rings and "
-                           f"recurrent state)")
+            what = {"attn_local": "sliding-window rings", "rglru": "the RG-LRU's recurrent state",
+                    "ssd": "the SSD state"}
+            missing.append(f"layer kinds {kinds} ({', '.join(what[k] for k in kinds)})")
         if cfg.tie_embeddings:
             missing.append("tied embeddings (the head over embed.T)")
         if cfg.n_experts:
@@ -483,7 +490,10 @@ class Engine:
         """Pool geometry of the paged scheduler, validated at
         construction: the ring lengths S_c of the model's KV layers
         (``blocks.cache_len``; an ``attn_local`` ring is min(max_len,
-        window) slots long), each a multiple of the block size."""
+        window) slots long), each a multiple of the block size.  A model
+        with no KV layer (the SSD stack) has no pool to page: no
+        allocator, no prefix cache, a pool of one block, chunks of
+        ``prefill_bucket`` tokens (JAX :523-551)."""
         scfg, cfg = self.scfg, self.cfg
         bs = int(scfg.kv_block_size)
         if bs < 1:
@@ -495,22 +505,23 @@ class Engine:
                     f"kv_block_size {bs} must divide every KV cache length; "
                     f"layer S_c {s_c} (max_len {scfg.max_len}, window "
                     f"{cfg.window}) is not a multiple")
-        self._s_c = s_c = self._kv_scs[-1]
+        self._s_c = s_c = self._kv_scs[-1] if self._kv_scs else 0
         # prefix sharing is sound only while no KV ring has wrapped during
         # the prompt: prompts longer than the shortest ring neither take
         # nor register hits
-        self._share_limit = self._kv_scs[0]
+        self._share_limit = self._kv_scs[0] if self._kv_scs else 0
         # one table entry spans kv_block_size ring slots of EVERY KV layer
-        self._table_width = SB.block_span(s_c, bs)
+        span = SB.block_span(s_c, bs)
+        self._table_width = max(span, 1)
         self.kv_blocks = (int(scfg.kv_blocks) if scfg.kv_blocks is not None
-                          else scfg.batch_size * self._table_width + 1)
-        if self.kv_blocks < 2:
+                          else scfg.batch_size * span + 1)
+        if self._kv_scs and self.kv_blocks < 2:
             raise ValueError(f"kv_blocks must be >= 2, got {self.kv_blocks}")
         self.lanes = int(scfg.max_active or scfg.batch_size)
         self._chunk_threshold = int(scfg.chunk_prefill_tokens
                                     or 4 * scfg.prefill_bucket)
         # chunk width: a verify pass must keep its ring slots distinct
-        self._chunk_T = min(scfg.prefill_bucket, *self._kv_scs)
+        self._chunk_T = min([scfg.prefill_bucket, *self._kv_scs])
 
     @staticmethod
     def _norm_kv(scfg: ServeConfig):
@@ -1084,7 +1095,7 @@ class Engine:
         for r in queue:
             span = SB.block_span(min(len(r.tokens) + r.max_new_tokens + headroom,
                                      self._s_c), bs)
-            if span > self.kv_blocks - 1:
+            if self._kv_scs and span > self.kv_blocks - 1:
                 raise SB.BlockError(
                     f"request {r.uid!r} cannot be admitted even with an "
                     f"idle pool: its reservation ({span} blocks) exceeds "
@@ -1094,15 +1105,21 @@ class Engine:
         if faults is not None:
             faults.reset()
             faults.observer = self.obs.fault_injected
-        check = scfg.invariant_checks or faults is not None
-        alloc = (faults.allocator(self.kv_blocks, bs) if faults is not None
-                 else SB.BlockAllocator(self.kv_blocks, bs))
-        prefix = SB.PrefixCache(alloc) if scfg.prefix_sharing else None
+        # a model with no KV layer has no pool to allocate from (JAX
+        # :1277-1284): no allocator for a fault plan to act on, no prefix
+        # cache, a pool of one block
+        check = (scfg.invariant_checks or faults is not None) and bool(self._kv_scs)
+        alloc = prefix = None
+        if self._kv_scs:
+            alloc = (faults.allocator(self.kv_blocks, bs) if faults is not None
+                     else SB.BlockAllocator(self.kv_blocks, bs))
+            prefix = SB.PrefixCache(alloc) if scfg.prefix_sharing else None
         self._last_alloc, self._last_prefix = alloc, prefix
-        cache = self.model.init_paged_cache(self.kv_blocks, bs, kv=self.kv_spec, batch=B)
+        nb_pool = self.kv_blocks if alloc is not None else 1
+        cache = self.model.init_paged_cache(nb_pool, bs, kv=self.kv_spec, batch=B)
         # bytes one table entry pins across every layer's pool, from the
         # leaves' actual dtypes (both children of a packed pool)
-        blk_bytes = kv_cache_nbytes(cache) // self.kv_blocks
+        blk_bytes = kv_cache_nbytes(cache) // nb_pool
         tables = np.zeros((B, self._table_width), np.int32)
         lanes: list[dict | None] = [None] * B
         tok = np.zeros(B, np.int64)
@@ -1152,9 +1169,10 @@ class Engine:
                     continue  # every admitted request finished at token 1
                 idle_spins = 0
                 stats["max_concurrent"] = max(stats["max_concurrent"], len(dec) + len(chk))
-                stats["shared_blocks_peak"] = max(stats["shared_blocks_peak"],
-                                                  alloc.shared_blocks())
-                self.obs.pool_sample(ctl.step, alloc, prefix)
+                if alloc is not None:
+                    stats["shared_blocks_peak"] = max(stats["shared_blocks_peak"],
+                                                      alloc.shared_blocks())
+                    self.obs.pool_sample(ctl.step, alloc, prefix)
                 if dec:
                     t_step = time.perf_counter()
                     # every ring slot this step writes (a round: 1 + spec_k)
@@ -1210,17 +1228,17 @@ class Engine:
                     self._release_lane(i, lanes, tables, alloc)
             if prefix is not None:
                 prefix.drop_all()
-            usable = self.kv_blocks - 1
+            usable = self.kv_blocks - 1 if alloc is not None else 0
             self.last_stats = dict(
                 stats, requests=nreq, paged=True, lanes=B, kv_block_size=bs,
-                kv_blocks=self.kv_blocks, completed=completed,
+                kv_blocks=self.kv_blocks if alloc is not None else 0, completed=completed,
                 request_status=dict(ctl.status),
                 occupancy=stats["occupied_lanes"] / max(stats["decode_steps"] * B, 1),
                 decode_tps=stats["decode_tokens"] / max(stats["decode_time_s"], 1e-9),
-                block_peak_used=alloc.peak_used,
+                block_peak_used=alloc.peak_used if alloc is not None else 0,
                 # 0 unless a block reference leaked past the releases above
-                blocks_in_use_at_exit=alloc.used_blocks,
-                block_utilization=alloc.peak_used / usable,
+                blocks_in_use_at_exit=alloc.used_blocks if alloc is not None else 0,
+                block_utilization=alloc.peak_used / usable if usable else 0.0,
                 block_bytes=blk_bytes,
                 prefix_lookups=prefix.lookups if prefix is not None else 0,
                 prefix_hit_blocks=prefix.hits if prefix is not None else 0,
@@ -1279,7 +1297,10 @@ class Engine:
         (``done`` tokens already emitted ride inside a resumed request's
         prompt).  Returns (block_ids, n_hit_blocks), or None when the pool
         cannot cover it even after evicting cache-only prefix blocks (or a
-        fault plan refuses the allocation: the hits go back, atomically)."""
+        fault plan refuses the allocation: the hits go back, atomically).
+        Without a pool (no KV layer) there is nothing to reserve."""
+        if alloc is None:
+            return [], 0
         bs = self.scfg.kv_block_size
         total = min(len(r.tokens) + max(r.max_new_tokens - done, 1) + self.scfg.spec_k,
                     self._s_c)
@@ -1446,7 +1467,8 @@ class Engine:
         """Free one reference on every block the lane's table holds (the
         prefix cache's references keep shared blocks alive); zero the row."""
         lanes[lane] = None
-        alloc.free(int(b) for b in tables[lane] if b)
+        if alloc is not None:
+            alloc.free(int(b) for b in tables[lane] if b)
         tables[lane, :] = 0
 
     def _cow_writable(self, cache, tables, alloc, prefix, writes, stats, *, lanes, queue,
@@ -1456,7 +1478,10 @@ class Engine:
         contents on the device in one batched call.  Under pool pressure,
         evict cache-only prefix blocks, then un-register a block only the
         cache shares with the writer, then preempt a
-        victim lane; the caller re-derives its lane sets afterwards."""
+        victim lane; the caller re-derives its lane sets afterwards.
+        Without a pool there is nothing to split."""
+        if alloc is None:
+            return cache
         bs = self.scfg.kv_block_size
         src_all, dst_all = [], []
 

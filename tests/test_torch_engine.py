@@ -163,7 +163,8 @@ def test_copied_configs_equal_jax(arch):
         tc = dataclasses.asdict(getattr(configs, get)(arch))
         assert tc == jc
     jc, tc = jax_configs.get_config(arch), configs.get_config(arch)
-    for prop in ("n_units", "tail", "padded_vocab_size", "rnn_dim"):
+    for prop in ("n_units", "tail", "padded_vocab_size", "rnn_dim", "d_inner", "n_ssd_heads",
+                 "is_attention_free"):
         assert getattr(tc, prop) == getattr(jc, prop)
 
 

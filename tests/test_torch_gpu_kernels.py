@@ -879,3 +879,61 @@ def test_moe_serve_card_equals_cpu(cuda, paged):
     a, b = gpu.serve(reqs), cpu.serve(reqs)
     for uid in b:
         np.testing.assert_array_equal(a[uid], b[uid])
+
+
+# ---- the SSD family: mamba2-370m ----
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 512, 2048])
+@pytest.mark.parametrize("k,n", [(1024, 4384), (2048, 1024)], ids=["w_in", "w_out"])
+def test_dsbp_fused_bit_equal_plain_at_ssd_shapes(cuda, m, k, n):
+    """B1 at mamba2-370m's projections, decode (M <= 16) and prefill
+    tiles: w_in's N = 4,384 is a multiple of 32 but not of 128, so the
+    prefill tile ends in a partial column block of 32.  Bit-equal to the
+    plain version."""
+    cfg = _cfg("precise")
+    x, ts, ka, kscale, tw = _device_operands(m, k, n, cfg, cuda, seed=m + k + n)
+    y = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused_plain(x, ts, ka, kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n)
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+
+
+def test_ssd_decode_step_card_equals_cpu_at_full_width(cuda):
+    """mamba2-370m at full width and 2 layers, packed "precise": a ragged
+    prefill (a 128-token chunk) and two decode steps on the card (B1) and
+    on the CPU (plain versions): logits within 0.1 of max|logit| (phase
+    9's rule in chip_smoke.py) and the greedy tokens equal unless the top-2
+    gap is below max(1e-3 * max|logit|, twice the logit difference)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+
+    cfg = get_config("mamba2-370m").replace(n_layers=2, quant="precise")
+    gpu = TM.init(cfg, seed=21, device=cuda, pack="precise")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(21)
+    lens = np.asarray([128, 37, 90, 5], np.int32)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 128)))
+    fed = []  # the card's greedy tokens, fed to both (the same contexts)
+    with torch.inference_mode():
+        outs = []
+        for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+            lg, cache, _ = model.prefill(toks.to(dev), 256, lengths=lens)
+            rows = [lg[:, -1].float().cpu()]
+            for t in range(2):
+                if len(fed) <= t:
+                    fed.append(torch.argmax(rows[-1], dim=-1))
+                lg, cache = model.decode_step(fed[t][:, None].to(dev), cache,
+                                              torch.from_numpy(lens + t).to(dev))
+                rows.append(lg[:, -1].float().cpu())
+            outs.append(torch.stack(rows, dim=1))
+    a, b = outs
+    top = a.abs().amax(-1)
+    delta = (a - b).abs().amax(-1)
+    assert torch.all(delta <= 0.1 * top), (delta / top).max()
+    top2 = torch.topk(a, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = a.argmax(-1) != b.argmax(-1)
+    assert torch.all(~differ | (gap < torch.maximum(1e-3 * top, 2 * delta)))
