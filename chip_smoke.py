@@ -161,20 +161,23 @@ Phases (each raises on failure; nothing falls back to the CPU):
      attn_local) with window 64, CPU (plain) vs card (kernels) under phase
      9's rule; 19, recurrentgemma-2b at full width and depth (26 layers,
      seeded weights, packed "precise", max_len 4096, so S_c 2048 on the
-     local layers): generate of 4 prompts (64 / 700 / 2100 / 2600 tokens),
-     serve of 8 requests through 4 slots, the same with kv8, paged (bs
-     16, 6 requests sharing a 192-token prefix and 2 chunked prompts past
-     the window) float and kv8, with every kernel's launches over that
-     run; the float model's ring decode past the window held to
-     Model.prefill_trunk over the whole context (RING_REL), paged held to
-     dense at matched batches token for token (float, kv8, and spec_k 3
-     over the tokens committed before any lane can finish), a planted
-     rollback fault (undo_draft skipped) that must fail the speculative
-     match, B1 = 164 (counted by (K, N) against the containers) and B2 /
-     B5 = 8 launches per decode step, spec_k 3 at draft bits 7 dense and
-     paged against spec_k 0 (HYBRID_TIE), one NaN step under 'fallback'
-     bit-equal to the unfaulted serve; prefill s, ms per step,
-     KV bytes, peak memory, a torch.profiler trace of four decode steps
+     local layers): generate of 4 prompts (64 / 700 / 2100 / 2600 tokens)
+     and serve of 8 requests through 4 slots at full depth, then the
+     first HYBRID_SUB_LAYERS (8) layers of the same seed at full width:
+     the same serve, with kv8, paged (bs 16, 6 requests sharing a
+     192-token prefix and 2 chunked prompts past the window) float and
+     kv8, with every kernel's launches over those runs; the float model's
+     ring decode past the window held to Model.prefill_trunk over the
+     whole context (RING_REL), at 8 layers paged held to dense at matched
+     batches token for token (float, kv8, and spec_k 3 over the tokens
+     committed before any lane can finish), a planted rollback fault
+     (undo_draft skipped) that must fail the speculative match, B1 = 164
+     (counted by (K, N) against the containers) and B2 = 8 launches per
+     decode step at full depth, B5 = 2 at 8 layers, spec_k 3 at draft
+     bits 7 dense and paged against spec_k 0 (HYBRID_TIE) at 8 layers, one
+     NaN step under 'fallback' bit-equal to the unfaulted serve at full
+     depth; prefill s, ms per step,
+     KV bytes, peak memory, a torch.profiler trace of two decode steps
      and the wa / wx weight-only products' time per step; 19b, gemma3-12b
      at full width and 6 layers (5 local at window 1024, 1 global),
      max_len 2048: local and global rings in one block table, paged ==
@@ -221,11 +224,41 @@ Phases (each raises on failure; nothing falls back to the CPU):
      quantize), paged (no pool, kv_blocks 0, a 600-token prompt in chunk
      steps) under phase 9's rule against the dense serve, paged == dense
      token for token at matched batches, spec_k 3 at draft bits 7 against
-     spec_k 0 under phase 9's rule; B1 = 96 per decode step (48 at each
+     spec_k 0 under phase 9's rule; the float model's paged serve
+     against its dense serve within RING_REL at SSD_FLOAT_LAYERS (8)
+     layers, which two planted commit faults must fail; B1 = 96 per
+     decode step (48 at each
      shape, counted by (K, N) against the containers) and no attention
      kernel launched; prefill s, ms per step, peak memory, a
-     torch.profiler trace of four decode steps; an `ssd (phase 21):` JSON
+     torch.profiler trace of two decode steps; an `ssd (phase 21):` JSON
      line.
+  22. the modality frontends, last: B1 at musicgen-large's decode shapes
+     (M 4: K=2048 N=2048 / 8192, K=8192 N=2048) and llava-next-34b's (M 2:
+     K=7168 N=7168 / 1024 / 20480, K=20480 N=7168) and at llava's prefill M
+     (2 rows x 3,008 positions; the plain version over row blocks of
+     PLAIN_ROWS) bit-equal to plain, B2 at musicgen's MHA D 64 and llava's
+     GQA 56 : 8 D 128 over its ~3,000-position prompt, prefill and decode,
+     within 1e-5, B5 at both decode shapes over kv8 K/V bit-equal to B2
+     over dequantize() and within 1e-5 of plain, all timed cold; 22a,
+     musicgen-large at full width and 2 layers and llava-next-34b at full
+     width and 1 layer with its image prefix cut to 128 tokens, float,
+     packed "precise" and float over a kv8 cache, a ragged
+     generate on the CPU (plain versions) and the card (kernels) under
+     phase 9's rule per codebook; 22, musicgen-large at full width and
+     depth (48 layers, ~3.22e9 parameters) drawn and packed by
+     init(pack=) (each init's peak gated below packed + one f32 layer +
+     pack_weights' transient of the widest matrix, measured first):
+     generate of 4 ragged (B, L, 4) prompts of 16-128 frames,
+     16 new frames, float KV then kv8: output (4, 16, 4), B1 336 per decode
+     step by (K, N) and B2 (B5) 48, counted in every decode step of the
+     runs themselves, kv8's first sampled batch bit-equal to float's; 22b,
+     llava-next-34b at full width and depth (60 layers, ~33.5e9
+     parameters) by init(pack=): generate of 2 rows of 2,880 seeded image embeddings + 32 / 128
+     text tokens, 8 new tokens, max_len 3,072, float KV then kv8: B1 420 per
+     step by (K, N), B2 (B5) 60, peak memory gated below packed + two f32
+     layers + the cache + the prefill's K/V and activations, a 2-step
+     trace; prefill s, ms per step, peak memory; a `frontends (phase 22):`
+     JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
   14-15b, for which the models are freed.
@@ -243,6 +276,10 @@ runs phases 1 and 20 alone.
     python3 chip_smoke.py --ssd
 
 runs phases 1 and 21 alone.
+
+    python3 chip_smoke.py --frontends
+
+runs phases 1 and 22 alone.
 
     python3 chip_smoke.py --cross
 
@@ -369,6 +406,14 @@ CROSS_LAYERS = 1
 # phase 12 keeps two layers: the one CPU-vs-card check at full width whose
 # per-layer caches and block tables are indexed past layer 0
 PAGED_CROSS_LAYERS = 2
+# the depth of phase 19's kv8, paged, matched-batch, planted-fault and
+# speculative serves (recurrentgemma-2b at full width: 2 units of (rglru,
+# rglru, attn_local) and the 2-layer recurrent tail), and of phase 21's
+# float paged-vs-dense check and its planted faults (mamba2-370m): cut for
+# the script's time limit once phase 22 joined it; phase 19's generate,
+# serve, fallback and trace and phase 21's packed serves stay at full depth
+HYBRID_SUB_LAYERS = 8
+SSD_FLOAT_LAYERS = 8
 
 
 def smi() -> str:
@@ -416,10 +461,14 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n, preset="precise", kw=None) -> dict:
+def b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n, preset="precise", kw=None,
+            plain_rows=None) -> dict:
     """B1 against its plain version at one (M, K, N) on a seeded weight
     (bit-equal, or it raises), timed cold with its plain version and its
-    bound."""
+    bound.  ``plain_rows`` runs the plain version over row blocks of that
+    many rows (its float64 group dots take n_groups * M * N * 8 bytes, 110
+    GB at llava-next-34b's prefill M): every output row depends on its own
+    input row only, so the blocks give the whole call's bits."""
     kw = kw or {}
     cfg = Q.PRESETS[preset]
     icfg = dataclasses.replace(cfg.input_cfg, **kw)
@@ -429,22 +478,30 @@ def b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n, preset="precise", kw=N
     x = torch.randn(m, k, generator=gen, device="cuda")
     ts = per_tensor_scale(x, icfg.fmt).reshape(1)
     tw = pw.tscale.reshape(-1).contiguous()
+    plain = DF.dsbp_fused_plain
+    if plain_rows is not None:
+        def plain(xx, *rest):
+            return torch.cat([DF.dsbp_fused_plain(xx[i:i + plain_rows], *rest)
+                              for i in range(0, xx.shape[0], plain_rows)])
     y = DF.dsbp_fused(x, ts, pw.ka, pw.kscale, tw, icfg)
-    ref = DF.dsbp_fused_plain(x, ts, pw.ka, pw.kscale, tw, icfg)
+    ref = plain(x, ts, pw.ka, pw.kscale, tw, icfg)
     torch.cuda.synchronize()
     if not torch.equal(y, ref):
         raise AssertionError(f"B1 kernel != plain at M={m} K={k} N={n} {kw}: max "
                              f"|diff| {float((y - ref).abs().max())}")
+    err = float((y - ref).abs().max())
+    del ref
     wbytes = pw.ka.numel() + pw.kscale.numel() * 4
     copies = [(x, ts, pw.ka.clone(), pw.kscale.clone(), tw, icfg)
               for _ in range(max(1, math.ceil(2 * L2_BYTES / wbytes)))]
     ms = cuda_ms(DF.dsbp_fused, copies, iters=30 if m <= 4 else 10)
-    plain_ms = cuda_ms(DF.dsbp_fused_plain, copies[:1], iters=3, warmup=1)
+    plain_ms = (cuda_ms(plain, copies[:1], iters=3, warmup=1) if plain_rows is None
+                else cuda_ms(plain, copies[:1], iters=1, warmup=0, sleep=0))
     nbytes = m * pw.padded_k * 4 + wbytes + n * 4 + 4 + m * n * 4
     b_ms, b_by = bound(nbytes, 2.0 * m * pw.padded_k * n, FP16_OPS)
     row = {"M": m, "K": k, "N": n, "cfg": kw or "precise e4m3", "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "groups": pw.padded_k // 64, "max_abs_err": float((y - ref).abs().max())}
+           "groups": pw.padded_k // 64, "max_abs_err": err}
     print(f"  B1 M={m:4d} K={k:5d} N={n:5d} {str(row['cfg']):40s} bit-equal; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return row
@@ -491,44 +548,53 @@ def phase_b2(torch, FA):
         for name, qq, kv_len, q0 in (
                 ("prefill", q, [512, 300, 129, 77], [0, 0, 0, 0]),
                 ("decode", q[:, :, :1].contiguous(), [512, 301, 129, 18], [511, 300, 128, 17])):
-            kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-            q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
-            o = FA.flash_attention(qq, k, v, kv_len, q0)
-            ref = FA.flash_attention_plain(qq, k, v, kv_len, q0)
-            # a row's bits depend on its own keys only: half the KV heads (with
-            # their query heads) and two batch rows give the matching slices
-            kh, qh = hkv // 2, hq // 2
-            heads = FA.flash_attention(qq[:, :qh], k[:, :kh], v[:, :kh], kv_len, q0)
-            rows = FA.flash_attention(qq[2:4], k[2:4], v[2:4], kv_len[2:4], q0[2:4])
-            torch.cuda.synchronize()
-            err = float((o - ref).abs().max())
-            # online-softmax order: per-tile rescaling rounds differently
-            if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
-                raise AssertionError(f"B2 {model} {name}: kernel vs plain max |diff| {err}")
-            if not (torch.equal(heads, o[:, :qh]) and torch.equal(rows, o[2:4])):
-                raise AssertionError(f"B2 {model} {name}: a head or row slice differs from "
-                                     f"the whole call")
-            mask = FA.attention_mask(kv_len, q0, qq.shape[2], s, causal=True, window=0)
-            visible = float(mask.sum())  # (b, query, key) pairs this run attends
-            nbytes = 2 * qq.numel() * 4 + 2 * float(kv_len.sum()) * hkv * d * 4 + 8 * b
-            b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
-            # cold: every call reads K/V from device memory, as on the main path
-            args = cold_copies(torch, (qq, k, v, kv_len, q0), nbytes)
-            ms = cuda_ms(FA.flash_attention, args, iters=20)
-            plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
-            lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args],
-                             iters=20)
-            del args
             key = name if model == "llama-7b" else f"{name}-{model}"
-            out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms, "max_abs_err": err}
-            print(f"  B2 {model:10s} {name:7s} B={b} Hq={hq} Hkv={hkv} Sq={qq.shape[2]} S={s} "
-                  f"D={d}: max |diff| {err:.3g}, head and row slices bit-equal; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa "
-                  f"{lib_ms:.4f} ms")
+            out[key] = b2_case(torch, FA, f"{model:10s} {name:7s}", qq, k, v, kv_len, q0)
         del q, k, v
     torch.cuda.empty_cache()
     return out
+
+
+def b2_case(torch, FA, label: str, q, k, v, kv_len, q0) -> dict:
+    """B2 against its plain version (1e-5) at one shape, with a head slice
+    and a row slice bit-equal to the whole call, timed cold beside its
+    plain version, torch's SDPA and its bound."""
+    b, hq, sq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
+    o = FA.flash_attention(q, k, v, kv_len, q0)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0)
+    # a row's bits depend on its own keys only: half the KV heads (with
+    # their query heads) and the last batch rows give the matching slices
+    kh, qh, r0 = hkv // 2, hq // 2, b // 2
+    heads = FA.flash_attention(q[:, :qh], k[:, :kh], v[:, :kh], kv_len, q0)
+    rows = FA.flash_attention(q[r0:], k[r0:], v[r0:], kv_len[r0:], q0[r0:])
+    torch.cuda.synchronize()
+    err = float((o - ref).abs().max())
+    close = torch.allclose(o, ref, rtol=1e-5, atol=1e-5)
+    del ref
+    # online-softmax order: per-tile rescaling rounds differently
+    if not close:
+        raise AssertionError(f"B2 {label.strip()}: kernel vs plain max |diff| {err}")
+    if not (torch.equal(heads, o[:, :qh]) and torch.equal(rows, o[r0:])):
+        raise AssertionError(f"B2 {label.strip()}: a head or row slice differs from the "
+                             f"whole call")
+    mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
+    visible = float(mask.sum())  # (b, query, key) pairs this run attends
+    nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * d * 4 + 8 * b
+    b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
+    # cold: every call reads K/V from device memory, as on the main path
+    args = cold_copies(torch, (q, k, v, kv_len, q0), nbytes)
+    ms = cuda_ms(FA.flash_attention, args, iters=20)
+    plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
+    lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args], iters=20)
+    del args
+    print(f"  B2 {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} S={s} D={d}: max |diff| {err:.3g}, "
+          f"head and row slices bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), sdpa {lib_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "max_abs_err": err}
 
 
 def _prompts(vocab, lens, seed):
@@ -698,28 +764,46 @@ def device_events(prof):
             if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
 
 
+def greedy_next(eng, lg):
+    """The greedy next step's tokens from logits (B, T, V): (B, 1), or (B,
+    1, K) codebook frames for an audio model, chosen on the device."""
+    from repro_torch.serve.engine import sample_tokens
+
+    cfg = eng.cfg
+    k = cfg.n_codebooks if cfg.frontend == "audio_codebooks" else 0
+    return sample_tokens(lg[:, -1], n_codebooks=k)[:, None]
+
+
 def trace_decode(torch, eng, toks, lens, kinds: dict, steps: int = 4,
-                 max_len: int = 512) -> dict:
+                 max_len: int = 512, start=None) -> dict:
     """Device time by kernel (``kinds``: name -> kernel-name patterns) over
     ``steps`` decode steps of the engine's model (greedy tokens chosen on
     the card, as the engine's loop does without a host sync), in one
     torch.profiler window after a warm step, outside every timed pass;
     busy = the kernels' summed device time, idle share = 1 - busy / the
-    window's host wall time."""
+    window's host wall time.  ``start`` (tokens, cache, positions) of a
+    run that has decoded already skips the prefill and the warm step.
+    The profiler records device activity only, as phase 18's window does:
+    no number here reads the host's ATen ops, which CPU activity would add
+    to the window, and their post-processing took most of a trace's time
+    at full depth."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
-                                         lengths=lens, quant=eng.quant, kv=eng.kv_spec)
-        pos = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        lg, cache = eng.model.decode_step(tok, cache, pos, eng.quant)
+        if start is None:
+            lg, cache, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
+                                             lengths=lens, quant=eng.quant, kv=eng.kv_spec)
+            pos = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+            lg, cache = eng.model.decode_step(greedy_next(eng, lg), cache, pos, eng.quant)
+            tok, pos = greedy_next(eng, lg), pos + 1
+        else:
+            tok, cache, pos = start
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
-                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-                lg, cache = eng.model.decode_step(tok, cache, pos + 1 + i, eng.quant)
+                lg, cache = eng.model.decode_step(tok, cache, pos + i, eng.quant)
+                tok = greedy_next(eng, lg)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     by = {k: [0.0, 0] for k in (*kinds, "other")}
@@ -934,46 +1018,56 @@ def phase_b5(torch, FA, KVQ):
         b, s = 4, 2048
         k = KVQ.quantize_kv(torch.randn(b, hkv, s, d, generator=gen, device="cuda"), kv8)
         v = KVQ.quantize_kv(torch.randn(b, hkv, s, d, generator=gen, device="cuda"), kv8)
-        kd, vd = k.dequantize(), v.dequantize()
         for name, sq, kv_len, q0 in cases:
             q = torch.randn(b, hq, sq, d, generator=gen, device="cuda")
-            kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-            q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
-            args = (q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
-            o = FA.packed_flash_attention(*args)
-            b2 = FA.flash_attention(q, kd, vd, kv_len, q0)
-            ref = FA.packed_flash_attention_plain(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(o, b2):
-                raise AssertionError(f"B5 {name} != B2 over dequantize(): max |diff| "
-                                     f"{float((o - b2).abs().max())}")
-            err = float((o - ref).abs().max())
-            if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
-                raise AssertionError(f"B5 {name}: kernel vs plain max |diff| {err}")
-            mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
-            visible = float(mask.sum())
-            # each row reads its keys up to kv_len once: int8 K/V + f32 scales
-            nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * (d + 4) + 8 * b
-            b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
-            # cold, as phase 3: copies of the packed and the dequantized caches
-            cold = cold_copies(torch, (*args, kd, vd), nbytes)
-            ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
-            plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
-            b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
-                            iters=20)
-            sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold],
-                              iters=20)
-            del cold
-            out[name] = {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms,
-                         "sdpa_dequantized_ms": sdpa_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "max_abs_err": err}
-            print(f"  B5 {name:17s} B={b} Hq={hq} Hkv={hkv} Sq={sq} S={s} D={d}: bit-equal to "
-                  f"B2 over dequantize(), |diff| to plain {err:.3g}; kernel {ms:.4f} ms, B2 "
-                  f"{b2_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"sdpa over dequantized K/V {sdpa_ms:.4f} ms (yardstick)")
-        del k, v, kd, vd
+            out[name] = b5_case(torch, FA, f"{name:17s}", q, k, v, kv_len, q0)
+        del k, v
     torch.cuda.empty_cache()
     return out
+
+
+def b5_case(torch, FA, label: str, q, k, v, kv_len, q0) -> dict:
+    """B5 over the packed K/V caches ``k`` / ``v`` (``quantize_kv``) at one
+    shape: bit-equal to B2 over ``dequantize()`` and within 1e-5 of its
+    plain version, timed cold beside B2, its plain version and SDPA over
+    the dequantized caches (a yardstick: no library call reads int8 K/V),
+    with its bound."""
+    b, hq, sq, d = q.shape
+    hkv, s = k.qm.shape[1], k.qm.shape[2]
+    kd, vd = k.dequantize(), v.dequantize()
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
+    args = (q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
+    o = FA.packed_flash_attention(*args)
+    b2 = FA.flash_attention(q, kd, vd, kv_len, q0)
+    ref = FA.packed_flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(o, b2):
+        raise AssertionError(f"B5 {label.strip()} != B2 over dequantize(): max |diff| "
+                             f"{float((o - b2).abs().max())}")
+    err = float((o - ref).abs().max())
+    if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"B5 {label.strip()}: kernel vs plain max |diff| {err}")
+    del o, b2, ref
+    mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
+    visible = float(mask.sum())
+    # each row reads its keys up to kv_len once: int8 K/V + f32 scales
+    nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * (d + 4) + 8 * b
+    b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
+    # cold, as phase 3: copies of the packed and the dequantized caches
+    cold = cold_copies(torch, (*args, kd, vd), nbytes)
+    ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
+    plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
+    b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
+                    iters=20)
+    sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold], iters=20)
+    del cold
+    print(f"  B5 {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} S={s} D={d} (keys "
+          f"{kv_len.tolist()}): bit-equal to B2 over dequantize(), |diff| to plain {err:.3g}; "
+          f"kernel {ms:.4f} ms, B2 {b2_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}), sdpa over dequantized K/V {sdpa_ms:.4f} ms (yardstick)")
+    return {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms, "sdpa_dequantized_ms": sdpa_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 def phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg):
@@ -2622,37 +2716,9 @@ def b5_kv4_row(torch, FA, KVQ) -> dict:
     spec = KVQ.KV_PRESETS["kv4"]
     k = KVQ.quantize_kv(torch.randn(b, h, s, d, generator=gen, device="cuda"), spec)
     v = KVQ.quantize_kv(torch.randn(b, h, s, d, generator=gen, device="cuda"), spec)
-    kd, vd = k.dequantize(), v.dequantize()
     q = torch.randn(b, h, 1, d, generator=gen, device="cuda")
-    kv_len = torch.tensor([512, 301, 144, 32], dtype=torch.int32, device="cuda")
-    q0 = kv_len - 1
-    args = (q, k.qm, k.scale, v.qm, v.scale, kv_len, q0)
-    o = FA.packed_flash_attention(*args)
-    b2 = FA.flash_attention(q, kd, vd, kv_len, q0)
-    ref = FA.packed_flash_attention_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(o, b2):
-        raise AssertionError(f"B5 at kv4 != B2 over dequantize(): max |diff| "
-                             f"{float((o - b2).abs().max())}")
-    err = float((o - ref).abs().max())
-    if not torch.allclose(o, ref, rtol=1e-5, atol=1e-5):
-        raise AssertionError(f"B5 at kv4: kernel vs plain max |diff| {err}")
-    nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * h * (d + 4) + 8 * b
-    b_ms, b_by = bound(nbytes, float(kv_len.sum()) * h * 4 * d, F32_OPS)
-    cold = cold_copies(torch, (*args, kd, vd), nbytes)
-    ms = cuda_ms(FA.packed_flash_attention, [c[:7] for c in cold], iters=20)
-    plain_ms = cuda_ms(FA.packed_flash_attention_plain, [args], iters=5)
-    b2_ms = cuda_ms(FA.flash_attention, [(c[0], c[7], c[8], kv_len, q0) for c in cold],
-                    iters=20)
-    mask = FA.attention_mask(kv_len, q0, 1, s, causal=True, window=0)
-    sdpa_ms = cuda_ms(_sdpa, [(c[0], c[7], c[8], mask[:, None]) for c in cold], iters=20)
-    print(f"  B5 at kv4, decode B=4 H=32 S=512 D=128 (keys {kv_len.tolist()}): bit-equal to "
-          f"B2 over dequantize(), |diff| to plain {err:.3g}; kernel {ms:.4f} ms, B2 "
-          f"{b2_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa over "
-          f"dequantized K/V {sdpa_ms:.4f} ms (yardstick)")
-    del cold
-    return {"ms": ms, "plain_ms": plain_ms, "b2_ms": b2_ms, "sdpa_dequantized_ms": sdpa_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    kv_len = [512, 301, 144, 32]
+    return b5_case(torch, FA, "at kv4, decode", q, k, v, kv_len, [n - 1 for n in kv_len])
 
 
 def _check_containers(torch, DF, per_tensor_scale, model, label: str) -> list:
@@ -3472,6 +3538,12 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     n_rec = sum(layer.kind == "rglru" for layer in model.layers)
     n_attn = len(model.layers) - n_rec
     b1_step, attn_step = 6 * n_rec + 7 * n_attn, n_attn
+    # the kv8, paged and speculative serves' model: the same seed's first
+    # HYBRID_SUB_LAYERS layers (the time limit), counted the same way
+    sub = Engine(TM.init(cfg.replace(n_layers=HYBRID_SUB_LAYERS), seed=0, device="cuda"),
+                 ServeConfig(max_len=4096, batch_size=4), device="cuda")
+    sub_rec = sum(layer.kind == "rglru" for layer in sub.model.layers)
+    sub_b1, sub_attn = 6 * sub_rec + 7 * (HYBRID_SUB_LAYERS - sub_rec), HYBRID_SUB_LAYERS - sub_rec
     toks, lens = _prompts(cfg.vocab_size, HYBRID_LENS, seed=191)
     reqs = _hybrid_requests(Request, cfg.vocab_size, [64, 700, 2100, 2600, 300, 1500, 2200,
                                                       900], new=12, seed=192)
@@ -3485,24 +3557,26 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     out = eng.generate(toks, 16, lengths=lens)
     calls = tape.close()
     gst = dict(eng.last_stats)
-    gtape = GuardTape(eng, cfg.vocab_size)
     served = eng.serve(reqs)
-    gtape.close()
     sst = dict(eng.last_stats)
+    gtape = GuardTape(sub, cfg.vocab_size)  # the sub-depth serves' reference
+    sub_served = sub.serve(reqs)
+    gtape.close()
     ref_rows = dict(gtape.rows)
-    kv8 = Engine(model, ServeConfig(max_len=4096, batch_size=4, kv_quant="kv8"), device="cuda")
+    smodel = sub.model
+    kv8 = Engine(smodel, ServeConfig(max_len=4096, batch_size=4, kv_quant="kv8"), device="cuda")
     served8 = kv8.serve(reqs)
     kst = dict(kv8.last_stats)
     pcfg = dict(max_len=4096, batch_size=4, max_active=8, paged=True, kv_block_size=16,
                 chunk_prefill_tokens=512, prefill_bucket=64)
     preqs = _hybrid_requests(Request, cfg.vocab_size, [208] * 6 + [2300, 2400], new=12,
                              seed=193, prefix=192)
-    paged = Engine(model, ServeConfig(**pcfg), device="cuda")
+    paged = Engine(smodel, ServeConfig(**pcfg), device="cuda")
     ptape = GuardTape(paged, cfg.vocab_size)
     pout = paged.serve(preqs)
     ptape.close()
     pst = dict(paged.last_stats)
-    paged8 = Engine(model, ServeConfig(kv_quant="kv8", **pcfg), device="cuda")
+    paged8 = Engine(smodel, ServeConfig(kv_quant="kv8", **pcfg), device="cuda")
     pout8 = paged8.serve(preqs)
     p8st = dict(paged8.last_stats)
     torch.cuda.synchronize()
@@ -3513,17 +3587,18 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
             raise AssertionError(f"kernel {name} was not launched on the hybrid path")
     for label, st, n in (("paged", pst, launches["paged_flash_attention"]),
                          ("paged kv8", p8st, launches["paged_packed_flash_attention"])):
-        if n != attn_step * st["decode_steps"]:
+        if n != sub_attn * st["decode_steps"]:
             raise AssertionError(f"{label}: {n} paged attention launches for "
-                                 f"{st['decode_steps']} decode steps of {attn_step} layers")
+                                 f"{st['decode_steps']} decode steps of {sub_attn} layers")
     if sorted(pout8) != sorted(pout) or any(len(t) != 12 for t in pout8.values()):
         raise AssertionError("paged kv8 serve did not return 12 tokens for each request")
-    lap("generate, serve, kv8, paged float and kv8")
+    lap(f"generate, serve; {HYBRID_SUB_LAYERS} layers: serve, kv8, paged float and kv8")
 
     # ---- output shape and range, per-step launches ----
     if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate output {out.shape} out of range")
-    for label, o in (("serve", served), ("kv8 serve", served8)):
+    for label, o in (("serve", served), ("sub-depth serve", sub_served),
+                     ("kv8 serve", served8)):
         if sorted(o) != list(range(8)) or any(len(t) != 12 for t in o.values()):
             raise AssertionError(f"{label} did not return 12 tokens for each of 8 requests")
     step, b1_shapes, pre = _step_launches(torch, eng, kernels, toks, lens, max_len=4096,
@@ -3535,8 +3610,9 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
         raise AssertionError(f"B1 launches in one decode step by (K, N) {b1_shapes}, the "
                              f"containers give {_b1_shapes(model)}")
     step8 = _step_launches(torch, kv8, kernels, toks, lens, max_len=4096)
-    if step8 != {"dsbp_fused": b1_step, "packed_flash_attention": attn_step}:
-        raise AssertionError(f"kv8: launches in one decode step {step8}")
+    if step8 != {"dsbp_fused": sub_b1, "packed_flash_attention": sub_attn}:
+        raise AssertionError(f"kv8 ({HYBRID_SUB_LAYERS} layers): launches in one decode step "
+                             f"{step8}")
     if pst["chunked_requests"] != 2 or pst["prefix_hit_blocks"] < 5 * 12 or not pst["completed"]:
         raise AssertionError(f"paged stats {pst}")
     lap("launches per step")
@@ -3605,7 +3681,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     exact, rows0 = {}, {}
     for label, kw in (("float", {}), ("kv8", {"kv_quant": "kv8"}), ("spec_k 3", spec3)):
         for pg in (False, True):
-            e = Engine(model, ServeConfig(paged=pg, **mcfg, **kw), device="cuda")
+            e = Engine(smodel, ServeConfig(paged=pg, **mcfg, **kw), device="cuda")
             tape = GuardTape(e, cfg.vocab_size) if (label, pg) == ("float", False) else None
             exact[label, pg] = e.serve(same)
             if tape is not None:
@@ -3624,7 +3700,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     # drafted recurrent state and ring slots) must fail the matched-batch
     # check; whether phase 9's rule at HYBRID_TIE against spec_k 0 fails it
     # too is printed ----
-    e = Engine(model, ServeConfig(paged=False, **mcfg, **spec3), device="cuda")
+    e = Engine(smodel, ServeConfig(paged=False, **mcfg, **spec3), device="cuda")
     ftape = SpecTape(e, cfg.vocab_size, TO)
     e.model.undo_draft = lambda cache, saved, pos, n: cache
     try:
@@ -3654,13 +3730,13 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
     # ---- speculation (draft bits 7) against spec_k 0, dense and paged ----
     spec = {}
     for label, scfg, rq, ref, rows in (
-            ("dense", dict(max_len=4096, batch_size=4, spec_draft_bits=7), reqs, served,
+            ("dense", dict(max_len=4096, batch_size=4, spec_draft_bits=7), reqs, sub_served,
              ref_rows),
             ("paged", dict(pcfg, spec_draft_bits=7), preqs, pout, ptape.rows)):
-        spec[label] = _spec_serve(torch, Engine, ServeConfig, TO, kernels, model, cfg, rq, ref,
-                                  rows, scfg, f"spec_k 3, draft bits 7, {label}",
-                                  b1_per_step=b1_step, attn_layers=attn_step,
-                                  kv_tie=HYBRID_TIE)
+        spec[label] = _spec_serve(torch, Engine, ServeConfig, TO, kernels, smodel, cfg, rq,
+                                  ref, rows, scfg, f"spec_k 3, draft bits 7, {label}, "
+                                  f"{HYBRID_SUB_LAYERS} layers", b1_per_step=sub_b1,
+                                  attn_layers=sub_attn, kv_tie=HYBRID_TIE)
     lap("speculation")
 
     # ---- one NaN step under 'fallback': the retry decodes from the pre-step state ----
@@ -3675,7 +3751,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
             raise AssertionError(f"fallback: request {uid} {fout[uid]} != unfaulted {t}")
 
     lap("fallback")
-    trace = trace_decode(torch, eng, toks, lens, TRACE_HYBRID, max_len=4096)
+    trace = trace_decode(torch, eng, toks, lens, TRACE_HYBRID, steps=2, max_len=4096)
     lap("trace")
     # the weight-only wa / wx products (dequantize + f32 matmul) of one
     # decode step, timed cold on the served containers
@@ -3692,8 +3768,10 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
           f"{gst['prefill_s']:.3f} s, {ms_step:.2f} ms per decode step")
     print(f"  serve: 8 requests through 4 slots: {sst['decode_steps']} steps, prefill "
           f"{sst['prefill_time_s']:.3f} s, {1e3 * sst['decode_time_s'] / sst['decode_steps']:.2f}"
-          f" ms/step; kv8: {1e3 * kst['decode_time_s'] / kst['decode_steps']:.2f} ms/step")
-    print(f"  paged (bs 16, 6 requests sharing a 192-token prefix, 2 chunked 2300/2400-token "
+          f" ms/step; at {HYBRID_SUB_LAYERS} layers (the kv8, paged and speculative serves' "
+          f"depth) kv8: {1e3 * kst['decode_time_s'] / kst['decode_steps']:.2f} ms/step")
+    print(f"  paged, {HYBRID_SUB_LAYERS} layers (bs 16, 6 requests sharing a 192-token prefix, "
+          f"2 chunked 2300/2400-token "
           f"prompts): {pst['decode_steps']} decode steps, {pst['chunk_steps']} chunk steps, "
           f"prefix hits {pst['prefix_hit_blocks']}, "
           f"{1e3 * pst['decode_time_s'] / pst['decode_steps']:.2f} ms/step")
@@ -3704,10 +3782,11 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
           f"per max_len position; recurrent state "
           f"{n_rec * (cfg.rnn_dim * 4 + (cfg.d_conv - 1) * cfg.rnn_dim * 4)} bytes per lane; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
-    print(f"  launches over the hybrid path (generate, serve, kv8, paged float and kv8): "
-          f"{launches}; per decode step B1 {b1_step} (6 x {n_rec} rglru + 7 x {n_attn} "
-          f"attn_local; wa / wx weight-only), by (K, N) {b1_shapes}, B2 / B5 / B6 / B7 "
-          f"{attn_step}; per prefill {pre}")
+    print(f"  launches over the hybrid path (generate, serve; at {HYBRID_SUB_LAYERS} layers "
+          f"serve, kv8, paged float and kv8): {launches}; per decode step B1 {b1_step} (6 x "
+          f"{n_rec} rglru + 7 x {n_attn} attn_local; wa / wx weight-only), by (K, N) "
+          f"{b1_shapes}, B2 {attn_step}; at {HYBRID_SUB_LAYERS} layers B1 {sub_b1}, B5 / B6 / B7 "
+          f"{sub_attn}; per prefill {pre}")
     print(f"  fallback: one NaN step retried through dsbp_ref, every stream bit-equal to "
           f"the unfaulted serve; wa / wx weight-only products {wawx_ms:.3f} ms per decode "
           f"step ({len(wawx)} calls, timed cold)")
@@ -3724,6 +3803,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
                name: launches[name] / st["decode_steps"]
                for name, st in (("paged_flash_attention", pst),
                                 ("paged_packed_flash_attention", p8st))},
+           "sub_layers": HYBRID_SUB_LAYERS, "sub_b1_step": sub_b1, "sub_attn_step": sub_attn,
            "matched_horizon": horizon, "spec_matched_equal_streams": spec_equal,
            "planted_fault": {"streams_changed": len(same) - len(planted_same),
                              "tie_rule": planted_rule},
@@ -3733,7 +3813,7 @@ def phase_hybrid(torch, TM, Engine, ServeConfig, Request, TO, FA, kernels, cfg) 
                         "ties": v["ties"]} for k, v in spec.items()},
            "seconds_by_part": laps}
     print(f"  seconds by part: {laps}")
-    del eng, kv8, paged, paged8, fb, model
+    del eng, kv8, paged, paged8, fb, model, sub, smodel
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -3824,10 +3904,13 @@ def hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     attn = rows["attn"]
     attn["B2 prefill"]["launches_per_prefill"] = main["prefill_launches"]["flash_attention"]
     attn["B2 decode"]["launches_per_step"] = main["attn_step"]
+    # B5 / B6 / B7 run in the serves cut to HYBRID_SUB_LAYERS layers
     attn["B5 decode"]["launches_per_step"] = main["kv8_step_launches"]["packed_flash_attention"]
     for k, name in (("B6 decode", "paged_flash_attention"),
                     ("B7 decode", "paged_packed_flash_attention")):
         attn[k]["launches_per_step"] = main["paged_step_launches"][name]
+    for k in ("B5 decode", "B6 decode", "B7 decode"):
+        attn[k]["launches_of"] = f"one decode step, {HYBRID_SUB_LAYERS} of 26 layers"
     rec = {"kernels": rows, "recurrentgemma-2b": main, "gemma3-12b (6 layers)": g3,
            "seconds": time.perf_counter() - t0}
     print("hybrid (phase 19): " + json.dumps(rec, default=str))
@@ -4469,11 +4552,11 @@ def phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
     # ---- the chunk path without FP8: the float model's paged serve (the
     # 600-token prompt in chunk steps through the verify path, the other
     # lanes frozen) against its dense serve (the chunked scan over the
-    # whole prompt) within RING_REL; two planted faults in the chunk
-    # steps' commit must fail it ----
+    # whole prompt) within RING_REL, at SSD_FLOAT_LAYERS layers; two
+    # planted faults in the chunk steps' commit must fail it ----
     from repro_torch.models import blocks as TB
 
-    fmodel = TM.init(cfg.replace(quant=None), seed=0, device="cuda")
+    fmodel = TM.init(cfg.replace(quant=None, n_layers=SSD_FLOAT_LAYERS), seed=0, device="cuda")
     fdense = Engine(fmodel, ServeConfig(**scfg), device="cuda")
     tape = GuardTape(fdense, cfg.vocab_size)
     fserved = fdense.serve(reqs)
@@ -4507,7 +4590,8 @@ def phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
                                  f"{RING_REL}")
     del fdense, fmodel
     torch.cuda.empty_cache()
-    print(f"  float model, paged ({fchunks} chunk steps) vs dense: largest logit difference "
+    print(f"  float model at {SSD_FLOAT_LAYERS} layers, paged ({fchunks} chunk steps) vs dense: "
+          f"largest logit difference "
           f"{max(fworst.values()):.2e} of max|logit| (limit RING_REL {RING_REL}), "
           f"{len(fties)} near ties; planted faults fail it: {planted}")
     lap("float paged vs dense, planted faults")
@@ -4518,7 +4602,7 @@ def phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
                        "spec_k 3, draft bits 7, dense, packed", b1_per_step=2 * n,
                        attn_layers=0, kv_tie=SSD_TIE)
     lap("speculation")
-    trace = trace_decode(torch, eng, toks, lens, TRACE_SSD, steps=4, max_len=1024)
+    trace = trace_decode(torch, eng, toks, lens, TRACE_SSD, steps=2, max_len=1024)
     lap("trace")
     ms_step = 1e3 * gst["decode_s"] / gst["decode_steps"]
     serve_ms = 1e3 * sst["decode_time_s"] / sst["decode_steps"]
@@ -4586,6 +4670,478 @@ def ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tenso
            "seconds": time.perf_counter() - t0}
     print(f"  phase 21: {rec['seconds']:.1f} s")
     print("ssd (phase 21): " + json.dumps(rec, default=str))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the modality frontends over the dense stack: musicgen-large
+# (audio codebooks: (B, L, 4) prompts, 4 heads of 2,048) and llava-next-34b
+# (2,880 image-patch embeddings prepended, GQA 56 : 8), at full width and
+# depth, through Engine.generate (serve refuses both, as the reference)
+# ---------------------------------------------------------------------------
+
+
+
+def frontend_b1(cfg) -> list:
+    """B1's (K, N, projections) in a decode step of a dense layer of
+    ``cfg``: musicgen-large's MHA gives (2048, 2048) wq wk wv wo, (2048,
+    8192) w1 w3, (8192, 2048) w2; llava-next-34b's GQA (7168, 7168) wq wo,
+    (7168, 1024) wk wv, (7168, 20480) w1 w3, (20480, 7168) w2."""
+    d, dq, dkv, ff = (cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head,
+                      cfg.d_ff)
+    shapes: dict = {}
+    for name, kn in (("wq", (d, dq)), ("wk", (d, dkv)), ("wv", (d, dkv)), ("wo", (dq, d)),
+                     ("w1", (d, ff)), ("w3", (d, ff)), ("w2", (ff, d))):
+        shapes.setdefault(kn, []).append(name)
+    return [(k, n, " ".join(names)) for (k, n), names in shapes.items()]
+
+# musicgen's 4 prompts of phase 5's lengths (frames), 16 new frames
+MUSICGEN_LENS = [16, 48, 96, 128]
+MUSICGEN_MAX_LEN = 160
+# llava's 2 rows: the full image prefix of the config plus 32 / 128 text
+# tokens, 8 new tokens, max_len 3,072
+LLAVA_TEXT = [32, 128]
+LLAVA_MAX_LEN = 3072
+LLAVA_NEW = 8
+# 22a's cuts: the CPU side runs the plain versions, and plain B1 over
+# ~6,000 rows x d_ff 20,480 on the host would not fit the time limit; its
+# ragged prompts are short (the plain version converts every packed weight
+# to float64 per call, ~1.2 GB at llava's w1) and it generates 6 tokens
+FRONTEND_CROSS = {"musicgen-large": dict(n_layers=2),
+                  "llava-next-34b": dict(n_layers=1, n_image_tokens=128)}
+FRONTEND_CROSS_LENS = {"musicgen-large": [8, 16, 24, 32], "llava-next-34b": [8, 16]}
+FRONTEND_CROSS_NEW = 6
+# the plain B1's row blocks at llava's prefill M (its float64 group dots)
+PLAIN_ROWS = 256
+TRACE_FRONTEND = {"B1": TRACE_FUSED["B1"], "B2": TRACE_FUSED["B2"],
+                  "cuBLAS (head)": ("gemv", "gemm", "xmma", "cutlass")}
+
+
+def frontend_inputs(cfg, lens, seed):
+    """Right-padded prompts of ``lens`` ((B, W) text, (B, W, K) codebook
+    frames) and ``extra``: seeded standard-normal image embeddings (B,
+    S_img, d) for a vlm config (as the reference's tests draw them), else
+    None."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = (cfg.n_codebooks,) if cfg.frontend == "audio_codebooks" else ()
+    toks = np.zeros((len(lens), max(lens)) + k, np.int64)
+    for j, n in enumerate(lens):
+        toks[j, :n] = rng.integers(0, cfg.vocab_size, (n,) + k)
+    extra = None
+    if cfg.frontend == "vlm_patches":
+        extra = {"image_embeds": rng.standard_normal(
+            (len(lens), cfg.n_image_tokens, cfg.d_model)).astype(np.float32)}
+    return toks, np.asarray(lens, np.int32), extra
+
+
+def codebook_calls(calls, cfg):
+    """A :class:`SampleTape`'s batches as one row per (sequence, codebook):
+    (B, K * Vp) logits -> (B * K, V), (B, K) tokens -> (B * K,), so phase
+    9's rule holds each codebook on its own (a text model's as they are)."""
+    if cfg.frontend != "audio_codebooks":
+        return [(lg[:, :cfg.vocab_size], tok) for lg, tok in calls]
+    vp = cfg.padded_vocab_size
+    return [(lg.reshape(-1, vp)[:, :cfg.vocab_size], tok.reshape(-1)) for lg, tok in calls]
+
+
+class StepCounter:
+    """Each kernel's launches in every decode step of an engine's runs,
+    and B1's by its weight's (K, N): the wrappers' host counters read
+    around ``Model.decode_step`` (no sync), so the timed run itself is
+    counted.  What a run launched outside its decode steps is its
+    prefill's."""
+
+    def __init__(self, eng, kernels, TO):
+        self.steps, self.shapes, self.cache = [], collections.Counter(), None
+        self._eng, self._TO, self._b1 = eng, TO, TO.dsbp_fused
+        b1, shapes, step = TO.dsbp_fused, self.shapes, eng.model.decode_step
+
+        def count(x, ts, ka, *rest):
+            shapes[tuple(ka.shape)] += 1
+            return b1(x, ts, ka, *rest)
+
+        def counted(*args, **kw):
+            before, seen = {k: fn.launches for k, fn in kernels.items()}, dict(shapes)
+            self.cache = args[1]  # the run's cache, for a trace that goes on from it
+            out = step(*args, **kw)
+            self.steps.append(({k: fn.launches - before[k] for k, fn in kernels.items()
+                                if fn.launches != before[k]},
+                               {kn: c - seen.get(kn, 0) for kn, c in shapes.items()
+                                if c != seen.get(kn, 0)}))
+            return out
+
+        TO.dsbp_fused = count
+        eng.model.decode_step = counted
+
+    def close(self):
+        """(the decode steps' counts, B1's launches by (K, N) over the
+        whole run, the run's cache after its last step)."""
+        self._TO.dsbp_fused = self._b1
+        del self._eng.model.decode_step
+        return self.steps, dict(self.shapes), self.cache
+
+
+def _per_step(steps, label: str):
+    """The one launch count every decode step of a run shares."""
+    if not steps or any(s != steps[0] for s in steps):
+        raise AssertionError(f"{label}: decode steps launched {steps}")
+    return steps[0]
+
+
+def phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, cfgs) -> dict:
+    """B1 at every new decode shape (musicgen's M 4, llava's M 2) and at
+    llava's prefill M (2 rows x 3,008 positions), bit-equal to plain; B2 at
+    musicgen's MHA D 64 and llava's GQA 56 : 8 at D 128 over its ~3,000-
+    position prompt, prefill and decode, within 1e-5 of plain; B5 at both
+    decode shapes over the same K/V quantized to kv8, bit-equal to B2 over
+    its dequantized view and within 1e-5 of plain; timed cold with their
+    plain versions, SDPA and their bounds."""
+    print("== phase 22 (kernels): B1, B2 and B5 at musicgen-large's and llava-next-34b's "
+          "shapes")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    mg, lv = cfgs["musicgen-large"], cfgs["llava-next-34b"]
+    width = max(LLAVA_TEXT) + lv.n_image_tokens
+    b1 = []
+    for arch, m, plain_rows in (("musicgen-large", len(MUSICGEN_LENS), None),
+                                ("llava-next-34b", len(LLAVA_TEXT), None),
+                                ("llava-next-34b", len(LLAVA_TEXT) * width, PLAIN_ROWS)):
+        for k, n, proj in frontend_b1(cfgs[arch]):
+            b1.append({**b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n,
+                                 plain_rows=plain_rows), "arch": arch, "proj": proj})
+            torch.cuda.empty_cache()
+    b2, b5 = {}, {}
+    for arch, c, lens, s_dec, new in (
+            ("musicgen-large", mg, MUSICGEN_LENS, MUSICGEN_MAX_LEN, 16),
+            ("llava-next-34b", lv, [t + lv.n_image_tokens for t in LLAVA_TEXT], LLAVA_MAX_LEN,
+             LLAVA_NEW)):
+        hq, hkv, d = c.n_heads, c.n_kv_heads, c.d_head
+        b, s = len(lens), max(lens)
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+        k = torch.randn(b, hkv, s_dec, d, generator=gen, device="cuda")
+        v = torch.randn(b, hkv, s_dec, d, generator=gen, device="cuda")
+        b2[f"{arch} prefill"] = b2_case(torch, FA, f"{arch} prefill", q, k[:, :, :s].contiguous(),
+                                        v[:, :, :s].contiguous(), lens, [0] * b)
+        last = [n + new - 1 for n in lens]  # the last decode step's positions
+        b2[f"{arch} decode"] = b2_case(torch, FA, f"{arch} decode", q[:, :, :1].contiguous(),
+                                       k, v, [p + 1 for p in last], last)
+        kv8 = KVQ.KV_PRESETS["kv8"]  # the kv8 run's decode attention
+        b5[f"{arch} decode"] = b5_case(torch, FA, f"{arch} decode", q[:, :, :1].contiguous(),
+                                       KVQ.quantize_kv(k, kv8), KVQ.quantize_kv(v, kv8),
+                                       [p + 1 for p in last], last)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2, "b5": b5}
+
+
+def phase_frontend_cross_device(torch, TM, Engine, ServeConfig, cfgs) -> dict:
+    """22a: each frontend at full width, cut in depth (FRONTEND_CROSS;
+    llava's image prefix to 128 tokens), float and packed "precise" from
+    one seed, on the CPU (plain versions) and on the card (kernels): a
+    ragged generate's sampled logits and tokens under phase 9's rule, per
+    codebook; the float model also over a kv8 cache (B5 at the frontends'
+    head layouts, D 64 MHA and GQA 56 : 8, where float weights keep the
+    two devices' logits within ~1e-5 of max|logit|)."""
+    out = {}
+    for arch, cfg in cfgs.items():
+        cut = FRONTEND_CROSS[arch]
+        print(f"== phase 22a: {arch} at full width, {cut} (reduced): CPU (plain) vs card "
+              f"(kernels), float and packed, float also over kv8")
+        for packed in (False, True):
+            c = cfg.replace(quant="precise" if packed else None, **cut)
+            model = TM.init(c, seed=22, device="cuda", pack="precise" if packed else None)
+            toks, lens, extra = frontend_inputs(c, FRONTEND_CROSS_LENS[arch], seed=22)
+            scfg = ServeConfig(max_len=max(lens) + c.n_image_tokens + 16, batch_size=len(lens))
+            gpu = Engine(model, scfg, device="cuda")
+            cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+            for kv in (None,) if packed else (None, "kv8"):
+                engs = [e if kv is None else
+                        Engine(e.model, dataclasses.replace(scfg, kv_quant=kv), device=dev)
+                        for e, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+                t0 = time.perf_counter()
+                tapes, outs = [], []
+                for eng in engs:
+                    tape = SampleTape(eng, 10**9)  # every column: codebook_calls cuts them
+                    outs.append(eng.generate(toks, FRONTEND_CROSS_NEW, extra=extra,
+                                             lengths=lens))
+                    tapes.append(codebook_calls(tape.close(), c))
+                at, equal, worst = check_calls(torch, *tapes)
+                label = ("packed" if packed else "float") + (f", {kv}" if kv else "")
+                shape = (len(lens), FRONTEND_CROSS_NEW) + ((c.n_codebooks,) if c.n_codebooks
+                                                            else ())
+                if outs[1].shape != shape:
+                    raise AssertionError(f"{arch} {label}: generate gave {outs[1].shape}, "
+                                         f"want {shape}")
+                print(f"  {label}: generate (lens {lens.tolist()}"
+                      + (f" + {c.n_image_tokens} image tokens" if extra else "")
+                      + f", {FRONTEND_CROSS_NEW} new): {len(tapes[0])} sampled batches of "
+                      f"{tapes[0][0][0].shape[0]} rows (sequence x codebook), logits within "
+                      f"{worst:.2e} of max|logit| (limit {KV_TIE}), {equal} batches "
+                      f"bit-equal, "
+                      + ("every token equal" if at is None else f"near tie at batch {at}")
+                      + f"; {time.perf_counter() - t0:.1f} s")
+                out[f"{arch} {label}"] = {"max_rel_logit_diff": worst, "equal_batches": equal,
+                                          "near_tie_batch": at, "cut": cut}
+                del engs
+            del gpu, cpu, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _frontend_generate(torch, Engine, ServeConfig, TO, kernels, model, cfg, scfg, toks, lens,
+                       extra, new, kv=None):
+    """One counted ``generate`` through an engine over ``model``: the
+    output, its stats, the sampled logits (the tape) and the launches of
+    each decode step."""
+    eng = Engine(model, ServeConfig(kv_quant=kv, **scfg), device="cuda")
+    counter = StepCounter(eng, kernels, TO)
+    tape = SampleTape(eng, 10**9)
+    try:
+        out = eng.generate(toks, new, extra=extra, lengths=lens)
+    finally:
+        calls = tape.close()
+        steps, b1_all, cache = counter.close()
+    return (eng, out, dict(eng.last_stats), codebook_calls(calls, cfg), steps, b1_all,
+            (torch.as_tensor(calls[-1][1], device="cuda")[:, None], cache))
+
+
+def _check_frontend_run(torch, cfg, out, calls, shape, label):
+    import numpy as np
+
+    if out.shape != shape or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: generate output {out.shape} (want {shape}) or its "
+                             f"range is wrong")
+    for lg, tok in calls:
+        if not torch.isfinite(lg).all() or not torch.equal(lg.argmax(-1), tok):
+            raise AssertionError(f"{label}: sampled logits not finite or not the greedy ones")
+    for i, (_, tok) in enumerate(calls):
+        if not np.array_equal(tok.numpy().reshape(out.shape[0], -1),
+                              out[:, i].reshape(out.shape[0], -1)):
+            raise AssertionError(f"{label}: the tape's tokens are not the output")
+
+
+def pack_transient(torch, cfg) -> tuple:
+    """The bytes ``pack_weights`` holds on the card above its input and its
+    output while it packs a random matrix of ``cfg``'s widest projection
+    (the largest K * N of a layer): ``dsbp_quantize``'s full-size
+    temporaries.  Returns (bytes, (K, N))."""
+    from repro_torch.core.quantized import pack_weights
+    from repro_torch.serve.engine import _nbytes
+
+    k, n, _ = max(frontend_b1(cfg), key=lambda x: x[0] * x[1])
+    w = torch.randn(k, n, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pw = pack_weights(w, "precise")
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base - _nbytes(pw)
+    del w, pw
+    torch.cuda.empty_cache()
+    return held, (k, n)
+
+
+# small allocations the init-peak gate leaves room for (norms, a layer's
+# scalars), beside the packed model, one f32 layer and the pack's transient
+INIT_SLACK = 16 * 2**20
+
+
+def phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels, cfg, label: str) -> dict:
+    """22 (musicgen-large) / 22b (llava-next-34b): full width and depth,
+    drawn and packed one layer at a time ("precise"), f32: a ragged
+    ``generate`` over a float cache, then over kv8, each kernel's launches
+    counted in every decode step, prefill s, ms per step, peak memory;
+    llava also a 2-step trace."""
+    from repro_torch.serve.engine import _nbytes
+
+    audio = cfg.frontend == "audio_codebooks"
+    print(f"== phase {label}: {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+          f"~{cfg.param_count() / 1e9:.2f}e9 parameters), init(pack=): generate, float KV "
+          f"then kv8")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):  # seconds per part of the phase, for its time budget
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    transient, (tk, tn) = pack_transient(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model = TM.init(cfg, seed=0, device="cuda", pack="precise")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    lap("init(pack=)")
+    packed = _nbytes(model)
+    layer_f32 = 4 * sum(p.numel() for p in TM.Model(cfg.replace(n_layers=1), "meta")
+                        .layers[0].parameters())
+    # drawn and packed one layer at a time (llava-next-34b is ~134 GB in
+    # f32): the peak holds the packed model, the layer being packed in f32
+    # and pack_weights' temporaries of its widest matrix, measured alone
+    # just above (dsbp_quantize's full-size fields and their grouped copies)
+    init_limit = packed + layer_f32 + transient + INIT_SLACK
+    print(f"  init(pack=) {laps['init(pack=)']:.2f} s: {packed / 1e9:.2f} GB packed (the f32 "
+          f"embedding and head {8 * TM._vocab_rows(cfg) * cfg.d_model / 1e9:.2f} GB of it); "
+          f"peak {init_peak / 1e9:.2f} GB = packed + {(init_peak - packed) / 1e9:.2f} GB; "
+          f"limit {init_limit / 1e9:.2f} GB = packed + one f32 layer {layer_f32 / 1e9:.2f} GB "
+          f"+ the pack's transient at K={tk} N={tn} {transient / 1e9:.2f} GB "
+          f"({transient / (4 * tk * tn):.2f}x the matrix's f32 bytes) + "
+          f"{INIT_SLACK // 2**20} MiB")
+    if init_peak > init_limit:
+        raise AssertionError(f"init(pack=) peaked at {init_peak / 1e9:.2f} GB: more than the "
+                             f"packed model, one f32 layer and the pack's transient "
+                             f"({init_limit / 1e9:.2f} GB)")
+    if audio:
+        toks, lens, extra = frontend_inputs(cfg, MUSICGEN_LENS, seed=221)
+        new, max_len, api_lens = 16, MUSICGEN_MAX_LEN, lens
+    else:
+        toks, lens, extra = frontend_inputs(cfg, LLAVA_TEXT, seed=222)
+        new, max_len, api_lens = LLAVA_NEW, LLAVA_MAX_LEN, lens
+        lens = lens + cfg.n_image_tokens  # the model's lengths count the image prefix
+    b, n = len(lens), cfg.n_layers
+    width = toks.shape[1] + cfg.n_image_tokens
+    scfg = dict(max_len=max_len, batch_size=b)
+    shape = (b, new) + ((cfg.n_codebooks,) if audio else ())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lap("inputs")
+
+    # ---- the frontend path: counts from 0 over exactly these two runs ----
+    runs, launches, trace = {}, collections.Counter(), None
+    for kv in (None, "kv8"):
+        _reset_launches(kernels)
+        eng, out, st, calls, steps, b1_all, (tok, cache) = _frontend_generate(
+            torch, Engine, ServeConfig, TO, kernels, model, cfg, scfg, toks, api_lens, extra,
+            new, kv)
+        if eng.pack_report is not None or eng.cfg.quant_method != "dsbp_fused":
+            raise AssertionError("the engine repacked a packed model")
+        runs[kv or "float"] = dict(out=out, st=st, calls=calls, steps=steps, b1_all=b1_all)
+        launches.update({k: fn.launches for k, fn in kernels.items()})
+        lap(f"generate, {kv or 'float'} KV")
+        if kv is None and not audio:  # two more decode steps of the run, from its cache
+            pos = torch.as_tensor(lens + new - 1, dtype=torch.int32, device="cuda")
+            trace = trace_decode(torch, eng, None, None, TRACE_FRONTEND, steps=2,
+                                 start=(tok.reshape(b, 1), cache, pos))
+            lap("trace")
+        del eng, tok, cache
+    torch.cuda.synchronize()
+    launches = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("dsbp_fused", "flash_attention", "packed_flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {cfg.name} path")
+
+    # ---- gates: output, launches per decode step by (K, N), memory ----
+    want_b1 = {(k, nn): n * len(proj.split()) for k, nn, proj in frontend_b1(cfg)}
+    per_step = {}
+    for kv, attn in (("float", "flash_attention"), ("kv8", "packed_flash_attention")):
+        r = runs[kv]
+        _check_frontend_run(torch, cfg, r["out"], r["calls"], shape, f"{cfg.name} {kv} KV")
+        step = _per_step([c for c, _ in r["steps"]], f"{cfg.name} {kv}")
+        shapes = _per_step([sh for _, sh in r["steps"]], f"{cfg.name} {kv} B1 by (K, N)")
+        want = {"dsbp_fused": sum(want_b1.values()), attn: n}
+        if step != want or shapes != want_b1 or _b1_shapes(model) != want_b1:
+            raise AssertionError(f"{cfg.name} {kv}: one decode step launched {step}, B1 by "
+                                 f"(K, N) {shapes}; want {want}, {want_b1} (the containers "
+                                 f"give {_b1_shapes(model)})")
+        per_step[kv] = {"launches": step, "b1_by_shape": shapes,
+                        "prefill_b1_by_shape": {kn: c - (new - 1) * shapes.get(kn, 0)
+                                                for kn, c in r["b1_all"].items()}}
+    # the dense prefill attends float K/V under kv8 too: the first sampled
+    # batch is the float run's, bit for bit
+    first_f, first_8 = runs["float"]["calls"][0], runs["kv8"]["calls"][0]
+    if not (torch.equal(first_f[0], first_8[0]) and torch.equal(first_f[1], first_8[1])):
+        raise AssertionError(f"{cfg.name}: the kv8 run's first sampled batch differs from the "
+                             f"float run's")
+    kv8_worst, kv8_same = 0.0, 0  # printed: kv8 rounds K/V, the float cache does not
+    for (a, ta), (c, tc) in zip(runs["float"]["calls"], runs["kv8"]["calls"]):
+        kv8_worst = max(kv8_worst, float((a - c).abs().max() / a.abs().max()))
+        if not torch.equal(ta, tc):
+            break
+        kv8_same += 1
+    cache = 2 * n * b * cfg.n_kv_heads * max_len * cfg.d_head * 4
+    prompt_kv = 2 * n * b * cfg.n_kv_heads * width * cfg.d_head * 4
+    acts = 6 * b * width * cfg.d_ff * 4
+    limit = packed + 2 * layer_f32 + cache + prompt_kv + acts
+    if peak > limit:
+        raise AssertionError(f"{cfg.name}: peak {peak / 1e9:.2f} GB above packed + two f32 "
+                             f"layers + the cache + the prefill's K/V and activations "
+                             f"({limit / 1e9:.2f} GB)")
+    lap("gates")
+    res = {"params": cfg.param_count(), "init_s": laps["init(pack=)"], "init_peak": init_peak,
+           "init_limit": init_limit, "pack_transient": {"bytes": transient, "K": tk, "N": tn},
+           "packed_bytes": packed, "layer_f32_bytes": layer_f32, "launches": launches,
+           "peak": peak, "peak_limit": limit, "trace": trace, "seconds_by_part": laps,
+           "kv8_vs_float": {"max_rel_logit_diff": kv8_worst, "equal_batches": kv8_same}}
+    for kv, r in runs.items():
+        st = r["st"]
+        res[kv] = {"prefill_s": st["prefill_s"],
+                   "decode_ms": 1e3 * st["decode_s"] / st["decode_steps"],
+                   "step_launches": per_step[kv]["launches"],
+                   "b1_by_shape": {f"K={k} N={nn}": c
+                                   for (k, nn), c in per_step[kv]["b1_by_shape"].items()},
+                   "prefill_b1_by_shape": {f"K={k} N={nn}": c for (k, nn), c in
+                                           per_step[kv]["prefill_b1_by_shape"].items()}}
+        print(f"  generate, {kv} KV: {b} prompts (lens {api_lens.tolist()}"
+              + (f" + {cfg.n_image_tokens} image tokens each" if extra else " frames")
+              + f"), {new} new: prefill {st['prefill_s']:.3f} s, {res[kv]['decode_ms']:.2f} ms "
+              f"per decode step; per step {per_step[kv]['launches']}, B1 by (K, N) "
+              f"{per_step[kv]['b1_by_shape']}; output {r['out'].shape}: "
+              f"{r['out'][0, :4].tolist()}")
+    print(f"  peak memory {peak / 2**30:.2f} GiB over both runs and the trace (limit "
+          f"{limit / 2**30:.2f} GiB: packed + two f32 layers + the {cache / 1e9:.2f} GB "
+          f"cache + the prefill's K/V and activations); launches {launches}; kv8's first "
+          f"sampled batch bit-equal to float's, its tokens equal over {kv8_same} of {new} "
+          f"batches, logits up to there within {kv8_worst:.4f} of max|logit| (printed, not "
+          f"gated)")
+    print(f"  seconds by part: {laps}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO, per_tensor_scale,
+                    get_config, card: str) -> dict:
+    """Phase 22 whole: the kernels at the frontends' shapes, 22a, 22
+    (musicgen-large) and 22b (llava-next-34b); returns their records (one
+    ``frontends (phase 22):`` JSON line printed)."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+               "packed_flash_attention": FA.packed_flash_attention}
+    t0 = time.perf_counter()
+    cfgs = {arch: get_config(arch).replace(quant="precise")
+            for arch in ("musicgen-large", "llava-next-34b")}
+    rows = phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, cfgs)
+    cross = phase_frontend_cross_device(torch, TM, Engine, ServeConfig, cfgs)
+    main = {"musicgen-large": phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels,
+                                             cfgs["musicgen-large"], "22"),
+            "llava-next-34b": phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels,
+                                             cfgs["llava-next-34b"], "22b")}
+    # B1's rows carry the launches counted per decode step (or per prefill)
+    # of the served models, and every shape launched was timed
+    for x in rows["b1"]:
+        r = main[x["arch"]]["float"]
+        key = f"K={x['K']} N={x['N']}"
+        if x["M"] <= 4:
+            x["launches_per_step"] = r["b1_by_shape"][key]
+            x["launches_of"] = f"one decode step, {x['arch']}, full depth"
+        else:
+            x["launches_per_prefill"] = r["prefill_b1_by_shape"][key]
+    for arch, r in main.items():
+        timed = {f"K={x['K']} N={x['N']}" for x in rows["b1"] if x["arch"] == arch}
+        if timed != set(r["float"]["b1_by_shape"]):
+            raise AssertionError(f"{arch}: B1 launched at {sorted(r['float']['b1_by_shape'])}, "
+                                 f"timed at {sorted(timed)}")
+        rows["b2"][f"{arch} decode"]["launches_per_step"] = \
+            r["float"]["step_launches"]["flash_attention"]
+        rows["b5"][f"{arch} decode"]["launches_per_step"] = \
+            r["kv8"]["step_launches"]["packed_flash_attention"]
+    rec = {"card": card, "kernels": rows, "22a": cross, **main,
+           "seconds": time.perf_counter() - t0}
+    print(f"  phase 22: {rec['seconds']:.1f} s")
+    print("frontends (phase 22): " + json.dumps(rec, default=str))
     return rec
 
 
@@ -4699,6 +5255,11 @@ def main() -> int:
                    get_config, card)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--frontends"]:  # phases 1 and 22: the modality frontends
+        frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO,
+                        per_tensor_scale, get_config, card)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -4783,6 +5344,9 @@ def main() -> int:
     ssd = ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
                      get_config, card)
     stamp("phase 21")
+    fro = frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO,
+                          per_tensor_scale, get_config, card)
+    stamp("phase 22")
     # each kernel's launches on the hybrid path (phase 19's counted run:
     # generate, serve, kv8, paged float and kv8 at full depth); B3, B4 and
     # B8 are not on it (dsbp_kernel and the mesh serve dense llama only)
@@ -4931,6 +5495,17 @@ def main() -> int:
         k["ssd_launches"] = ssd["21"]["launches"].get(k["name"], 0)
         k["ssd_path"] = "phase 21 (mamba2-370m, 48 layers, full width)"
     by_name["dsbp_fused"]["ssd_rows"] = ssd["b1"]
+    # each kernel's launches on the frontend path (phase 22's counted runs
+    # at full depth: musicgen-large's and llava-next-34b's generate, float
+    # KV then kv8): B1, B2 and B5
+    for k in kernels:
+        k["frontend_launches"] = sum(fro[arch]["launches"].get(k["name"], 0)
+                                     for arch in ("musicgen-large", "llava-next-34b"))
+        k["frontend_path"] = ("phase 22 (musicgen-large 48 layers, llava-next-34b 60 layers, "
+                              "full width: generate, float KV and kv8)")
+    by_name["dsbp_fused"]["frontend_rows"] = fro["kernels"]["b1"]
+    by_name["flash_attention"]["frontend_rows"] = fro["kernels"]["b2"]
+    by_name["packed_flash_attention"]["frontend_rows"] = fro["kernels"]["b5"]
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -1,14 +1,16 @@
 """Architecture configs the port serves: its own copy of ``ArchConfig``,
-``smoke_config`` and the two dense decoders on the main path.
+``smoke_config`` and the arch configs the port serves.
 
 The fields, defaults and derived properties are the JAX package's, field
 for field (tests/test_torch_engine.py compares them), so one config value
 means the same model in both packages.  The configs copied are the ones
 the ported layer families serve: the dense ``attn_full`` decoders, the
 Griffin hybrid (RG-LRU + ``attn_local`` rings, tied embeddings),
-gemma3's 5:1 local:global pattern, the MoE decoder mixtral-8x7b and the
-attention-free Mamba-2 SSD stack mamba2-370m; the others join as their
-families are ported (ROADMAP A6).
+gemma3's 5:1 local:global pattern, the MoE decoder mixtral-8x7b, the
+attention-free Mamba-2 SSD stack mamba2-370m, and the two modality
+frontends over the dense stack: musicgen-large (K codebook embeddings
+summed, K heads) and llava-next-34b (precomputed patch embeddings
+prepended); grok-1-314b joins with the expert axis (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -97,6 +99,31 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), as JAX's: an
+        audio model's K codebooks widen the embedding and the head K-fold."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        attn = d * self.n_heads * self.d_head * 2  # q, o
+        attn += d * self.n_kv_heads * self.d_head * 2  # k, v
+        dense_ffn = 3 * d * ff
+        per_kind = {}
+        per_kind["attn_full"] = per_kind["attn_local"] = attn + (
+            dense_ffn if not self.n_experts else 3 * d * ff * self.n_experts + d * self.n_experts
+        )
+        rd = self.rnn_dim
+        per_kind["rglru"] = 3 * d * rd + 2 * rd + 4 * rd + rd * self.d_conv + dense_ffn
+        din, ns = self.d_inner, self.ssm_state
+        nh = self.n_ssd_heads if self.ssm_state else 0
+        conv_dim = din + 2 * ns
+        per_kind["ssd"] = d * (2 * din + 2 * ns + nh) + conv_dim * self.d_conv + din * d + 2 * nh
+        total = 0
+        for k in list(self.pattern) * self.n_units + list(self.tail):
+            total += per_kind[k] + 2 * d  # 2 norms/block
+        total += v * d * (1 if self.tie_embeddings else 2)
+        if self.frontend == "audio_codebooks":
+            total += (self.n_codebooks - 1) * v * d * (2 if not self.tie_embeddings else 1)
+        return total
 
 
 _CONFIGS = {
@@ -242,6 +269,45 @@ _CONFIGS = {
         ssm_expand=2,
         tie_embeddings=True,
         source="arXiv:2405.21060; unverified",
+    ),
+    # MusicGen-large: decoder-only transformer over EnCodec tokens; 48L
+    # d_model=2048 32H (MHA) d_ff=8192 vocab=2048 per codebook, K=4
+    # codebooks [arXiv:2306.05284; hf:facebook/musicgen-large]; the EnCodec
+    # frontend is a stub: (B, S, K) codebook ids in, K embeddings summed, K
+    # heads out
+    "musicgen-large": ArchConfig(
+        name="musicgen-large",
+        family="audio",
+        n_layers=48,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=32,
+        d_head=64,
+        d_ff=8192,
+        vocab_size=2048,
+        pattern=("attn_full",),
+        frontend="audio_codebooks",
+        n_codebooks=4,
+        source="arXiv:2306.05284; hf",
+    ),
+    # LLaVA-NeXT-34B: the 34B LM backbone with anyres patch tokens; 60L
+    # d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000
+    # [hf:llava-hf/llava-v1.6-34b-hf; unverified]; the vision tower is a
+    # stub: (B, 2880, d_model) precomputed patch embeddings prepended
+    "llava-next-34b": ArchConfig(
+        name="llava-next-34b",
+        family="vlm",
+        n_layers=60,
+        d_model=7168,
+        n_heads=56,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=20480,
+        vocab_size=64_000,
+        pattern=("attn_full",),
+        frontend="vlm_patches",
+        n_image_tokens=2880,
+        source="hf:llava-hf/llava-v1.6-34b-hf; unverified",
     ),
 }
 

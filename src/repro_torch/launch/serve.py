@@ -44,6 +44,16 @@ to its ``ssd_chunk``: every padded prompt batch is then a multiple of the
 chunk, which the chunked scan needs (an uncut ``generate`` prompt of
 ``--prompt-len`` tokens must be shorter than the chunk or a multiple).
 
+The modality frontends serve through ``Engine.generate``, as in the
+reference: ``--arch musicgen-large`` draws (B, L, K) codebook prompts and
+prints (B, new, K) frames; ``--arch llava-next-34b`` draws seeded
+standard-normal ``image_embeds`` (B, n_image_tokens, d) and passes them
+in ``extra``.  ``--ragged`` gives them a ragged ``generate`` (text
+lengths; a vlm row's image prefix is added by the engine); ``--paged``,
+``--spec-k``, ``--policy``, ``--mesh`` and the serve-only flags
+(``--deadline-steps``, ``--observe``) are refused, as the engine refuses
+``serve`` for them.
+
 ``--mesh DxM`` serves on a (data, model) mesh of D*M ranks, the port's
 counterpart of JAX's ``--mesh``: the launcher builds the kernels, then
 starts one process per rank (``launch.mesh.spawn``; gloo on the CPU or on
@@ -147,6 +157,17 @@ def main():
     args = ap.parse_args()
     if args.metrics_json or args.trace:
         args.observe = True
+    frontend = get_config(args.arch).frontend
+    if frontend != "none":  # generate alone: the engine refuses serve() for it
+        refused = [flag for flag, on in (
+            ("--paged", args.paged), ("--spec-k", args.spec_k), ("--policy", args.policy),
+            ("--mesh", args.mesh), ("--deadline-steps", args.deadline_steps),
+            ("--observe", args.observe)) if on]
+        if refused:
+            ap.error(f"the {frontend} frontend serves through Engine.generate only, "
+                     f"which takes none of {', '.join(refused)}")
+        _run(None, args)
+        return
     if args.paged or args.spec_k or args.deadline_steps or args.observe:
         args.ragged = True  # all of them live in the serve() scheduler
     if args.mesh is None:
@@ -171,7 +192,7 @@ def _run(mesh, args):
     rank0 = mesh is None or mesh.rank == 0
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(quant=args.preset if args.packed else None)
-    max_len = args.prompt_len + args.new_tokens + args.spec_k + 8
+    max_len = args.prompt_len + cfg.n_image_tokens + args.new_tokens + args.spec_k + 8
     if args.paged:  # block pools need block-aligned ring lengths
         max_len = -(-max_len // args.kv_block_size) * args.kv_block_size
     policy = None
@@ -236,7 +257,7 @@ def _run(mesh, args):
             f"method {rep['draft_method']}, kv draft bits {rep['kv_draft_bits']}, extra "
             f"weight bytes {rep['extra_weight_nbytes']}")
     rng = np.random.default_rng(0)
-    if args.ragged:
+    if args.ragged and cfg.frontend == "none":
         lens = rng.integers(args.prompt_len // 2, args.prompt_len + 1, 2 * args.batch)
         reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, (int(n),)),
                         max_new_tokens=args.new_tokens, deadline_steps=args.deadline_steps)
@@ -288,12 +309,39 @@ def _run(mesh, args):
         for uid in list(out)[:2]:
             say(f"  req{uid}: {out[uid].tolist()}")
         return
-    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    _generate(eng, cfg, args, rng, say)
+
+
+def _generate(eng, cfg, args, rng, say):
+    """One ``generate`` batch: text prompts, (B, L, K) codebook prompts
+    for audio, text prompts and seeded ``image_embeds`` for vlm; a
+    frontend's is ragged (``lengths``) under ``--ragged``, where a text
+    model goes to ``serve()`` instead."""
+    shape = (args.batch, args.prompt_len)
+    if cfg.frontend == "audio_codebooks":
+        shape += (cfg.n_codebooks,)
+    prompts = rng.integers(0, cfg.vocab_size, shape)
+    lens = None
+    if args.ragged:
+        lens = rng.integers(args.prompt_len // 2, args.prompt_len + 1, args.batch)
+        lens[0] = args.prompt_len
+        for b, n in enumerate(lens):
+            prompts[b, n:] = 0
+    extra = None
+    if cfg.frontend == "vlm_patches":
+        extra = {"image_embeds": rng.standard_normal(
+            (args.batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)}
     t0 = time.monotonic()
-    out = eng.generate(prompts, args.new_tokens)
+    out = eng.generate(prompts, args.new_tokens, extra=extra, lengths=lens)
     dt = time.monotonic() - t0
-    say(f"generated {out.shape} in {dt:.2f}s "
-        f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    st = eng.last_stats
+    what = {"none": "", "audio_codebooks": f"{cfg.n_codebooks} codebooks per frame; ",
+            "vlm_patches": f"{cfg.n_image_tokens} image tokens before each prompt; "}
+    say(f"generated {out.shape} ({what[cfg.frontend]}prompt lens "
+        f"{[args.prompt_len] * args.batch if lens is None else lens.tolist()}) in "
+        f"{dt:.2f}s ({args.batch * args.new_tokens / dt:.1f} tok/s): prefill "
+        f"{st['prefill_s']:.3f}s, "
+        f"{1e3 * st['decode_s'] / max(st['decode_steps'], 1):.2f} ms per decode step")
     for b in range(min(2, args.batch)):
         say(f"  seq{b}: {out[b].tolist()}")
 

@@ -26,6 +26,15 @@ carry their state like the RG-LRU's; a model of only such layers has no
 KV entry at all, and its head masks the padded vocab columns as every
 head does (mamba2-370m: 50,280 of 50,432).  :func:`init` with ``pack=`` draws and
 packs one layer at a time, for models larger than the card in f32.
+
+The two modality frontends (JAX :37-41, :76-91, :358-367) are stubs over
+the dense stack, as in the reference: ``audio_codebooks`` (musicgen-large)
+takes (B, S, K) codebook ids, sums K embedding rows at offsets ``k * Vp``
+and reads K heads of Vp columns each (``embed`` and ``lm_head`` have
+``_vocab_rows`` = K * Vp rows, and the head masks the pad columns of every
+block); ``vlm_patches`` (llava-next-34b) prepends precomputed
+``image_embeds`` (B, S_img, d) to the text embeddings, and ``lengths``
+count embedded positions, the image prefix included.
 """
 from __future__ import annotations
 
@@ -46,6 +55,14 @@ from .packing import pack_weights_int8
 __all__ = ["Model", "init", "shared"]
 
 NEG_INF = -1e30
+
+
+def _vocab_rows(cfg: ArchConfig) -> int:
+    """Embedding / head rows: the padded vocab (times the codebooks for
+    audio), JAX ``_vocab_rows``."""
+    if cfg.frontend == "audio_codebooks":
+        return cfg.padded_vocab_size * cfg.n_codebooks
+    return cfg.padded_vocab_size
 
 
 def _step_tables(table, scs, block_size: int, device) -> dict:
@@ -73,7 +90,8 @@ def _host_pos(table, pos) -> np.ndarray:
 class Model(nn.Module):
     """Parameters (JAX tree names): ``embed`` (Vp, d), ``final_norm`` (d,),
     ``lm_head`` (d, Vp) unless the embeddings are tied (the head is then
-    ``embed.T``), ``layers[i]`` (:class:`blocks.Layer`).  The constructor
+    ``embed.T``), ``layers[i]`` (:class:`blocks.Layer`); an audio model's
+    ``embed`` and ``lm_head`` have K * Vp rows / columns.  The constructor
     allocates them uninitialized; :func:`init` or ``repro_torch.bridge``
     fills them.
 
@@ -83,17 +101,16 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
-        if cfg.frontend != "none" or cfg.dtype != "float32":
+        if cfg.dtype != "float32":
             raise NotImplementedError(
-                "the port serves float32 text decoders; frontend "
-                f"{cfg.frontend!r}, dtype {cfg.dtype!r} are not ported yet "
-                "(ROADMAP A6)")
+                f"the port serves float32 models; dtype {cfg.dtype!r} is not "
+                "ported yet (ROADMAP A6)")
         self.cfg = cfg
-        vp, d = cfg.padded_vocab_size, cfg.d_model
-        self.embed = weight((vp, d), device)
+        rows, d = _vocab_rows(cfg), cfg.d_model
+        self.embed = weight((rows, d), device)
         self.final_norm = weight((d,), device)
         if not cfg.tie_embeddings:
-            self.lm_head = weight((d, vp), device)
+            self.lm_head = weight((d, rows), device)
         kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail)
         self.layers = nn.ModuleList(blocks.Layer(cfg, kind, device) for kind in kinds)
 
@@ -117,14 +134,32 @@ class Model(nn.Module):
 
     # ---------------- embedding / head ----------------
 
-    def embed_tokens(self, tokens: torch.Tensor):
-        """tokens (B, S) -> (x (B, S, d), positions (S,))."""
-        x = self.embed[tokens]
+    def embed_tokens(self, tokens: torch.Tensor, image_embeds=None):
+        """tokens (B, S) (audio: (B, S, K) codebook ids) -> (x (B, S', d),
+        positions (S',)); ``image_embeds`` (B, S_img, d) of a vlm model go
+        in front of the text, so S' = S_img + S."""
+        x = self.embed_step(tokens)
+        if self.cfg.frontend == "vlm_patches":
+            if image_embeds is None:
+                raise ValueError("a vlm_patches model takes image_embeds (B, S_img, d)")
+            img = torch.as_tensor(image_embeds, device=x.device).to(x.dtype)
+            x = torch.cat([img, x], dim=1)
         return x, torch.arange(x.shape[1], device=x.device)
 
+    def embed_step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding of sequence and step mode alike: (B, T) ids
+        -> (B, T, d); audio (B, T, K) codebook ids, row ``tok + k * Vp``
+        of each codebook k, summed over k (JAX ``_embed_step``)."""
+        if self.cfg.frontend == "audio_codebooks":
+            k = self.cfg.n_codebooks
+            offs = torch.arange(k, dtype=tokens.dtype, device=tokens.device)
+            return self.embed[tokens + offs * self.cfg.padded_vocab_size].sum(dim=2)
+        return self.embed[tokens]
+
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits over the padded vocab; padded rows masked to -1e30.
-        Tied embeddings read ``embed.T`` (a plain matmul, as JAX's
+        """Logits over the padded vocab; padded rows masked to -1e30 (in
+        every codebook block of an audio head: ``col % Vp < V``).  Tied
+        embeddings read ``embed.T`` (a plain matmul, as JAX's
         ``_head``).  Under a mesh a rank holds its own vocab columns of
         ``lm_head`` (the JAX placement) and the logits assemble over
         'model'."""
@@ -132,7 +167,7 @@ class Model(nn.Module):
             logits = torch.matmul(x, self.embed.to(x.dtype).T)
         else:
             logits = gather_columns(torch.matmul(x, self.lm_head.to(x.dtype)), "lm_head",
-                                    self.cfg.padded_vocab_size)
+                                    _vocab_rows(self.cfg))
         vp, v = self.cfg.padded_vocab_size, self.cfg.vocab_size
         if vp != v:
             valid = torch.arange(logits.shape[-1], device=logits.device) % vp < v
@@ -142,24 +177,25 @@ class Model(nn.Module):
     # ---------------- sequence mode ----------------
 
     def forward(self, tokens: torch.Tensor, quant: Quant | None = None,
-                no_drop: bool = False) -> torch.Tensor:
-        """Sequence-mode logits (B, S, Vp).  ``no_drop=True`` lifts the MoE
-        capacity (JAX :126), so a row's logits do not depend on the rest
-        of its batch."""
+                no_drop: bool = False, image_embeds=None) -> torch.Tensor:
+        """Sequence-mode logits (B, S, Vp) (audio: K * Vp columns; vlm:
+        S_img + S positions).  ``no_drop=True`` lifts the MoE capacity (JAX
+        :126), so a row's logits do not depend on the rest of its batch."""
         quant = self.default_quant() if quant is None else quant
-        x, positions = self.embed_tokens(tokens)
+        x, positions = self.embed_tokens(tokens, image_embeds)
         for layer in self.layers:
             x, _ = blocks.layer_seq(layer, x, self.cfg, quant, positions, no_drop=no_drop)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps))
 
     def prefill_trunk(self, tokens: torch.Tensor, lengths=None,
-                      quant: Quant | None = None):
+                      quant: Quant | None = None, image_embeds=None):
         """The prompt forward: returns (per-row last-valid-token logits
         (B, 1, Vp), per-layer aux — (k, v) of a KV layer, the end state of
         a recurrent one — and fill_len) with fill_len the (B,) lengths, or
-        the int prompt width when ``lengths`` is None."""
+        the int prompt width when ``lengths`` is None.  ``lengths`` count
+        embedded positions: a vlm row's image prefix is part of them."""
         quant = self.default_quant() if quant is None else quant
-        x, positions = self.embed_tokens(tokens)
+        x, positions = self.embed_tokens(tokens, image_embeds)
         length = x.shape[1]
         if lengths is not None:
             lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
@@ -224,22 +260,22 @@ class Model(nn.Module):
         return cache
 
     def prefill(self, tokens: torch.Tensor, max_len: int, lengths=None,
-                quant: Quant | None = None, kv=None):
+                quant: Quant | None = None, kv=None, image_embeds=None):
         """Run the prompt; returns (last-valid-position logits, a fresh
         cache of ``max_len`` positions holding each row's prefix, fill_len)."""
-        logits, auxs, fill_len = self.prefill_trunk(tokens, lengths, quant)
+        logits, auxs, fill_len = self.prefill_trunk(tokens, lengths, quant, image_embeds)
         cache = self.init_cache(tokens.shape[0], max_len, kv=kv)
         return logits, self.fill_cache(cache, auxs, fill_len), fill_len
 
     def decode_step(self, tokens: torch.Tensor, cache: list[dict], pos,
                     quant: Quant | None = None):
-        """One token per row: tokens (B, 1), pos an int or (B,) absolute
-        position of each row's token.  The cache updates in place; returns
-        (logits (B, 1, Vp), cache)."""
+        """One token per row: tokens (B, 1) (audio: (B, 1, K)), pos an int
+        or (B,) absolute position of each row's token.  The cache updates
+        in place; returns (logits (B, 1, Vp), cache)."""
         quant = self.default_quant() if quant is None else quant
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device).expand(b)
-        x = self.embed[tokens]
+        x = self.embed_step(tokens)
         for layer, c in zip(self.layers, cache):
             x = blocks.layer_decode(layer, x, self.cfg, c, pos, quant)
         return self.head(rms_norm(self.final_norm, x, self.cfg.norm_eps)), cache
@@ -299,7 +335,7 @@ class Model(nn.Module):
         rollback = None
         if collect_rollback:
             rollback = list(saved if saved is not None else self.kv_slots(cache, pos, t))
-        x = self.embed[tokens]
+        x = self.embed_step(tokens)
         for i, (layer, c) in enumerate(zip(self.layers, cache)):
             x, steps = blocks.layer_verify(layer, x, self.cfg, c, pos, quant)
             if rollback is not None and not layer.has_kv:
@@ -436,7 +472,7 @@ class Model(nn.Module):
         live = None
         if any(s is None for s in scs):
             live = torch.as_tensor(blocks.to_host(write_len) > 0, device=self.device)
-        x = self.embed[tokens]
+        x = self.embed_step(tokens)
         for layer, c, s_c in zip(self.layers, cache, scs):
             x = blocks.layer_decode_paged(layer, x, self.cfg, c, tabs.get(s_c), posd,
                                           plans.get(s_c), quant, live=live)
@@ -453,7 +489,7 @@ class Model(nn.Module):
         scs = self.ring_lens(max_len)
         tabs = _step_tables(table, self.kv_ring_lens(max_len), bs, self.device)
         posd = torch.as_tensor(_host_pos(table, pos), device=self.device)
-        x = self.embed[tokens]
+        x = self.embed_step(tokens)
         steps = []
         for layer, c, s_c in zip(self.layers, cache, scs):
             x, st = blocks.layer_verify_paged(layer, x, self.cfg, c, tabs.get(s_c), posd,
@@ -510,7 +546,7 @@ def _draw(module: nn.Module, cfg: ArchConfig, gen: torch.Generator) -> None:
             p.fill_(1.0)
         elif leaf == "conv_w":
             p.normal_(generator=gen).mul_(0.1)
-        else:  # embed rows are (Vp, d): its fan-in is d as well
+        else:  # embed rows are (K * Vp, d): its fan-in is d as well
             fan_in = cfg.d_model if name == "embed" else p.shape[-2]
             p.normal_(generator=gen).mul_(fan_in ** -0.5)
 

@@ -53,6 +53,14 @@ pool of one block and chunks of ``prefill_bucket`` tokens
 prompt batch shorter than ``ssd_chunk`` or a multiple of it: serve it
 with ``prefill_bucket = cfg.ssd_chunk``.
 
+The two modality frontends ride on ``generate`` alone, as in JAX
+(:867-899): an audio model (musicgen-large) takes (B, L, K) codebook
+prompts and returns (B, n_new, K) frames, each codebook sampled from its
+own block of the head; a vlm model (llava-next-34b) takes
+``extra={"image_embeds": ...}``, and its text ``lengths`` grow by the
+image prefix.  ``serve`` (both schedulers) and ``score_continuations``
+refuse them with JAX's reasons; a mesh refuses them naming ROADMAP A13.
+
 When the config carries a quant preset, every projection is packed ONCE
 at ``Engine.__init__`` into a :class:`PackedDSBPWeight` (int8 aligned
 mantissas + one f32 scale per 64-group) and runs through the fused
@@ -277,10 +285,18 @@ def _nbytes(model: Model) -> int:
 
 def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
                   generator: torch.Generator | None = None,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
+                  out: torch.Tensor | None = None, n_codebooks: int = 0) -> torch.Tensor:
     """THE token selection: greedy argmax (temperature 0, first maximum on
     ties) or categorical sampling from ``generator``.  logits: (B, V);
-    ``out`` an optional (B,) int64 tensor the tokens are written into."""
+    ``out`` an optional (B,) int64 tensor the tokens are written into.
+    With ``n_codebooks`` K (an audio head, V = K * Vp) each codebook block
+    is sampled on its own, as (B * K, Vp) rows from the one generator, and
+    the tokens come back (B, K) (JAX :287-303)."""
+    if n_codebooks:
+        b = logits.shape[0]
+        tok = sample_tokens(logits.reshape(b * n_codebooks, -1), temperature,
+                            generator).reshape(b, n_codebooks)
+        return tok if out is None else out.copy_(tok)
     if temperature <= 0:
         return torch.argmax(logits, dim=-1, out=out)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
@@ -387,6 +403,8 @@ class Engine:
             missing.append("tied embeddings (the head over embed.T)")
         if cfg.n_experts:
             missing.append(f"MoE layers ({cfg.n_experts} experts: the expert axis)")
+        if cfg.frontend != "none":
+            missing.append(f"the {cfg.frontend} frontend (generate over embedded prompts)")
         if cfg.quant == "policy":
             missing.append("a DSBPPolicy (per-layer configs)")
         if self._guard is not None:
@@ -570,11 +588,20 @@ class Engine:
                 f"{sorted(_GUARD_POLICIES)} (or 'off')")
         return policy
 
+    def _refuse_frontend(self, reason: str) -> None:
+        """JAX's refusal of a modality frontend outside ``generate``
+        (:917-920, :963-966): ``reason`` with the frontend's name in its
+        ``{}``."""
+        if self.cfg.frontend != "none":
+            raise NotImplementedError(reason.format(self.cfg.frontend))
+
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.scfg.seed)
 
     def _sample(self, logits, gen, out=None) -> torch.Tensor:
-        return sample_tokens(logits, self.scfg.temperature, gen, out=out)
+        audio = self.cfg.frontend == "audio_codebooks"
+        return sample_tokens(logits, self.scfg.temperature, gen, out=out,
+                             n_codebooks=self.cfg.n_codebooks if audio else 0)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -585,26 +612,43 @@ class Engine:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def generate(self, prompts, n_new: int, lengths=None) -> np.ndarray:
-        """prompts (B, L) token ids, right-padded when ragged; ``lengths``
-        (B,) each row's true prompt length.  Returns (B, n_new) tokens and
-        records prefill/decode wall times in ``last_stats``."""
+    def generate(self, prompts, n_new: int, extra: dict | None = None,
+                 lengths=None) -> np.ndarray:
+        """prompts (B, L) token ids (audio: (B, L, K) codebook ids),
+        right-padded when ragged; ``lengths`` (B,) each row's true prompt
+        length; ``extra`` the frontend's inputs, ``{"image_embeds": (B,
+        S_img, d)}`` for a vlm model, whose lengths then count the image
+        prefix too (JAX :877-879).  Returns (B, n_new) tokens ((B, n_new, K)
+        codebook frames for audio) and records prefill/decode wall times in
+        ``last_stats``."""
         if n_new < 1:
             raise ValueError(f"n_new must be >= 1, got {n_new}")
         dev, scfg = self.device, self.scfg
         prompts = np.asarray(prompts)
         b = prompts.shape[0]
+        extra = dict(extra or {})
+        image = extra.pop("image_embeds", None)
+        if extra:
+            raise ValueError(f"generate() takes extra inputs {{'image_embeds'}}, got "
+                             f"{sorted(extra)}")
+        if image is None and self.cfg.frontend == "vlm_patches":
+            raise ValueError("a vlm_patches model takes image_embeds (B, S_img, d)")
         # under a mesh each data rank runs its share of the rows (all of
         # them when the data axis does not divide the batch)
         rows = self._shard_cache(b)
         mine = slice(None) if rows is None else rows
+        if image is not None:
+            image = torch.as_tensor(np.asarray(image, np.float32)[mine], device=dev)
         if lengths is not None:
             lengths = np.asarray(lengths)[mine]
+            if self.cfg.frontend == "vlm_patches":  # embedded positions incl. the image
+                lengths = lengths + image.shape[1]
         toks = torch.as_tensor(prompts[mine], dtype=torch.int64, device=dev)
         t0 = time.perf_counter()
         with self._trace_ctx(rows is not None):
             logits, cache, length = self.model.prefill(
-                toks, scfg.max_len, lengths=lengths, quant=self.quant, kv=self.kv_spec)
+                toks, scfg.max_len, lengths=lengths, quant=self.quant, kv=self.kv_spec,
+                image_embeds=image)
             pos = torch.as_tensor(length, dtype=torch.int32,
                                   device=dev).expand(toks.shape[0]).clone()
             gen = self._generator()
@@ -647,6 +691,8 @@ class Engine:
         score equals scoring it alone up to the per-tensor input scale
         the batch shares (batch invariance, which the eval harness and the
         autotuner rely on)."""
+        self._refuse_frontend("score_continuations() takes plain token sequences; "
+                              "unsupported for the {} frontend")
         if self.mesh is not None:
             raise NotImplementedError("score_continuations under a mesh is not "
                                       "ported yet (ROADMAP A13)")
@@ -794,6 +840,8 @@ class Engine:
         cancellations; invariant checks then run after every paged
         scheduler iteration."""
         scfg, dev = self.scfg, self.device
+        self._refuse_frontend("serve() schedules plain token prompts; use generate() for "
+                              "the {} frontend")
         if faults is not None and self.mesh is not None:
             raise NotImplementedError("fault plans (serve(faults=...)) under a mesh are not "
                                       "ported yet (ROADMAP A13)")

@@ -937,3 +937,83 @@ def test_ssd_decode_step_card_equals_cpu_at_full_width(cuda):
     gap = top2[..., 0] - top2[..., 1]
     differ = a.argmax(-1) != b.argmax(-1)
     assert torch.all(~differ | (gap < torch.maximum(1e-3 * top, 2 * delta)))
+
+
+# ---- the modality frontends: musicgen-large (MHA, d_head 64) and
+# llava-next-34b (GQA 56 : 8 and its 20,480-wide FFN) ----
+
+@pytest.mark.parametrize("m", [2, 4, 64])
+@pytest.mark.parametrize("k,n", [(7168, 20480), (20480, 7168), (2048, 8192)],
+                         ids=["llava_w1", "llava_w2", "musicgen_w1"])
+def test_dsbp_fused_bit_equal_plain_at_frontend_shapes(cuda, m, k, n):
+    """B1 at llava-next-34b's FFN (w1 / w3 K=7168 N=20480, w2 K=20480
+    N=7168: 320 groups) and musicgen-large's (K=2048 N=8192), at llava's
+    decode M 2, musicgen's 4 and a prefill tile: bit-equal to plain."""
+    cfg = _cfg("precise")
+    x, ts, ka, kscale, tw = _device_operands(m, k, n, cfg, cuda, seed=m + k + n)
+    y = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused_plain(x, ts, ka, kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n)
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+
+
+@pytest.mark.parametrize("hq,hkv,d,sq,lens", [
+    (56, 8, 128, 1, [300, 129]),        # llava's GQA (ratio 7), decode
+    (56, 8, 128, 300, [300, 131]),      # the same, a ragged prefill
+    (32, 32, 64, 1, [300, 17]),         # musicgen's MHA at d_head 64, decode
+], ids=["gqa7-decode", "gqa7-prefill", "mha-d64-decode"])
+def test_attention_at_frontend_head_layouts(cuda, hq, hkv, d, sq, lens):
+    """B2 within 1e-5 of its plain version, B5 over a kv8 cache bit-equal
+    to B2 over its dequantized view and within 1e-5 of its own plain
+    version, at the frontends' head layouts."""
+    g = torch.Generator().manual_seed(hq + hkv + d + sq)
+    b, s = len(lens), 300
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    k = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    v = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q0 = (kv_len - 1) if sq == 1 else torch.zeros_like(kv_len)
+    o = FA.flash_attention(q, k, v, kv_len, q0)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0)
+    kq, vq = (quantize_kv(t, KV_PRESETS["kv8"]) for t in (k, v))
+    o5 = FA.packed_flash_attention(q, kq.qm, kq.scale, vq.qm, vq.scale, kv_len, q0)
+    o2d = FA.flash_attention(q, kq.dequantize(), vq.dequantize(), kv_len, q0)
+    ref5 = FA.packed_flash_attention_plain(q, kq.qm, kq.scale, vq.qm, vq.scale, kv_len, q0)
+    torch.cuda.synchronize()
+    vis = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0).any(-1)
+    vis = vis[:, None].expand(-1, hq, -1)  # rows with a visible key (pad queries have none)
+    torch.testing.assert_close(o[vis], ref[vis], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(o5[vis], ref5[vis], rtol=1e-5, atol=1e-5)
+    assert torch.equal(o5, o2d), float((o5 - o2d).abs().max())
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-34b"])
+def test_frontend_generate_card_equals_cpu(cuda, arch):
+    """Smoke musicgen-large ((B, L, K) prompts, (B, n, K) frames) and
+    llava-next-34b (image embeddings in ``extra``), packed "precise",
+    ragged: ``Engine.generate`` on the card (B1, B2) and on the CPU (plain
+    versions) gives equal tokens."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = smoke_config(arch).replace(quant="precise")
+    gpu = TM.init(cfg, seed=4, device=cuda, pack="precise")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(4)
+    lens = np.asarray([12, 5, 9], np.int32)
+    shape = (3, 12) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    toks = rng.integers(0, cfg.vocab_size, shape)
+    extra = None
+    if cfg.n_image_tokens:
+        extra = {"image_embeds": rng.standard_normal(
+            (3, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)}
+    outs = []
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        eng = Engine(model, ServeConfig(max_len=48), device=dev)
+        outs.append(eng.generate(toks, 4, extra=extra, lengths=lens))
+    assert outs[0].shape == (3, 4) + shape[2:]
+    np.testing.assert_array_equal(outs[0], outs[1])
