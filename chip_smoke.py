@@ -24,8 +24,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
   5. full-width 32-layer llama-7b-paper with random weights from a seeded
      torch.Generator, packed "precise": one ragged Engine.generate of 4
      prompts and Engine.serve of 8 requests through 4 slots, with each
-     kernel's launch count over that run; then the same traffic again,
-     untimed, recording every sampled batch for phase 15; then a
+     kernel's launch count over that run and every sampled batch recorded
+     (for phases 15 and 17); then a
      torch.profiler trace of four decode steps: device time of B1, B2 and
      everything else, and the card's idle share;
   6. B3, the standalone input path, against its plain version: bit-equal at
@@ -86,7 +86,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
      both ranks read through the one card);
   15. full-width llama-7b-paper on a (1, 2) mesh (tensor-parallel), phase
      5's seed and traffic through generate and serve at 4 slots: every
-     sampled batch (recorded in an untimed second pass, as phase 5's)
+     sampled batch (recorded in the run, as phase 5's)
      held against phase 5's: equal tokens and bit-equal logits; launches
      per rank (B8 and B1 on every projection's shard, B2 on 16 heads per
      rank), collectives per decode step, peak memory per rank; 15b. the
@@ -259,9 +259,40 @@ Phases (each raises on failure; nothing falls back to the CPU):
      layers + the cache + the prefill's K/V and activations, a 2-step
      trace; prefill s, ms per step, peak memory; a `frontends (phase 22):`
      JSON line.
+  23. the bfloat16 dtype, last: B2, B5, B6 and B7 on bf16 operands
+     (llama-7b's prefill and decode, phase 8's kv8 decode, phase 13's
+     paged lanes, recurrentgemma-2b's MQA D 256 decode) bit-equal to the
+     same kernel's f32 instantiation on the exact upcasts rounded once,
+     within BF16_PLAIN_REL of their plain versions, timed cold beside SDPA
+     in bf16; 23a, llama-7b-paper in bf16 at full width and CROSS_LAYERS
+     layers, packed, CPU vs card, float KV and kv8, under phase 9's rule
+     at the bf16 near-tie bound (BF16_TIE_ULPS); 23, llama-7b-paper in
+     bf16 at full width and depth by init(pack=) (peak gated): phase 5's
+     traffic through generate and serve, float KV then kv8, B1 224 and B2
+     (B5) 32 in every decode step, all attention launches bf16, KV bytes
+     per token half of phase 5's, a 2-step trace; at SPEC_LAYERS layers
+     (full width), phase 13's paged traffic on a float and a kv8 pool
+     (paged == dense at matched batches; the drift to the dense batch-8
+     serve within BF16_KV_TIE) and spec_k 3 against spec_k 0; 23b, a bf16
+     generate of
+     recurrentgemma-2b, mixtral-8x7b, mamba2-370m, musicgen-large and
+     llava-next-34b at full width, cut in depth (BF16_FAMILIES), CPU vs
+     card; a `bf16 (phase 23):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
   14-15b, for which the models are freed.
+Run order: 1, then every kernel-timing phase alone on the card (2, 3, 6,
+7, 8, 11, then the kernels of 19-23 in a second process of this script
+while the first waits); then the two processes share the card, the first
+running 5, 10, 12, 13, 16, 18, 17a, 17 and 14-15b, the second 4, 9 and
+16a (the one-layer checks, mostly on the CPU), 20, 22, 21, 19 and 23.  A
+phase whose peak passes ~25 GiB (17a-17, 14-15b, 20, 22) holds a lock
+file, so at most one of them runs at a time and the two fit in the
+card's 80 GB.  Step times, traces and idle shares of the
+shared part are taken with the other process on the card and its host;
+kernel times never are.  The second process's output is printed when it
+ends, before the kernels' record; a failure of either process fails the
+run, and the first stops the second on its way out.
 Prints the kernels' JSON record, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 
@@ -280,6 +311,10 @@ runs phases 1 and 21 alone.
     python3 chip_smoke.py --frontends
 
 runs phases 1 and 22 alone.
+
+    python3 chip_smoke.py --bf16
+
+runs phases 1 and 23 alone.
 
     python3 chip_smoke.py --cross
 
@@ -315,13 +350,17 @@ main path, where ~7 GB of weights pass between two calls of one kernel.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -420,6 +459,99 @@ def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# the two processes of a whole run (the run order in the docstring)
+# ---------------------------------------------------------------------------
+
+# where the two processes meet: the lock file, the second's log and record
+# (build/ is the checkout's own build directory, which .gitignore lists)
+RUN_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+@contextlib.contextmanager
+def heavy_phase(run_dir):
+    """Holds the lock of the phases whose peak passes ~25 GiB, so that no two
+    of them share the card's 80 GB; ``run_dir`` None (one process): no lock."""
+    if run_dir is None:
+        yield
+        return
+    import fcntl
+
+    with open(run_dir / "heavy.lock", "w") as f:
+        t0 = time.perf_counter()
+        fcntl.flock(f, fcntl.LOCK_EX)
+        waited = time.perf_counter() - t0
+        if waited > 1:
+            print(f"  [waited {waited:.0f} s for the other process's memory-heavy phase]")
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _jsonable(o):
+    """json's fallback for the record the second process hands over: numpy
+    and torch scalars as numbers, anything else as the printed lines have it."""
+    try:
+        return o.item()
+    except (AttributeError, ValueError, RuntimeError):
+        return str(o)
+
+
+class Families:
+    """The second process of a whole run: phases 4, 9, 16a and 19-23,
+    started with ``--families-worker``; its output goes to a log, printed
+    when it ends."""
+
+    def __init__(self, run_dir: Path):
+        self.run_dir = run_dir
+        self.log_path = run_dir / "families.log"
+        self.printed = False
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-u", str(Path(__file__).resolve()), "--families-worker",
+                 str(run_dir)], stdout=log, stderr=subprocess.STDOUT)
+
+    def print_log(self) -> None:
+        if not self.printed:
+            self.printed = True
+            print("== the second process (phases 4, 9, 16a, 19-23), its output:")
+            print(self.log_path.read_text().rstrip())
+            print("== the second process's output ends")
+
+    def check(self) -> None:
+        """Raises as soon as the second process has failed."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            self.print_log()
+            raise RuntimeError(f"the second process (phases 4, 9, 16a, 19-23) failed with "
+                               f"exit code {rc}")
+
+    def wait_kernels(self) -> None:
+        """Waits while the second process times its kernels alone on the card."""
+        while not (self.run_dir / "kernels.done").exists():
+            self.check()
+            if self.proc.poll() == 0:
+                raise RuntimeError("the second process ended before its kernel phases")
+            time.sleep(0.2)
+
+    def finish(self) -> dict:
+        """Waits for the second process, prints its output and returns its
+        record (the bf16 kernels keyed by (kernel, case) again)."""
+        self.proc.wait()
+        self.print_log()
+        self.check()
+        rec = json.loads((self.run_dir / "families.json").read_text())
+        rec["bf"]["kernels"] = {tuple(k.split("|")): v for k, v in rec["bf"]["kernels"].items()}
+        return rec
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+            self.print_log()
 
 
 def cuda_ms(fn, args_list, iters: int, warmup: int = 2,
@@ -692,30 +824,24 @@ class SampleTape:
         return [(lg.cpu(), tok.cpu()) for lg, tok in self._calls]
 
 
-def taped_rerun(eng, vocab, toks, lens, reqs, out, served) -> list:
-    """The traffic once more, untimed, with every sampled batch recorded
-    (:class:`SampleTape`); the streams must repeat the timed run's."""
-    import numpy as np
-
-    tape = SampleTape(eng, vocab)
-    again = eng.generate(toks, 16, lengths=lens)
-    again_served = eng.serve(reqs, max_new_tokens=16)
-    calls = tape.close()
-    if not np.array_equal(again, out) or any(
-            not np.array_equal(again_served[u], t) for u, t in served.items()):
-        raise AssertionError("the same traffic served twice gave other streams")
-    return calls
+def tie_bound(top: float, tie_ulps=None) -> float:
+    """The near-tie bound at max|logit| ``top``: TIE * top for f32 logits,
+    or ``tie_ulps`` bf16 ulps of top (8 significand bits) for bf16 ones,
+    where ties and one-ulp near ties are common."""
+    if tie_ulps is None:
+        return TIE * top
+    return tie_ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
-def check_calls(torch, ref, got):
+def check_calls(torch, ref, got, tie_ulps=None, kv_tie=KV_TIE):
     """Phase 9's rule over two runs' recorded sampled batches (same
     traffic, so the same calls in the same order): the tokens are equal up
     to the first batch where any differ; until then every logit row
-    differs by at most KV_TIE * max|logit|, and in that batch each
-    differing row's reference top-2 gap is below max(TIE * max|logit|,
-    twice the row's difference).  Returns (index of that batch or None,
-    batches with bit-equal logits before it, largest difference relative
-    to max|logit|)."""
+    differs by at most ``kv_tie`` (default KV_TIE) * max|logit|, and in that batch each
+    differing row's reference top-2 gap is below max(the near-tie bound
+    (:func:`tie_bound`), twice the row's difference).  Returns (index of
+    that batch or None, batches with bit-equal logits before it, largest
+    difference relative to max|logit|)."""
     if len(ref) != len(got):
         raise AssertionError(f"{len(got)} sampled batches vs {len(ref)}")
     worst, equal = 0.0, 0
@@ -726,13 +852,14 @@ def check_calls(torch, ref, got):
         delta = (a - b).abs().amax(dim=1)
         worst = max(worst, float(delta.max()) / top)
         equal += bool(torch.equal(a, b))
-        if float(delta.max()) > KV_TIE * top:
+        if float(delta.max()) > kv_tie * top:
             raise AssertionError(f"batch {i}: logits differ by {float(delta.max())} > "
-                                 f"{KV_TIE} * {top}")
+                                 f"{kv_tie} * {top}")
         bad = torch.nonzero(ta != tb).flatten().tolist()
         for r in bad:
             top2 = torch.topk(a[r], 2).values
-            gap, limit = float(top2[0] - top2[1]), max(TIE * top, 2 * float(delta[r]))
+            gap = float(top2[0] - top2[1])
+            limit = max(tie_bound(top, tie_ulps), 2 * float(delta[r]))
             if gap >= limit:
                 raise AssertionError(f"batch {i} row {r}: tokens {int(ta[r])} vs "
                                      f"{int(tb[r])} (top-2 gap {gap}, limit {limit})")
@@ -855,17 +982,20 @@ def phase_serve(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     torch.cuda.reset_peak_memory_stats()
     toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
 
-    # ---- the main path: counts from 0 over exactly this run ----
+    # ---- the main path: counts from 0 over exactly this run, its sampled
+    # batches recorded (phases 15 and 17 hold theirs bit-equal to them;
+    # phase 18a serves the same traffic again, token for token) ----
     DF.dsbp_fused.launches = 0
     FA.flash_attention.launches = 0
+    tape = SampleTape(eng, cfg.vocab_size)
     out = eng.generate(toks, 16, lengths=lens)
     gst = dict(eng.last_stats)
     served = eng.serve(reqs, max_new_tokens=16)
     torch.cuda.synchronize()
+    calls = tape.close()
     launches = {"dsbp_fused": DF.dsbp_fused.launches,
                 "flash_attention": FA.flash_attention.launches}
     sst = dict(eng.last_stats)
-    calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)  # phase 15's
     peak = torch.cuda.max_memory_allocated()
     trace = trace_decode(torch, eng, toks, lens, TRACE_FUSED)
 
@@ -1161,6 +1291,8 @@ def phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, mode
 def _reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):  # the attention kernels' bf16 instantiation
+            fn.bf16_launches = 0
 
 
 def phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels, model, cfg,
@@ -1569,9 +1701,10 @@ def phase_paged_cross_device(torch, TM, Engine, ServeConfig, Request, FA, cfg):
 
 
 def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels, model,
-                      cfg):
-    print("== phase 13: full-width llama-7b-paper served paged: 8 requests sharing a "
-          "192-token system prompt + 2 chunked 320-token prompts, 8 lanes on 129 blocks")
+                      cfg, label="13", kv_tie=KV_TIE):
+    print(f"== phase {label}: full-width {cfg.name} ({cfg.dtype}) served paged: 8 requests "
+          f"sharing a 192-token system prompt + 2 chunked 320-token prompts, 8 lanes on 129 "
+          f"blocks")
     import numpy as np
 
     n_layers = cfg.n_layers
@@ -1595,6 +1728,8 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
         out = eng.serve(reqs)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in kernels.items()}
+        bf16_launches = {k: fn.bf16_launches for k, fn in kernels.items()
+                         if hasattr(fn, "bf16_launches")}
         st = dict(eng.last_stats)
         peak = torch.cuda.max_memory_allocated()
         tape.close()
@@ -1617,7 +1752,8 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
             raise AssertionError(f"paged {name}: {st['blocks_in_use_at_exit']} blocks not "
                                  f"returned")
         bpt = st["kv_bytes_per_token"]
-        want_bpt = 2 * n_layers * cfg.n_kv_heads * (cfg.d_head * 4 if kv is None
+        elem = 2 if cfg.dtype == "bfloat16" else 4  # a float pool's element bytes
+        want_bpt = 2 * n_layers * cfg.n_kv_heads * (cfg.d_head * elem if kv is None
                                                      else cfg.d_head + 4)
         if bpt != want_bpt or st["kv_packed"] != (kv is not None):
             raise AssertionError(f"paged {name} KV bytes per token {bpt} != {want_bpt}")
@@ -1638,9 +1774,9 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
             # (the two agree bit for bit on the CPU)
             real, spec = blocks.blockwise_attention, KVQ.KV_PRESETS[kv]
 
-            def qdq_attention(q, k, v, **kw):
-                return real(q, KVQ.quantize_kv(k, spec).dequantize(),
-                            KVQ.quantize_kv(v, spec).dequantize(), **kw)
+            def qdq_attention(q, k, v, **kw):  # exact in the K/V dtype (int8 x pow2)
+                return real(q, KVQ.quantize_kv(k, spec).dequantize(k.dtype),
+                            KVQ.quantize_kv(v, spec).dequantize(v.dtype), **kw)
 
             blocks.blockwise_attention = qdq_attention
             qdq_tape = GuardTape(dense, cfg.vocab_size)
@@ -1650,7 +1786,7 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
                 blocks.blockwise_attention = real
                 qdq_tape.close()
             ref_rows.update(qdq_tape.rows)
-        ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows)
+        ties, worst = check_recorded(torch, ref, out, ref_rows, tape.rows, kv_tie=kv_tie)
         # with the same rows in every step (one admission group, no chunks,
         # no sharing, all lanes busy to the end), paged and dense compute
         # the same numbers: B6/B7 equal B2/B5 over the same keys bit for bit
@@ -1713,8 +1849,8 @@ def phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kern
               f"no sharing): paged == dense token for token")
         print(f"  one paged decode step dispatches 0 KV-sized gathers and 0 KV-sized "
               f"int8->float conversions outside the kernels")
-        results[name] = {"launches": launches, "stats": st, "peak": peak, "out": out,
-                         "rows": dict(tape.rows), "reqs": reqs}
+        results[name] = {"launches": launches, "bf16_launches": bf16_launches, "stats": st,
+                         "peak": peak, "out": out, "rows": dict(tape.rows), "reqs": reqs}
         del eng, dense
         torch.cuda.empty_cache()
     return results
@@ -2173,7 +2309,7 @@ def device_op_counter(torch):
     return DeviceOps()
 
 
-def trace_serve_window(torch, eng, reqs, kernels, start: int = 2, steps: int = 8) -> dict:
+def trace_serve_window(torch, eng, reqs, kernels, start: int = 2, steps: int = 4) -> dict:
     """What one iteration of the dense serve loop sends to the card: one
     ``eng.serve(reqs)`` with a window from the start of its decode call
     ``start`` to the start of call ``start + steps``, so the window holds
@@ -2188,7 +2324,7 @@ def trace_serve_window(torch, eng, reqs, kernels, start: int = 2, steps: int = 8
     activity only) in the same window: device ms and kernels per iteration,
     each kernel name's launches over the window / ``steps``, rounded up.
     The trace loses events and never adds one (on the H100 from 40-45 to
-    more than 144 of ~37,200 kernels over 8 steps, spread over many names,
+    more than 144 of ~37,200 kernels over a window of 8 steps, spread over many names,
     from run to run), so its kernel count is a lower bound, printed and not
     gated."""
     from torch.profiler import ProfilerActivity, profile
@@ -2881,10 +3017,13 @@ def phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tens
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(kernels)
+        # the uniform policy's sampled batches, recorded in its timed run
+        tape = SampleTape(eng, cfg.vocab_size) if label == "uniform precise" else None
         out = eng.generate(toks, 16, lengths=lens)
         gst = dict(eng.last_stats)
         got = eng.serve(reqs, max_new_tokens=16)
         torch.cuda.synchronize()
+        calls = tape.close() if tape is not None else None
         launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
         peak = torch.cuda.max_memory_allocated()
         sst = dict(eng.last_stats)
@@ -2911,7 +3050,6 @@ def phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tens
               f"to plain on a served container of each of its {len(keys)} configs; launches "
               f"over generate + serve {launches}")
         if label == "uniform precise":
-            calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, got)
             if len(calls) != len(ref5["calls"]) or not all(
                     torch.equal(a, b) and torch.equal(ta, tb)
                     for (a, ta), (b, tb) in zip(calls, ref5["calls"])):
@@ -3124,8 +3262,10 @@ def phase_b8(torch):
 def _mesh_serve_rank(mesh, n_layers):
     """Phases 15 / 15b on one rank: build (one rank at a time draws the
     whole seeded model and keeps its shards), then phase 5's traffic
-    through generate and serve at 4 slots with the launch counts from 0,
-    then once more, untimed, with its sampled batches recorded."""
+    through generate and serve at 4 slots with the launch counts from 0
+    and its sampled batches recorded (:class:`SampleTape`: a clone of each
+    sampled batch, no second pass: the batches are held bit-equal to one
+    device's, which a run that did not repeat itself would fail)."""
     import gc
 
     import torch
@@ -3155,13 +3295,14 @@ def _mesh_serve_rank(mesh, n_layers):
     torch.cuda.reset_peak_memory_stats()
     # ---- the mesh's main path: counts from 0 over exactly this run ----
     _reset_launches(kernels)
+    tape = SampleTape(eng, cfg.vocab_size)
     out = eng.generate(toks, 16, lengths=lens)
     gst = dict(eng.last_stats)
     served = eng.serve(reqs, max_new_tokens=16)
     torch.cuda.synchronize()
+    calls = tape.close()
     launches = {k: fn.launches for k, fn in kernels.items()}
     sst = dict(eng.last_stats)
-    calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)
     layer = eng.model.layers[0]
     return {"generate": out, "serve": served, "calls": calls, "gen_stats": gst,
             "serve_stats": sst, "launches": launches, "build_s": t_build,
@@ -3193,20 +3334,21 @@ def _merge_calls(ranks, shape, n_ref_rows):
 
 def phase_mesh_reference(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg):
     """Phase 15b's single-device reference: 2 layers at full width from the
-    ranks' seed, phase 5's traffic at 4 slots, then its sampled batches
-    recorded in an untimed pass."""
+    ranks' seed, phase 5's traffic at 4 slots, its sampled batches
+    recorded."""
     eng = Engine(TM.init(cfg.replace(n_layers=2), seed=0, device="cuda"),
                  ServeConfig(max_len=512, batch_size=4), device="cuda")
     toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
     DF.dsbp_fused.launches = 0
     FA.flash_attention.launches = 0
+    tape = SampleTape(eng, cfg.vocab_size)
     out = eng.generate(toks, 16, lengths=lens)
     served = eng.serve(reqs, max_new_tokens=16)
     torch.cuda.synchronize()
+    calls = tape.close()
     sst = dict(eng.last_stats)
     launches = {"dsbp_fused": DF.dsbp_fused.launches,
                 "flash_attention": FA.flash_attention.launches}
-    calls = taped_rerun(eng, cfg.vocab_size, toks, lens, reqs, out, served)
     ref = {"generate": out, "serve": served, "calls": calls, "launches": launches,
            "decode_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"]}
     del eng
@@ -3874,15 +4016,17 @@ def phase_hybrid_gemma3(torch, TM, Engine, ServeConfig, Request, TO, kernels, cf
 
 
 def hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
-                  per_tensor_scale, get_config) -> dict:
-    """Phase 19 whole: the kernels at the hybrids' shapes, 19a, 19 and 19b;
-    returns their records (one ``hybrid (phase 19):`` JSON line printed)."""
+                  per_tensor_scale, get_config, rows=None) -> dict:
+    """Phase 19 whole: the kernels at the hybrids' shapes (``rows``, where
+    they were timed already), 19a, 19 and 19b; returns their records (one
+    ``hybrid (phase 19):`` JSON line printed)."""
     kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
                "packed_flash_attention": FA.packed_flash_attention,
                "paged_flash_attention": FA.paged_flash_attention,
                "paged_packed_flash_attention": FA.paged_packed_flash_attention}
     t0 = time.perf_counter()
-    rows = phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale)
+    if rows is None:
+        rows = phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale)
     # the paper's "precise" preset on both (their configs carry none)
     rg = get_config("recurrentgemma-2b").replace(quant="precise")
     phase_hybrid_cross_device(torch, TM, Engine, ServeConfig, rg)
@@ -4345,20 +4489,27 @@ def phase_moe_serving(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg)
     return res
 
 
-def moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
-               get_config, card: str) -> dict:
-    """Phase 20 whole: B1 at mixtral's shapes, 20a, 20 and 20b; returns
-    their records (one ``moe (phase 20):`` JSON line printed)."""
-    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
-               "packed_flash_attention": FA.packed_flash_attention,
-               "paged_flash_attention": FA.paged_flash_attention,
-               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
-    t0 = time.perf_counter()
+def moe_kernels(torch, Q, DF, per_tensor_scale) -> list:
     print("== phase 20 (kernels): B1 at mixtral-8x7b's decode shapes")
     gen = torch.Generator(device="cuda").manual_seed(20)
     b1 = [{**b1_case(torch, Q, DF, per_tensor_scale, gen, 4, k, n), "proj": proj}
           for k, n, proj in MOE_B1]
     torch.cuda.empty_cache()
+    return b1
+
+
+def moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+               get_config, card: str, b1=None) -> dict:
+    """Phase 20 whole: B1 at mixtral's shapes (``b1``, where they were
+    timed already), 20a, 20 and 20b; returns their records (one ``moe
+    (phase 20):`` JSON line printed)."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+               "packed_flash_attention": FA.packed_flash_attention,
+               "paged_flash_attention": FA.paged_flash_attention,
+               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+    t0 = time.perf_counter()
+    if b1 is None:
+        b1 = moe_kernels(torch, Q, DF, per_tensor_scale)
     cfg = get_config("mixtral-8x7b").replace(quant="precise")
     cross = phase_moe_cross_device(torch, TM, Engine, ServeConfig, cfg)
     main = phase_moe(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg)
@@ -4644,21 +4795,28 @@ def phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
     return res
 
 
-def ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
-               get_config, card: str) -> dict:
-    """Phase 21 whole: B1 at mamba2-370m's shapes, 21a and 21; returns
-    their records (one ``ssd (phase 21):`` JSON line printed)."""
-    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
-               "packed_flash_attention": FA.packed_flash_attention,
-               "paged_flash_attention": FA.paged_flash_attention,
-               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
-    t0 = time.perf_counter()
+def ssd_kernels(torch, Q, DF, per_tensor_scale) -> list:
     print("== phase 21 (kernels): B1 at mamba2-370m's shapes, decode and prefill (M=2048: "
           "w_in's partial prefill column tile)")
     gen = torch.Generator(device="cuda").manual_seed(21)
     b1 = [{**b1_case(torch, Q, DF, per_tensor_scale, gen, m, k, n), "proj": proj}
           for k, n, proj in SSD_B1 for m in (4, 2048)]
     torch.cuda.empty_cache()
+    return b1
+
+
+def ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+               get_config, card: str, b1=None) -> dict:
+    """Phase 21 whole: B1 at mamba2-370m's shapes (``b1``, where they were
+    timed already), 21a and 21; returns their records (one ``ssd (phase
+    21):`` JSON line printed)."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+               "packed_flash_attention": FA.packed_flash_attention,
+               "paged_flash_attention": FA.paged_flash_attention,
+               "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+    t0 = time.perf_counter()
+    if b1 is None:
+        b1 = ssd_kernels(torch, Q, DF, per_tensor_scale)
     cfg = get_config("mamba2-370m").replace(quant="precise")
     cross = phase_ssd_cross_device(torch, TM, Engine, ServeConfig, Request, cfg)
     main = phase_ssd(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg)
@@ -5103,17 +5261,23 @@ def phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels, cfg, label: str)
     return res
 
 
+def frontend_configs(get_config) -> dict:
+    return {arch: get_config(arch).replace(quant="precise")
+            for arch in ("musicgen-large", "llava-next-34b")}
+
+
 def frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO, per_tensor_scale,
-                    get_config, card: str) -> dict:
-    """Phase 22 whole: the kernels at the frontends' shapes, 22a, 22
-    (musicgen-large) and 22b (llava-next-34b); returns their records (one
-    ``frontends (phase 22):`` JSON line printed)."""
+                    get_config, card: str, rows=None) -> dict:
+    """Phase 22 whole: the kernels at the frontends' shapes (``rows``, where
+    they were timed already), 22a, 22 (musicgen-large) and 22b
+    (llava-next-34b); returns their records (one ``frontends (phase 22):``
+    JSON line printed)."""
     kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
                "packed_flash_attention": FA.packed_flash_attention}
     t0 = time.perf_counter()
-    cfgs = {arch: get_config(arch).replace(quant="precise")
-            for arch in ("musicgen-large", "llava-next-34b")}
-    rows = phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, cfgs)
+    cfgs = frontend_configs(get_config)
+    if rows is None:
+        rows = phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, cfgs)
     cross = phase_frontend_cross_device(torch, TM, Engine, ServeConfig, cfgs)
     main = {"musicgen-large": phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels,
                                              cfgs["musicgen-large"], "22"),
@@ -5143,6 +5307,537 @@ def frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO, per_tens
     print(f"  phase 22: {rec['seconds']:.1f} s")
     print("frontends (phase 22): " + json.dumps(rec, default=str))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the bfloat16 dtype (parameters, activations and caches in bf16
+# around the f32 DSBP GEMM; the attention kernels' bf16 instantiation)
+# ---------------------------------------------------------------------------
+
+# the near-tie bound of bf16 logits, in bf16 ulps of max|logit|: exact ties
+# and one-ulp near ties are common among bf16 logits, where TIE * max|logit|
+# is a tenth of an ulp; two equally valid roundings of a bf16 activation
+# (the kernels' q * d**-0.5 in f32, the plain versions' in bf16; a batch's
+# per-tensor FP8 scale) move a logit by a few ulps
+BF16_TIE_ULPS = 8
+# phase 23's paged serve against its dense batch-8 serve (bf16): a
+# chunked prompt's last chunk attends through the verify path
+# (PyTorch, q * d**-0.5 rounded to bf16 as the JAX model's jnp code) where
+# the dense prefill runs B2 (q scaled in f32, as the TPU kernel), and
+# every activation rounds to bf16 (2**-9) before the next layer's FP8
+# inputs, so two equally valid roundings compound over 32 layers: 0.110
+# of max|logit| at a chunked stream's second token at full depth on an
+# H100, 0.108 at SPEC_LAYERS (the other streams 0.01; PERF.md, phase 23),
+# where f32 stays within KV_TIE.  The strict check stays: paged ==
+# dense token for token at matched batches
+BF16_KV_TIE = HYBRID_TIE
+# 23b's mixtral-8x7b (2 layers, bf16) CPU vs card: bf16 router logits tie
+# exactly far more often than f32 ones, and a row whose top-2 routing flips
+# swaps a whole expert's output (phase 20b's route flips): 0.353 of
+# max|logit| in one row of one batch on an H100 (PERF.md, phase 23),
+# the tokens equal; the other families hold KV_TIE
+BF16_MOE_TIE = 0.5
+# the bf16 kernels against their plain versions (as much of max|out|): the
+# plain versions round q * d**-0.5 to bf16 (the JAX model's jnp code), the
+# kernels scale the f32 upcast (the TPU kernels'): a relative 2**-9 in q
+# moves each logit by up to 2**-9 |logit| and the output rounds once more;
+# measured 2**-8 at llama-7b's prefill on an H100 (PERF.md, phase 23)
+BF16_PLAIN_REL = 2 ** -6
+# (name, Hq, Hkv, D) of the bf16 kernel cases: llama-7b's MHA and
+# recurrentgemma-2b's MQA at d_head 256
+BF16_HEADS = {"llama-7b": (32, 32, 128), "recurrentgemma-2b": (10, 1, 256)}
+# the depth of 23b's CPU-vs-card models (full width): phase 22a's cuts, and
+# recurrentgemma-2b at 3 layers so its attn_local layer (MQA, D 256) is in
+BF16_FAMILIES = {"recurrentgemma-2b": dict(n_layers=3, window=64),
+                 "mixtral-8x7b": dict(n_layers=2), "mamba2-370m": dict(n_layers=2),
+                 "musicgen-large": dict(n_layers=2),
+                 "llava-next-34b": dict(n_layers=1, n_image_tokens=128)}
+BF16_FAMILY_LENS = {"musicgen-large": [8, 16, 24, 32], "llava-next-34b": [8, 16]}
+BF16_FAMILY_NEW = 4
+
+
+def bf16_kernel_case(torch, FA, KVQ, kname: str, label: str, args16: tuple, dense: dict) -> dict:
+    """One attention kernel on bf16 operands ``args16`` (q, and float K/V or
+    pools, bf16; int8 mantissas and f32 scales for B5 / B7): equal to the
+    same kernel's f32 instantiation on the exact upcasts, its output
+    rounded once, bit for bit; within BF16_PLAIN_REL of its plain version;
+    timed cold beside the f32 instantiation, the plain version and one
+    PyTorch call (SDPA in bf16 on the same keys: over the gathered and/or
+    dequantized K/V for B5 / B6 / B7) with its bound (bf16 q and o, K/V
+    bytes as stored, the bf16 tensor-core peak)."""
+    fn, plain = {"B2": (FA.flash_attention, FA.flash_attention_plain),
+                 "B5": (FA.packed_flash_attention, FA.packed_flash_attention_plain),
+                 "B6": (FA.paged_flash_attention, FA.paged_flash_attention_plain),
+                 "B7": (FA.paged_packed_flash_attention,
+                        FA.paged_packed_flash_attention_plain)}[kname]
+    args32 = tuple(t.float() if torch.is_tensor(t) and t.dtype == torch.bfloat16 else t
+                   for t in args16)
+    q = args16[0]
+    b, hq, sq, d = q.shape
+    kv_len, q0 = args16[-2], args16[-1]
+    before = fn.bf16_launches
+    o = fn(*args16)
+    if fn.bf16_launches != before + 1 or o.dtype != torch.bfloat16:
+        raise AssertionError(f"{kname} {label}: a bf16 q did not launch the bf16 kernel")
+    o32 = fn(*args32)
+    pl = plain(*args16)
+    torch.cuda.synchronize()
+    if not torch.equal(o, o32.to(torch.bfloat16)):
+        raise AssertionError(f"{kname} {label}: bf16 kernel != f32 kernel on the upcasts "
+                             f"rounded once: max |diff| "
+                             f"{float((o.float() - o32).abs().max())}")
+    err = float((o.float() - pl.float()).abs().max())
+    top = float(pl.float().abs().max())
+    if not (torch.isfinite(o).all() and err <= BF16_PLAIN_REL * top):
+        raise AssertionError(f"{kname} {label}: kernel vs plain max |diff| {err} > "
+                             f"{BF16_PLAIN_REL} * {top}")
+    s = dense["s"]
+    mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
+    visible = float(mask.sum())
+    nbytes = 2 * q.numel() * 2 + 2 * dense["keys"] * dense["hkv"] * dense["kv_bytes"] + 8 * b \
+        + dense.get("table_bytes", 0)
+    b_ms, b_by = bound(nbytes, visible * hq * 4 * d, FP16_OPS)
+    cold = cold_copies(torch, args16, nbytes)
+    ms = cuda_ms(fn, cold, iters=20)
+    cold32 = cold_copies(torch, args32, 2 * nbytes)
+    f32_ms = cuda_ms(fn, cold32, iters=20)
+    del cold32
+    plain_ms = cuda_ms(plain, [args16], iters=5)
+    lib = dense["library"]
+    lib_ms = cuda_ms(lambda *a: lib(*a, mask[:, None]), cold, iters=20)
+    del cold
+    print(f"  {kname} {label:22s} B={b} Hq={hq} Hkv={dense['hkv']} Sq={sq} S={s} D={d} bf16: "
+          f"bit-equal to the f32 kernel on the upcasts, rounded once; |diff| to plain "
+          f"{err:.3g} (max|out| {top:.3g}); kernel {ms:.4f} ms (f32 {f32_ms:.4f}), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {dense['library_name']} "
+          f"{lib_ms:.4f} ms")
+    return {"ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": dense["library_name"], "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "max_abs_out": top}
+
+
+def phase_bf16_kernels(torch, FA, KVQ) -> dict:
+    """B2, B5, B6 and B7 on bf16 operands at the main path's shapes:
+    llama-7b's prefill (B 4, H 32, S 512, ragged) and decode, phase 8's
+    kv8 decode (S 2,048), phase 13's paged decode (8 lanes, bs 16, MB 32,
+    shared and idle lanes) and recurrentgemma-2b's MQA decode (Hq 10, Hkv
+    1, D 256), each through :func:`bf16_kernel_case`."""
+    print("== phase 23 (kernels): B2 / B5 / B6 / B7 on bf16 operands vs the f32 kernel on "
+          "the upcasts (bit-equal) and plain (timed cold, SDPA in bf16 beside)")
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    kv8 = KVQ.KV_PRESETS["kv8"]
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    def t32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=q.shape[1] != k.shape[1])
+
+    def sdpa_deq(q, kqm, ksc, vqm, vsc, kv_len, q0, mask):
+        return sdpa(q, (kqm * ksc).to(bf), (vqm * vsc).to(bf), mask)
+
+    def sdpa_gather(q, pk, pv, table, kv_len, q0, mask):
+        return sdpa(q, FA.gather_blocks(pk, table), FA.gather_blocks(pv, table), mask)
+
+    def sdpa_gather_deq(q, kqm, ksc, vqm, vsc, table, kv_len, q0, mask):
+        k = (FA.gather_blocks(kqm, table) * FA.gather_blocks(ksc, table)).to(bf)
+        v = (FA.gather_blocks(vqm, table) * FA.gather_blocks(vsc, table)).to(bf)
+        return sdpa(q, k, v, mask)
+
+    out = {}
+    ragged, dec = [2048, 1501, 700, 37], [2047, 1500, 699, 36]
+    for model, (hq, hkv, d) in BF16_HEADS.items():
+        rg = model != "llama-7b"
+        tag = "" if not rg else f"-{model}"
+        if not rg:  # B2 at llama-7b's prefill and decode over 512 keys
+            k, v = randn(4, hkv, 512, d), randn(4, hkv, 512, d)
+            info = {"s": 512, "hkv": hkv, "kv_bytes": 2 * d, "library": lambda q, k, v, _0,
+                    _1, mask: sdpa(q, k, v, mask), "library_name": "sdpa bf16"}
+            for name, sq, lens, q0 in (("prefill", 512, [512, 300, 129, 77], [0, 0, 0, 0]),
+                                       ("decode", 1, [512, 301, 129, 18],
+                                        [511, 300, 128, 17])):
+                info["keys"] = sum(lens)
+                out[("B2", name)] = bf16_kernel_case(
+                    torch, FA, KVQ, "B2", f"{model} {name}",
+                    (randn(4, hq, sq, d), k, v, t32(lens), t32(q0)), info)
+            del k, v
+        # decode over 2,048 keys: B2 (recurrentgemma's MQA) and B5 (phase 8's)
+        k, v = randn(4, hkv, 2048, d), randn(4, hkv, 2048, d)
+        q = randn(4, hq, 1, d)
+        if rg:
+            out[("B2", "decode" + tag)] = bf16_kernel_case(
+                torch, FA, KVQ, "B2", f"{model} decode", (q, k, v, t32(ragged), t32(dec)),
+                {"s": 2048, "hkv": hkv, "kv_bytes": 2 * d, "keys": sum(ragged),
+                 "library": lambda q, k, v, _0, _1, mask: sdpa(q, k, v, mask),
+                 "library_name": "sdpa bf16"})
+        kq, vq = KVQ.quantize_kv(k, kv8), KVQ.quantize_kv(v, kv8)
+        out[("B5", "decode" + tag)] = bf16_kernel_case(
+            torch, FA, KVQ, "B5", f"{model} decode kv8",
+            (q, kq.qm, kq.scale, vq.qm, vq.scale, t32(ragged), t32(dec)),
+            {"s": 2048, "hkv": hkv, "kv_bytes": d + 4, "keys": sum(ragged),
+             "library": sdpa_deq, "library_name": "sdpa bf16 over dequantized K/V"})
+        del k, v, kq, vq
+        # paged: phase 13's lanes (llama-7b) / B=4 over 2,048 keys with
+        # shared blocks (recurrentgemma-2b), float pools then kv8 pools
+        if not rg:
+            lanes = ((209, 14, 0), (215, 14, 12), (1, 0, 0), (1, 21, 0), (330, 21, 0),
+                     (1, 0, 0), (223, 14, 12), (512, 32, 0))
+            table, kv_len = _serve_table(torch, gen, lanes, 32, 129)
+            nb, name = 129, "serve"
+        else:
+            perm = (torch.randperm(4 * 128, generator=gen, device="cuda") + 1).to(torch.int32)
+            table = perm.reshape(4, 128).clone()
+            table[1:, :20] = table[0, :20]
+            kv_len, nb, name = t32(ragged), 4 * 128 + 1, "decode" + tag
+        pk, pv = randn(nb, hkv, 16, d), randn(nb, hkv, 16, d)
+        pkq, pvq = KVQ.quantize_kv(pk, kv8), KVQ.quantize_kv(pv, kv8)
+        q = randn(table.shape[0], hq, 1, d)
+        q0 = kv_len - 1
+        keys = _distinct_keys(table, kv_len, 16)
+        common = {"s": table.shape[1] * 16, "hkv": hkv, "keys": keys,
+                  "table_bytes": table.numel() * 4}
+        out[("B6", name)] = bf16_kernel_case(
+            torch, FA, KVQ, "B6", f"{model} paged {name}",
+            (q, pk, pv, table, kv_len, q0),
+            {**common, "kv_bytes": 2 * d, "library": sdpa_gather,
+             "library_name": "gather + sdpa bf16"})
+        out[("B7", name)] = bf16_kernel_case(
+            torch, FA, KVQ, "B7", f"{model} paged {name} kv8",
+            (q, pkq.qm, pkq.scale, pvq.qm, pvq.scale, table, kv_len, q0),
+            {**common, "kv_bytes": d + 4, "library": sdpa_gather_deq,
+             "library_name": "gather + dequantize + sdpa bf16"})
+        del pk, pv, pkq, pvq
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_cross_device(torch, TM, Engine, ServeConfig, cfg) -> dict:
+    """23a: llama-7b-paper at full width and CROSS_LAYERS layers in bf16,
+    packed "precise" (drawn and packed by ``init(pack=)`` on the card, a CPU
+    copy of the packed model): a ragged generate on the CPU (plain
+    versions) and the card (kernels), float KV then kv8, the sampled
+    batches held under phase 9's rule at the bf16 near-tie bound."""
+    print(f"== phase 23a: llama-7b-paper bf16 at full width, {CROSS_LAYERS} layer(s), packed: "
+          f"CPU (plain) vs card (kernels), float KV and kv8")
+    c = cfg.replace(n_layers=CROSS_LAYERS)
+    model = TM.init(c, seed=23, device="cuda", pack="precise")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    toks, lens = _prompts(cfg.vocab_size, [5, 17, 9, 12], seed=23)
+    out = {}
+    for kv in (None, "kv8"):
+        scfg = ServeConfig(max_len=64, kv_quant=kv)
+        t0 = time.perf_counter()
+        tapes, outs = [], []
+        for m, dev in ((cpu_model, "cpu"), (model, "cuda")):
+            eng = Engine(m, scfg, device=dev)
+            tape = SampleTape(eng, cfg.vocab_size)
+            outs.append(eng.generate(toks, 8, lengths=lens))
+            tapes.append(tape.close())
+        for lg, _ in tapes[1]:
+            if not torch.isfinite(lg).all():
+                raise AssertionError("23a: non-finite bf16 logits on the card")
+        at, equal, worst = check_calls(torch, *tapes, tie_ulps=BF16_TIE_ULPS)
+        label = kv or "float KV"
+        print(f"  {label}: generate (lens {lens.tolist()}, 8 new): logits within {worst:.2e} of "
+              f"max|logit| (limit {KV_TIE}), {equal} of {len(tapes[0])} batches bit-equal, "
+              + ("every token equal" if at is None else f"near tie at batch {at}")
+              + f"; {time.perf_counter() - t0:.1f} s; card {outs[1][0].tolist()}")
+        out[label] = {"max_rel_logit_diff": worst, "equal_batches": equal,
+                      "near_tie_batch": at}
+    del model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels, cfg,
+                     float_bpt=None) -> dict:
+    """23: llama-7b-paper in bf16 at full width and depth, drawn and packed
+    by ``init(pack=)`` (peak gated), phase 5's traffic through generate and
+    the dense serve, float KV then kv8, launches counted in every decode
+    step (B1 224, B2 / B5 32), KV bytes per token (half of phase 5's float
+    figure), prefill s, ms per step, peak memory and a 2-step trace; then
+    at SPEC_LAYERS layers phase 13's paged traffic (float pool, kv8 pool;
+    paged == dense at matched batches) and a speculative serve against
+    spec_k 0."""
+    from repro_torch.serve.engine import _nbytes
+
+    n = cfg.n_layers
+    print(f"== phase 23: llama-7b-paper in bf16 at full width and depth ({n} layers), "
+          f"init(pack=): generate + serve, float KV then kv8; paged and speculation at "
+          f"{SPEC_LAYERS} layers")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    transient, (tk, tn) = pack_transient(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model = TM.init(cfg, seed=0, device="cuda", pack="precise")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    lap("init(pack=)")
+    packed = _nbytes(model)
+    layer = TM.Model(cfg.replace(n_layers=1), "meta").layers[0]
+    layer_bytes = sum(p.numel() * p.element_size() for p in layer.parameters())
+    draw_f32 = 4 * max(p.numel() for p in layer.parameters())  # one draw's f32 tensor
+    init_limit = packed + layer_bytes + draw_f32 + transient + INIT_SLACK
+    if {p.dtype for p in model.parameters()} != {torch.bfloat16}:
+        raise AssertionError(f"bf16 llama parameters of dtypes "
+                             f"{ {p.dtype for p in model.parameters()} }")
+    print(f"  init(pack=) {laps['init(pack=)']:.2f} s: {packed / 1e9:.2f} GB packed (bf16 "
+          f"embedding, head and norms); peak {init_peak / 1e9:.2f} GB = packed + "
+          f"{(init_peak - packed) / 1e9:.2f} GB; limit {init_limit / 1e9:.2f} GB = packed + "
+          f"one bf16 layer {layer_bytes / 1e9:.2f} GB + one f32 draw {draw_f32 / 1e9:.2f} GB + "
+          f"the pack's transient at K={tk} N={tn} {transient / 1e9:.2f} GB + "
+          f"{INIT_SLACK // 2**20} MiB")
+    if init_peak > init_limit:
+        raise AssertionError(f"bf16 init(pack=) peaked at {init_peak / 1e9:.2f} GB > "
+                             f"{init_limit / 1e9:.2f} GB")
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for kv in (None, "kv8"):
+        name = kv or "float"
+        attn = "packed_flash_attention" if kv else "flash_attention"
+        eng = Engine(model, ServeConfig(max_len=512, batch_size=4, kv_quant=kv),
+                     device="cuda")
+        if eng.pack_report is not None:
+            raise AssertionError("the engine repacked a packed model")
+        # ---- the bf16 main path: counts from 0 over exactly this run ----
+        _reset_launches(kernels)
+        counter = StepCounter(eng, kernels, TO)
+        tape = SampleTape(eng, cfg.vocab_size)
+        try:
+            out = eng.generate(toks, 16, lengths=lens)
+            gst = dict(eng.last_stats)
+            served = eng.serve(reqs, max_new_tokens=16)
+            torch.cuda.synchronize()
+        finally:
+            calls = tape.close()
+            steps, _, _ = counter.close()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        bf16 = {k: fn.bf16_launches for k, fn in kernels.items() if hasattr(fn, "bf16_launches")}
+        sst = dict(eng.last_stats)
+        lap(f"generate + serve, {name}")
+        step = _per_step([c for c, _ in steps], f"bf16 {name}")
+        if step != {"dsbp_fused": 7 * n, attn: n}:
+            raise AssertionError(f"bf16 {name}: a decode step launched {step}, want "
+                                 f"dsbp_fused {7 * n}, {attn} {n}")
+        if bf16[attn] != launches[attn] or launches[attn] <= 0:
+            raise AssertionError(f"bf16 {name}: {attn} launched {launches[attn]} times, "
+                                 f"{bf16[attn]} of them bf16")
+        if out.shape != (4, 16) or sorted(served) != list(range(8)) or any(
+                len(t) != 16 for t in served.values()):
+            raise AssertionError(f"bf16 {name}: generate {out.shape} / serve lengths wrong")
+        for lg, tok in calls:
+            if not torch.isfinite(lg).all() or not torch.equal(lg.argmax(-1), tok):
+                raise AssertionError(f"bf16 {name}: sampled logits not finite or not greedy")
+        bpt = sst["kv_bytes_per_token"]
+        want = 2 * n * cfg.n_kv_heads * (2 * cfg.d_head if kv is None else cfg.d_head + 4)
+        if bpt != want:
+            raise AssertionError(f"bf16 {name}: {bpt} KV bytes per token, want {want}")
+        runs[name] = {"launches": launches, "bf16_launches": bf16, "step_launches": step,
+                      "prefill_s": gst["prefill_s"],
+                      "decode_ms": 1e3 * gst["decode_s"] / gst["decode_steps"],
+                      "serve_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"],
+                      "serve_prefill_s": sst["prefill_time_s"], "kv_bytes_per_token": bpt}
+        print(f"  {name} KV: generate prefill {gst['prefill_s']:.3f} s, "
+              f"{runs[name]['decode_ms']:.2f} ms per decode step; serve {sst['decode_steps']} "
+              f"steps, {runs[name]['serve_ms']:.2f} ms/step, prefill "
+              f"{sst['prefill_time_s']:.3f} s; per decode step {step} (bf16 {attn}: "
+              f"{bf16[attn]} of {launches[attn]}); KV bytes per token {bpt:.0f}")
+        if kv is None:
+            runs[name]["trace"] = trace_decode(torch, eng, toks, lens, TRACE_FUSED, steps=2)
+            lap("trace")
+        del eng
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    half = runs["float"]["kv_bytes_per_token"] / (float_bpt or 2 * n * cfg.n_kv_heads
+                                                    * cfg.d_head * 4)
+    print(f"  peak memory {peak / 2**30:.2f} GiB; float-KV bytes per token "
+          f"{half:.3f} of the f32 model's" + (" (phase 5)" if float_bpt else ""))
+    if half != 0.5:
+        raise AssertionError(f"bf16 KV bytes per token are {half} of f32's")
+    # phase 13's paged traffic and speculation at SPEC_LAYERS layers (full
+    # width; cut for the script's time limit): paged float and kv8 pools,
+    # then spec_k 3 against spec_k 0
+    cfgs = cfg.replace(n_layers=SPEC_LAYERS)
+    smodel = TM.init(cfgs, seed=0, device="cuda", pack="precise")
+    paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
+                              smodel, cfgs, label="23 (paged)", kv_tie=BF16_KV_TIE)
+    lap("paged")
+    for name, k in (("float", "paged_flash_attention"), ("kv8", "paged_packed_flash_attention")):
+        if paged[name]["bf16_launches"][k] != paged[name]["launches"][k]:
+            raise AssertionError(f"bf16 paged {name}: {k} launched "
+                                 f"{paged[name]['launches'][k]} times, "
+                                 f"{paged[name]['bf16_launches'][k]} of them bf16")
+    base = Engine(smodel, ServeConfig(max_len=512, batch_size=4), device="cuda")
+    tape = GuardTape(base, cfg.vocab_size)
+    try:
+        ref = base.serve(reqs)
+    finally:
+        tape.close()
+    del base
+    spec = _spec_serve(torch, Engine, ServeConfig, TO, kernels, smodel, cfgs, reqs, ref,
+                       tape.rows, dict(max_len=512, batch_size=4, spec_draft_bits=4),
+                       f"bf16 dense float, {SPEC_LAYERS} layers, draft bits 4")
+    del smodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("speculation")
+    print(f"  seconds by part: {laps}")
+    return {"init_s": laps["init(pack=)"], "init_peak": init_peak, "init_limit": init_limit,
+            "packed_bytes": packed, "peak": peak, "seconds_by_part": laps, **runs,
+            "paged": {k: {"launches": v["launches"],
+                          "ms_step": 1e3 * v["stats"]["decode_time_s"]
+                          / v["stats"]["decode_steps"],
+                          "kv_bytes_per_token": v["stats"]["kv_bytes_per_token"]}
+                      for k, v in paged.items()},
+            "spec": {**{k: spec[k] for k in ("ms_round", "ms_token", "ties", "worst",
+                                             "launches")},
+                     "b1_m": {f"{step} M={m}": c for (step, m), c in spec["b1_m"].items()},
+                     "accepted_hist": spec["stats"]["accepted_hist"]}}
+
+
+def phase_bf16_families(torch, TM, Engine, ServeConfig, get_config) -> dict:
+    """23b: a bf16 generate of each other family at full width, cut in
+    depth (BF16_FAMILIES), packed "precise", on the CPU (plain versions)
+    and the card (kernels): sampled batches under phase 9's rule at the
+    bf16 near-tie bound, per codebook."""
+    out = {}
+    for arch, cut in BF16_FAMILIES.items():
+        c = get_config(arch).replace(dtype="bfloat16", quant="precise", **cut)
+        print(f"== phase 23b: {arch} bf16 at full width, {cut} (reduced), packed: CPU (plain) "
+              f"vs card (kernels)")
+        t0 = time.perf_counter()
+        model = TM.init(c, seed=23, device="cuda", pack="precise")
+        cpu_model = copy.deepcopy(model).to("cpu")
+        toks, lens, extra = frontend_inputs(c, BF16_FAMILY_LENS.get(arch, [9, 30, 17, 5]),
+                                            seed=23)
+        scfg = ServeConfig(max_len=max(lens) + c.n_image_tokens + 16, batch_size=len(lens))
+        tapes, outs = [], []
+        for m, dev in ((cpu_model, "cpu"), (model, "cuda")):
+            eng = Engine(m, scfg, device=dev)
+            tape = SampleTape(eng, 10**9)
+            outs.append(eng.generate(toks, BF16_FAMILY_NEW, extra=extra, lengths=lens))
+            tapes.append(codebook_calls(tape.close(), c))
+        for lg, _ in tapes[1]:
+            if not torch.isfinite(lg).all():
+                raise AssertionError(f"23b {arch}: non-finite bf16 logits on the card")
+        at, equal, worst = check_calls(torch, *tapes, tie_ulps=BF16_TIE_ULPS,
+                                       kv_tie=BF16_MOE_TIE if c.n_experts else KV_TIE)
+        print(f"  generate (lens {lens.tolist()}"
+              + (f" + {c.n_image_tokens} image tokens" if extra else "")
+              + f", {BF16_FAMILY_NEW} new): logits within {worst:.2e} of max|logit| (limit "
+              f"{BF16_MOE_TIE if c.n_experts else KV_TIE}), {equal} of {len(tapes[0])} batches "
+              f"bit-equal, "
+              + ("every token equal" if at is None else f"near tie at batch {at}")
+              + f"; {time.perf_counter() - t0:.1f} s")
+        out[arch] = {"max_rel_logit_diff": worst, "equal_batches": equal,
+                     "near_tie_batch": at, "cut": cut}
+        del model, cpu_model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_phases(torch, TM, Engine, ServeConfig, Request, FA, TO, KVQ, blocks, kernels,
+                get_config, float_bpt=None, kern=None) -> dict:
+    """Phase 23 whole: the bf16 kernels (``kern``, where they were timed
+    already), 23a, 23 and 23b; prints one ``bf16 (phase 23):`` JSON line and
+    returns the records."""
+    t0 = time.perf_counter()
+    cfg = get_config("llama-7b-paper").replace(dtype="bfloat16")
+    if kern is None:
+        kern = phase_bf16_kernels(torch, FA, KVQ)
+    cross = phase_bf16_cross_device(torch, TM, Engine, ServeConfig, cfg)
+    serve = phase_bf16_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
+                             cfg, float_bpt)
+    fam = phase_bf16_families(torch, TM, Engine, ServeConfig, get_config)
+    rec = {"kernels": {f"{k} {c}": v for (k, c), v in kern.items()}, "23a": cross,
+           "23": {k: v for k, v in serve.items()}, "23b": fam,
+           "seconds": time.perf_counter() - t0, "card": smi()}
+    print("bf16 (phase 23): " + json.dumps(rec, default=str))
+    return {"kernels": kern, "serve": serve, "cross": cross, "families": fam}
+
+
+def family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config) -> dict:
+    """The kernel phases of 19-23, timed before anything else shares the card."""
+    return {"19": phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale),
+            "20": moe_kernels(torch, Q, DF, per_tensor_scale),
+            "21": ssd_kernels(torch, Q, DF, per_tensor_scale),
+            "22": phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale,
+                                         frontend_configs(get_config)),
+            "23": phase_bf16_kernels(torch, FA, KVQ)}
+
+
+def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO, blocks,
+                    per_tensor_scale, get_config, kernels, run_dir: Path) -> int:
+    """The second process of a whole run: the kernels of 19-23 alone on the
+    card (the first process waits), then 4, 9 and 16a, 20 and 22 (holding
+    the lock of the memory-heavy phases), 21, 19 and 23; hands their
+    records over in ``run_dir/families.json``."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the host is shared
+    card = smi()
+    t_run = time.perf_counter()
+
+    def stamp(done: str) -> None:
+        print(f"  [{done} done at {time.perf_counter() - t_run:.0f} s of the second process; "
+              f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved]")
+
+    kern = family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config)
+    torch.cuda.synchronize()
+    (run_dir / "kernels.done").write_text("")
+    stamp("phases 19-23 (kernels)")
+    # llama-7b's one-layer CPU-vs-card checks, mostly the CPU's plain
+    # versions: beside the first process's phase 5 they leave it the card
+    cfg = get_config("llama-7b-paper")
+    models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
+    stamp("phase 4")
+    phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
+    stamp("phase 9")
+    spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
+    stamp("phase 16a")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    with heavy_phase(run_dir):
+        moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO,
+                         per_tensor_scale, get_config, card, b1=kern["20"])
+        stamp("phase 20")
+        fro = frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO,
+                              per_tensor_scale, get_config, card, rows=kern["22"])
+        stamp("phase 22")
+    ssd = ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
+                     get_config, card, b1=kern["21"])
+    stamp("phase 21")
+    hyb = hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
+                        per_tensor_scale, get_config, rows=kern["19"])
+    stamp("phase 19")
+    # phase 5's float-KV bytes per token are the first process's: it holds
+    # 23's bf16 figure to half of them
+    bf = bf16_phases(torch, TM, Engine, ServeConfig, Request, FA, TO, KVQ, blocks, kernels,
+                     get_config, kern=kern["23"])
+    stamp("phase 23")
+    bf = {**bf, "kernels": {f"{k}|{c}": v for (k, c), v in bf["kernels"].items()}}
+    (run_dir / "families.json").write_text(json.dumps(
+        {"hyb": hyb, "moe": moe, "ssd": ssd, "fro": fro, "bf": bf, "spec16a": spec16a},
+        default=_jsonable))
+    return 0
 
 
 def main() -> int:
@@ -5260,6 +5955,20 @@ def main() -> int:
                         per_tensor_scale, get_config, card)
         print(smi())
         return 0
+    all_kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+                   "packed_flash_attention": FA.packed_flash_attention,
+                   "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul,
+                   "paged_flash_attention": FA.paged_flash_attention,
+                   "paged_packed_flash_attention": FA.paged_packed_flash_attention}
+    if sys.argv[1:] == ["--bf16"]:  # phases 1 and 23: the bfloat16 dtype
+        bf16_phases(torch, TM, Engine, ServeConfig, Request, FA, TO, KVQ, blocks, all_kernels,
+                    get_config)
+        print(smi())
+        return 0
+    if sys.argv[1:2] == ["--families-worker"]:  # the second process of a whole run
+        return families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
+                               blocks, per_tensor_scale, get_config, all_kernels,
+                               Path(sys.argv[2]))
     if sys.argv[1:] == ["--mesh-only"]:  # phases 1, 5 and 14-15b, on every card there is
         model, launches, _, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request, DF,
                                                FA, get_config("llama-7b-paper"))
@@ -5270,83 +5979,95 @@ def main() -> int:
         print(smi())
         return 0
     t_run = time.perf_counter()
+    fam = None
 
     def stamp(done: str) -> None:  # the run's timeline against its time limit
-        print(f"  [{done} done at {time.perf_counter() - t_run:.0f} s]")
+        if fam is not None:
+            fam.check()
+        print(f"  [{done} done at {time.perf_counter() - t_run:.0f} s; "
+              f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved]")
 
+    # every kernel-timing phase alone on the card: this process's, then the
+    # second process's (19-23) while this one waits
     b1_rows, b1_err = phase_b1(torch, Q, DF, per_tensor_scale)
     stamp("phase 2")
     b2 = phase_b2(torch, FA)
     stamp("phase 3")
-    cfg = get_config("llama-7b-paper")
-    models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
-    stamp("phase 4")
-    model, launches, float_bpt, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request,
-                                                   DF, FA, cfg)
-    stamp("phase 5")
     b3_rows, floor_ms = phase_b3(torch, Q, QA, per_tensor_scale, build)
     stamp("phase 6")
     b4_rows, b4_err = phase_b4(torch, Q, DM, TO)
     stamp("phase 7")
     b5 = phase_b5(torch, FA, KVQ)
     stamp("phase 8")
-    phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
-    stamp("phase 9")
-    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
-               "packed_flash_attention": FA.packed_flash_attention,
-               "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul}
-    kv_launches, _, trace10 = phase_kv_serve(torch, Engine, ServeConfig, Request, TO, kernels,
-                                    model, cfg, float_bpt)
-    stamp("phase 10")
     b67 = phase_b6_b7(torch, FA, KVQ)
     stamp("phase 11")
-    phase_paged_cross_device(torch, TM, Engine, ServeConfig, Request, FA, cfg)
-    stamp("phase 12")
-    kernels.update(paged_flash_attention=FA.paged_flash_attention,
-                   paged_packed_flash_attention=FA.paged_packed_flash_attention)
-    paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
-                              model, cfg)
-    stamp("phase 13")
-    spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
-    stamp("phase 16a")
-    spec = phase_spec_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, DF,
-                            per_tensor_scale, kernels, model, cfg, paged)
-    stamp("phase 16")
-    phase_robust(torch, Engine, ServeConfig, Request, DF, FA, TO, kernels, model, cfg, ref5,
-                 paged)
-    stamp("phase 18")
-    spec_dense, spec_kv8 = spec["dense float, draft bits 4"], spec[
-        "dense kv8, draft bits 4, kv_draft_bits 6"]
+    torch.cuda.synchronize()
+    RUN_ROOT.mkdir(parents=True, exist_ok=True)
+    run_dir = Path(tempfile.mkdtemp(dir=RUN_ROOT))
+    fam = Families(run_dir)
+    try:
+        fam.wait_kernels()
+        stamp("phases 19-23 (kernels), in the second process")
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the host is shared
+        cfg = get_config("llama-7b-paper")
+        model, launches, float_bpt, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request,
+                                                       DF, FA, cfg)
+        stamp("phase 5")
+        kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+                   "packed_flash_attention": FA.packed_flash_attention,
+                   "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul}
+        kv_launches, _, trace10 = phase_kv_serve(torch, Engine, ServeConfig, Request, TO,
+                                                 kernels, model, cfg, float_bpt)
+        stamp("phase 10")
+        phase_paged_cross_device(torch, TM, Engine, ServeConfig, Request, FA, cfg)
+        stamp("phase 12")
+        kernels.update(paged_flash_attention=FA.paged_flash_attention,
+                       paged_packed_flash_attention=FA.paged_packed_flash_attention)
+        paged = phase_paged_serve(torch, Engine, ServeConfig, Request, TO, KVQ, blocks, kernels,
+                                  model, cfg)
+        stamp("phase 13")
+        spec = phase_spec_serve(torch, TM, Engine, ServeConfig, Request, TO, KVQ, DF,
+                                per_tensor_scale, kernels, model, cfg, paged)
+        stamp("phase 16")
+        phase_robust(torch, Engine, ServeConfig, Request, DF, FA, TO, kernels, model, cfg, ref5,
+                     paged)
+        stamp("phase 18")
+        spec_dense, spec_kv8 = spec["dense float, draft bits 4"], spec[
+            "dense kv8, draft bits 4, kv_draft_bits 6"]
 
-    # the policy loop, then the mesh (its ranks are processes of their own,
-    # each drawing a whole model in turn): the models above are freed first
-    ref5["launches"] = launches
-    del model, models
-    gc.collect()
-    torch.cuda.empty_cache()
-    policy_kernels = {k: kernels[k] for k in ("dsbp_fused", "flash_attention",
-                                              "packed_flash_attention")}
-    phase_policy_cross_device(torch, P, TM, Engine, ServeConfig, Request, Q.PRESETS,
-                              policy_kernels, cfg)
-    stamp("phase 17a")
-    pol = phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q, per_tensor_scale,
-                       KVQ, policy_kernels, cfg, ref5, card)
-    stamp("phase 17")
-    mixed = pol["served"]["mixed + kv4"]
-    b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
-    stamp("phase 14-15b")
-    hyb = hybrid_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
-                        per_tensor_scale, get_config)
-    stamp("phase 19")
-    moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
-                     get_config, card)
-    stamp("phase 20")
-    ssd = ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
-                     get_config, card)
-    stamp("phase 21")
-    fro = frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO,
-                          per_tensor_scale, get_config, card)
-    stamp("phase 22")
+        # the policy loop, then the mesh (its ranks are processes of their
+        # own, each drawing a whole model in turn): the models above are
+        # freed first
+        ref5["launches"] = launches
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        policy_kernels = {k: kernels[k] for k in ("dsbp_fused", "flash_attention",
+                                                  "packed_flash_attention")}
+        with heavy_phase(run_dir):
+            phase_policy_cross_device(torch, P, TM, Engine, ServeConfig, Request, Q.PRESETS,
+                                      policy_kernels, cfg)
+            stamp("phase 17a")
+            pol = phase_policy(torch, P, TM, Engine, ServeConfig, Request, DF, FA, Q,
+                               per_tensor_scale, KVQ, policy_kernels, cfg, ref5, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            stamp("phase 17")
+            b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
+            stamp("phase 14-15b")
+        mixed = pol["served"]["mixed + kv4"]
+        rec = fam.finish()
+        stamp("the second process")
+    finally:
+        fam.stop()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    hyb, moe, ssd, fro, bf, spec16a = (rec[k] for k in ("hyb", "moe", "ssd", "fro", "bf",
+                                                        "spec16a"))
+    # phase 23's bf16 llama holds half of phase 5's float-KV bytes per token
+    half = bf["serve"]["float"]["kv_bytes_per_token"] / float_bpt
+    print(f"  phase 23: bf16 float-KV bytes per token {half:.3f} of phase 5's")
+    if half != 0.5:
+        raise AssertionError(f"bf16 KV bytes per token are {half} of phase 5's")
     # each kernel's launches on the hybrid path (phase 19's counted run:
     # generate, serve, kv8, paged float and kv8 at full depth); B3, B4 and
     # B8 are not on it (dsbp_kernel and the mesh serve dense llama only)
@@ -5506,6 +6227,33 @@ def main() -> int:
     by_name["dsbp_fused"]["frontend_rows"] = fro["kernels"]["b1"]
     by_name["flash_attention"]["frontend_rows"] = fro["kernels"]["b2"]
     by_name["packed_flash_attention"]["frontend_rows"] = fro["kernels"]["b5"]
+    # the bf16 instantiations (phase 23): one entry each, launches over
+    # phase 23's counted runs (B2 / B5: generate + serve at full depth;
+    # B6 / B7: the paged serves)
+    bfs, bfk = bf["serve"], bf["kernels"]
+    for name, kname, line, case, launches in (
+            ("flash_attention", "B2", 70, "prefill",
+             bfs["float"]["bf16_launches"]["flash_attention"]),
+            ("packed_flash_attention", "B5", 166, "decode",
+             bfs["kv8"]["bf16_launches"]["packed_flash_attention"]),
+            ("paged_flash_attention", "B6", 264, "serve",
+             bfs["paged"]["float"]["launches"]["paged_flash_attention"]),
+            ("paged_packed_flash_attention", "B7", 378, "serve",
+             bfs["paged"]["kv8"]["launches"]["paged_packed_flash_attention"])):
+        row = bfk[(kname, case)]
+        kernels.append(
+            {"name": f"{name} (bf16)", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+             "launches": launches,
+             "max_abs_err": max(v["max_abs_err"] for (k, _), v in bfk.items() if k == kname),
+             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+             "library": row["library"], "f32_ms": row["f32_ms"],
+             "others": {c: {k: v[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms",
+                                                "library_ms", "max_abs_err")}
+                        for (k, c), v in bfk.items() if k == kname and c != case},
+             "shape": f"{kname} {case} (phase 23's)", "path": "phase 23 (llama-7b-paper bf16)"})
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -18,6 +18,9 @@ packed container into its four arrays plus its static fields.
   projection leaf is a dict with the keys of :func:`packed_from_jax`.
 * :func:`packed_from_jax` turns a JAX ``PackedDSBPWeight``'s children and
   static fields into the port's container.
+* :func:`to_tensor` carries one array, of any dtype the JAX trees hold
+  (bfloat16 included, bit for bit); every port leaf takes its JAX
+  leaf's dtype.
 * :func:`cache_from_jax` turns a JAX KV cache tree ``{"units": [...],
   "tail": [...]}`` into the port's per-layer list of ``{'k', 'v'}`` (KV
   layers) and ``{'h', 'conv'}`` (recurrent state) entries; a packed
@@ -36,7 +39,25 @@ from repro_torch.core.quantized import PRESETS, QuantizedMatmulConfig
 from repro_torch.kvq import PackedKVBlock
 from repro_torch.models.model import Model
 
-__all__ = ["model_from_jax", "packed_from_jax", "cache_from_jax"]
+__all__ = ["model_from_jax", "packed_from_jax", "cache_from_jax", "to_tensor", "to_numpy"]
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype, bit for bit: a bfloat16
+    array (numpy's ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses)
+    travels as its 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; a bfloat16 one as float32 values (exact),
+    since numpy has no bfloat16 of its own."""
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
 
 _PACKED_KEYS = ("ka", "kscale", "tscale", "bits")
 
@@ -52,8 +73,7 @@ def packed_from_jax(ka, kscale, tscale, bits, *, k: int, n: int,
                          f"got v{version}")
     if isinstance(cfg, str):
         cfg = PRESETS[cfg]
-    t = [torch.tensor(np.asarray(a), device=device)
-         for a in (ka, kscale, tscale, bits)]
+    t = [to_tensor(a, device) for a in (ka, kscale, tscale, bits)]
     return PackedDSBPWeight(*t, k=int(k), n=int(n), group_size=int(group_size),
                             cfg=cfg, version=version)
 
@@ -70,15 +90,19 @@ def _leaf(value, index, device):
                                version=value.get("version", LAYOUT_VERSION),
                                device=device)
     a = np.asarray(value)
-    return torch.tensor(a if index is None else a[index], device=device)
+    return to_tensor(a if index is None else a[index], device)
 
 
 def _set(module, name: str, value) -> None:
     if isinstance(value, PackedDSBPWeight):
         delattr(module, name)
         setattr(module, name, value)
-    else:
-        getattr(module, name).data.copy_(value.to(torch.float32))
+        return
+    p = getattr(module, name)
+    if p.dtype != value.dtype:
+        raise ValueError(f"{name}: the JAX leaf is {value.dtype}, the port's parameter "
+                         f"{p.dtype} (a config of another dtype?)")
+    p.data.copy_(value)
 
 
 _REC_NAMES = ("w_in", "w_gate", "w_out", "conv_w", "wa", "wx", "lam", "ba", "bx")
@@ -133,11 +157,10 @@ def _kv_leaf(value, index, device):
         qm, scale = (np.asarray(value[key]) for key in ("qm", "scale"))
         if index is not None:
             qm, scale = qm[index], scale[index]
-        return PackedKVBlock(torch.tensor(qm, device=device),
-                             torch.tensor(scale, device=device),
+        return PackedKVBlock(to_tensor(qm, device), to_tensor(scale, device),
                              bits=int(value["bits"]), fmt=str(value["fmt"]))
     a = np.asarray(value)
-    return torch.tensor(a if index is None else a[index], device=device)
+    return to_tensor(a if index is None else a[index], device)
 
 
 def cache_from_jax(cache: dict, cfg: ArchConfig, *, device) -> list[dict]:

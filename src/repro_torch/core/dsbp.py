@@ -34,11 +34,24 @@ __all__ = [
     "align_group",
     "per_row_scale",
     "dsbp_quantize",
+    "exact_dot_dtype",
 ]
 
 WEIGHT_VALID_WIDTHS = (1, 3, 5, 7)
 INPUT_WIDTH_RANGE = (1, 11)
 MAX_SHIFT = 31  # shifts saturate here, as the macro's MPU registers do
+
+
+def exact_dot_dtype(device: torch.device) -> torch.dtype:
+    """The float type the exact integer group dots run in: |A_i| <= 2**11,
+    |A_w| <= 2**7, so every product and every partial sum of a 64-deep dot
+    is an integer of magnitude <= 2**24, exact in float32 in any order.
+    float32 on the CPU while torch's float32 matmuls run at full precision
+    (half the bytes and twice the speed of float64, bit-identical), float64
+    anywhere else, exact whatever the precision setting (TF32 on the card)."""
+    if torch.device(device).type == "cpu" and torch.get_float32_matmul_precision() == "highest":
+        return torch.float32
+    return torch.float64
 
 
 @dataclasses.dataclass(frozen=True)

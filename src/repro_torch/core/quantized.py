@@ -8,9 +8,10 @@ model is :mod:`repro_torch.core.energy`):
   inputs   on the fly: FP8 -> group fields -> MPU B_i (Eq. 1) -> A_i, σ_i
   MAC      per group:  Σ_g (A_i_g · A_w_g) · σ_i[m,g] · σ_w[n,g]
 
-The integer dots are exact (|A_i| < 2**11, |A_w| < 2**7, 64-deep sums
-< 2**24); they run in float64, which holds them exactly on every device
-whatever the float32 matmul precision setting.
+The integer dots are exact (|A_i| <= 2**11, |A_w| <= 2**7, 64-deep sums
+<= 2**24); they run in the float type :func:`dsbp.exact_dot_dtype` picks,
+which holds them exactly on every device whatever the float32 matmul
+precision setting.
 """
 from __future__ import annotations
 
@@ -81,8 +82,8 @@ def grouped_int_matmul(qx: dict, qw: dict) -> torch.Tensor:
     """The INT MAC array contraction with per-group scale fusion:
     f32 (M, N) = Σ_g σx[m,g] σw[n,g] Σ_i A_x[m,g,i] A_w[n,g,i], descaled by
     the per-tensor scales."""
-    partial = torch.einsum("mgi,ngi->mng", qx["a"].to(torch.float64),
-                           qw["a"].to(torch.float64)).to(torch.float32)
+    dt = dsbp.exact_dot_dtype(qx["a"].device)
+    partial = torch.einsum("mgi,ngi->mng", qx["a"].to(dt), qw["a"].to(dt)).to(torch.float32)
     scaled = partial * (qx["scale"][:, None, :] * qw["scale"][None, :, :])
     y = scaled.sum(dim=-1)
     tx = qx["tscale"].reshape(-1, 1) if qx["tscale"].ndim else qx["tscale"]

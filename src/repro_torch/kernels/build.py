@@ -20,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "SIGNATURES", "aligned",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "SIGNATURES", "VARIANTS", "aligned",
            "build_all", "load", "plain_body", "in_plain_body"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -54,6 +54,15 @@ SIGNATURES = {
     "dsbp_matmul": ("dsbp_matmul", "dsbp_matmul_launch",
                     [P, P, P, P, P, P, L, I, I, I, P]),
 }
+# the attention kernels' bf16 instantiation: the same entry points with
+# "_bf16" before "_launch", from the same source built with -DFA_BF16
+for _name in ("flash_attention", "packed_flash_attention", "paged_flash_attention",
+              "paged_packed_flash_attention"):
+    SIGNATURES[f"{_name}_bf16"] = ("flash_attention_bf16", f"{_name}_bf16_launch",
+                                   SIGNATURES[_name][2])
+# a library built from another library's source with extra flags:
+# library -> (source csrc/<source>.cu, flags)
+VARIANTS = {"flash_attention_bf16": ("flash_attention", ["-DFA_BF16"])}
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -93,7 +102,8 @@ def build_all() -> dict[str, Path]:
         procs = {}
         for name, p in todo.items():
             tmp = p.with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            src, flags = VARIANTS.get(name, (name, []))
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{src}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp)
@@ -102,7 +112,7 @@ def build_all() -> dict[str, Path]:
             out, _ = proc.communicate()
             reports[name] = out
             if proc.returncode != 0:
-                failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{out}")
+                failed.append(f"--- nvcc {name} (exit {proc.returncode})\n{out}")
             else:
                 os.replace(tmp, paths[name])
         if failed:

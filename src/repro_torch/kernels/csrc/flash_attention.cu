@@ -91,9 +91,27 @@
 // heads or of the batch rows gives the same bits as the matching slice of
 // the whole call.  q, K and V 16-byte aligned.
 //
+// bfloat16 (the models' dtype at full size): every kernel is also
+// instantiated for q, o and float K/V in bf16 (template T; B5 / B7 keep
+// their int8 mantissas and f32 scales), in a library of its own built from
+// this source with -DFA_BF16 (one element type per build: the two build in
+// parallel).  The TPU kernels load bf16 q, k, v,
+// cast them to f32, scale q in f32 and round once, to the output's dtype,
+// where they write (flash_attention.py :38-40, :64 and the other bodies'
+// twins).  So does this source: a bf16 element is widened exactly (4 of
+// them a load4, 8 bytes), K/V tiles are staged as bf16 and widened into
+// the f32 tile as the int8 mantissas are (prefill), every f32 operation
+// and its order are those of the f32 instantiation, and the output (or the
+// split-KV merge's) is rounded once with __float2bfloat16_rn.  A bf16 call
+// therefore equals the f32 call on the exact upcasts of its operands, its
+// output rounded once, bit for bit; it moves half the K/V bytes (2 B an
+// element).  Still the f32 FMA pipe: a tensor-core (wgmma) design is later
+// work.
+//
 // Any D above 256 (no config of either package has one; the reference's
 // kernels take it): a third kernel, one warp per query row with the head
 // dim strided over the lanes (row_kernel, below), for every policy.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -155,6 +173,23 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+using bf16 = __nv_bfloat16;
+
+// one element as f32 (exact for every element type) and an f32 value as
+// an element (bf16: rounded to nearest even, once)
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ int8_t from_f<int8_t>(float x) { return (int8_t)x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
 __device__ __forceinline__ float4 load4(const float* p) { return *(const float4*)p; }
 
 __device__ __forceinline__ float4 load4(const int8_t* p) {
@@ -162,15 +197,25 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
 
-// columns c .. c+3 of a row of D floats that need not be 16-byte aligned
-// (zero past D)
-__device__ __forceinline__ float4 load4_any(const float* row, int c, int D) {
-  return make_float4(c < D ? row[c] : 0.f, c + 1 < D ? row[c + 1] : 0.f,
-                     c + 2 < D ? row[c + 2] : 0.f, c + 3 < D ? row[c + 3] : 0.f);
+// 4 bf16 (8 bytes) widened to a float4
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *(const uint2*)p;
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// columns c .. c+3 of a row of D floats: one 16-byte store where D % 16 ==
-// 0 (vec), else the columns below D one by one
+// columns c .. c+3 of a row of D elements that need not be aligned (zero
+// past D)
+template <typename T>
+__device__ __forceinline__ float4 load4_any(const T* row, int c, int D) {
+  return make_float4(c < D ? to_f(row[c]) : 0.f, c + 1 < D ? to_f(row[c + 1]) : 0.f,
+                     c + 2 < D ? to_f(row[c + 2]) : 0.f, c + 3 < D ? to_f(row[c + 3]) : 0.f);
+}
+
+// columns c .. c+3 of a row of D elements: one 16-byte (f32) or 8-byte
+// (bf16) store where D % 16 == 0 (vec), else the columns below D one by
+// one; a bf16 row takes each value rounded once
 __device__ __forceinline__ void store4(float* row, int c, int D, bool vec, float4 t) {
   if (vec) {
     *(float4*)(row + c) = t;
@@ -180,6 +225,22 @@ __device__ __forceinline__ void store4(float* row, int c, int D, bool vec, float
   if (c + 1 < D) row[c + 1] = t.y;
   if (c + 2 < D) row[c + 2] = t.z;
   if (c + 3 < D) row[c + 3] = t.w;
+}
+
+__device__ __forceinline__ void store4(bf16* row, int c, int D, bool vec, float4 t) {
+  if (vec) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(t.x, t.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(t.z, t.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&a);
+    u.y = *reinterpret_cast<const unsigned*>(&b);
+    *(uint2*)(row + c) = u;
+    return;
+  }
+  if (c < D) row[c] = __float2bfloat16_rn(t.x);
+  if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(t.y);
+  if (c + 2 < D) row[c + 2] = __float2bfloat16_rn(t.z);
+  if (c + 3 < D) row[c + 3] = __float2bfloat16_rn(t.w);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
@@ -212,7 +273,8 @@ __device__ __forceinline__ long long key_row(int j, long long base, const int* t
 // Start the loads of keys k0 .. k0+nk-1 (those < k_hi; the rest zero-filled)
 // into K/V tiles of row strides ks_ / vs_ elements, and their pow2 scales
 // (PACKED).  Rows of D elements: 16-byte cp.async where D % 16 == 0 (vec),
-// else 4-byte cp.async (f32) or byte copies (int8), columns below D only.
+// else 4-byte cp.async (f32) or element copies (int8, bf16), columns below
+// D only.
 template <typename KV, bool PACKED, bool PAGED>
 __device__ __forceinline__ void load_tile(KV* Kt, KV* Vt, int ks_, int vs_, float* Ksc,
                                           float* Vsc, const KV* k, const KV* v,
@@ -241,8 +303,8 @@ __device__ __forceinline__ void load_tile(KV* Kt, KV* Vt, int ks_, int vs_, floa
         cp_async4(Kt + j * ks_ + c, k + row * D + c, ok);
         cp_async4(Vt + j * vs_ + c, v + row * D + c, ok);
       } else {
-        Kt[j * ks_ + c] = ok ? k[row * D + c] : KV(0);
-        Vt[j * vs_ + c] = ok ? v[row * D + c] : KV(0);
+        Kt[j * ks_ + c] = ok ? k[row * D + c] : from_f<KV>(0.f);
+        Vt[j * vs_ + c] = ok ? v[row * D + c] : from_f<KV>(0.f);
       }
     }
   }
@@ -264,7 +326,7 @@ __device__ __forceinline__ void zero_pads(T* t, int rows, int stride, int D, int
   const int w = pad16(D) - D;
   for (int i = tid; i < rows * w; i += nthreads) {
     const int r = i / w;
-    t[r * stride + D + (i - r * w)] = T(0);
+    t[r * stride + D + (i - r * w)] = from_f<T>(0.f);
   }
 }
 
@@ -278,9 +340,13 @@ __device__ __forceinline__ int last_key(int len, int p0, int q_end, int causal) 
 
 // ---------------------------------------------------------------- decode
 
-template <bool PACKED, int DC>
+// the K/V element type: int8 mantissas (PACKED) or q's own type
+template <typename T, bool PACKED>
+using KVT = typename std::conditional<PACKED, int8_t, T>::type;
+
+template <typename T, bool PACKED, int DC>
 constexpr size_t split_smem(int Dp) {
-  using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  using KV = KVT<T, PACKED>;
   // K, V [2][DEC_TILE][Dp], then (PACKED) their scales [2][DEC_TILE] each
   return 4 * (size_t)Dims<DC>::DEC_TILE * Dp * sizeof(KV) +
          (PACKED ? 16 * Dims<DC>::DEC_TILE : 0);
@@ -292,15 +358,15 @@ constexpr size_t split_smem(int Dp) {
 // query row and partial, acc (Dp floats) and then, after every row's acc,
 // (m, l).  A block serves R query rows: 1 where a KV head has one (MHA
 // decode), RMAX otherwise; a row's arithmetic is the same either way.
-template <bool PACKED, bool PAGED, int R, int DC>
+template <typename T, bool PACKED, bool PAGED, int R, int DC>
 __global__ void __launch_bounds__(DEC_THREADS)
-split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
+split_kernel(const T* __restrict__ q, const void* __restrict__ k_in,
              const float* __restrict__ k_scale, const void* __restrict__ v_in,
              const float* __restrict__ v_scale, const int* __restrict__ table,
              const int* __restrict__ kv_len, const int* __restrict__ q_pos0,
              float* __restrict__ part, int Hq, int Hkv, int Sq, int S, int D, int bs,
              int causal, int window, float scale, int nparts) {
-  using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  using KV = KVT<T, PACKED>;
   constexpr int TILE = Dims<DC>::DEC_TILE;
   constexpr int KPW = Dims<DC>::DEC_KPW;
   constexpr int NC = Dims<DC>::NC;
@@ -350,7 +416,7 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     for (int c = 0; c < NC; ++c) {
       qv[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < nr && dl[c]) {
-        const float* qr = q + orow[r] * D;
+        const T* qr = q + orow[r] * D;
         const int col = 4 * lane + 128 * c;
         qv[r][c] = scale4(vec ? load4(qr + col) : load4_any(qr, col, D), scale);
       }
@@ -479,10 +545,10 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
 }
 
 // One warp per query row: the row's partials merged in partial order.
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(128)
 merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_len,
-             const int* __restrict__ q_pos0, float* __restrict__ o, int B, int Hq, int Sq,
+             const int* __restrict__ q_pos0, T* __restrict__ o, int B, int Hq, int Sq,
              int S, int D, int causal, int nparts) {
   const int lane = threadIdx.x & 31;
   const int Dp = pad16(D);
@@ -528,28 +594,38 @@ merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_len,
 
 // --------------------------------------------------------------- prefill
 
-template <bool PACKED, int DC>
-constexpr size_t tile_smem(int Dp) {
-  using T = Dims<DC>;
-  // Qs [PBQ][Dp+4], Ps [PBQ][PS_STRIDE], then
-  // f32:    K [2][PBK][Dp+4], V [2][PBK][Dp]
-  // PACKED: K, V f32 [PBK][Dp+4] / [PBK][Dp] (widened), int8 K, V [2][PBK][Dp],
-  //         scales [2][PBK] each
-  return 4 * ((size_t)PBQ * (Dp + 4) + (size_t)PBQ * T::PS_STRIDE) +
-         (PACKED ? 4 * ((size_t)T::PBK * (Dp + 4) + (size_t)T::PBK * Dp) +
-                       2 * 2 * (size_t)T::PBK * Dp + 4 * 2 * 2 * T::PBK
-                 : 4 * (2 * (size_t)T::PBK * (Dp + 4) + 2 * (size_t)T::PBK * Dp));
+// K/V staged in another type than f32 (int8 mantissas, bf16) and widened
+// into an f32 tile before the products
+template <typename T, bool PACKED>
+__host__ __device__ constexpr bool widened() {
+  return !std::is_same<KVT<T, PACKED>, float>::value;
 }
 
-template <bool PACKED, bool PAGED, int DC>
+template <typename T, bool PACKED, int DC>
+constexpr size_t tile_smem(int Dp) {
+  using D_ = Dims<DC>;
+  // Qs [PBQ][Dp+4], Ps [PBQ][PS_STRIDE], then
+  // f32 K/V:  K [2][PBK][Dp+4], V [2][PBK][Dp]
+  // widened:  K, V f32 [PBK][Dp+4] / [PBK][Dp], staged K, V [2][PBK][Dp]
+  //           (int8 or bf16), then (PACKED) scales [2][PBK] each
+  return 4 * ((size_t)PBQ * (Dp + 4) + (size_t)PBQ * D_::PS_STRIDE) +
+         (widened<T, PACKED>()
+              ? 4 * ((size_t)D_::PBK * (Dp + 4) + (size_t)D_::PBK * Dp) +
+                    2 * 2 * (size_t)D_::PBK * Dp * sizeof(KVT<T, PACKED>) +
+                    (PACKED ? 4 * 2 * 2 * D_::PBK : 0)
+              : 4 * (2 * (size_t)D_::PBK * (Dp + 4) + 2 * (size_t)D_::PBK * Dp));
+}
+
+template <typename T, bool PACKED, bool PAGED, int DC>
 __global__ void __launch_bounds__(P_THREADS)
-tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
+tile_kernel(const T* __restrict__ q, const void* __restrict__ k_in,
             const float* __restrict__ k_scale, const void* __restrict__ v_in,
             const float* __restrict__ v_scale, const int* __restrict__ table,
             const int* __restrict__ kv_len, const int* __restrict__ q_pos0,
-            float* __restrict__ o, int Hq, int Hkv, int Sq, int S, int D, int bs, int causal,
+            T* __restrict__ o, int Hq, int Hkv, int Sq, int S, int D, int bs, int causal,
             int window, float scale) {
-  using KV = typename std::conditional<PACKED, int8_t, float>::type;
+  using KV = KVT<T, PACKED>;
+  constexpr bool WIDEN = widened<T, PACKED>();
   constexpr int PBK = Dims<DC>::PBK;
   constexpr int KJ = Dims<DC>::KJ;
   constexpr int OC = Dims<DC>::OC;
@@ -560,19 +636,21 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   const int QS = Dp + 4;  // Q and K row strides (floats)
   float* Qs = (float*)smem;
   float* Ps = Qs + PBQ * QS;
-  float* Kf = Ps + PBQ * PS_STRIDE;  // f32 K tiles (PACKED: the widened one)
-  float* Vf = Kf + (PACKED ? 1 : 2) * PBK * QS;
+  float* Kf = Ps + PBQ * PS_STRIDE;  // f32 K tiles (WIDEN: the widened one)
+  float* Vf = Kf + (WIDEN ? 1 : 2) * PBK * QS;
   KV* Kst;  // the staging ring the loads fill
   KV* Vst;
   int kst_stride;
   float* Ksc = nullptr;
   float* Vsc = nullptr;
-  if (PACKED) {
-    int8_t* k8 = (int8_t*)(Vf + PBK * Dp);
-    Kst = (KV*)k8;
-    Vst = (KV*)(k8 + 2 * PBK * Dp);
-    Ksc = (float*)(k8 + 4 * PBK * Dp);
-    Vsc = Ksc + 2 * PBK;
+  if (WIDEN) {
+    KV* k8 = (KV*)(Vf + PBK * Dp);
+    Kst = k8;
+    Vst = k8 + 2 * PBK * Dp;
+    if (PACKED) {
+      Ksc = (float*)(k8 + 4 * PBK * Dp);
+      Vsc = Ksc + 2 * PBK;
+    }
     kst_stride = Dp;
   } else {
     Kst = (KV*)Kf;
@@ -593,8 +671,8 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   const KV* v = (const KV*)v_in;
   const long long base = PAGED ? 0 : ((long long)b * Hkv + hk) * S;
   const int* tb = PAGED ? table + (size_t)b * (S / bs) : nullptr;
-  const float* qb = q + ((size_t)b * Hq + h) * (size_t)Sq * D;
-  float* ob = o + ((size_t)b * Hq + h) * (size_t)Sq * D;
+  const T* qb = q + ((size_t)b * Hq + h) * (size_t)Sq * D;
+  T* ob = o + ((size_t)b * Hq + h) * (size_t)Sq * D;
 
   if (!vec) {
     zero_pads(Kst, 2 * PBK, kst_stride, D, tid, P_THREADS);
@@ -615,7 +693,7 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     const int c = (i - r * d4) * 4;
     float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < Sq) {
-      const float* qr = qb + (size_t)(q0 + r) * D;
+      const T* qr = qb + (size_t)(q0 + r) * D;
       t = scale4(vec ? load4(qr + c) : load4_any(qr, c, D), scale);
     }
     *(float4*)(Qs + r * QS + c) = t;
@@ -648,9 +726,9 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     const int cb = t & 1;
     const float* Kt;
     const float* Vt;
-    if (PACKED) {  // widen the int8 mantissas into the f32 tile
-      const int8_t* k8 = (const int8_t*)Kst + cb * PBK * Dp;
-      const int8_t* v8 = (const int8_t*)Vst + cb * PBK * Dp;
+    if (WIDEN) {  // widen the int8 mantissas (or bf16 K/V) into the f32 tile
+      const KV* k8 = Kst + cb * PBK * Dp;
+      const KV* v8 = Vst + cb * PBK * Dp;
       for (int i = tid; i < PBK * d4; i += P_THREADS) {
         const int j = i / d4;
         const int c = (i - j * d4) * 4;
@@ -759,7 +837,7 @@ tile_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
     const int r = q0 + 4 * ty + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* orow = ob + (size_t)r * D;
+    T* orow = ob + (size_t)r * D;
 #pragma unroll
     for (int c = 0; c < OC; ++c)
       if (cok[c])
@@ -801,15 +879,18 @@ __host__ inline int row_warps(int D, bool* smem) {
   return fit >= ROW_WARPS || !*smem ? ROW_WARPS : (int)fit;
 }
 
-template <bool PACKED, bool PAGED>
+// acc_g: the f32 accumulator rows in device memory where shared memory
+// holds none (the output itself for f32; a scratch of B*Hq*Sq*D floats the
+// wrapper allocates for bf16).
+template <typename T, bool PACKED, bool PAGED>
 __global__ void __launch_bounds__(32 * ROW_WARPS)
-row_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
+row_kernel(const T* __restrict__ q, const void* __restrict__ k_in,
            const float* __restrict__ k_scale, const void* __restrict__ v_in,
            const float* __restrict__ v_scale, const int* __restrict__ table,
-           const int* __restrict__ kv_len, const int* __restrict__ q_pos0, float* __restrict__ o,
-           int B, int Hq, int Hkv, int Sq, int S, int D, int bs, int causal, int window,
-           float scale, int smem) {
-  using KV = typename std::conditional<PACKED, int8_t, float>::type;
+           const int* __restrict__ kv_len, const int* __restrict__ q_pos0, T* __restrict__ o,
+           float* acc_g, int B, int Hq, int Hkv, int Sq, int S, int D, int bs, int causal,
+           int window, float scale, int smem) {
+  using KV = KVT<T, PACKED>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -826,12 +907,12 @@ row_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
   const KV* v = (const KV*)v_in;
   const long long base = PAGED ? 0 : ((long long)b * Hkv + hk) * S;
   const int* tb = PAGED ? table + (size_t)b * (S / bs) : nullptr;
-  const float* qr = q + row * D;
-  float* orow = o + row * D;
+  const T* qr = q + row * D;
+  T* orow = o + row * D;
   float* qs = smem ? (float*)smem_raw + (size_t)warp * 2 * D : nullptr;
-  float* acc = smem ? qs + D : orow;  // each lane touches its own columns only
+  float* acc = smem ? qs + D : acc_g + row * D;  // each lane touches its own columns only
   for (int d = lane; d < D; d += 32) {
-    if (smem) qs[d] = __fmul_rn(qr[d], scale);
+    if (smem) qs[d] = __fmul_rn(to_f(qr[d]), scale);
     acc[d] = 0.f;
   }
 
@@ -849,10 +930,10 @@ row_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
       s[j] = 0.f;
     }
     for (int d = lane; d < D; d += 32) {
-      const float qd = smem ? qs[d] : __fmul_rn(qr[d], scale);
+      const float qd = smem ? qs[d] : __fmul_rn(to_f(qr[d]), scale);
 #pragma unroll
       for (int j = 0; j < ROW_KEYS; ++j)
-        if (ok[j]) s[j] = fmaf(qd, (float)k[kr[j] * D + d], s[j]);
+        if (ok[j]) s[j] = fmaf(qd, to_f(k[kr[j] * D + d]), s[j]);
     }
     float mt = NEG_INF;
 #pragma unroll
@@ -880,30 +961,40 @@ row_kernel(const float* __restrict__ q, const void* __restrict__ k_in,
       float a = __fmul_rn(acc[d], alpha);
 #pragma unroll
       for (int j = 0; j < ROW_KEYS; ++j)
-        if (ok[j]) a = fmaf(pv[j], (float)v[kr[j] * D + d], a);
+        if (ok[j]) a = fmaf(pv[j], to_f(v[kr[j] * D + d]), a);
       acc[d] = a;
     }
   }
   const float den = fmaxf(l, 1e-30f);
-  for (int d = lane; d < D; d += 32) orow[d] = __fdiv_rn(acc[d], den);
+  for (int d = lane; d < D; d += 32) orow[d] = from_f<T>(__fdiv_rn(acc[d], den));
 }
 
-template <bool PACKED, bool PAGED>
+template <typename T, bool PACKED, bool PAGED>
 int launch_rows(const void* q, const void* k, const void* ks, const void* v, const void* vs,
-                const void* table, const void* kv_len, const void* q_pos0, void* o, int B,
-                int Hq, int Hkv, int Sq, int S, int D, int bs, int causal, int window,
-                float scale, cudaStream_t st) {
+                const void* table, const void* kv_len, const void* q_pos0, void* o, void* part,
+                long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int bs,
+                int causal, int window, float scale, cudaStream_t st) {
   bool smem = false;
   const int warps = row_warps(D, &smem);
   const size_t bytes = smem ? (size_t)warps * 8 * D : 0;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(row_kernel<PACKED, PAGED>,
+      cudaFuncSetAttribute(row_kernel<T, PACKED, PAGED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
   const long long nrows = (long long)B * Hq * Sq;
-  row_kernel<PACKED, PAGED><<<(unsigned)((nrows + warps - 1) / warps), 32 * warps, bytes, st>>>(
-      (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
-      (const int*)kv_len, (const int*)q_pos0, (float*)o, B, Hq, Hkv, Sq, S, D, bs, causal,
+  float* acc_g = nullptr;  // f32 accumulators in device memory (no shared memory)
+  if (!smem) {
+    if (std::is_same<T, float>::value) {
+      acc_g = (float*)o;
+    } else {
+      if (part == nullptr || part_floats < nrows * D) return (int)cudaErrorInvalidValue;
+      acc_g = (float*)part;
+    }
+  }
+  row_kernel<T, PACKED, PAGED><<<(unsigned)((nrows + warps - 1) / warps), 32 * warps, bytes,
+                                 st>>>(
+      (const T*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
+      (const int*)kv_len, (const int*)q_pos0, (T*)o, acc_g, B, Hq, Hkv, Sq, S, D, bs, causal,
       window, scale, smem ? 1 : 0);
   return (int)cudaGetLastError();
 }
@@ -912,30 +1003,30 @@ int launch_rows(const void* q, const void* k, const void* ks, const void* v, con
 
 // above 48 KB of shared memory only after opting in: once per kernel, for
 // the class's largest D
-template <bool PACKED, bool PAGED, int DC>
+template <typename T, bool PACKED, bool PAGED, int DC>
 cudaError_t opt_in() {
   static const cudaError_t err = [] {
-    const int split = (int)split_smem<PACKED, DC>(DC);
-    cudaError_t e = cudaFuncSetAttribute(split_kernel<PACKED, PAGED, 1, DC>,
+    const int split = (int)split_smem<T, PACKED, DC>(DC);
+    cudaError_t e = cudaFuncSetAttribute(split_kernel<T, PACKED, PAGED, 1, DC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, split);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(split_kernel<PACKED, PAGED, RMAX, DC>,
+      e = cudaFuncSetAttribute(split_kernel<T, PACKED, PAGED, RMAX, DC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, split);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(tile_kernel<PACKED, PAGED, DC>,
+      e = cudaFuncSetAttribute(tile_kernel<T, PACKED, PAGED, DC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)tile_smem<PACKED, DC>(DC));
+                               (int)tile_smem<T, PACKED, DC>(DC));
     return e;
   }();
   return err;
 }
 
-template <bool PACKED, bool PAGED, int DC>
+template <typename T, bool PACKED, bool PAGED, int DC>
 int launch_dc(const void* q, const void* k, const void* ks, const void* v, const void* vs,
               const void* table, const void* kv_len, const void* q_pos0, void* o, void* part,
               long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int bs,
               int causal, int window, float scale, cudaStream_t st) {
-  const cudaError_t attr = opt_in<PACKED, PAGED, DC>();
+  const cudaError_t attr = opt_in<T, PACKED, PAGED, DC>();
   if (attr != cudaSuccess) return (int)attr;
   const int Dp = pad16(D);
   if (Sq <= DEC_MAX_SQ) {
@@ -946,28 +1037,28 @@ int launch_dc(const void* q, const void* k, const void* ks, const void* v, const
     const int rows = Hq / Hkv * Sq;  // query rows per KV head
     const int r = rows == 1 ? 1 : RMAX;
     const dim3 grid(nsplit, Hkv * ((rows + r - 1) / r), B);
-    (r == 1 ? split_kernel<PACKED, PAGED, 1, DC> : split_kernel<PACKED, PAGED, RMAX, DC>)
-        <<<grid, DEC_THREADS, split_smem<PACKED, DC>(Dp), st>>>(
-            (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
+    (r == 1 ? split_kernel<T, PACKED, PAGED, 1, DC> : split_kernel<T, PACKED, PAGED, RMAX, DC>)
+        <<<grid, DEC_THREADS, split_smem<T, PACKED, DC>(Dp), st>>>(
+            (const T*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
             (const int*)kv_len, (const int*)q_pos0, (float*)part, Hq, Hkv, Sq, S, D, bs,
             causal, window, scale, nparts);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const long long nrows = (long long)B * Hq * Sq;
-    merge_kernel<Dims<DC>::NC><<<(unsigned)((nrows + 3) / 4), 128, 0, st>>>(
-        (const float*)part, (const int*)kv_len, (const int*)q_pos0, (float*)o, B, Hq, Sq, S,
+    merge_kernel<T, Dims<DC>::NC><<<(unsigned)((nrows + 3) / 4), 128, 0, st>>>(
+        (const float*)part, (const int*)kv_len, (const int*)q_pos0, (T*)o, B, Hq, Sq, S,
         D, causal, nparts);
   } else {
-    tile_kernel<PACKED, PAGED, DC>
-        <<<dim3((Sq + PBQ - 1) / PBQ, Hq, B), P_THREADS, tile_smem<PACKED, DC>(Dp), st>>>(
-            (const float*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
-            (const int*)kv_len, (const int*)q_pos0, (float*)o, Hq, Hkv, Sq, S, D, bs, causal,
+    tile_kernel<T, PACKED, PAGED, DC>
+        <<<dim3((Sq + PBQ - 1) / PBQ, Hq, B), P_THREADS, tile_smem<T, PACKED, DC>(Dp), st>>>(
+            (const T*)q, k, (const float*)ks, v, (const float*)vs, (const int*)table,
+            (const int*)kv_len, (const int*)q_pos0, (T*)o, Hq, Hkv, Sq, S, D, bs, causal,
             window, scale);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool PACKED, bool PAGED>
+template <typename T, bool PACKED, bool PAGED>
 int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
            const void* table, const void* kv_len, const void* q_pos0, void* o, void* part,
            long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int bs,
@@ -977,59 +1068,73 @@ int launch(const void* q, const void* k, const void* ks, const void* v, const vo
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D > DMAX)
-    return launch_rows<PACKED, PAGED>(q, k, ks, v, vs, table, kv_len, q_pos0, o, B, Hq, Hkv,
-                                      Sq, S, D, bs, causal, window, scale, st);
-  return D <= 128 ? launch_dc<PACKED, PAGED, 128>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
+    return launch_rows<T, PACKED, PAGED>(q, k, ks, v, vs, table, kv_len, q_pos0, o, part,
+                                         part_floats, B, Hq, Hkv, Sq, S, D, bs, causal,
+                                         window, scale, st);
+  return D <= 128 ? launch_dc<T, PACKED, PAGED, 128>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
                                                   part, part_floats, B, Hq, Hkv, Sq, S, D, bs,
                                                   causal, window, scale, st)
-                  : launch_dc<PACKED, PAGED, 256>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
+                  : launch_dc<T, PACKED, PAGED, 256>(q, k, ks, v, vs, table, kv_len, q_pos0, o,
                                                   part, part_floats, B, Hq, Hkv, Sq, S, D, bs,
                                                   causal, window, scale, st);
 }
 
+// The element type of q, o and float K/V this library is built for:
+// float, or bf16 where the build defines FA_BF16 (build.py compiles this
+// source twice, into two libraries, in parallel; the bf16 one exports the
+// same entry points with "_bf16" before "_launch").
+#ifdef FA_BF16
+using Elem = bf16;
+#define FA_ENTRY(name) name##_bf16_launch
+#else
+using Elem = float;
+#define FA_ENTRY(name) name##_launch
+#endif
+
 }  // namespace
 
 // part: f32 scratch for the decode variant's partials (Sq <= 8), at least
-// B*Hq*Sq * 4*ceil(S/128) * (pad16(D)+2) floats; unused (may be null)
-// otherwise.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* kv_len, const void* q_pos0, void* o,
-                                      void* part, long long part_floats, int B, int Hq,
-                                      int Hkv, int Sq, int S, int D, int causal, int window,
-                                      float scale, void* stream) {
-  return launch<false, false>(q, k, nullptr, v, nullptr, nullptr, kv_len, q_pos0, o, part,
-                              part_floats, B, Hq, Hkv, Sq, S, D, 1, causal, window, scale,
-                              stream);
+// B*Hq*Sq * 4*ceil(S/128) * (pad16(D)+2) floats; for the row kernel of a
+// bf16 q with D > 29056 (no row in shared memory), B*Hq*Sq*D floats;
+// unused (may be null) otherwise.
+extern "C" int FA_ENTRY(flash_attention)(const void* q, const void* k, const void* v,
+                                         const void* kv_len, const void* q_pos0, void* o,
+                                         void* part, long long part_floats, int B, int Hq,
+                                         int Hkv, int Sq, int S, int D, int causal, int window,
+                                         float scale, void* stream) {
+  return launch<Elem, false, false>(q, k, nullptr, v, nullptr, nullptr, kv_len, q_pos0, o, part,
+                                    part_floats, B, Hq, Hkv, Sq, S, D, 1, causal, window, scale,
+                                    stream);
 }
 
-extern "C" int packed_flash_attention_launch(
+extern "C" int FA_ENTRY(packed_flash_attention)(
     const void* q, const void* k_qm, const void* k_scale, const void* v_qm,
     const void* v_scale, const void* kv_len, const void* q_pos0, void* o, void* part,
     long long part_floats, int B, int Hq, int Hkv, int Sq, int S, int D, int causal,
     int window, float scale, void* stream) {
-  return launch<true, false>(q, k_qm, k_scale, v_qm, v_scale, nullptr, kv_len, q_pos0, o,
-                             part, part_floats, B, Hq, Hkv, Sq, S, D, 1, causal, window,
-                             scale, stream);
+  return launch<Elem, true, false>(q, k_qm, k_scale, v_qm, v_scale, nullptr, kv_len, q_pos0, o,
+                                   part, part_floats, B, Hq, Hkv, Sq, S, D, 1, causal, window,
+                                   scale, stream);
 }
 
-// B6: pools (NB,Hkv,bs,D) f32, table (B,MB) int32
-extern "C" int paged_flash_attention_launch(
+// B6: pools (NB,Hkv,bs,D) of q's type, table (B,MB) int32
+extern "C" int FA_ENTRY(paged_flash_attention)(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* kv_len, const void* q_pos0, void* o, void* part, long long part_floats,
     int B, int Hq, int Hkv, int Sq, int MB, int bs, int D, int causal, int window,
     float scale, void* stream) {
-  return launch<false, true>(q, k_pool, nullptr, v_pool, nullptr, table, kv_len, q_pos0, o,
-                             part, part_floats, B, Hq, Hkv, Sq, MB * bs, D, bs, causal,
-                             window, scale, stream);
+  return launch<Elem, false, true>(q, k_pool, nullptr, v_pool, nullptr, table, kv_len, q_pos0, o,
+                                   part, part_floats, B, Hq, Hkv, Sq, MB * bs, D, bs, causal,
+                                   window, scale, stream);
 }
 
 // B7: pools qm (NB,Hkv,bs,D) int8 and scale (NB,Hkv,bs,1) f32
-extern "C" int paged_packed_flash_attention_launch(
+extern "C" int FA_ENTRY(paged_packed_flash_attention)(
     const void* q, const void* k_qm, const void* k_scale, const void* v_qm,
     const void* v_scale, const void* table, const void* kv_len, const void* q_pos0, void* o,
     void* part, long long part_floats, int B, int Hq, int Hkv, int Sq, int MB, int bs, int D,
     int causal, int window, float scale, void* stream) {
-  return launch<true, true>(q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0, o, part,
-                            part_floats, B, Hq, Hkv, Sq, MB * bs, D, bs, causal, window,
-                            scale, stream);
+  return launch<Elem, true, true>(q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0, o,
+                                  part, part_floats, B, Hq, Hkv, Sq, MB * bs, D, bs, causal,
+                                  window, scale, stream);
 }

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dsbp import MAX_SHIFT, DSBPConfig
+from repro_torch.core.dsbp import MAX_SHIFT, DSBPConfig, exact_dot_dtype
 from repro_torch.core.formats import exp2i, get_format
 
 from . import build
@@ -113,9 +113,10 @@ def dsbp_fused_plain(x, ts, ka, kscale, tw, cfg: DSBPConfig) -> torch.Tensor:
     a, s, _ = quant_align_tile(x.to(torch.float32) * ts, cfg)
     sx = s / ts                                  # (M, ng) folded input scales
     sw = kscale / tw.reshape(1, n)               # (ng, N) folded weight scales
-    # float64 holds every |dot| < 2**24 exactly on any device and BLAS
-    dots = torch.bmm(a.reshape(m, ng, GROUP).transpose(0, 1).to(torch.float64),
-                     ka.reshape(ng, GROUP, n).to(torch.float64)).to(torch.float32)
+    # every |dot| <= 2**24: exact in the type exact_dot_dtype picks
+    dt = exact_dot_dtype(x.device)
+    dots = torch.bmm(a.reshape(m, ng, GROUP).transpose(0, 1).to(dt),
+                     ka.reshape(ng, GROUP, n).to(dt)).to(torch.float32)
     y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
     for g in range(ng):
         y = y + (dots[g] * sx[:, g:g + 1]) * sw[g:g + 1, :]

@@ -2,7 +2,7 @@
 plain PyTorch versions, launch counts.
 
 ``flash_attention(q, k, v, kv_len, q_pos0, causal=, window=)`` with q
-(B, Hq, Sq, D), k/v (B, Hkv, S, D) f32 (GQA when Hkv < Hq), ``kv_len``
+(B, Hq, Sq, D), k/v (B, Hkv, S, D) f32 or all bf16 (GQA when Hkv < Hq), ``kv_len``
 (B,) int32 valid keys per row and ``q_pos0`` (B,) int32 absolute position
 of each row's first query.  Keys at/after ``kv_len``, after the query
 (causal) or at/before ``query - window`` (window > 0) are masked with
@@ -28,6 +28,26 @@ view (:func:`gather_blocks`) bit for bit: the kernel changes only the
 address of a key's row.  Their plain versions are exactly that, gather
 then the dense plain version.
 
+bfloat16.  q and o (and float K/V, pools) may be bf16 throughout; packed
+K/V stay int8 with f32 scales.  Two roundings of a bf16 q differ:
+
+* the card's kernels follow the TPU kernels (``flash_attention.py``
+  :38-40, :64): q, k, v widen exactly to f32, q is scaled by the f32
+  d**-0.5, all arithmetic is f32 and the output rounds once to bf16, so a
+  bf16 call equals the f32 call on the upcasts, rounded once, bit for bit;
+* the plain versions (the CPU path, which the parity tests hold against
+  the JAX model) follow the JAX model's jnp code as XLA compiles it:
+  ``q * d**-0.5`` in bf16 (the scale and the product round to bf16,
+  :func:`scale_q`), and the scores of a float K in f32, unrounded (the
+  jitted ``einsum`` in bf16 followed by its cast to f32 compiles to one
+  f32 dot); P·V in f32, the output rounded once.
+
+So kernel and plain version differ by the rounding of the scaled q alone:
+a relative error of at most 2**-9 in each logit, which moves a softmax
+weight by at most about |logit| * 2**-9; the card checks hold the two
+within 2**-6 of max|out| (a few bf16 ulps), and hold the kernel to the
+f32 kernel on the upcasts bit for bit.
+
 On a CUDA tensor each launches ``csrc/flash_attention.cu`` (or raises): a
 split-KV decode variant for Sq <= DECODE_MAX_SQ, whose per-split partials
 live in a scratch the wrapper allocates, and a register-tiled variant
@@ -44,6 +64,8 @@ runs its plain version.  Replaces
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
@@ -57,13 +79,17 @@ KEYS_PER_SPLIT = 128
 PARTS_PER_SPLIT = 4
 # the largest head dim of csrc/flash_attention.cu's tiled variants
 # (gemma3-12b's and recurrentgemma-2b's 256); above it, one warp per query
-# row, with no partials
+# row, with no partials, whose q and f32 accumulator fit a block's shared
+# memory up to ROW_SMEM_MAX_D (232,448 bytes / 8)
 TILED_MAX_D_HEAD = 256
+ROW_SMEM_MAX_D = 29056
+# q (and float K/V) element types the kernels are instantiated for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 __all__ = ["flash_attention", "flash_attention_plain", "packed_flash_attention",
            "packed_flash_attention_plain", "paged_flash_attention",
            "paged_flash_attention_plain", "paged_packed_flash_attention",
-           "paged_packed_flash_attention_plain", "gather_blocks", "attention_mask"]
+           "paged_packed_flash_attention_plain", "gather_blocks", "attention_mask", "scale_q"]
 
 
 def attention_mask(kv_len, q_pos0, sq: int, s: int, *, causal: bool,
@@ -80,12 +106,26 @@ def attention_mask(kv_len, q_pos0, sq: int, s: int, *, causal: bool,
     return mask
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded_scale(d: int, dtype: torch.dtype) -> float:
+    """d**-0.5 rounded to ``dtype`` (JAX multiplies q by a weakly typed
+    Python scalar, which takes q's dtype first)."""
+    return float(torch.tensor(d ** -0.5, dtype=torch.float64).to(dtype))
+
+
+def scale_q(q: torch.Tensor) -> torch.Tensor:
+    """``q * d**-0.5`` in q's dtype, as the JAX model computes it: in a
+    bf16 model the scale and the product round to bf16 (the TPU kernels,
+    and the card's, scale the f32 upcast of q by the f32 scale instead)."""
+    return q * _rounded_scale(q.shape[-1], q.dtype)
+
+
 def _attention_plain(q, k, v, kv_len, q_pos0, causal, window, k_scale=None,
                      v_scale=None):
     b, hq, sq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     rep = hq // hkv
-    qg = (q.to(torch.float32) * d ** -0.5).reshape(b, hkv, rep * sq, d)
+    qg = scale_q(q).to(torch.float32).reshape(b, hkv, rep * sq, d)
     logits = torch.matmul(qg, k.to(torch.float32).transpose(-1, -2))
     if k_scale is not None:  # pow2 K scale after the dot: exact
         logits = logits * k_scale.reshape(b, hkv, 1, s)
@@ -131,26 +171,39 @@ def _check(q, k, v, kv_len, q_pos0):
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
 
 
-def _kernel_dims(name: str, q):
-    if q.dtype != torch.float32:
-        raise ValueError(f"{name} kernel takes a float32 q")
+def _kernel_dims(name: str, q, *floats):
+    """The kernels' element types: q (and the float K/V or pools
+    ``floats``) all float32 or all bfloat16."""
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in floats):
+        raise ValueError(f"{name} kernel takes q{' and K/V' if floats else ''} all float32 "
+                         f"or all bfloat16, got {[str(t.dtype) for t in (q, *floats)]}")
 
 
 def _scratch(q, s: int):
     """The decode variant's partials for q (B, Hq, Sq, D) over S keys, and
     their count of floats (None, 0 for the prefill variant and the
-    one-warp-per-row kernel)."""
+    one-warp-per-row kernel, but for a bf16 q whose row kernel keeps its
+    f32 accumulators in device memory: D past ROW_SMEM_MAX_D)."""
     b, hq, sq, d = q.shape
-    if sq > DECODE_MAX_SQ or d > TILED_MAX_D_HEAD:
+    if d > TILED_MAX_D_HEAD:
+        if q.dtype == torch.float32 or d <= ROW_SMEM_MAX_D:
+            return None, 0
+        n = b * hq * sq * d
+        return torch.empty(n, dtype=torch.float32, device=q.device), n
+    if sq > DECODE_MAX_SQ:
         return None, 0
     dp = -(-d // 16) * 16  # the kernel's row length: d rounded up to 16 columns
     n = b * hq * sq * PARTS_PER_SPLIT * -(-s // KEYS_PER_SPLIT) * (dp + 2)
     return torch.empty(n, dtype=torch.float32, device=q.device), n
 
 
-def _launch(name: str, q, s: int, operands, ints) -> torch.Tensor:
-    """Run kernel ``name`` on ``operands`` (tensors, in the C order before
-    the output) and ``ints`` (the shape and mask ints before the scale)."""
+def _launch(fn, q, s: int, operands, ints) -> torch.Tensor:
+    """Run the kernel of wrapper ``fn`` on ``operands`` (tensors, in the C
+    order before the output) and ``ints`` (the shape and mask ints before
+    the scale), in q's dtype's instantiation (a library of its own for
+    bf16); count the launch."""
+    bf16 = q.dtype == torch.bfloat16
+    name = fn.__name__ + ("_bf16" if bf16 else "")
     o = torch.empty_like(q)
     part, n = _scratch(q, s)
     err = build.load(name)(*(t.data_ptr() for t in operands), o.data_ptr(),
@@ -159,6 +212,8 @@ def _launch(name: str, q, s: int, operands, ints) -> torch.Tensor:
                            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    fn.launches += 1
+    fn.bf16_launches += bf16
     return o
 
 
@@ -171,19 +226,12 @@ def flash_attention(q, k, v, kv_len, q_pos0, *, causal: bool = True,
                                          window=window)
     b, hq, sq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    _kernel_dims("flash_attention", q)
-    if k.dtype != torch.float32 or v.dtype != torch.float32:
-        raise ValueError("flash_attention kernel takes float32 q/k/v")
+    _kernel_dims("flash_attention", q, k, v)
     q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     kv_len = kv_len.to(torch.int32).contiguous()
     q_pos0 = q_pos0.to(torch.int32).contiguous()
-    o = _launch("flash_attention", q, s, (q, k, v, kv_len, q_pos0),
-                (b, hq, hkv, sq, s, d, int(causal), int(window)))
-    flash_attention.launches += 1
-    return o
-
-
-flash_attention.launches = 0
+    return _launch(flash_attention, q, s, (q, k, v, kv_len, q_pos0),
+                   (b, hq, hkv, sq, s, d, int(causal), int(window)))
 
 
 def _check_children(fn: str, q, k_qm, k_scale, v_qm, v_scale):
@@ -219,14 +267,9 @@ def packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0, *,
     k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     kv_len = kv_len.to(torch.int32).contiguous()
     q_pos0 = q_pos0.to(torch.int32).contiguous()
-    o = _launch("packed_flash_attention", q, s,
-                (q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0),
-                (b, hq, hkv, sq, s, d, int(causal), int(window)))
-    packed_flash_attention.launches += 1
-    return o
-
-
-packed_flash_attention.launches = 0
+    return _launch(packed_flash_attention, q, s,
+                   (q, k_qm, k_scale, v_qm, v_scale, kv_len, q_pos0),
+                   (b, hq, hkv, sq, s, d, int(causal), int(window)))
 
 
 # ---------------- paged: K/V through a block table (B6, B7) ----------------
@@ -285,34 +328,27 @@ def _check_paged(name, q, k_pool, v_pool, table, kv_len, q_pos0):
                              f"table's {s} slots")
 
 
-def _launch_dims(name, q, pool, table):
+def _launch_dims(name, q, pool, table, *floats):
     b, hq, sq, d = q.shape
-    _kernel_dims(name, q)
+    _kernel_dims(name, q, *floats)
     return b, hq, pool.shape[1], sq, table.shape[1], pool.shape[2], d
 
 
 def paged_flash_attention(q, k_pool, v_pool, table, kv_len, q_pos0, *,
                           causal: bool = True, window: int = 0) -> torch.Tensor:
-    """B6: q (B, Hq, Sq, D) f32 over f32 pools (NB, Hkv, bs, D) through
-    ``table`` (B, MB) int32."""
+    """B6: q (B, Hq, Sq, D) over pools (NB, Hkv, bs, D) of q's dtype (f32
+    or bf16) through ``table`` (B, MB) int32."""
     _check_paged("paged_flash_attention", q, k_pool, v_pool, table, kv_len, q_pos0)
     if not q.is_cuda:
         with build.plain_body():
             return paged_flash_attention_plain(q, k_pool, v_pool, table, kv_len,
                                                q_pos0, causal=causal, window=window)
-    if k_pool.dtype != torch.float32 or v_pool.dtype != torch.float32:
-        raise ValueError("paged_flash_attention kernel takes float32 q and pools")
-    dims = _launch_dims("paged_flash_attention", q, k_pool, table)
+    dims = _launch_dims("paged_flash_attention", q, k_pool, table, k_pool, v_pool)
     q, k_pool, v_pool = build.aligned(q), build.aligned(k_pool), build.aligned(v_pool)
     table, kv_len, q_pos0 = (t.to(torch.int32).contiguous() for t in (table, kv_len, q_pos0))
-    o = _launch("paged_flash_attention", q, dims[4] * dims[5],
-                (q, k_pool, v_pool, table, kv_len, q_pos0),
-                (*dims, int(causal), int(window)))
-    paged_flash_attention.launches += 1
-    return o
-
-
-paged_flash_attention.launches = 0
+    return _launch(paged_flash_attention, q, dims[4] * dims[5],
+                   (q, k_pool, v_pool, table, kv_len, q_pos0),
+                   (*dims, int(causal), int(window)))
 
 
 def paged_packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0,
@@ -331,11 +367,13 @@ def paged_packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, table, kv_len,
     q, k_qm, v_qm = (build.aligned(t) for t in (q, k_qm, v_qm))
     k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     table, kv_len, q_pos0 = (t.to(torch.int32).contiguous() for t in (table, kv_len, q_pos0))
-    o = _launch(name, q, dims[4] * dims[5],
-                (q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0),
-                (*dims, int(causal), int(window)))
-    paged_packed_flash_attention.launches += 1
-    return o
+    return _launch(paged_packed_flash_attention, q, dims[4] * dims[5],
+                   (q, k_qm, k_scale, v_qm, v_scale, table, kv_len, q_pos0),
+                   (*dims, int(causal), int(window)))
 
 
-paged_packed_flash_attention.launches = 0
+# each wrapper's launches of its kernel, and of those the bf16 instantiation's
+for _fn in (flash_attention, packed_flash_attention, paged_flash_attention,
+            paged_packed_flash_attention):
+    _fn.launches = 0
+    _fn.bf16_launches = 0

@@ -185,8 +185,9 @@ def finite_flags(logits: torch.Tensor, out: torch.Tensor | None = None) -> torch
     """The numeric guard's reduction: one f32 per row of ``logits`` (B,
     ...), 0 where every value of the row is finite and NaN where any is not
     (x * 0 is a signed zero for finite x and NaN for NaN and +-inf, and a
-    sum keeps a NaN).  Two kernels on the logits' device."""
-    return torch.sum((logits * 0).flatten(1), dim=-1, out=out)
+    sum keeps a NaN), summed in f32 whatever the logits' dtype (bf16
+    included).  Two kernels on the logits' device."""
+    return torch.sum((logits * 0).flatten(1), dim=-1, dtype=torch.float32, out=out)
 
 
 # ---------------------------------------------------------------------------

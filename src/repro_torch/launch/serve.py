@@ -190,7 +190,9 @@ def _run(mesh, args):
     """Build, pack and serve (one rank of ``mesh``, or the only process)."""
     device = args.device if mesh is None else mesh.device
     rank0 = mesh is None or mesh.rank == 0
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # full size serves bfloat16, as the reference's launcher (its :136-137)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch).replace(
+        dtype="bfloat16")
     cfg = cfg.replace(quant=args.preset if args.packed else None)
     max_len = args.prompt_len + cfg.n_image_tokens + args.new_tokens + args.spec_k + 8
     if args.paged:  # block pools need block-aligned ring lengths

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import (
     NEG_INF, flash_attention, gather_blocks, packed_flash_attention,
-    paged_flash_attention, paged_packed_flash_attention)
+    paged_flash_attention, paged_packed_flash_attention, scale_q)
 from repro_torch.kvq import PackedKVBlock
 
 __all__ = ["blockwise_attention", "decode_attention", "verify_attention",
@@ -103,12 +103,16 @@ def paged_decode_attention(q, pool_k, pool_v, table: torch.Tensor, pos,
 def _qk_logits(qg, kv) -> torch.Tensor:
     """QK^T over the last axes: (B, Hkv, R, T, D) x (B, Hkv, S, D) ->
     (B, Hkv, R, T, S).  Packed K folds its pow2 scale after the dot (JAX
-    ``qk_logits``): exact, so it equals dequantize-then-dot bit for bit."""
+    ``qk_logits``): exact, so it equals dequantize-then-dot bit for bit.
+    A float K contracts in f32 over the exact upcasts: the jitted JAX
+    einsum of two bf16 operands followed by its cast to f32 compiles to one
+    f32 dot (XLA keeps the excess precision), so the scores of a bf16 model
+    are not rounded to bf16."""
     if isinstance(kv, PackedKVBlock):
         lg = torch.einsum("bhrtd,bhkd->bhrtk", qg.to(torch.float32),
                           kv.qm.to(torch.float32))
         return lg * kv.scale[..., 0][:, :, None, None, :]
-    return torch.einsum("bhrtd,bhkd->bhrtk", qg, kv).to(torch.float32)
+    return torch.einsum("bhrtd,bhkd->bhrtk", qg.to(torch.float32), kv.to(torch.float32))
 
 
 def _pv_out(p, kv) -> torch.Tensor:
@@ -135,7 +139,7 @@ def verify_attention(q, k_new, v_new, k_cache, v_cache, pos, window: int = 0):
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hkv
     dev = q.device
-    qg = (q * d ** -0.5).reshape(b, hkv, rep, t, d)
+    qg = scale_q(q).reshape(b, hkv, rep, t, d)
     posb = _rows(pos, b, dev).to(torch.int64)
     qpos = posb[:, None] + torch.arange(t, device=dev)[None, :]          # (B, T)
     last = posb[:, None] - 1

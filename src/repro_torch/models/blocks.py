@@ -14,7 +14,8 @@ dense verify of speculative decoding, ``_attn_verify`` (:419) /
 ``layer_verify`` (:450) and ``rollback_kv_cache`` (:537).  A layer's
 weights live in
 :class:`Layer` (parameter names as in the JAX tree); the cache of a layer
-is ``{'k', 'v'}``, each a float tensor (B, Hkv, S_c, D) or a
+is ``{'k', 'v'}``, each a float tensor (B, Hkv, S_c, D) in the model
+dtype (f32 or bf16, JAX's ``_kv_entry``) or a
 :class:`~repro_torch.kvq.PackedKVBlock` (int8 ``qm`` (B, Hkv, S_c, D) and
 f32 ``scale`` (B, Hkv, S_c, 1)), updated in place.  Every write quantizes
 its fresh K/V with :func:`~repro_torch.kvq.quantize_like` first, then
@@ -66,7 +67,7 @@ from repro_torch.kvq import PackedKVBlock, init_packed_kv, quantize_like
 
 from .attention import (blockwise_attention, decode_attention, gather_kv_view,
                         paged_decode_attention, verify_attention)
-from .layers import dense, rms_norm, rope
+from .layers import dense, param_dtype, rms_norm, rope
 from .layers import weight as _weight
 from .moe import MoE, moe_ffn
 from .recurrent import RGLRU, init_rglru_state, rglru_block, rglru_decode_step, rglru_verify
@@ -98,20 +99,20 @@ def _window(cfg, kind: str) -> int:
 class _Attn(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
-        d, dh = cfg.d_model, cfg.d_head
-        self.wq = _weight((d, cfg.n_heads * dh), device)
-        self.wk = _weight((d, cfg.n_kv_heads * dh), device)
-        self.wv = _weight((d, cfg.n_kv_heads * dh), device)
-        self.wo = _weight((cfg.n_heads * dh, d), device)
+        d, dh, dt = cfg.d_model, cfg.d_head, param_dtype(cfg)
+        self.wq = _weight((d, cfg.n_heads * dh), device, dt)
+        self.wk = _weight((d, cfg.n_kv_heads * dh), device, dt)
+        self.wv = _weight((d, cfg.n_kv_heads * dh), device, dt)
+        self.wo = _weight((cfg.n_heads * dh, d), device, dt)
 
 
 class _FFN(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
-        self.w1 = _weight((d, ff), device)
-        self.w3 = _weight((d, ff), device)
-        self.w2 = _weight((ff, d), device)
+        d, ff, dt = cfg.d_model, cfg.d_ff, param_dtype(cfg)
+        self.w1 = _weight((d, ff), device, dt)
+        self.w3 = _weight((d, ff), device, dt)
+        self.w2 = _weight((ff, d), device, dt)
 
 
 def out_features(w) -> int:
@@ -135,7 +136,7 @@ class Layer(nn.Module):
                 f"the port serves {SUPPORTED_KINDS} layers; {kind!r} is not "
                 f"ported yet (ROADMAP A6)")
         self.kind = kind
-        self.norm1 = _weight((cfg.d_model,), device)
+        self.norm1 = _weight((cfg.d_model,), device, param_dtype(cfg))
         if kind == "ssd":  # no norm2 and no FFN (JAX :82-83)
             self.ssd = SSD(cfg, device)
             return
@@ -143,7 +144,7 @@ class Layer(nn.Module):
             self.rec = RGLRU(cfg, device)
         else:
             self.attn = _Attn(cfg, device)
-        self.norm2 = _weight((cfg.d_model,), device)
+        self.norm2 = _weight((cfg.d_model,), device, param_dtype(cfg))
         if cfg.n_experts and kind != "rglru":
             self.moe = MoE(cfg, device)
         else:
@@ -249,8 +250,8 @@ def init_layer_cache(cfg, batch: int, max_len: int, device, kv=None,
     shp = (batch, n_kv_heads or cfg.n_kv_heads, cache_len(cfg, kind, max_len), cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
-    return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
-            "v": torch.zeros(shp, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shp, dtype=param_dtype(cfg), device=device),
+            "v": torch.zeros(shp, dtype=param_dtype(cfg), device=device)}
 
 
 def _children(leaf):
@@ -455,8 +456,8 @@ def init_layer_cache_paged(cfg, num_blocks: int, block_size: int, device,
     shp = (num_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
     if kv is not None:
         return {"k": init_packed_kv(shp, kv, device), "v": init_packed_kv(shp, kv, device)}
-    return {"k": torch.zeros(shp, dtype=torch.float32, device=device),
-            "v": torch.zeros(shp, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shp, dtype=param_dtype(cfg), device=device),
+            "v": torch.zeros(shp, dtype=param_dtype(cfg), device=device)}
 
 
 def pool_block_size(cache: list[dict]) -> int:

@@ -11,13 +11,19 @@ from repro_torch.core.packed import PackedDSBPWeight, get_quant_method
 from repro_torch.core.quantized import PRESETS
 from repro_torch.parallel.context import fold_partials
 
-__all__ = ["rms_norm", "rope", "Quant", "dense", "weight"]
+__all__ = ["rms_norm", "rope", "Quant", "dense", "weight", "param_dtype"]
 
 
-def weight(shape, device) -> torch.nn.Parameter:
-    """An uninitialized f32 parameter (no gradient: the port serves), which
+def param_dtype(cfg) -> torch.dtype:
+    """The dtype of a config's parameters, activations and KV caches (JAX
+    ``model._dtype``): bfloat16 or float32."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def weight(shape, device, dtype=torch.float32) -> torch.nn.Parameter:
+    """An uninitialized parameter (no gradient: the port serves), which
     ``model.init`` or ``repro_torch.bridge`` fills."""
-    return torch.nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
+    return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                               requires_grad=False)
 
 

@@ -49,7 +49,7 @@ from repro_torch.kvq import kv_policy_cfg
 from repro_torch.parallel.context import gather_columns
 
 from . import blocks
-from .layers import Quant, rms_norm, weight
+from .layers import Quant, param_dtype, rms_norm, weight
 from .packing import pack_weights_int8
 
 __all__ = ["Model", "init", "shared"]
@@ -95,22 +95,26 @@ class Model(nn.Module):
     allocates them uninitialized; :func:`init` or ``repro_torch.bridge``
     fills them.
 
+    ``cfg.dtype`` "bfloat16" gives bf16 parameters, activations and KV
+    caches (JAX ``init``, :33-55), with the f32 leaves JAX keeps (the
+    RG-LRU's ``lam`` / ``ba`` / ``bx``, the SSD's ``a_log`` / ``dt_bias`` /
+    ``d_skip``, recurrent ``h`` states); the DSBP GEMM runs in f32 between
+    a cast of its input and of its output, as JAX's method does.
+
     The cache is one entry per layer: a KV layer's ``{'k', 'v'}`` (dense:
     (B, Hkv, S_c, D) with S_c = :func:`blocks.cache_len`; paged: a block
     pool) or a recurrent layer's per-lane state ``{'h', 'conv'}``."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"the port serves float32 models; dtype {cfg.dtype!r} is not "
-                "ported yet (ROADMAP A6)")
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype {cfg.dtype!r}: a model is float32 or bfloat16")
         self.cfg = cfg
-        rows, d = _vocab_rows(cfg), cfg.d_model
-        self.embed = weight((rows, d), device)
-        self.final_norm = weight((d,), device)
+        rows, d, dt = _vocab_rows(cfg), cfg.d_model, param_dtype(cfg)
+        self.embed = weight((rows, d), device, dt)
+        self.final_norm = weight((d,), device, dt)
         if not cfg.tie_embeddings:
-            self.lm_head = weight((d, rows), device)
+            self.lm_head = weight((d, rows), device, dt)
         kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail)
         self.layers = nn.ModuleList(blocks.Layer(cfg, kind, device) for kind in kinds)
 
@@ -527,28 +531,43 @@ def _batch(cache: list[dict]) -> int:
 
 def _draw(module: nn.Module, cfg: ArchConfig, gen: torch.Generator) -> None:
     """Draw ``module``'s own parameters (all of them, or only its direct
-    ones when it is the :class:`Model`) in registration order."""
+    ones when it is the :class:`Model`) in registration order, each in f32
+    and then rounded to its own dtype (JAX's ``.astype(dt)``): a bf16
+    parameter is drawn into an f32 tensor of its shape alone, so the draws
+    are the f32 model's and the peak is one parameter in f32 beyond the
+    layer."""
     params = (module.named_parameters(recurse=False) if isinstance(module, Model)
               else module.named_parameters())
     for name, p in params:
-        leaf = name.rpartition(".")[2]
-        if leaf in ("final_norm", "norm1", "norm2"):
-            p.fill_(1.0)
-        elif leaf in ("ba", "bx"):
-            p.zero_()
-        elif leaf == "lam":
-            p.uniform_(2.0, 6.0, generator=gen)
-        elif leaf == "a_log":  # an SSD head's decay rate A = -U(1, 16)
-            p.uniform_(1.0, 16.0, generator=gen).log_()
-        elif leaf == "dt_bias":  # softplus(dt_bias) ~ U(1e-3, 0.1)
-            p.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_()
-        elif leaf == "d_skip":
-            p.fill_(1.0)
-        elif leaf == "conv_w":
-            p.normal_(generator=gen).mul_(0.1)
-        else:  # embed rows are (K * Vp, d): its fan-in is d as well
-            fan_in = cfg.d_model if name == "embed" else p.shape[-2]
-            p.normal_(generator=gen).mul_(fan_in ** -0.5)
+        if p.dtype == torch.float32:
+            _draw_f32(name, p, cfg, gen)
+        else:
+            f = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            p.copy_(_draw_f32(name, f, cfg, gen))
+            del f
+
+
+def _draw_f32(name: str, p: torch.Tensor, cfg: ArchConfig, gen: torch.Generator):
+    """Draw the f32 tensor ``p`` in place as parameter ``name``; returns it."""
+    leaf = name.rpartition(".")[2]
+    if leaf in ("final_norm", "norm1", "norm2"):
+        p.fill_(1.0)
+    elif leaf in ("ba", "bx"):
+        p.zero_()
+    elif leaf == "lam":
+        p.uniform_(2.0, 6.0, generator=gen)
+    elif leaf == "a_log":  # an SSD head's decay rate A = -U(1, 16)
+        p.uniform_(1.0, 16.0, generator=gen).log_()
+    elif leaf == "dt_bias":  # softplus(dt_bias) ~ U(1e-3, 0.1)
+        p.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_()
+    elif leaf == "d_skip":
+        p.fill_(1.0)
+    elif leaf == "conv_w":
+        p.normal_(generator=gen).mul_(0.1)
+    else:  # embed rows are (K * Vp, d): its fan-in is d as well
+        fan_in = cfg.d_model if name == "embed" else p.shape[-2]
+        p.normal_(generator=gen).mul_(fan_in ** -0.5)
+    return p
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, device=None, pack=None) -> Model:
@@ -568,15 +587,17 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None, pack=None) -> Model:
     above.  ``pack`` (a ``PRESETS`` name, a ``QuantizedMatmulConfig`` or a
     ``DSBPPolicy``) packs each layer as :func:`models.packing.pack_weights_int8`
     packs it before the next is drawn, so the peak is the packed model
-    plus one layer in f32 (a model larger than the card in f32 fits
-    packed).  The result equals ``init`` followed by
-    ``pack_weights_int8``, bit for bit."""
+    plus one layer in the model dtype (a model larger than the card in
+    f32 fits packed); a bf16 model's parameters are drawn in f32 one at a
+    time and rounded (:func:`_draw`), and packing reads the bf16-rounded
+    weights (JAX ``core/quantized.py:131``).  The result equals ``init``
+    followed by ``pack_weights_int8``, bit for bit, in either dtype."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Model(cfg, torch.device("meta"))
     with torch.no_grad():
         for name, p in list(model.named_parameters(recurse=False)):
-            setattr(model, name, weight(p.shape, device))
+            setattr(model, name, weight(p.shape, device, p.dtype))
         _draw(model, cfg, gen)
         for i, layer in enumerate(model.layers):
             _draw(layer.to_empty(device=device), cfg, gen)

@@ -29,7 +29,7 @@ from torch import nn
 
 from repro_torch.core.packed import PackedDSBPWeight
 
-from .layers import dense
+from .layers import dense, param_dtype
 from .layers import weight as _weight
 
 __all__ = ["MoE", "moe_ffn", "route"]
@@ -42,11 +42,11 @@ class MoE(nn.Module):
 
     def __init__(self, cfg, device):
         super().__init__()
-        d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self.router = _weight((d, e), device)
-        self.w1 = _weight((e, d, ff), device)
-        self.w3 = _weight((e, d, ff), device)
-        self.w2 = _weight((e, ff, d), device)
+        d, ff, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, param_dtype(cfg)
+        self.router = _weight((d, e), device, dt)
+        self.w1 = _weight((e, d, ff), device, dt)
+        self.w3 = _weight((e, d, ff), device, dt)
+        self.w2 = _weight((e, ff, d), device, dt)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -128,6 +128,9 @@ def moe_ffn(moe: MoE, x: torch.Tensor, cfg, quant=None, no_drop: bool = False) -
     ye = torch.bmm(h, _expert_w(moe.w2, dt, view)).view(n_slot, d)
 
     picked = ye.index_select(0, torch.where(keep, slot, 0).reshape(-1)).view(n_g, g_sz, k, d)
+    # the combine weights round to the activation dtype (JAX casts
+    # ``combine``), then one f32 sum of the k exact products, rounded once:
+    # the reference's dot over (expert, slot)
     wts = torch.where(keep, gate, torch.zeros((), device=dev)).to(dt)
-    y = (picked * wts[..., None]).sum(dim=2)
+    y = (picked.to(torch.float32) * wts.to(torch.float32)[..., None]).sum(dim=2).to(dt)
     return y.reshape(-1, d)[:t].reshape(b, s, d)

@@ -31,7 +31,8 @@ PyTorch on the CPU and on the card alike.  Where the two differ:
   The speculative draft runs them over its draft view (the quant method's
   ``weight_view``), as JAX's draft tree does.
 
-Recurrent state is ``{'h': (B, r) f32, 'conv': (B, K-1, r)}``.  A step
+Recurrent state is ``{'h': (B, r) f32, 'conv': (B, K-1, r)}``, ``conv``
+in the model dtype (JAX :202-207).  A step
 returns NEW state tensors and never writes into the old ones, so a caller
 that keeps the old dict can go back to it (the engine's fallback retry and
 the speculative round rely on this).
@@ -42,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense, weight as _weight
+from .layers import dense, param_dtype
+from .layers import weight as _weight
 
 __all__ = ["RGLRU", "causal_conv1d", "rglru_block", "rglru_decode_step",
            "rglru_verify", "conv_states_per_step", "init_rglru_state"]
@@ -53,17 +55,18 @@ _C = 8.0
 class RGLRU(nn.Module):
     """The recurrent block's weights: projections ``w_in``, ``w_gate`` (d,
     r), ``w_out`` (r, d), ``wa``, ``wx`` (r, r), raw or packed; the
-    depthwise ``conv_w`` (K, r); ``lam``, ``ba``, ``bx`` (r,)."""
+    depthwise ``conv_w`` (K, r), all in the model dtype; ``lam``, ``ba``,
+    ``bx`` (r,) f32 in every model (JAX :33-41)."""
 
     def __init__(self, cfg, device):
         super().__init__()
-        d, r = cfg.d_model, cfg.rnn_dim
-        self.w_in = _weight((d, r), device)
-        self.w_gate = _weight((d, r), device)
-        self.w_out = _weight((r, d), device)
-        self.conv_w = _weight((cfg.d_conv, r), device)
-        self.wa = _weight((r, r), device)
-        self.wx = _weight((r, r), device)
+        d, r, dt = cfg.d_model, cfg.rnn_dim, param_dtype(cfg)
+        self.w_in = _weight((d, r), device, dt)
+        self.w_gate = _weight((d, r), device, dt)
+        self.w_out = _weight((r, d), device, dt)
+        self.conv_w = _weight((cfg.d_conv, r), device, dt)
+        self.wa = _weight((r, r), device, dt)
+        self.wx = _weight((r, r), device, dt)
         self.lam = _weight((r,), device)
         self.ba = _weight((r,), device)
         self.bx = _weight((r,), device)
@@ -212,5 +215,5 @@ def rglru_decode_step(rec: RGLRU, x, state, cfg, quant=None):
 def init_rglru_state(batch: int, cfg, device) -> dict:
     r = cfg.rnn_dim
     return {"h": torch.zeros((batch, r), dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, cfg.d_conv - 1, r), dtype=torch.float32,
+            "conv": torch.zeros((batch, cfg.d_conv - 1, r), dtype=param_dtype(cfg),
                                 device=device)}

@@ -33,7 +33,11 @@ two packages differ:
   (``torch.backends.cuda.matmul.allow_tf32`` False; ``chip_smoke.py``
   sets it so), and a caller must not turn it on.
 
-State is ``{'h': (B, H, P, N) f32, 'conv': (B, K-1, din + 2 N)}``.  A step
+State is ``{'h': (B, H, P, N) f32, 'conv': (B, K-1, din + 2 N)}``,
+``conv`` in the model dtype (JAX :240-245).  In a bfloat16 model the
+conv's silu output rounds to bf16 (JAX :150), ``C B^T`` is a bf16
+product, and every contraction that mixes a bf16 operand with an f32 one
+runs in f32 over the exact upcast, as JAX promotes it.  A step
 returns NEW state tensors and never writes into the old ones, so a caller
 that keeps the old dict can go back to it (the engine's fallback retry
 and the speculative round rely on this).  :func:`ssd_verify` advances the
@@ -47,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense, weight as _weight
+from .layers import dense, param_dtype
+from .layers import weight as _weight
 from .recurrent import causal_conv1d, conv_states_per_step
 
 __all__ = ["SSD", "ssd_block", "ssd_decode_step", "ssd_verify", "init_ssd_state",
@@ -57,18 +62,26 @@ __all__ = ["SSD", "ssd_block", "ssd_decode_step", "ssd_verify", "init_ssd_state"
 class SSD(nn.Module):
     """The block's weights: the fused in-projection ``w_in`` (d, 2 din +
     2 N + H) (columns z, x, B, C, dt) and ``w_out`` (din, d), raw or
-    packed; the depthwise ``conv_w`` (K, din + 2 N); ``a_log``,
-    ``dt_bias`` and ``d_skip`` (H,)."""
+    packed; the depthwise ``conv_w`` (K, din + 2 N), all in the model
+    dtype; ``a_log``, ``dt_bias`` and ``d_skip`` (H,) f32 in every model
+    (JAX :35-44)."""
 
     def __init__(self, cfg, device):
         super().__init__()
         d, din, ns, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssd_heads
-        self.w_in = _weight((d, 2 * din + 2 * ns + nh), device)
-        self.conv_w = _weight((cfg.d_conv, din + 2 * ns), device)
-        self.w_out = _weight((din, d), device)
+        dt = param_dtype(cfg)
+        self.w_in = _weight((d, 2 * din + 2 * ns + nh), device, dt)
+        self.conv_w = _weight((cfg.d_conv, din + 2 * ns), device, dt)
+        self.w_out = _weight((din, d), device, dt)
         self.a_log = _weight((nh,), device)
         self.dt_bias = _weight((nh,), device)
         self.d_skip = _weight((nh,), device)
+
+
+def _f32(t):
+    """A bf16 operand upcast (exactly) where JAX promotes a mixed
+    contraction to f32; an f32 one as it is."""
+    return t.to(torch.float32)
 
 
 def _softplus(x):
@@ -105,13 +118,13 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     # the mask before the exp: exp of a masked positive would overflow
     l_mat = torch.exp(torch.where(mask, li, torch.full_like(li, -torch.inf)))
     xdt = xr * dtr[..., None]  # (B, nc, q, H, P)
-    cb = torch.einsum("bcin,bcjn->bcij", cr, br)
+    cb = torch.einsum("bcin,bcjn->bcij", _f32(cr), _f32(br)).to(x.dtype)
     m_mat = cb[..., None] * l_mat  # (B, nc, i, j, H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", m_mat, xdt)
 
     # each chunk's state contribution, then the carry across chunks
     decay_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, q, H)
-    s_c = torch.einsum("bcqn,bcqhp->bchpn", br, decay_end[..., None] * xdt)
+    s_c = torch.einsum("bcqn,bcqhp->bchpn", _f32(br), decay_end[..., None] * xdt)
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
     s_prev = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
               if h0 is None else h0.to(torch.float32))
@@ -121,7 +134,7 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
         s_prev = chunk_decay[:, ci, :, None, None] * s_prev + s_c[:, ci].to(torch.float32)
     s_prevs = torch.stack(s_prevs, dim=1)  # (B, nc, H, P, N)
 
-    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cr, s_prevs.to(x.dtype))
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", _f32(cr), _f32(s_prevs.to(x.dtype)))
     y_inter = y_inter * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(bsz, s, h, p)
     return y, s_prev
@@ -136,7 +149,7 @@ def ssd_naive(x, dt, a, b, c, h0=None):
     ys = []
     for t in range(s):
         h_t = _recur(h_t, x[:, t], b[:, t], dt[:, t], a)
-        ys.append(torch.einsum("bn,bhpn->bhp", c[:, t], h_t))
+        ys.append(torch.einsum("bn,bhpn->bhp", _f32(c[:, t]), h_t))
     return torch.stack(ys, dim=1), h_t
 
 
@@ -158,9 +171,9 @@ def _in_proj(mod: SSD, x, cfg, quant):
 
 def _gates(mod: SSD, cfg, conv_out, dt):
     """silu of the conv's output and softplus(dt + dt_bias): (xh (..., H,
-    P), B, C (..., N), dt (..., H) f32)."""
+    P), B, C (..., N) in the activation dtype, dt (..., H) f32)."""
     din, ns = cfg.d_inner, cfg.ssm_state
-    conv_out = F.silu(conv_out.to(torch.float32))
+    conv_out = F.silu(conv_out.to(torch.float32)).to(conv_out.dtype)
     xs, bmat, cmat = torch.split(conv_out, [din, ns, ns], dim=-1)
     dt = _softplus(dt.to(torch.float32) + mod.dt_bias)
     return xs.reshape(*xs.shape[:-1], cfg.n_ssd_heads, cfg.ssm_headdim), bmat, cmat, dt
@@ -209,7 +222,7 @@ def ssd_decode_step(mod: SSD, x, state, cfg, quant=None):
     conv_out, new_conv = causal_conv1d(mod.conv_w, conv_in, state["conv"])
     a = -torch.exp(mod.a_log)
     xh, cmat, h = _token_step(mod, cfg, state["h"].to(torch.float32), conv_out, dt, a)
-    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0], h)[:, None]
+    y = torch.einsum("bn,bhpn->bhp", _f32(cmat[:, 0]), h)[:, None]
     return _out(mod, y, xh, z, x, cfg, quant), {"h": h, "conv": new_conv}
 
 
@@ -234,7 +247,7 @@ def ssd_verify(mod: SSD, x, cfg, quant=None, state=None):
         hs.append(h)
     hs = torch.stack(hs, dim=1)  # (B, T, H, P, N)
     xh, cmat = torch.cat(xhs, dim=1), torch.cat(cms, dim=1)
-    y = torch.einsum("btn,bthpn->bthp", cmat, hs)
+    y = torch.einsum("btn,bthpn->bthp", _f32(cmat), hs)
     # conv contexts gather from the conv's inputs, as a decode step's
     conv_steps = conv_states_per_step(state["conv"], conv_in)
     steps = {"h": hs, "conv": conv_steps}
@@ -246,5 +259,5 @@ def init_ssd_state(batch: int, cfg, device) -> dict:
     din, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssd_heads
     return {"h": torch.zeros((batch, nh, cfg.ssm_headdim, ns), dtype=torch.float32,
                              device=device),
-            "conv": torch.zeros((batch, cfg.d_conv - 1, din + 2 * ns), dtype=torch.float32,
+            "conv": torch.zeros((batch, cfg.d_conv - 1, din + 2 * ns), dtype=param_dtype(cfg),
                                 device=device)}

@@ -202,14 +202,18 @@ def _weight_stats(leaves, cfg: DSBPConfig):
     return hist, int(hist.sum()), int(nz_sum) / max(total, 1)
 
 
-def refuse_moe(cfg: ArchConfig, what: str) -> None:
-    """The policy loop does not price expert stacks yet: JAX folds each
-    expert stack into one policy entry (``repro.policy.calibrate``
-    :210-226), the port does not."""
+def refuse_unported(cfg: ArchConfig, what: str) -> None:
+    """What the policy loop does not run yet: expert stacks (JAX folds each
+    into one policy entry, ``repro.policy.calibrate`` :210-226; the port
+    does not) and a bfloat16 model (its statistics and trial serves are
+    not held against JAX's in bf16): both name ROADMAP A12."""
     if cfg.n_experts:
         raise NotImplementedError(
             f"{what} on an MoE model ({cfg.name}, {cfg.n_experts} experts) is not "
             f"ported yet (ROADMAP A12)")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"{what} on a {cfg.dtype} model ({cfg.name}) is not ported yet (ROADMAP A12)")
 
 
 def synthetic_calibration_batches(cfg: ArchConfig, n_batches: int = 2,
@@ -249,7 +253,7 @@ def calibrate(model, cfg: ArchConfig, batches,
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"calibration drives plain token batches; frontend={cfg.frontend!r}")
-    refuse_moe(cfg, "calibrate")
+    refuse_unported(cfg, "calibrate")
     probe = PRESETS[probe] if isinstance(probe, str) else probe
     gsize = probe.input_cfg.group_size
     by_key = raw_projections(model, cfg)

@@ -33,7 +33,7 @@ from repro_torch.models.packing import pack_weights_int8
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.spec.draft import stacked_key
 
-from .calibrate import CalibrationReport, raw_projections, refuse_moe
+from .calibrate import CalibrationReport, raw_projections, refuse_unported
 from .cost import assignment_cost, candidate_ladder, resolve_cfg
 from .kv_bits import price_kv_bits
 from .policy import DSBPPolicy
@@ -76,7 +76,7 @@ def autotune(model, cfg, report: CalibrationReport, tasks,
     ``kv_stats`` (a :func:`~repro_torch.policy.kv_bits.collect_kv_stats`
     result) extends the result into a joint weight+KV policy through
     :func:`~repro_torch.policy.kv_bits.price_kv_bits`."""
-    refuse_moe(cfg, "autotune")
+    refuse_unported(cfg, "autotune")
     log = log or (lambda *_: None)
     ladder = list(ladder or candidate_ladder())
     names = [n for n, _ in ladder]

@@ -407,6 +407,8 @@ class Engine:
             missing.append(f"the {cfg.frontend} frontend (generate over embedded prompts)")
         if cfg.quant == "policy":
             missing.append("a DSBPPolicy (per-layer configs)")
+        if cfg.dtype != "float32":
+            missing.append(f"the {cfg.dtype} dtype (a float32 model only)")
         if self._guard is not None:
             missing.append(f"the numeric guard (numeric_guard={scfg.numeric_guard!r})")
         if scfg.observe:

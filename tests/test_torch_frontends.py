@@ -31,7 +31,8 @@ standard normal as JAX's tests draw them.
   as JAX's; sampled: (B, K) from one generator, seeded).
 * Refusals, as JAX's: ``serve`` (dense and paged) and
   ``score_continuations`` with JAX's own messages, calibration and KV
-  calibration; a mesh names ROADMAP A13; bfloat16 still names A6.
+  calibration; a mesh names ROADMAP A13 (bfloat16 frontends are served:
+  tests/test_torch_bf16.py).
 * The launcher: 3-D audio prompts and seeded image embeddings through
   ``generate``, and the serve-only flags refused."""
 import functools
@@ -394,12 +395,6 @@ def test_mesh_refuses_frontends_naming_a13(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A13") as ei:
         Engine(model, ServeConfig(max_len=32, mesh_shape=(1, 2)), device="cpu")
     assert f"the {model.cfg.frontend} frontend" in str(ei.value)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_bfloat16_still_names_a6(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TM.Model(smoke_config(arch).replace(dtype="bfloat16"), torch.device("cpu"))
 
 
 @pytest.mark.parametrize("entry", ["forward", "generate_ragged"])

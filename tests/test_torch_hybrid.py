@@ -18,10 +18,8 @@ the port by ``repro_torch.bridge``; inputs are numpy from a seed.
   and tests/test_torch_hybrid_paged.py, which share these helpers.
 * The 'fallback' retry's recurrent state: restored from the refs a step
   leaves untouched, it decodes from the pre-step state bit for bit.
-* The refusals: non-f32 dtypes name ROADMAP A6 (the MoE and SSD families
-  and both frontends are served: tests/test_torch_moe.py,
-  tests/test_torch_ssd.py, tests/test_torch_frontends.py); the new kinds
-  and tied embeddings under a mesh name A13."""
+* The refusals: the new kinds and tied embeddings under a mesh name A13
+  (bfloat16 models are served: tests/test_torch_bf16.py)."""
 import copy
 import functools
 
@@ -267,12 +265,6 @@ def test_generate_float_matches_jax_engine():
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("kw", [dict(dtype="bfloat16")], ids=["dtype"])
-def test_unported_families_name_roadmap_a6(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TM.Model(smoke_config("llama-7b-paper").replace(**kw), torch.device("cpu"))
-
 
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "gemma3-12b"])
 def test_mesh_refuses_hybrid_kinds_naming_a13(name):
