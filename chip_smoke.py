@@ -278,16 +278,46 @@ Phases (each raises on failure; nothing falls back to the CPU):
      recurrentgemma-2b, mixtral-8x7b, mamba2-370m, musicgen-large and
      llava-next-34b at full width, cut in depth (BF16_FAMILIES), CPU vs
      card; a `bf16 (phase 23):` JSON line.
+  24. the training path, last: 24k, the training Functions on the card:
+     B2's autograd function at llama-7b's prefill (B 4, H 32, S 512, D
+     128, ragged kv_len; output and q / k / v gradients within 1e-5 of the
+     plain version's autograd) and the straight-through products of
+     'dsbp_fused' (B1) and 'dsbp_kernel' (B3 + B4) at the three projection
+     shapes and phase 24's 2,048 rows (forward bit-equal to the kernels'
+     plain versions, gx / gw bit-equal to the formula's f32 products and
+     within f32_dot_rel in norm of float64 on the card);
+     24a, llama-7b-paper at full width and CROSS_LAYERS layers, one train
+     step of 2 x 64 tokens on the CPU (plain versions) and the card
+     (kernels), float (every gradient within TRAIN_FLOAT_REL of its norm)
+     and "precise" through dsbp_fused (packed per call; losses under phase
+     9's bound, gradients within TRAIN_GRAD_REL, which must lie above the
+     card's own step from weights one ulp away and below each of three
+     planted faults; the products' inputs that round to another FP8 value
+     on the two sides counted); 24, full width and TRAIN_LAYERS (4) layers
+     in f32 with remat, 4 x 512 tokens of the synthetic stream per step: a
+     Trainer of 8 steps without checkpoints (the loss finite and falling,
+     B1 56 and B2 8 launches per step (each layer's forward runs twice
+     under remat), ms per step, tokens/s, peak memory gated below
+     TRAIN_PEAK_GIB), a Trainer of 4 steps saving step 4
+     (checkpoint.store) and one restored from it running to 8, their
+     losses and the final parameters equal to the first's bit for bit
+     (deterministic algorithms on: the embedding gather's backward), each
+     save and restore timed; a one-step trace (B1, the straight-through
+     backward, the attention backward, the optimizer, the rest, idle
+     share); 4 bf16 steps (finite, peak); the step-8 checkpoint restored
+     into a fresh model (store.restore), bit-equal to the trained one,
+     packed "precise" and served through
+     generate; a `train (phase 24):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
-  multi-card numbers.  16a, 16, 18, 17a and 17 run after 13, before
-  14-15b, for which the models are freed.
+  multi-card numbers.  16, 18, 17a and 17 run after 13, before 14-15b,
+  for which the models are freed; 4, 9 and 16a run last.
 Run order: 1, then every kernel-timing phase alone on the card (2, 3, 6,
 7, 8, 11, then the kernels of 19-23 in a second process of this script
 while the first waits); then the two processes share the card, the first
-running 5, 10, 12, 13, 16, 18, 17a, 17 and 14-15b, the second 4, 9 and
-16a (the one-layer checks, mostly on the CPU), 20, 22, 21, 19 and 23.  A
-phase whose peak passes ~25 GiB (17a-17, 14-15b, 20, 22) holds a lock
-file, so at most one of them runs at a time and the two fit in the
+running 5, 10, 12, 13, 16, 18, 17a, 17, 14-15b, then 4, 9 and 16a (the
+one-layer checks, mostly on the CPU), the second 20, 22, 21, 19, 23 and
+24.  A phase whose peak passes ~25 GiB (17a-17, 14-15b, 20, 22) holds a
+lock file, so at most one of them runs at a time and the two fit in the
 card's 80 GB.  Step times, traces and idle shares of the
 shared part are taken with the other process on the card and its host;
 kernel times never are.  The second process's output is printed when it
@@ -315,6 +345,10 @@ runs phases 1 and 22 alone.
     python3 chip_smoke.py --bf16
 
 runs phases 1 and 23 alone.
+
+    python3 chip_smoke.py --train
+
+runs phases 1 and 24 alone.
 
     python3 chip_smoke.py --cross
 
@@ -501,7 +535,7 @@ def _jsonable(o):
 
 
 class Families:
-    """The second process of a whole run: phases 4, 9, 16a and 19-23,
+    """The second process of a whole run: phases 19-24,
     started with ``--families-worker``; its output goes to a log, printed
     when it ends."""
 
@@ -517,7 +551,7 @@ class Families:
     def print_log(self) -> None:
         if not self.printed:
             self.printed = True
-            print("== the second process (phases 4, 9, 16a, 19-23), its output:")
+            print("== the second process (phases 19-24), its output:")
             print(self.log_path.read_text().rstrip())
             print("== the second process's output ends")
 
@@ -526,7 +560,7 @@ class Families:
         rc = self.proc.poll()
         if rc not in (None, 0):
             self.print_log()
-            raise RuntimeError(f"the second process (phases 4, 9, 16a, 19-23) failed with "
+            raise RuntimeError(f"the second process (phases 19-24) failed with "
                                f"exit code {rc}")
 
     def wait_kernels(self) -> None:
@@ -5775,6 +5809,621 @@ def bf16_phases(torch, TM, Engine, ServeConfig, Request, FA, TO, KVQ, blocks, ke
     return {"kernels": kern, "serve": serve, "cross": cross, "families": fam}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BF16_STEPS = 8, 4, 4
+TRAIN_CROSS_BATCH, TRAIN_CROSS_SEQ = 2, 64
+STE_M = TRAIN_BATCH * TRAIN_SEQ  # 24k: the straight-through products' rows, phase 24's
+# 24a, CPU vs card, one step: each parameter's gradient within these
+# relative norms.  Float: every product is an f32 matmul or reduction taken
+# in another order.  "precise": the forward also quantizes every projection
+# input to FP8, and a last-bit difference upstream (the attention kernel's
+# sum order against its plain version's) rounds some inputs the other way,
+# which moves that row's output and so the gradients of every parameter it
+# reaches (ROADMAP C's near ties; 24a counts them).  The QAT limit lies
+# between two readings that 24a takes again in every run: last-bit noise
+# below it (card vs CPU 3.4e-3; the card against itself from weights one
+# ulp away 3.0e-2, the head and the final norm), three planted faults
+# above it (0.40 to 1.0); 0.1 leaves 3.4x room above the one and 4x below
+# the other (an H100 card; PERF.md §6)
+TRAIN_FLOAT_REL = 1e-5
+TRAIN_GRAD_REL = 0.1
+TRAIN_PEAK_GIB = 25.0  # the line above which a phase takes the lock
+TRACE_TRAIN_RANGES = ("ste_backward", "flash_attention_backward", "adamw_update")
+
+
+def f32_dot_rel(n: int) -> float:
+    """24k's limit for an f32 product against float64, in norm, where
+    each output is an n-term dot: 2^-24 * sqrt(n).  cuBLAS accumulates a
+    dot in sequence, whose rounding errors add up to ~2^-24 * sqrt(n / 6)
+    of the result for random data (on an H100 at M 2,048: 0.30 * 2^-24 *
+    sqrt(n) for gx at n 4,096 and gw at n 2,048)."""
+    return 2.0 ** -24 * math.sqrt(n)
+
+
+def _train_cfg(get_config, n_layers: int, dtype: str = "float32"):
+    return get_config("llama-7b-paper").replace(n_layers=n_layers, quant="precise",
+                                               quant_method="dsbp_fused", dtype=dtype)
+
+
+def phase_train_kernels(torch, Q, DF, FA, TO) -> dict:
+    """24k: the kernel Functions' gradients on the card against the plain
+    versions' autograd gradients: B2 (``flash_attention_grad``) at
+    llama-7b's prefill (B 4, H 32, S 512, D 128, ragged kv_len), its
+    output within 1e-5 of plain and q / k / v gradients within 1e-5; the
+    'dsbp_fused' (B1) and 'dsbp_kernel' (B3 + B4) straight-through
+    products at the three projection shapes and phase 24's rows (M =
+    STE_M): the forward bit-equal to the same product through the kernels'
+    plain versions (over row blocks of PLAIN_ROWS, on the card), gx / gw
+    bit-equal to the straight-through formula's f32 products and within
+    f32_dot_rel of them in float64 on the card."""
+    print("== phase 24k: the training Functions on the card: B2's gradient, the "
+          "straight-through products")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = {}
+    b, h, s, d = 4, 32, 512, 128
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda") for _ in range(3))
+    kv_len = torch.tensor([512, 301, 144, 32], dtype=torch.int32, device="cuda")
+    q0 = torch.zeros(b, dtype=torch.int32, device="cuda")
+    g = torch.randn(b, h, s, d, generator=gen, device="cuda")
+    g = g * (torch.arange(s, device="cuda")[None, None, :, None] < kv_len[:, None, None, None])
+    grads = {}
+    for name in ("kernel", "plain"):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = FA.flash_attention.launches
+        fn = FA.flash_attention_grad if name == "kernel" else FA.flash_attention_plain
+        o = fn(*qkv, kv_len, q0, causal=True)
+        launched = FA.flash_attention.launches - before
+        if (name == "kernel") != bool(launched):
+            raise AssertionError(f"24k: B2 launched {launched} times in the {name} forward")
+        grads[name] = (o.detach(), *torch.autograd.grad(o, qkv, g))
+    rel = [float((a - b_).abs().max() / b_.abs().max())
+           for a, b_ in zip(grads["kernel"], grads["plain"])]
+    if not max(rel) <= 1e-5:
+        raise AssertionError(f"24k: B2's output / dq / dk / dv vs plain {rel} > 1e-5")
+    print(f"  B2 B={b} H={h} S={s} D={d} ragged {kv_len.tolist()}: output, dq, dk, dv within "
+          f"{['%.2e' % r for r in rel]} of the plain version's autograd (limit 1e-5)")
+    out["B2"] = {"rel_out_dq_dk_dv": rel}
+    del q, k, v, g, grads
+    cfg = Q.PRESETS["precise"]
+    from repro_torch.core.formats import per_tensor_scale
+    from repro_torch.kernels import dsbp_matmul as DM
+    from repro_torch.kernels import fp8_quant_align as QA
+
+    # the plain versions' float64 group dots take n_groups * rows * N * 8
+    # bytes (11.5 GB at M 2,048, K 11,008): every output row depends on its
+    # own input row only, so row blocks give the whole product's bits
+    def rows(fn, *xs):
+        return torch.cat([fn(*(t[i:i + PLAIN_ROWS] for t in xs))
+                          for i in range(0, xs[0].shape[0], PLAIN_ROWS)])
+
+    def fused_plain(x, w, c):  # B1's product with its plain version, on x's device
+        pw = Q.pack_weights(w, c)
+        ts = per_tensor_scale(x, c.input_cfg.fmt).reshape(1)
+        return rows(lambda xb: DF.dsbp_fused_plain(xb, ts, pw.ka, pw.kscale,
+                                                   pw.tscale.reshape(-1), c.input_cfg), x)
+
+    def kernel_plain(x, w, c):  # B3 + B4's product with their plain versions
+        pw = Q.pack_weights(w, c)
+        ts = per_tensor_scale(x, c.input_cfg.fmt)
+        a, sx, _ = QA.fp8_quant_align_plain(x * ts, c.input_cfg)
+        return rows(lambda ab, sb: DM.dsbp_matmul_plain(ab, sb, pw.ka, pw.kscale), a, sx) / (
+            ts * pw.tscale.reshape(1, -1))
+
+    for name, fn, plain, kernels in (
+            ("dsbp_fused", TO.dsbp_matmul_fused_ste, fused_plain, ("dsbp_fused",)),
+            ("dsbp_kernel", TO.dsbp_matmul_ste, kernel_plain, ("fp8_quant_align",
+                                                              "dsbp_matmul"))):
+        for kk, n in LLAMA_SHAPES:
+            w = torch.randn(kk, n, generator=gen, device="cuda") * kk ** -0.5
+            x = torch.randn(STE_M, kk, generator=gen, device="cuda")
+            gy = torch.randn(STE_M, n, generator=gen, device="cuda")
+            counts = _launch_counts(kernels)
+            xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            y = fn(xs, ws, cfg)
+            launched = {kn: c - counts[kn] for kn, c in _launch_counts(kernels).items()}
+            if any(c != 1 for c in launched.values()):
+                raise AssertionError(f"24k: {name} forward launched {launched}")
+            gx, gw = torch.autograd.grad(y, (xs, ws), gy)
+            ref = plain(x, w, cfg)
+            if not torch.equal(y.detach(), ref):
+                raise AssertionError(f"24k: {name} STE forward != its plain version at K={kk} "
+                                     f"N={n}: {float((y.detach() - ref).abs().max())}")
+            # the straight-through backward is JAX's _ste_bwd, two f32
+            # products: bit-equal to the same products taken outside the
+            # Function, and each within f32_dot_rel of float64 on the card
+            if not (torch.equal(gx, gy @ w.T) and torch.equal(gw, x.T @ gy)):
+                raise AssertionError(f"24k: {name} gx / gw != the f32 products gy wᵀ / xᵀ gy")
+            xd, wd, gd = x.double(), w.double(), gy.double()
+            exact = (gd @ wd.T, xd.T @ gd)
+            del xd, wd, gd
+            rx, rw = (float(torch.linalg.vector_norm(a.double() - b_) / torch.linalg.vector_norm(b_))
+                      for a, b_ in zip((gx, gw), exact))
+            mx, mw = (float((a.double() - b_).abs().max() / b_.abs().max())
+                      for a, b_ in zip((gx, gw), exact))
+            del exact
+            lx, lw = f32_dot_rel(n), f32_dot_rel(STE_M)  # gx sums over N, gw over M
+            if not (rx <= lx and rw <= lw):
+                raise AssertionError(f"24k: {name} gx / gw vs float64 {rx} / {rw} > {lx} / {lw}")
+            print(f"  {name} STE M={STE_M} K={kk:5d} N={n:5d}: forward bit-equal to its plain "
+                  f"version; gx, gw bit-equal to the f32 products and within {rx:.2e}, "
+                  f"{rw:.2e} of float64's norm (limits {lx:.2e}, {lw:.2e}; largest element "
+                  f"{mx:.2e}, {mw:.2e} of max|.|); launched {launched}")
+            out[f"{name} K={kk} N={n}"] = {"gx_rel_norm": rx, "gw_rel_norm": rw,
+                                           "gx_rel_max": mx, "gw_rel_max": mw}
+            del w, x, gy, xs, ws, y, gx, gw, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _launch_counts(names) -> dict:
+    from repro_torch.kernels import dsbp_fused as DF
+    from repro_torch.kernels import dsbp_matmul as DM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fp8_quant_align as QA
+
+    fns = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention,
+           "fp8_quant_align": QA.fp8_quant_align, "dsbp_matmul": DM.dsbp_matmul}
+    return {n: fns[n].launches for n in names}
+
+
+def _loss_and_grads(torch, TM, adamw, model, batch, quant):
+    """The forward and backward of a train step: (loss, {name: gradient})."""
+    params = adamw.trainable(model)
+    loss, _ = TM.loss_fn(model, batch, quant)
+    return float(loss.detach()), dict(zip(params, torch.autograd.grad(loss,
+                                                                      list(params.values()))))
+
+
+@contextlib.contextmanager
+def _fused_ste_as(TO, fn):
+    """``ops.dsbp_matmul_fused_ste`` (what the 'dsbp_fused' method's raw
+    path calls) replaced by ``fn(orig, x, w, cfg)`` for the block."""
+    orig = TO.dsbp_matmul_fused_ste
+    TO.dsbp_matmul_fused_ste = lambda x, w, c: fn(orig, x, w, c)
+    try:
+        yield
+    finally:
+        TO.dsbp_matmul_fused_ste = orig
+
+
+def _train_faults(torch, TO, STEProduct, d_ff: int):
+    """Planted faults of the QAT product, each a kernel or backward bug
+    that 24a's gradient limit must catch: B1's K loop one 64-group short
+    (every product), w2's output scale off by one power of two (the
+    product of K = d_ff), and w2's weight gradient lost."""
+    def short_k(orig, x, w, c):
+        def fwd(x_, w_, c_):
+            return TO._fused_forward(torch.cat([x_[..., :-64], torch.zeros_like(x_[..., -64:])],
+                                               -1), w_, c_)
+        return STEProduct.apply(x, w, c, fwd)
+
+    def w2_scale(orig, x, w, c):
+        if w.shape[0] != d_ff:
+            return orig(x, w, c)
+        return STEProduct.apply(x, w, c, lambda *a: 2 * TO._fused_forward(*a))
+
+    def w2_no_grad(orig, x, w, c):
+        if w.shape[0] != d_ff:
+            return orig(x, w, c)
+        return orig(x, w.detach(), c) + 0 * w.sum()
+
+    return {"B1 one group short": short_k, "w2 output x2": w2_scale,
+            "w2 gradient lost": w2_no_grad}
+
+
+def _grad_rels(torch, got: dict, ref: dict) -> list:
+    """[(relative norm of got[k] - ref[k], k)], largest first, in float64
+    on ref's device."""
+    rels = []
+    for k, g in ref.items():
+        g = g.double()
+        rels.append((float(torch.linalg.vector_norm(got[k].to(g.device, torch.float64) - g)
+                           / torch.linalg.vector_norm(g)), k))
+    return sorted(rels, reverse=True)
+
+
+def _fp8_flips(torch, DF, per_tensor_scale, cfg, xs_a: list, xs_b: list) -> list:
+    """For each pair of one product's inputs on the two sides: (elements,
+    elements that differ in any bit, elements whose FP8 value after B1's
+    quantize and align differs, groups whose predicted width differs)."""
+    out = []
+    for a, b in zip(xs_a, xs_b):
+        q = []
+        for x in (a, b):
+            x = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            ts = per_tensor_scale(x, cfg.fmt)
+            m, s, bits = DF.quant_align_tile(x * ts, cfg)
+            q.append(((m.reshape(m.shape[0], -1, 64) * s[..., None]) / ts, bits))
+        out.append((a.numel(), int((a != b).sum()), int((q[0][0] != q[1][0]).sum()),
+                    int((q[0][1] != q[1][1]).sum())))
+    return out
+
+
+def phase_train_cross_device(torch, TM, adamw, get_config, SyntheticLM, DataConfig) -> dict:
+    """24a: llama-7b-paper at full width and CROSS_LAYERS layers, the
+    forward and backward of one train step on the CPU (plain versions) and
+    on the card (kernels) from the same weights and batch, twice: float (no
+    quantization), every gradient within TRAIN_FLOAT_REL of its norm; then
+    "precise" through 'dsbp_fused' (weights packed per call,
+    straight-through backward), the losses within phase 9's relative bound
+    and every gradient within TRAIN_GRAD_REL.  The QAT limit is read
+    against both sides of it on the card: the card's step from weights one
+    ulp away (the last-bit noise an honest run carries) stays within it,
+    and each planted fault (_train_faults) lies above it; the inputs of
+    each product that round to another FP8 value on the CPU than on the
+    card are counted.  Without remat (phase 24 trains with it) and without
+    the AdamW update (phase 24 runs it; the CPU tests hold it to JAX's):
+    the CPU's side is the costly part."""
+    print(f"== phase 24a: llama-7b-paper at full width, {CROSS_LAYERS} layer(s), one train "
+          f"step: CPU (plain) vs card (kernels)")
+    from repro_torch.core.formats import per_tensor_scale
+    from repro_torch.core.quantized import PRESETS, STEProduct
+    from repro_torch.kernels import dsbp_fused as DF
+    from repro_torch.kernels import ops as TO
+    from repro_torch.models.layers import Quant
+
+    out = {}
+    cfg = _train_cfg(get_config, CROSS_LAYERS).replace(remat=False)
+    batch = SyntheticLM(DataConfig(seed=24, batch_size=TRAIN_CROSS_BATCH,
+                                   seq_len=TRAIN_CROSS_SEQ), cfg).batch(0)
+    cpu_model = TM.init(cfg, seed=24, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+
+    def recorded(xs):
+        def rec(orig, x, w, c):
+            xs.append(x.detach().to("cpu", copy=True))
+            return orig(x, w, c)
+        return rec
+
+    for label, quant, limit in (("float", Quant(None), TRAIN_FLOAT_REL),
+                                ("precise, dsbp_fused", Quant("precise", "dsbp_fused"),
+                                 TRAIN_GRAD_REL)):
+        t0 = time.perf_counter()
+        xs_card, xs_cpu = [], []
+        counts = _launch_counts(("dsbp_fused", "flash_attention"))
+        with _fused_ste_as(TO, recorded(xs_card)):
+            gl, gg = _loss_and_grads(torch, TM, adamw, gpu_model, batch, quant)
+        launched = {k: c - counts[k] for k, c in _launch_counts(counts).items()}
+        want = {"dsbp_fused": 7 * CROSS_LAYERS if quant else 0,
+                "flash_attention": CROSS_LAYERS}
+        if launched != want:
+            raise AssertionError(f"24a {label}: launches in one train step {launched}, "
+                                 f"want {want}")
+        rec = {}
+        if quant:
+            # both sides of the limit, on the card: last-bit noise, planted faults
+            nudged = copy.deepcopy(gpu_model)
+            with torch.no_grad():
+                for p in nudged.parameters():
+                    p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+            nl, ng_ = _loss_and_grads(torch, TM, adamw, nudged, batch, quant)
+            del nudged
+            rec["one ulp"] = (abs(nl - gl) / abs(gl), _grad_rels(torch, ng_, gg)[:2])
+            del ng_
+            for name, fault in _train_faults(torch, TO, STEProduct, cfg.d_ff).items():
+                with _fused_ste_as(TO, fault):
+                    fl, fg = _loss_and_grads(torch, TM, adamw, gpu_model, batch, quant)
+                rec[name] = (abs(fl - gl) / abs(gl), _grad_rels(torch, fg, gg)[:2])
+                del fg
+        with _fused_ste_as(TO, recorded(xs_cpu)):
+            cl, cg = _loss_and_grads(torch, TM, adamw, cpu_model, batch, quant)
+        rel_loss = abs(gl - cl) / abs(cl)
+        rels = _grad_rels(torch, gg, cg)
+        print(f"  {label}, batch {TRAIN_CROSS_BATCH} x {TRAIN_CROSS_SEQ}: loss card {gl:.6f}, "
+              f"CPU {cl:.6f} (relative {rel_loss:.2e}, limit {KV_TIE}); gradients within "
+              f"{rels[0][0]:.2e} of the CPU's norm (limit {limit}; largest "
+              f"{[(k, float('%.2e' % r)) for r, k in rels[:4]]}); launched {launched}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not (math.isfinite(gl) and rel_loss <= KV_TIE):
+            raise AssertionError(f"24a {label}: loss card {gl} vs CPU {cl}")
+        if not rels[0][0] <= limit:
+            raise AssertionError(f"24a {label}: gradient of {rels[0][1]} card vs CPU "
+                                 f"{rels[0][0]} > {limit}")
+        out[label] = {"loss_card": gl, "loss_cpu": cl, "rel_loss": rel_loss,
+                      "worst_grads": rels[:4], "launches": launched}
+        if quant:
+            flips = _fp8_flips(torch, DF, per_tensor_scale, PRESETS["precise"].input_cfg,
+                               xs_card, xs_cpu)
+            print(f"  the {len(flips)} products' inputs, card vs CPU: (elements, differing in "
+                  f"any bit, rounding to another FP8 value, groups of another predicted "
+                  f"width) {flips}")
+            for name, (lr, worst) in rec.items():
+                print(f"  card vs card, {name}: loss {lr:.2e} apart, gradients "
+                      f"{[(k, float('%.2e' % r)) for r, k in worst]}")
+            noise = max(rels[0][0], rec["one ulp"][1][0][0])
+            caught = min(r[1][0][0] for n, r in rec.items() if n != "one ulp")
+            if not noise <= limit < caught:
+                raise AssertionError(f"24a: the QAT limit {limit} does not separate last-bit "
+                                     f"noise ({noise:.2e}) from the planted faults "
+                                     f"({caught:.2e})")
+            out[label].update(fp8_flips=flips, readings=rec)
+        del gg, cg
+    del cpu_model, gpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dir_gib(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 2**30
+
+
+def trace_train_step(torch, model, opt_state, batch, ocfg) -> dict:
+    """One train step in a torch.profiler window (CPU and CUDA activity, so
+    the package's ranges attribute their kernels): device time of B1 (by
+    kernel name), the straight-through products' backward, the attention
+    backward and the optimizer (by range), everything else, and the idle
+    share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.trainer import train_step
+
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt_state, _ = train_step(model, opt_state, batch, ocfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # a range also shows on the device timeline as an annotation spanning
+    # its kernels: kernels only count as busy time; a range's device time
+    # is its host-side entry's, the kernels it launched
+    dev = [e for e in events if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+           and e.key not in TRACE_TRAIN_RANGES and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    b1 = sum(e.self_device_time_total for e in dev
+             if any(p in e.key for p in TRACE_FUSED["B1"])) / 1e3
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.key in TRACE_TRAIN_RANGES and e.device_type == DeviceType.CPU}
+    named = b1 + sum(ranges.values())
+    out = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms if busy else None,
+           "B1_ms": b1, **{f"{k}_ms": ranges.get(k, 0.0) for k in TRACE_TRAIN_RANGES},
+           "other_ms": busy - named}
+    print(f"  trace, one train step (torch.profiler, CPU and CUDA activity): window "
+          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{out['idle_share'] if busy else float('nan'):.3f}; B1 {b1:.1f} ms, "
+          + ", ".join(f"{k} {ranges.get(k, 0.0):.1f} ms" for k in TRACE_TRAIN_RANGES)
+          + f", everything else {busy - named:.1f} ms")
+    return out, opt_state
+
+
+@contextlib.contextmanager
+def _timed_store(store, seconds: dict):
+    """``store.save`` and ``store.restore`` (what the Trainer calls) timed
+    into ``seconds["save"]`` / ``seconds["restore"]`` for the block."""
+    orig = {k: getattr(store, k) for k in ("save", "restore")}
+
+    def timed(kind):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig[kind](*a, **kw)
+            seconds[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for k in orig:
+        setattr(store, k, timed(k))
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(store, k, fn)
+
+
+def phase_train(torch, TM, Engine, ServeConfig, adamw, store, get_config, SyntheticLM,
+                DataConfig, Trainer, TrainConfig) -> dict:
+    """24: llama-7b-paper at full width and TRAIN_LAYERS layers, f32,
+    "precise" through 'dsbp_fused', TRAIN_BATCH x TRAIN_SEQ tokens of the
+    synthetic stream per step: a Trainer of TRAIN_STEPS steps without
+    checkpoints (launches per step, step time, tokens/s, peak memory);
+    a second Trainer of TRAIN_CKPT_EVERY steps that saves its last step,
+    and a third restored from that checkpoint running to TRAIN_STEPS: the
+    second's and third's losses, and the third's final parameters, equal
+    the first's bit for bit; a one-step trace; then TRAIN_BF16_STEPS bf16
+    steps; then the third's final checkpoint restored into a fresh model,
+    packed and served.  Each checkpoint save and restore is timed, and
+    the checkpoints are removed however the phase ends."""
+    print(f"== phase 24: training llama-7b-paper at full width, {TRAIN_LAYERS} layers, "
+          f"\"precise\" through dsbp_fused, {TRAIN_BATCH} x {TRAIN_SEQ} tokens per step")
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(dir=RUN_ROOT.parent, prefix="train_ckpt_"))
+    try:
+        rec = _train_run(torch, TM, Engine, ServeConfig, adamw, store, get_config, SyntheticLM,
+                         DataConfig, Trainer, TrainConfig, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _train_run(torch, TM, Engine, ServeConfig, adamw, store, get_config, SyntheticLM,
+               DataConfig, Trainer, TrainConfig, root: Path) -> dict:
+    """The body of phase 24, its checkpoints under ``root``."""
+    import numpy as np
+    import warnings
+
+    cfg = _train_cfg(get_config, TRAIN_LAYERS)
+    ocfg = adamw.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    dcfg = DataConfig(seed=24, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    disk = shutil.disk_usage(root)
+    print(f"  checkpoints under {root} ({disk.free / 2**30:.0f} GiB free)")
+    remat = 2 if cfg.remat else 1
+    want = {"dsbp_fused": 7 * TRAIN_LAYERS * remat, "flash_attention": TRAIN_LAYERS * remat}
+    rec = {"layers": TRAIN_LAYERS, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+           "params": sum(p.numel() for p in TM.Model(cfg, "meta").parameters())}
+    ckpt = {"save": [], "restore": []}
+    ckpt_dir = root / "ckpt"
+
+    def trainer(steps, ckpt_dir=""):
+        return Trainer(cfg, TrainConfig(steps=steps, ckpt_dir=str(ckpt_dir) if ckpt_dir else "",
+                                        ckpt_every=TRAIN_CKPT_EVERY, log_every=1, seed=24),
+                       ocfg, dcfg, device="cuda")
+
+    # the embedding gather's backward adds each token's row gradient into
+    # the table with atomics (index_put_ with accumulate=True), in no fixed
+    # order where a token repeats: deterministic algorithms make the
+    # restarted run's sums, and so its losses, equal the first run's
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught, _timed_store(store, ckpt):
+            warnings.simplefilter("always")
+            steps, per_step = [], []
+
+            def log(step, m):
+                now = _launch_counts(want)
+                per_step.append({k: now[k] - log.last[k] for k in want})
+                log.last = now
+                steps.append(m["step_time_s"])
+
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            one = trainer(TRAIN_STEPS)
+            log.last = _launch_counts(want)
+            m1, s1, h1 = one.run(on_metrics=log)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for i, got in enumerate(per_step):
+                if got != want:
+                    raise AssertionError(f"24: step {i} launched {got}, want {want}")
+            if not (np.isfinite(h1).all() and h1[-1] < h1[0]):
+                raise AssertionError(f"24: losses {h1} (finite, the last below the first)")
+            if peak > TRAIN_PEAK_GIB:
+                raise AssertionError(f"24: peak {peak:.2f} GiB above {TRAIN_PEAK_GIB} GiB: the "
+                                     f"phase must take the lock")
+            ms = 1e3 * float(np.median(steps))
+            print(f"  {TRAIN_STEPS} steps, no checkpoint: losses {[round(x, 4) for x in h1]}; "
+                  f"{ms:.1f} ms per step (median, the host's clock around each synchronized "
+                  f"step), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; launches per step "
+                  f"{want} (remat: each layer's forward runs again in the backward); peak "
+                  f"{peak:.2f} GiB; {run_s:.1f} s with the model's init")
+            final = {k: p.detach().to("cpu", copy=True) for k, p in m1.named_parameters()}
+            del m1, s1, one
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m2, s2, h2 = trainer(TRAIN_CKPT_EVERY, ckpt_dir).run()
+            del m2, s2
+            gc.collect()
+            torch.cuda.empty_cache()
+            m3, s3, h3 = trainer(TRAIN_STEPS, ckpt_dir).run()
+            restart_s = time.perf_counter() - t0
+            if h2 + h3 != h1:
+                raise AssertionError(f"24: the saving run's {h2} and the restored run's {h3} "
+                                     f"losses != the uninterrupted run's {h1}")
+            if not all(torch.equal(final[k], p.detach().cpu()) for k, p in m3.named_parameters()):
+                raise AssertionError("24: the restarted run's parameters differ")
+            print(f"  a run of {TRAIN_CKPT_EVERY} steps saving its last, and one restored from it "
+                  f"to step {TRAIN_STEPS}: losses {[round(x, 4) for x in h2]} + "
+                  f"{[round(x, 4) for x in h3]} equal the uninterrupted run's bit for bit, and "
+                  f"so are the final parameters; saves {[round(x, 1) for x in ckpt['save']]} s, "
+                  f"restore {[round(x, 1) for x in ckpt['restore']]} s of "
+                  f"{_dir_gib(ckpt_dir / f'step_{TRAIN_STEPS:08d}'):.2f} GiB each; "
+                  f"{restart_s:.1f} s for both runs")
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in SyntheticLM(dcfg, cfg).batch(TRAIN_STEPS).items()}
+            t0 = time.perf_counter()
+            trace, s3 = trace_train_step(torch, m3, s3, batch, ocfg)
+            trace_s = time.perf_counter() - t0
+            del m3, s3
+            peak_restart = torch.cuda.max_memory_allocated() / 2**30
+        nondet = sorted({str(w.message).split(".")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    print(f"  deterministic algorithms were on for the embedding gather's backward "
+          f"(index_put_ with accumulate=True); ops with no deterministic form: "
+          f"{nondet or 'none'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16, as the JAX launcher trains at full size
+    cfg16 = _train_cfg(get_config, TRAIN_LAYERS, dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m16, s16, h16 = Trainer(cfg16, TrainConfig(steps=TRAIN_BF16_STEPS, log_every=1000,
+                                               seed=24),
+                            adamw.AdamWConfig(lr_peak=3e-4, warmup_steps=2,
+                                              total_steps=TRAIN_BF16_STEPS),
+                            dcfg, device="cuda").run()
+    del m16, s16
+    peak16 = torch.cuda.max_memory_allocated() / 2**30
+    bf16_s = time.perf_counter() - t0
+    if not np.isfinite(h16).all():
+        raise AssertionError(f"24: bf16 losses {h16}")
+    if max(peak_restart, peak16) > TRAIN_PEAK_GIB:
+        raise AssertionError(f"24: peak {peak_restart:.2f} GiB (restart) / {peak16:.2f} GiB "
+                             f"(bf16) above {TRAIN_PEAK_GIB} GiB: the phase must take the lock")
+    print(f"  bf16, {TRAIN_BF16_STEPS} steps: losses {[round(x, 4) for x in h16]}; peak "
+          f"{peak16:.2f} GiB (the restart's runs and the trace: {peak_restart:.2f} GiB); "
+          f"{bf16_s:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the trained weights, restored into a fresh model, packed and served
+    t0 = time.perf_counter()
+    fresh = TM.Model(cfg, "cuda")
+    like = {k: p for k, p in fresh.named_parameters()}
+    t1 = time.perf_counter()
+    (got, _), step = store.restore(str(ckpt_dir), (like, None))
+    params_restore_s = time.perf_counter() - t1
+    with torch.no_grad():
+        for k, p in like.items():
+            p.copy_(got[k])
+    if step != TRAIN_STEPS or not all(torch.equal(final[k], p.cpu()) for k, p in like.items()):
+        raise AssertionError(f"24: restored step {step} differs from the trained model")
+    del got, final
+    eng = Engine(fresh, ServeConfig(max_len=64), device="cuda")  # packs "precise"
+    toks, lens = _prompts(cfg.vocab_size, [5, 17, 9, 12], seed=24)
+    gen = eng.generate(toks, 8, lengths=lens)
+    if gen.shape != (4, 8) or not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise AssertionError(f"24: generate from the restored checkpoint gave {gen}")
+    serve_s = time.perf_counter() - t0
+    print(f"  step {step} restored (store.restore, the parameters alone: "
+          f"{params_restore_s:.1f} s) into a fresh model, bit-equal to the trained one, packed "
+          f"and served: {gen.tolist()}; {serve_s:.1f} s")
+    del eng, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(losses=h1, saved_run=h2, restored_run=h3, ms_per_step=ms, run_s=run_s,
+               restart_s=restart_s, save_s=ckpt["save"], restore_s=ckpt["restore"],
+               params_restore_s=params_restore_s, trace_s=trace_s, bf16_s=bf16_s,
+               serve_s=serve_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, peak_gib=peak,
+               peak_restart_gib=peak_restart,
+               launches_per_step=want, trace=trace, bf16_losses=h16, bf16_peak_gib=peak16,
+               served=gen.tolist())
+    return rec
+
+
+def train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config) -> dict:
+    """Phase 24 whole: 24k, 24a and 24; prints one ``train (phase 24):``
+    JSON line and returns the record."""
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    kern = phase_train_kernels(torch, Q, DF, FA, TO)
+    cross = phase_train_cross_device(torch, TM, adamw, get_config, SyntheticLM, DataConfig)
+    train = phase_train(torch, TM, Engine, ServeConfig, adamw, store, get_config, SyntheticLM,
+                        DataConfig, Trainer, TrainConfig)
+    rec = {"24k": kern, "24a": cross, "24": train, "seconds": time.perf_counter() - t0,
+           "card": smi()}
+    print("train (phase 24): " + json.dumps(rec, default=_jsonable))
+    return rec
+
+
 def family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config) -> dict:
     """The kernel phases of 19-23, timed before anything else shares the card."""
     return {"19": phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale),
@@ -5788,9 +6437,9 @@ def family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config) -> dict:
 def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO, blocks,
                     per_tensor_scale, get_config, kernels, run_dir: Path) -> int:
     """The second process of a whole run: the kernels of 19-23 alone on the
-    card (the first process waits), then 4, 9 and 16a, 20 and 22 (holding
-    the lock of the memory-heavy phases), 21, 19 and 23; hands their
-    records over in ``run_dir/families.json``."""
+    card (the first process waits), then 20 and 22 (holding the lock of the
+    memory-heavy phases), 21, 19, 23 and 24; hands their records over in
+    ``run_dir/families.json``."""
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the host is shared
     card = smi()
     t_run = time.perf_counter()
@@ -5803,18 +6452,6 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     torch.cuda.synchronize()
     (run_dir / "kernels.done").write_text("")
     stamp("phases 19-23 (kernels)")
-    # llama-7b's one-layer CPU-vs-card checks, mostly the CPU's plain
-    # versions: beside the first process's phase 5 they leave it the card
-    cfg = get_config("llama-7b-paper")
-    models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
-    stamp("phase 4")
-    phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
-    stamp("phase 9")
-    spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
-    stamp("phase 16a")
-    del models
-    gc.collect()
-    torch.cuda.empty_cache()
     with heavy_phase(run_dir):
         moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO,
                          per_tensor_scale, get_config, card, b1=kern["20"])
@@ -5833,9 +6470,11 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     bf = bf16_phases(torch, TM, Engine, ServeConfig, Request, FA, TO, KVQ, blocks, kernels,
                      get_config, kern=kern["23"])
     stamp("phase 23")
+    train = train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config)
+    stamp("phase 24")
     bf = {**bf, "kernels": {f"{k}|{c}": v for (k, c), v in bf["kernels"].items()}}
     (run_dir / "families.json").write_text(json.dumps(
-        {"hyb": hyb, "moe": moe, "ssd": ssd, "fro": fro, "bf": bf, "spec16a": spec16a},
+        {"hyb": hyb, "moe": moe, "ssd": ssd, "fro": fro, "bf": bf, "train": train},
         default=_jsonable))
     return 0
 
@@ -5965,6 +6604,10 @@ def main() -> int:
                     get_config)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--train"]:  # phases 1 and 24: the training path
+        train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config)
+        print(smi())
+        return 0
     if sys.argv[1:2] == ["--families-worker"]:  # the second process of a whole run
         return families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
                                blocks, per_tensor_scale, get_config, all_kernels,
@@ -6055,14 +6698,23 @@ def main() -> int:
             stamp("phase 17")
             b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
             stamp("phase 14-15b")
+        # llama-7b's one-layer CPU-vs-card checks, mostly the CPU's plain
+        # versions, last: the second process's phase 24 binds the run
+        models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
+        stamp("phase 4")
+        phase_kv_cross_device(torch, Engine, ServeConfig, Request, blocks, KVQ, models, cfg)
+        stamp("phase 9")
+        spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
+        stamp("phase 16a")
+        del models
         mixed = pol["served"]["mixed + kv4"]
         rec = fam.finish()
         stamp("the second process")
     finally:
         fam.stop()
         shutil.rmtree(run_dir, ignore_errors=True)
-    hyb, moe, ssd, fro, bf, spec16a = (rec[k] for k in ("hyb", "moe", "ssd", "fro", "bf",
-                                                        "spec16a"))
+    hyb, moe, ssd, fro, bf, train = (rec[k] for k in ("hyb", "moe", "ssd", "fro", "bf",
+                                                      "train"))
     # phase 23's bf16 llama holds half of phase 5's float-KV bytes per token
     half = bf["serve"]["float"]["kv_bytes_per_token"] / float_bpt
     print(f"  phase 23: bf16 float-KV bytes per token {half:.3f} of phase 5's")
@@ -6254,6 +6906,12 @@ def main() -> int:
                                                 "library_ms", "max_abs_err")}
                         for (k, c), v in bfk.items() if k == kname and c != case},
              "shape": f"{kname} {case} (phase 23's)", "path": "phase 23 (llama-7b-paper bf16)"})
+    # each kernel's launches per step on the training path (phase 24: the
+    # dsbp_fused QAT step; B3 and B4 run the dsbp_kernel product of 24k)
+    for k in kernels:
+        k["train_launches_per_step"] = train["24"]["launches_per_step"].get(k["name"], 0)
+        k["train_path"] = (f"phase 24 (llama-7b-paper, {TRAIN_LAYERS} layers, full width, "
+                           f"dsbp_fused QAT with remat)")
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -21,6 +21,10 @@ packed container into its four arrays plus its static fields.
 * :func:`to_tensor` carries one array, of any dtype the JAX trees hold
   (bfloat16 included, bit for bit); every port leaf takes its JAX
   leaf's dtype.
+* :func:`model_from_checkpoint` reads a param tree that JAX's
+  ``checkpoint.store.save`` wrote (float, or packed by
+  ``pack_weights_int8``) through the port's store and builds the model
+  from it: weights cross as files.
 * :func:`cache_from_jax` turns a JAX KV cache tree ``{"units": [...],
   "tail": [...]}`` into the port's per-layer list of ``{'k', 'v'}`` (KV
   layers) and ``{'h', 'conv'}`` (recurrent state) entries; a packed
@@ -39,13 +43,16 @@ from repro_torch.core.quantized import PRESETS, QuantizedMatmulConfig
 from repro_torch.kvq import PackedKVBlock
 from repro_torch.models.model import Model
 
-__all__ = ["model_from_jax", "packed_from_jax", "cache_from_jax", "to_tensor", "to_numpy"]
+__all__ = ["model_from_jax", "model_from_checkpoint", "packed_from_jax", "cache_from_jax",
+           "to_tensor", "to_numpy"]
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
     """A numpy array as a tensor of the same dtype, bit for bit: a bfloat16
     array (numpy's ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses)
-    travels as its 16-bit patterns."""
+    travels as its 16-bit patterns.  A tensor passes as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.int16).copy()
@@ -82,15 +89,19 @@ def _leaf(value, index, device):
     """One layer's slice of a (possibly stacked) leaf as a tensor or
     packed container."""
     if isinstance(value, dict) and "ka" in value:
-        arrays = {key: np.asarray(value[key]) for key in _PACKED_KEYS}
+        arrays = {key: _array(value[key]) for key in _PACKED_KEYS}
         if index is not None:
             arrays = {key: a[index] for key, a in arrays.items()}
         meta = {key: value[key] for key in ("k", "n", "group_size", "cfg")}
         return packed_from_jax(**arrays, **meta,
                                version=value.get("version", LAYOUT_VERSION),
                                device=device)
-    a = np.asarray(value)
+    a = _array(value)
     return to_tensor(a if index is None else a[index], device)
+
+
+def _array(value):
+    return value if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
 def _set(module, name: str, value) -> None:
@@ -148,6 +159,68 @@ def model_from_jax(params: dict, cfg: ArchConfig, *, device) -> Model:
         for i, tree in enumerate(params["tail"]):
             _fill_layer(model.layers[base + i], tree, None, device)
     return model
+
+
+def _nest(flat: dict) -> dict:
+    """``{"a/b/0/c": leaf}`` -> nested dicts, with lists where every key
+    of a level is an index (``units`` / ``tail``)."""
+    root: dict = {}
+    for key, leaf in flat.items():
+        node = root
+        *path, last = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def _packed_meta(tree, layer, preset) -> None:
+    """Give every packed projection dict under ``tree`` (one layer's
+    subtree) the static fields the store does not keep: the logical K of
+    ``layer``'s parameter of that name, N, the group size, and ``preset``
+    as its config."""
+    def walk(node, path):
+        for name, v in node.items():
+            if not isinstance(v, dict):
+                continue
+            if "ka" in v:
+                k = layer.get_parameter(".".join(path + [name])).shape[-2]
+                v.update(k=k, n=v["ka"].shape[-1],
+                         group_size=v["ka"].shape[-2] // v["kscale"].shape[-2], cfg=preset)
+            else:
+                walk(v, path + [name])
+
+    walk(tree, [])
+
+
+def model_from_checkpoint(ckpt_dir: str, cfg: ArchConfig, *, device, step=None) -> Model:
+    """The port's model from a JAX param tree on disk (``store.save(dir,
+    step, params)`` in the JAX package, the newest step unless ``step``),
+    read by :func:`repro_torch.checkpoint.store.restore_flat_tensors`
+    (bfloat16 leaves bit for bit) and rebuilt into the nested tree
+    :func:`model_from_jax` takes.  Packed projections get the config
+    ``cfg.quant`` (else "precise"), which the store does not record."""
+    from repro_torch.checkpoint import store
+
+    preset = cfg.quant if isinstance(cfg.quant, str) else "precise"
+    flat, _ = store.restore_flat_tensors(ckpt_dir, step=step)
+    tree = {"units": [], "tail": [], **_nest(flat)}  # an empty list stores no leaf
+    meta = Model(cfg, torch.device("meta"))
+    for p, unit in enumerate(tree["units"]):
+        _packed_meta(unit, meta.layers[p], preset)
+    base = cfg.n_units * len(cfg.pattern)
+    for i, sub in enumerate(tree["tail"]):
+        _packed_meta(sub, meta.layers[base + i], preset)
+    return model_from_jax(tree, cfg, device=device)
 
 
 def _kv_leaf(value, index, device):

@@ -238,7 +238,8 @@ class DenseBF16Method(QuantMethod):
 class DSBPRefMethod(QuantMethod):
     """Reference DSBP numerics: packed weights take the integer path
     (on-the-fly input quantization + grouped int contraction off the packed
-    form); raw weights quantize both operands per call (forward only)."""
+    form); raw weights quantize both operands per call, with a
+    straight-through backward (QAT)."""
 
     name = "dsbp_ref"
 
@@ -250,7 +251,7 @@ class DSBPRefMethod(QuantMethod):
     def _apply_raw(self, w, x, cfg, name=None):
         from . import quantized as Q
 
-        return Q.dsbp_matmul_ref(x, w, cfg).to(x.dtype)
+        return Q.dsbp_matmul_ste(x, w, cfg).to(x.dtype)
 
 
 @register_quant_method
@@ -258,7 +259,7 @@ class DSBPKernelMethod(QuantMethod):
     """The two-kernel DSBP GEMM (``kernels.ops.dsbp_matmul_packed``): the
     int8 aligned mantissas of a packed weight feed the grouped GEMM
     directly, under the *active* config's input path.  Raw weights pack
-    per call (forward only)."""
+    per call, with a straight-through backward (QAT)."""
 
     name = "dsbp_kernel"
 
@@ -270,14 +271,15 @@ class DSBPKernelMethod(QuantMethod):
     def _apply_raw(self, w, x, cfg, name=None):
         from repro_torch.kernels import ops
 
-        return ops.dsbp_matmul(x, w, cfg).to(x.dtype)
+        return ops.dsbp_matmul_ste(x, w, cfg).to(x.dtype)
 
 
 @register_quant_method
 class DSBPFusedMethod(QuantMethod):
     """The one-pass fused DSBP GEMM (``kernels.ops.dsbp_matmul_fused``):
     FP8 quantize + predict + align + MAC in one kernel off the container's
-    kernel-layout operands.  Raw weights pack per call."""
+    kernel-layout operands.  Raw weights pack per call, with a
+    straight-through backward: QAT trains through B1's forward."""
 
     name = "dsbp_fused"
 
@@ -287,9 +289,9 @@ class DSBPFusedMethod(QuantMethod):
         return ops.dsbp_matmul_fused(x, pw, input_cfg=cfg.input_cfg).to(x.dtype)
 
     def _apply_raw(self, w, x, cfg, name=None):
-        from . import quantized as Q
+        from repro_torch.kernels import ops
 
-        return self._apply_packed(Q.pack_weights(w, cfg), x, cfg, name=name)
+        return ops.dsbp_matmul_fused_ste(x, w, cfg).to(x.dtype)
 
 
 @register_quant_method
@@ -304,9 +306,15 @@ class DSBPFusedShardedMethod(DSBPFusedMethod):
     wo/w2 row-parallel on group-aligned K shards with ONE ``all_reduce``
     after the in-kernel scale division; the input scale is reduced over
     every rank that splits the activation.  Without a context this is
-    'dsbp_fused'."""
+    'dsbp_fused'.  Raw weights pack per call and take the same route
+    (serving only: training under a mesh waits for ROADMAP A13)."""
 
     name = "dsbp_fused_sharded"
+
+    def _apply_raw(self, w, x, cfg, name=None):
+        from . import quantized as Q
+
+        return self._apply_packed(Q.pack_weights(w, cfg), x, cfg, name=name)
 
     def _apply_packed(self, pw, x, cfg, name=None):
         from repro_torch.parallel import context as PC

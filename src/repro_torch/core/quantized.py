@@ -1,7 +1,7 @@
 """DSBP-quantized matmul: the macro's datapath as PyTorch ops.
 
-Port of ``repro.core.quantized`` (forward paths only; the straight-through
-training estimator and the stats wait for the training slice; the energy
+Port of ``repro.core.quantized`` (the forward paths and the
+straight-through training product :func:`dsbp_matmul_ste`; the energy
 model is :mod:`repro_torch.core.energy`):
 
   weights  offline:    FP8 -> group fields -> Algorithm-1 B_w -> int8 A_w, σ_w
@@ -33,6 +33,8 @@ __all__ = [
     "packed_matmul",
     "dsbp_matmul_ref",
     "dsbp_matmul",
+    "dsbp_matmul_ste",
+    "STEProduct",
 ]
 
 
@@ -151,3 +153,35 @@ def dsbp_matmul(x: torch.Tensor, w: torch.Tensor, cfg: QuantizedMatmulConfig,
 
         return ops.dsbp_matmul(x, w, cfg)
     return dsbp_matmul_ref(x, w, cfg)
+
+
+class STEProduct(torch.autograd.Function):
+    """A quantized forward with JAX's straight-through backward
+    (``core/quantized.py:_ste_bwd``): ``gx = g @ wᵀ`` and ``gw = xᵀ g`` on
+    the raw operands, as if the forward were the float product (the
+    rounding and clipping ops would give zero gradients).  ``forward_fn(x,
+    w, cfg)`` is the quantized product; it runs with autograd off, so a
+    weight packed inside it records nothing.  The two backward products
+    are plain float matmuls, as JAX's einsums are (no Pallas kernel); a
+    profile names them ``ste_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg, forward_fn):
+        ctx.save_for_backward(x, w)
+        return forward_fn(x, w, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors  # under remat this recomputes the layer first
+        with torch.profiler.record_function("ste_backward"):
+            gx = torch.matmul(g, w.to(g.dtype).transpose(-1, -2))
+            xm = x.reshape(-1, x.shape[-1]).to(g.dtype)
+            gw = torch.matmul(xm.transpose(0, 1), g.reshape(-1, g.shape[-1]))
+            return gx.to(x.dtype), gw.to(w.dtype), None, None
+
+
+def dsbp_matmul_ste(x: torch.Tensor, w: torch.Tensor,
+                    cfg: QuantizedMatmulConfig) -> torch.Tensor:
+    """Quantized forward (:func:`dsbp_matmul_ref`), straight-through
+    (full-precision) backward: QAT through the 'dsbp_ref' method."""
+    return STEProduct.apply(x, w, cfg, dsbp_matmul_ref)

@@ -12,6 +12,15 @@ least one visible key (the output of a fully masked row is undefined).
   prefill: kv_len = prompt lengths, q_pos0 = 0  (blockwise_attention)
   decode:  Sq = 1, kv_len = pos + 1, q_pos0 = pos  (decode_attention)
 
+``flash_attention_grad`` is the same call as an autograd function, for
+training: its forward is ``flash_attention`` (B2 on the card, the plain
+version on the CPU), and its backward recomputes the plain version under
+autograd from the saved q, k, v, ``kv_len`` and ``q_pos0``, as JAX
+differentiates its jnp ``blockwise_attention`` (the reference has no
+Pallas backward; a backward kernel is speed work, ROADMAP B).  The
+recompute materializes the (B, Hq, Sq, S) f32 scores of one call; a
+profile names it ``flash_attention_backward``.
+
 ``packed_flash_attention(q, k_qm, k_scale, v_qm, v_scale, ...)`` is the
 same function over a packed cache: int8 mantissas (B, Hkv, S, D) and pow2
 scales (B, Hkv, S, 1).  The K scale multiplies the logits after the dot,
@@ -86,7 +95,8 @@ ROW_SMEM_MAX_D = 29056
 # q (and float K/V) element types the kernels are instantiated for
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-__all__ = ["flash_attention", "flash_attention_plain", "packed_flash_attention",
+__all__ = ["flash_attention", "flash_attention_grad", "flash_attention_plain",
+           "packed_flash_attention",
            "packed_flash_attention_plain", "paged_flash_attention",
            "paged_flash_attention_plain", "paged_packed_flash_attention",
            "paged_packed_flash_attention_plain", "gather_blocks", "attention_mask", "scale_q"]
@@ -232,6 +242,30 @@ def flash_attention(q, k, v, kv_len, q_pos0, *, causal: bool = True,
     q_pos0 = q_pos0.to(torch.int32).contiguous()
     return _launch(flash_attention, q, s, (q, k, v, kv_len, q_pos0),
                    (b, hq, hkv, sq, s, d, int(causal), int(window)))
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, q_pos0, causal, window):
+        ctx.save_for_backward(q, k, v, kv_len, q_pos0)
+        ctx.mask = (causal, window)
+        return flash_attention(q, k, v, kv_len, q_pos0, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_len, q_pos0 = ctx.saved_tensors  # under remat: recomputed first
+        with torch.profiler.record_function("flash_attention_backward"), torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _attention_plain(*qkv, kv_len, q_pos0, *ctx.mask)
+            gq, gk, gv = torch.autograd.grad(out, qkv, g)
+        return gq, gk, gv, None, None, None, None
+
+
+def flash_attention_grad(q, k, v, kv_len, q_pos0, *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient for q, k and v (the plain
+    version's, recomputed in the backward)."""
+    return _FlashAttentionFn.apply(q, k, v, kv_len, q_pos0, causal, window)
 
 
 def _check_children(fn: str, q, k_qm, k_scale, v_qm, v_scale):

@@ -3,7 +3,9 @@
 Port of ``repro.kernels.ops``: ``fp8_quant_align`` (:92),
 ``dsbp_matmul_packed`` (:102), ``dsbp_matmul_fused`` (:150),
 ``dsbp_matmul_fused_sharded`` (:190),
-``dsbp_matmul`` (:274), and the two dispatch contracts
+``dsbp_matmul`` (:274), the straight-through QAT products
+``dsbp_matmul_ste`` (:293) and ``dsbp_matmul_fused_ste`` (:319), and the two
+dispatch contracts
 ``count_weight_transposes`` (:52) and ``count_kv_dequants`` (:386),
 ``quant_sat_stats`` (:444, the quantize-path health statistic of
 ``repro_torch.obs.health``), plus the paged cache's ``count_kv_gathers``
@@ -31,7 +33,8 @@ from .dsbp_fused import dsbp_fused, dsbp_fused_sharded_call
 from .dsbp_matmul import dsbp_matmul as _dsbp_matmul
 
 __all__ = ["fp8_quant_align", "dsbp_matmul_packed", "dsbp_matmul_fused",
-           "dsbp_matmul_fused_sharded", "dsbp_matmul",
+           "dsbp_matmul_fused_sharded", "dsbp_matmul", "dsbp_matmul_ste",
+           "dsbp_matmul_fused_ste",
            "count_weight_transposes", "count_kv_dequants", "count_kv_gathers",
            "quant_sat_stats", "sat_counts", "finite_flags"]
 
@@ -138,6 +141,29 @@ def dsbp_matmul(x: torch.Tensor, w: torch.Tensor, cfg, folded: bool = True) -> t
     from repro_torch.core.quantized import pack_weights
 
     return dsbp_matmul_packed(x, pack_weights(w, cfg), folded=folded)
+
+
+def dsbp_matmul_ste(x: torch.Tensor, w: torch.Tensor, cfg) -> torch.Tensor:
+    """Kernel forward (B3 then B4, the weight packed per call),
+    straight-through backward: QAT through the 'dsbp_kernel' method."""
+    from repro_torch.core.quantized import STEProduct
+
+    return STEProduct.apply(x, w, cfg, dsbp_matmul)
+
+
+def _fused_forward(x, w, cfg):
+    from repro_torch.core.quantized import pack_weights
+
+    return dsbp_matmul_fused(x, pack_weights(w, cfg))
+
+
+def dsbp_matmul_fused_ste(x: torch.Tensor, w: torch.Tensor, cfg) -> torch.Tensor:
+    """Fused-kernel forward (the weight packed per call, then B1),
+    straight-through backward: QAT through the 'dsbp_fused' method sees
+    the exact serving numerics while keeping full-precision gradients."""
+    from repro_torch.core.quantized import STEProduct
+
+    return STEProduct.apply(x, w, cfg, _fused_forward)
 
 
 def sat_counts(x: torch.Tensor, fmt, tscale: torch.Tensor) -> tuple:

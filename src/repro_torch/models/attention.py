@@ -8,9 +8,9 @@ their plain PyTorch versions for tensors on the CPU.  A decode cache of
 :class:`~repro_torch.kvq.PackedKVBlock` leaves goes to the packed-KV kernel
 (B5), which folds the scales as the JAX ``qk_logits`` / ``pv_out`` packed
 branches (:36-63) do; a float cache to B2.  Prefill attends over the fresh
-float K/V (B2), as in JAX.  The JAX GQA wrapper (``kernels/ops.py:333``)
-only vmapped a single-head kernel over heads; the port's kernels index
-heads themselves.
+float K/V (B2), as in JAX, with a gradient (training's sequence mode).
+The JAX GQA wrapper (``kernels/ops.py:333``) only vmapped a single-head
+kernel over heads; the port's kernels index heads themselves.
 
 The paged cache adds :func:`gather_kv_view` (:66), :func:`verify_attention`
 (:173, with the packed ``qk_logits`` / ``pv_out`` branches and the
@@ -23,8 +23,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    NEG_INF, flash_attention, gather_blocks, packed_flash_attention,
-    paged_flash_attention, paged_packed_flash_attention, scale_q)
+    NEG_INF, flash_attention, flash_attention_grad, gather_blocks,
+    packed_flash_attention, paged_flash_attention, paged_packed_flash_attention, scale_q)
 from repro_torch.kvq import PackedKVBlock
 
 __all__ = ["blockwise_attention", "decode_attention", "verify_attention",
@@ -40,11 +40,13 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); ``q_offset`` is the absolute
     position of q[0], ``kv_lens`` (B,) the valid key length of each
     right-padded row (default: all Skv); ``window`` > 0 masks keys at or
-    before ``query - window`` (sliding-window layers)."""
+    before ``query - window`` (sliding-window layers).  Differentiable in
+    q, k and v (``flash_attention_grad``): training runs it forward
+    through B2."""
     b, skv = q.shape[0], k.shape[2]
     kv_len = _rows(skv if kv_lens is None else kv_lens, b, q.device)
-    return flash_attention(q, k, v, kv_len, _rows(q_offset, b, q.device),
-                           causal=causal, window=window)
+    return flash_attention_grad(q, k, v, kv_len, _rows(q_offset, b, q.device),
+                                causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, pos, kv_len=None) -> torch.Tensor:

@@ -18,9 +18,10 @@ rollbacks, JAX :505-537 and :581-613).  Under a mesh (``parallel``) a rank's
 layers hold its head and column shards, its caches its own rows and KV
 heads, and :meth:`Model.head` assembles the vocab over 'model'.  The JAX
 ``lax.scan`` over stacked units becomes a loop over ``Model.layers``
-(layer i is unit i // P at pattern position i % P); ``remat`` and ``scan_unroll`` are JAX compile
-knobs and have no counterpart here.  An MoE config's layers carry
-:class:`~.moe.MoE` blocks; the prefill and every cached step run them with
+(layer i is unit i // P at pattern position i % P); ``scan_unroll`` is a
+JAX compile knob with no counterpart here, and ``remat`` checkpoints each
+layer of :func:`loss_fn`'s forward (JAX checkpoints each unit, :139).
+An MoE config's layers carry :class:`~.moe.MoE` blocks; the prefill and every cached step run them with
 nothing dropped (JAX :221, :230).  The Mamba-2 family's ``ssd`` layers
 carry their state like the RG-LRU's; a model of only such layers has no
 KV entry at all, and its head masks the padded vocab columns as every
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -52,7 +54,7 @@ from . import blocks
 from .layers import Quant, param_dtype, rms_norm, weight
 from .packing import pack_weights_int8
 
-__all__ = ["Model", "init", "shared"]
+__all__ = ["Model", "init", "shared", "loss_fn", "check_trainable"]
 
 NEG_INF = -1e30
 
@@ -522,6 +524,64 @@ class Model(nn.Module):
                                          device=self.device)
             c.update(blocks.select_state_step(st, keep_d, old=c))
         return cache
+
+
+# ---------------- training ----------------
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Training covers the dense attention family: a hybrid, MoE or SSD
+    config, or a frontend, raises."""
+    if cfg.family != "dense" or cfg.frontend != "none" or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains dense attention configs only (family "
+            f"{cfg.family!r}, frontend {cfg.frontend!r}); the other families wait for "
+            f"ROADMAP A14")
+
+
+def _layer_out(layer, x, cfg, quant, positions):
+    return blocks.layer_seq(layer, x, cfg, quant, positions)[0]
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 (JAX ``_ce``, :154): over
+    ``mask``'s weight when given (at least 1)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def loss_fn(model: Model, batch: dict, quant: Quant | None = None):
+    """Next-token cross entropy of a dense model in sequence mode, with
+    gradients through every layer (JAX ``loss_fn``, :165); returns (loss,
+    {"loss": loss}).  ``batch`` holds ``tokens`` and ``labels`` (B, S)
+    and an optional ``loss_mask``, numpy arrays or tensors.  Projections
+    run the model's quant method; a raw weight under a DSBP method takes
+    its straight-through product (QAT).  ``cfg.remat`` recomputes each
+    layer's forward in the backward (``torch.utils.checkpoint``), so under
+    remat every projection's forward kernel runs twice per step."""
+    cfg = model.cfg
+    check_trainable(cfg)
+    quant = model.default_quant() if quant is None else quant
+    dev = model.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    mask = batch.get("loss_mask")
+    x, positions = model.embed_tokens(tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in model.layers:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_layer_out, layer, x, cfg, quant, positions,
+                                                  use_reentrant=False)
+        else:
+            x = _layer_out(layer, x, cfg, quant, positions)
+    logits = model.head(rms_norm(model.final_norm, x, cfg.norm_eps))
+    loss = _ce(logits, labels, None if mask is None else torch.as_tensor(mask, device=dev))
+    return loss, {"loss": loss}
 
 
 def _batch(cache: list[dict]) -> int:

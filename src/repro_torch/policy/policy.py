@@ -11,19 +11,25 @@ Its KV side maps cache-entry names (``units.<pos>`` / ``tail.<i>``) to
 
 :meth:`DSBPPolicy.to_json` writes the JAX package's string, key for key, and
 :meth:`DSBPPolicy.from_json` reads it, so one artifact serves both packages.
-``save`` / ``load`` (and ``to_tree`` / ``from_tree``) go through
-``checkpoint.store``, which is not ported yet (ROADMAP A1).
+``save`` / ``load`` store it through :mod:`repro_torch.checkpoint.store` as
+JAX's do (``to_tree``: a one-leaf tree, the JSON's UTF-8 bytes as uint8
+under ``dsbp_policy_json``), so a policy checkpoint written by either
+package loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 
+import numpy as np
+
 from repro_torch.core.dsbp import DSBPConfig
 from repro_torch.core.quantized import PRESETS, QuantizedMatmulConfig
 from repro_torch.kvq import KVQuantConfig, resolve_kv_spec
 
-__all__ = ["DSBPPolicy"]
+__all__ = ["DSBPPolicy", "POLICY_LEAF"]
+
+POLICY_LEAF = "dsbp_policy_json"
 
 
 def _cfg_to_dict(cfg: QuantizedMatmulConfig) -> dict:
@@ -137,6 +143,28 @@ class DSBPPolicy:
             kv_layers={k: _kv_from_dict(v) for k, v in d.get("kv_layers", {}).items()},
             kv_default=_kv_from_dict(d.get("kv_default")),
         )
+
+    def to_tree(self) -> dict:
+        """The policy as a one-leaf tree for ``checkpoint.store.save``."""
+        blob = np.frombuffer(self.to_json().encode("utf-8"), np.uint8).copy()
+        return {POLICY_LEAF: blob}
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "DSBPPolicy":
+        return cls.from_json(bytes(np.asarray(tree[POLICY_LEAF])).decode("utf-8"))
+
+    def save(self, ckpt_dir: str, step: int = 0) -> str:
+        """Atomic save under ``<ckpt_dir>/step_<N>`` via checkpoint.store."""
+        from repro_torch.checkpoint import store
+
+        return store.save(ckpt_dir, step, self.to_tree())
+
+    @classmethod
+    def load(cls, ckpt_dir: str, step: int | None = None) -> "DSBPPolicy":
+        from repro_torch.checkpoint import store
+
+        flat, _ = store.restore_flat(ckpt_dir, step=step)
+        return cls.from_tree(flat)
 
     # ---- introspection ----
 

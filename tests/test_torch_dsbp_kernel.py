@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 import jax.numpy as jnp  # noqa: E402
 

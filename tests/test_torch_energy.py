@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 from repro.core import energy as JE  # noqa: E402
 from repro.core import mac_array as JMA  # noqa: E402

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 from repro_torch.core import quantized as Q  # noqa: E402
 from repro_torch.core.formats import per_tensor_scale  # noqa: E402
@@ -1105,3 +1105,66 @@ def test_bf16_smoke_generate_card_equals_cpu(cuda, arch):
         bad = np.flatnonzero(outs[0][r] != outs[1][r])
         if bad.size:  # a divergence only after a first token within a near tie
             assert bad[0] > 0 or float(logits[0][r, -1].topk(2).values.diff().abs()) <= 8 * ulp
+
+
+# ---------------- training: the kernel Functions' gradients ----------------
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lens,window", [
+    (2, 4, 2, 40, 32, (40, 17), 0),         # GQA, ragged
+    (3, 4, 4, 70, 128, (70, 33, 1), 0),     # MHA, a one-key row
+    (2, 8, 2, 64, 64, (64, 50), 16),        # GQA with a window
+    (1, 2, 1, 129, 256, (129,), 0),         # d_head 256
+])
+def test_flash_attention_grad_on_the_card(cuda, b, hq, hkv, s, d, lens, window):
+    """B2's autograd function on the card: its forward is one B2 launch
+    within 1e-5 of the plain version, and q / k / v gradients within 1e-5
+    of the plain version's autograd on the card and of the CPU's."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q0 = torch.zeros(b, dtype=torch.int32, device=cuda)
+    g = torch.from_numpy(rng.standard_normal((b, hq, s, d)).astype(np.float32)).to(cuda)
+    g = g * (torch.arange(s, device=cuda)[None, None, :, None] < kv_len[:, None, None, None])
+    out = {}
+    for name, dev, fn in (("kernel", cuda, FA.flash_attention_grad),
+                          ("plain", cuda, FA.flash_attention_plain),
+                          ("cpu", "cpu", FA.flash_attention_grad)):
+        qkv = [t.to(dev).clone().requires_grad_(True) for t in (q, k, v)]
+        before = FA.flash_attention.launches
+        o = fn(*qkv, kv_len.to(dev), q0.to(dev), causal=True, window=window)
+        assert FA.flash_attention.launches - before == (name == "kernel")
+        out[name] = [t.cpu() for t in (o.detach(), *torch.autograd.grad(o, qkv, g.to(dev)))]
+    for ref in ("plain", "cpu"):
+        for got, want in zip(out["kernel"], out[ref]):
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), ref
+
+
+@pytest.mark.parametrize("method", ["dsbp_fused", "dsbp_kernel"])
+@pytest.mark.parametrize("m,k,n", [(4, 512, 256), (37, 640, 96), (64, 250, 48)])
+def test_ste_products_on_the_card(cuda, method, m, k, n):
+    """The straight-through QAT products on the card: the forward is the
+    method's kernels (one launch of each) and bit-equal
+    to the same product on the CPU's plain versions; gx / gw within 1e-6
+    of the CPU's."""
+    from repro_torch.core.packed import get_quant_method
+
+    cfg = Q.PRESETS["precise"]
+    x = torch.from_numpy(_data((m, k), m))
+    w = torch.from_numpy(_data((k, n), m + 1, 2)) * k ** -0.5
+    gy = torch.from_numpy(_data((m, n), m + 2, 1))
+    kernels = {"dsbp_fused": [DF.dsbp_fused],
+               "dsbp_kernel": [QA.fp8_quant_align, DM.dsbp_matmul]}[method]
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        xs, ws = x.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+        before = [f.launches for f in kernels]
+        y = get_quant_method(method).apply(ws, xs, cfg)
+        if dev.type == "cuda":
+            assert [f.launches - b for f, b in zip(kernels, before)] == [1] * len(kernels)
+        res[dev.type] = [t.cpu() for t in (y.detach(), *torch.autograd.grad(y, (xs, ws),
+                                                                          gy.to(dev)))]
+    (y, gx, gw), (yc, gxc, gwc) = res["cuda"], res["cpu"]
+    assert torch.equal(y, yc), float((y - yc).abs().max())
+    for got, want in ((gx, gxc), (gw, gwc)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

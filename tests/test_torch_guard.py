@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or the JAX package, by source scan and by importing every
-module with both made unimportable."""
+imports JAX or the JAX package, nor ``msgpack`` (absent on the card's
+machine: the checkpoint store has its own codec), by source scan and by
+importing every module with all three made unimportable."""
 import ast
 import os
 import subprocess
@@ -10,12 +11,12 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imported(path: Path):
@@ -40,10 +41,11 @@ def test_every_module_imports_without_jax():
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         f"mods = {modules!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "assert not any(k in ('jax', 'msgpack') or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print(len(mods))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

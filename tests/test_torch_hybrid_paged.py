@@ -17,7 +17,7 @@ from their copies)."""
 import pytest
 
 torch = pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from test_torch_hybrid import engines, requests  # noqa: E402

@@ -9,7 +9,7 @@ JAX's."""
 import pytest
 
 pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 from test_torch_hybrid_paged import check_paged_serve  # noqa: E402
 

@@ -36,7 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import _torch_threads  # noqa: E402,F401  (one intra-op thread per worker)
+from _torch_threads import jax_compile_cache  # noqa: E402,F401  (test-process settings)
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
