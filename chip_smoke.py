@@ -308,16 +308,45 @@ Phases (each raises on failure; nothing falls back to the CPU):
      into a fresh model (store.restore), bit-equal to the trained one,
      packed "precise" and served through
      generate; a `train (phase 24):` JSON line.
+  25. the eleventh config and the copied configs at full width: 25k, B1 at
+     every (K, N) of yi-9b, phi3-medium-14b, deepseek-coder-33b and
+     grok-1-314b that no earlier phase held (M 4: K=4096 N=512; K=5120
+     N=5120 / 1280 / 17920, K=17920 N=5120; K=7168 N=19200, K=19200
+     N=7168; K=6144 N=6144 / 1024) and one wide shape of each at M 512,
+     bit-equal to plain, and B2 at their new head layouts (Hq : Hkv 48 : 8,
+     32 : 4, 40 : 10; D 128) at prefill and decode within 1e-5 of plain,
+     all timed cold beside SDPA; 25m, the DCIM circuit models on the card
+     (core.mpu, core.fiau, core.mac_array) over a seeded 512 x 4,096
+     input: the MPU's widths equal to the CPU's integer for integer and
+     within one level of B3's bits (agreeing on >= CIRCUIT_AGREE of the
+     groups), the FIAU's reads equal to the CPU's and to
+     align_group('trunc'), the MAC array's sums at each weight width equal
+     to the CPU's and to an integer matmul; 25a, phi3-medium-14b at full
+     width and 1 layer, packed, a ragged generate of short prompts on the
+     CPU (plain versions) and the card (kernels) under phase 9's rule; 25,
+     each config drawn and packed by init(pack=) from a seed and freed
+     before the next: yi-9b, phi3-medium-14b and deepseek-coder-33b at full
+     depth (48, 40, 62 layers) and grok-1-314b at GROK_LAYERS (4) of its
+     64 (full depth, ~346 GB packed, waits for the expert axis): phase 5's
+     traffic through generate and a dense serve, B1 = 7 * L (dense) or 4
+     * L (grok: its experts are weight-only) and B2 = L launches in every
+     decode step (B1 counted by (K, N) against the containers), the init's
+     peak gated below packed + one f32 layer + pack_weights' transient of
+     the widest matrix and the runs' below packed + two f32 layers + the
+     cache, the prefill's K/V and activations, prefill s, ms per step,
+     tokens/s; grok's MoE FFN of one decode step and its expert
+     dequantizes timed; a `configs (phase 25):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16, 18, 17a and 17 run after 13, before 14-15b,
   for which the models are freed; 4, 9 and 16a run last.
 Run order: 1, then every kernel-timing phase alone on the card (2, 3, 6,
-7, 8, 11, then the kernels of 19-23 in a second process of this script
-while the first waits); then the two processes share the card, the first
-running 5, 10, 12, 13, 16, 18, 17a, 17, 14-15b, then 4, 9 and 16a (the
-one-layer checks, mostly on the CPU), the second 20, 22, 21, 19, 23 and
-24.  A phase whose peak passes ~25 GiB (17a-17, 14-15b, 20, 22) holds a
-lock file, so at most one of them runs at a time and the two fit in the
+7, 8, 11, then the kernels of 19-23 and 25k / 25m in a second process of
+this script while the first waits); then the two processes share the
+card, the first running 5, 10, 12, 13, 16, 18, 17a, 17, 14-15b, 25's
+phi3-medium-14b and deepseek-coder-33b, then 4, 9, 16a and 25a (the
+one-layer checks, mostly on the CPU), the second 20, 22, 25's grok-1-314b
+and yi-9b, 21, 19, 23 and 24.  A phase
+whose peak passes ~25 GiB (17a-17, 14-15b, 25, 20, 22) holds a lock file, so at most one of them runs at a time and the two fit in the
 card's 80 GB.  Step times, traces and idle shares of the
 shared part are taken with the other process on the card and its host;
 kernel times never are.  The second process's output is printed when it
@@ -349,6 +378,10 @@ runs phases 1 and 23 alone.
     python3 chip_smoke.py --train
 
 runs phases 1 and 24 alone.
+
+    python3 chip_smoke.py --configs
+
+runs phases 1, 25k, 25m, 25a and 25 alone.
 
     python3 chip_smoke.py --cross
 
@@ -535,7 +568,7 @@ def _jsonable(o):
 
 
 class Families:
-    """The second process of a whole run: phases 19-24,
+    """The second process of a whole run: phases 19-25,
     started with ``--families-worker``; its output goes to a log, printed
     when it ends."""
 
@@ -551,7 +584,7 @@ class Families:
     def print_log(self) -> None:
         if not self.printed:
             self.printed = True
-            print("== the second process (phases 19-24), its output:")
+            print("== the second process (phases 19-25), its output:")
             print(self.log_path.read_text().rstrip())
             print("== the second process's output ends")
 
@@ -560,7 +593,7 @@ class Families:
         rc = self.proc.poll()
         if rc not in (None, 0):
             self.print_log()
-            raise RuntimeError(f"the second process (phases 19-24) failed with "
+            raise RuntimeError(f"the second process (phases 19-25) failed with "
                                f"exit code {rc}")
 
     def wait_kernels(self) -> None:
@@ -4181,7 +4214,6 @@ def phase_moe(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
     traffic through generate and a dense serve."""
     print("== phase 20: mixtral-8x7b at full width and depth (32 layers), init(pack=): "
           "generate + dense serve of phase 5's traffic")
-    from repro_torch.models.moe import moe_ffn
     from repro_torch.serve.engine import _nbytes
 
     laps, t_lap = {}, [time.perf_counter()]
@@ -4242,22 +4274,9 @@ def phase_moe(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
     lap("launches per step")
 
     # ---- the MoE FFN of one decode step (4 rows): dequantize + products ----
-    x = torch.randn(4, 1, cfg.d_model, device="cuda")
-    moes = [layer.moe for layer in model.layers]
-
-    def ffn_step():  # each layer's output dropped as the next runs
-        for m in moes:
-            moe_ffn(m, x, cfg, no_drop=True)
-
-    def dequantize_step():
-        for m in moes:
-            for w in ("w1", "w3", "w2"):
-                getattr(m, w).dequantize()
-
-    with torch.inference_mode():
-        moe_ms = cuda_ms(ffn_step, [()], iters=2, warmup=1, sleep=0)
-        deq_ms = cuda_ms(dequantize_step, [()], iters=2, warmup=1, sleep=0)
-    deq_bytes = sum(getattr(m, w).ka.numel() * (1 + 4) for m in moes for w in ("w1", "w3", "w2"))
+    moe = moe_step_times(torch, model, cfg)
+    moe_ms, deq_ms, deq_bytes = (moe[k] for k in ("moe_ffn_ms_step", "dequantize_ms_step",
+                                                  "dequantize_bytes_step"))
     lap("MoE FFN timed")
     trace = trace_decode(torch, eng, toks, lens, TRACE_MOE, steps=2)  # ~0.75 s per step
     lap("trace")
@@ -4284,10 +4303,35 @@ def phase_moe(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict
            "moe_ffn_ms_step": moe_ms, "dequantize_ms_step": deq_ms,
            "dequantize_bytes_step": deq_bytes, "trace": trace, "seconds_by_part": laps}
     print(f"  seconds by part: {laps}")
-    del eng, model, moes
+    del eng, model
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def moe_step_times(torch, model, cfg) -> dict:
+    """The device time of one decode step's MoE FFN over every layer (4
+    rows, each layer's output dropped as the next runs) and of its expert
+    stacks' dequantizes alone, with the bytes those read and write."""
+    from repro_torch.models.moe import moe_ffn
+
+    x = torch.randn(4, 1, cfg.d_model, device="cuda")
+    moes = [layer.moe for layer in model.layers]
+
+    def ffn_step():
+        for m in moes:
+            moe_ffn(m, x, cfg, no_drop=True)
+
+    def dequantize_step():
+        for m in moes:
+            for w in ("w1", "w3", "w2"):
+                getattr(m, w).dequantize()
+
+    with torch.inference_mode():
+        return {"moe_ffn_ms_step": cuda_ms(ffn_step, [()], iters=2, warmup=1, sleep=0),
+                "dequantize_ms_step": cuda_ms(dequantize_step, [()], iters=2, warmup=1, sleep=0),
+                "dequantize_bytes_step": sum(getattr(m, w).ka.numel() * (1 + 4) for m in moes
+                                             for w in ("w1", "w3", "w2"))}
 
 
 def moe_route_flips(torch, eng, toks, lens, vocab: int, rounds: int) -> dict:
@@ -5140,14 +5184,59 @@ def pack_transient(torch, cfg) -> tuple:
 INIT_SLACK = 16 * 2**20
 
 
+def packed_init(torch, TM, cfg, lap) -> tuple:
+    """``cfg`` drawn from seed 0 and packed "precise" one layer at a time
+    by init(pack=), on the card, its peak gated: the packed model, the
+    layer being packed in f32 and pack_weights' temporaries of its widest
+    matrix, measured alone first (dsbp_quantize's full-size fields and
+    their grouped copies), + INIT_SLACK.  Returns (model, record)."""
+    from repro_torch.serve.engine import _nbytes
+
+    transient, (tk, tn) = pack_transient(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TM.init(cfg, seed=0, device="cuda", pack="precise")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    lap("init(pack=)")
+    packed = _nbytes(model)
+    layer_f32 = 4 * sum(p.numel() for p in TM.Model(cfg.replace(n_layers=1), "meta")
+                        .layers[0].parameters())
+    init_limit = packed + layer_f32 + transient + INIT_SLACK
+    print(f"  init(pack=) {seconds:.2f} s: {packed / 1e9:.2f} GB packed (the f32 embedding and head "
+          f"{8 * TM._vocab_rows(cfg) * cfg.d_model / 1e9:.2f} GB of it); peak "
+          f"{init_peak / 1e9:.2f} GB = packed + {(init_peak - packed) / 1e9:.2f} GB; limit "
+          f"{init_limit / 1e9:.2f} GB = packed + one f32 layer {layer_f32 / 1e9:.2f} GB + the "
+          f"pack's transient at K={tk} N={tn} {transient / 1e9:.2f} GB "
+          f"({transient / (4 * tk * tn):.2f}x the matrix's f32 bytes) + "
+          f"{INIT_SLACK // 2**20} MiB")
+    if init_peak > init_limit:
+        raise AssertionError(f"{cfg.name}: init(pack=) peaked at {init_peak / 1e9:.2f} GB: more "
+                             f"than the packed model, one f32 layer and the pack's transient "
+                             f"({init_limit / 1e9:.2f} GB)")
+    return model, {"init_peak": init_peak, "init_limit": init_limit,
+                   "pack_transient": {"bytes": transient, "K": tk, "N": tn},
+                   "packed_bytes": packed, "layer_f32_bytes": layer_f32}
+
+
+def runs_peak_limit(cfg, init: dict, b: int, max_len: int, width: int) -> tuple:
+    """The peak a model's runs may reach: packed + two f32 layers + a KV
+    cache of ``b`` rows x ``max_len`` + the prefill's K/V and activations
+    over ``width`` positions.  Returns (limit, the cache's bytes)."""
+    n = cfg.n_layers
+    cache = 2 * n * b * cfg.n_kv_heads * max_len * cfg.d_head * 4
+    prompt_kv = 2 * n * b * cfg.n_kv_heads * width * cfg.d_head * 4
+    acts = 6 * b * width * cfg.d_ff * 4
+    return init["packed_bytes"] + 2 * init["layer_f32_bytes"] + cache + prompt_kv + acts, cache
+
+
 def phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels, cfg, label: str) -> dict:
     """22 (musicgen-large) / 22b (llava-next-34b): full width and depth,
     drawn and packed one layer at a time ("precise"), f32: a ragged
     ``generate`` over a float cache, then over kv8, each kernel's launches
     counted in every decode step, prefill s, ms per step, peak memory;
     llava also a 2-step trace."""
-    from repro_torch.serve.engine import _nbytes
-
     audio = cfg.frontend == "audio_codebooks"
     print(f"== phase {label}: {cfg.name} at full width and depth ({cfg.n_layers} layers, "
           f"~{cfg.param_count() / 1e9:.2f}e9 parameters), init(pack=): generate, float KV "
@@ -5160,31 +5249,8 @@ def phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels, cfg, label: str)
         laps[name] = round(now - t_lap[0], 2)
         t_lap[0] = now
 
-    transient, (tk, tn) = pack_transient(torch, cfg)
-    torch.cuda.reset_peak_memory_stats()
-    model = TM.init(cfg, seed=0, device="cuda", pack="precise")
-    torch.cuda.synchronize()
-    init_peak = torch.cuda.max_memory_allocated()
-    lap("init(pack=)")
-    packed = _nbytes(model)
-    layer_f32 = 4 * sum(p.numel() for p in TM.Model(cfg.replace(n_layers=1), "meta")
-                        .layers[0].parameters())
-    # drawn and packed one layer at a time (llava-next-34b is ~134 GB in
-    # f32): the peak holds the packed model, the layer being packed in f32
-    # and pack_weights' temporaries of its widest matrix, measured alone
-    # just above (dsbp_quantize's full-size fields and their grouped copies)
-    init_limit = packed + layer_f32 + transient + INIT_SLACK
-    print(f"  init(pack=) {laps['init(pack=)']:.2f} s: {packed / 1e9:.2f} GB packed (the f32 "
-          f"embedding and head {8 * TM._vocab_rows(cfg) * cfg.d_model / 1e9:.2f} GB of it); "
-          f"peak {init_peak / 1e9:.2f} GB = packed + {(init_peak - packed) / 1e9:.2f} GB; "
-          f"limit {init_limit / 1e9:.2f} GB = packed + one f32 layer {layer_f32 / 1e9:.2f} GB "
-          f"+ the pack's transient at K={tk} N={tn} {transient / 1e9:.2f} GB "
-          f"({transient / (4 * tk * tn):.2f}x the matrix's f32 bytes) + "
-          f"{INIT_SLACK // 2**20} MiB")
-    if init_peak > init_limit:
-        raise AssertionError(f"init(pack=) peaked at {init_peak / 1e9:.2f} GB: more than the "
-                             f"packed model, one f32 layer and the pack's transient "
-                             f"({init_limit / 1e9:.2f} GB)")
+    # drawn and packed one layer at a time (llava-next-34b is ~134 GB in f32)
+    model, init = packed_init(torch, TM, cfg, lap)
     if audio:
         toks, lens, extra = frontend_inputs(cfg, MUSICGEN_LENS, seed=221)
         new, max_len, api_lens = 16, MUSICGEN_MAX_LEN, lens
@@ -5253,18 +5319,14 @@ def phase_frontend(torch, TM, Engine, ServeConfig, TO, kernels, cfg, label: str)
         if not torch.equal(ta, tc):
             break
         kv8_same += 1
-    cache = 2 * n * b * cfg.n_kv_heads * max_len * cfg.d_head * 4
-    prompt_kv = 2 * n * b * cfg.n_kv_heads * width * cfg.d_head * 4
-    acts = 6 * b * width * cfg.d_ff * 4
-    limit = packed + 2 * layer_f32 + cache + prompt_kv + acts
+    limit, cache = runs_peak_limit(cfg, init, b, max_len, width)
     if peak > limit:
         raise AssertionError(f"{cfg.name}: peak {peak / 1e9:.2f} GB above packed + two f32 "
                              f"layers + the cache + the prefill's K/V and activations "
                              f"({limit / 1e9:.2f} GB)")
     lap("gates")
-    res = {"params": cfg.param_count(), "init_s": laps["init(pack=)"], "init_peak": init_peak,
-           "init_limit": init_limit, "pack_transient": {"bytes": transient, "K": tk, "N": tn},
-           "packed_bytes": packed, "layer_f32_bytes": layer_f32, "launches": launches,
+    res = {"params": cfg.param_count(), "init_s": laps["init(pack=)"], **init,
+           "launches": launches,
            "peak": peak, "peak_limit": limit, "trace": trace, "seconds_by_part": laps,
            "kv8_vs_float": {"max_rel_logit_diff": kv8_worst, "equal_batches": kv8_same}}
     for kv, r in runs.items():
@@ -6424,22 +6486,369 @@ def train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config) -> d
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the eleventh config and the copied dense configs at full width
+# on the card (yi-9b, phi3-medium-14b, deepseek-coder-33b at full depth,
+# grok-1-314b at GROK_LAYERS layers), and the DCIM circuit models (25m)
+# ---------------------------------------------------------------------------
+
+# the copied dense configs, served at full width and depth
+CONFIG_DENSE = ("yi-9b", "phi3-medium-14b", "deepseek-coder-33b")
+# a whole run's split of phase 25's serves between its two processes, so
+# their chains stay even: the first serves these, the second the others
+CONFIG_FIRST = ("phi3-medium-14b", "deepseek-coder-33b")
+# grok-1-314b's depth on one card: each layer is ~5.4 GB packed (its 8
+# experts ~19.7 GB in f32 while the layer is drawn) beside the 6.4 GB f32
+# embedding and head; 64 layers (~346 GB) wait for the expert axis (A13)
+GROK_LAYERS = 4
+# 25k: the config whose B1 decode shape is held at the prefill M too
+# (M 512, the prefill tile of BN 128: every N here divides by it)
+CONFIG_B1_PREFILL = {"yi-9b": (4096, 512), "phi3-medium-14b": (5120, 17920),
+                     "deepseek-coder-33b": (7168, 19200), "grok-1-314b": (6144, 6144)}
+# 25a: phi3-medium-14b (the most new shapes, Hkv 10) at full width and one
+# layer, CPU (plain versions) vs card; the prompts stay short so the CPU's
+# plain B1 (float64 group dots over 5,120 x 17,920 weights) takes seconds
+CONFIG_CROSS_ARCH = "phi3-medium-14b"
+CONFIG_CROSS_LENS = [12, 32, 5, 20]
+CONFIG_CROSS_NEW = 6
+# 25m: the circuit models' input at llama-7b's width, and the MPU's
+# agreement with B3's float Eq. (1) bits (tests/test_macro_composition.py)
+CIRCUIT_M, CIRCUIT_K = 512, 4096
+CIRCUIT_AGREE = 0.9
+
+
+def config_b1(cfg) -> list:
+    """B1's (K, N, projections) in a decode step of ``cfg``: every
+    projection of a dense layer; of an MoE layer the attention's alone
+    (its expert stacks are weight-only, as in the reference)."""
+    rows = frontend_b1(cfg)
+    if cfg.n_experts:
+        rows = [r for r in rows if not set(r[2].split()) & {"w1", "w3", "w2"}]
+    return rows
+
+
+def config_cfgs(get_config) -> dict:
+    cfgs = {a: get_config(a).replace(quant="precise") for a in CONFIG_DENSE}
+    cfgs["grok-1-314b"] = get_config("grok-1-314b").replace(quant="precise",
+                                                             n_layers=GROK_LAYERS)
+    return cfgs
+
+
+def b1_timed_elsewhere(get_config) -> set:
+    """B1's (K, N) that phases 2 (llama-7b's) and 22 (llava-next-34b's)
+    hold against plain and time."""
+    return set(LLAMA_SHAPES) | {(k, n) for k, n, _ in frontend_b1(get_config("llava-next-34b"))}
+
+
+def phase_config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config) -> dict:
+    """25k: B1 at every (K, N) of the four configs that no earlier phase
+    held against plain, at M 4, and one wide shape of each at M 512,
+    bit-equal; B2 at their new head layouts (Hq : Hkv 48 : 8, 32 : 4, 40 :
+    10; D 128), prefill and decode, within 1e-5 with head and row slices
+    bit-equal; timed cold with their plain versions, SDPA and bounds."""
+    print("== phase 25k: B1 and B2 at the shapes of yi-9b, phi3-medium-14b, "
+          "deepseek-coder-33b and grok-1-314b")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cfgs = config_cfgs(get_config)
+    seen = b1_timed_elsewhere(get_config)
+    b1 = []
+    for arch, cfg in cfgs.items():
+        for k, n, proj in config_b1(cfg):
+            if (k, n) not in seen:
+                seen.add((k, n))
+                b1.append({**b1_case(torch, Q, DF, per_tensor_scale, gen, 4, k, n),
+                           "arch": arch, "proj": proj})
+        k, n = CONFIG_B1_PREFILL[arch]
+        b1.append({**b1_case(torch, Q, DF, per_tensor_scale, gen, 512, k, n), "arch": arch,
+                   "proj": next(p for kk, nn, p in config_b1(cfg) if (kk, nn) == (k, n))})
+        torch.cuda.empty_cache()
+    b2, heads = {}, {(32, 32), (32, 8), (56, 8)}  # phases 3 and 22 ran these
+    for arch, cfg in cfgs.items():
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        if (hq, hkv) in heads:
+            continue
+        heads.add((hq, hkv))
+        b, s = 4, 512
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+        k = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+        for name, qq, kv_len, q0 in (
+                ("prefill", q, [512, 300, 129, 77], [0, 0, 0, 0]),
+                ("decode", q[:, :, :1].contiguous(), [512, 301, 129, 18], [511, 300, 128, 17])):
+            b2[f"{arch} {name}"] = {**b2_case(torch, FA, f"{arch} {name}", qq, k, v, kv_len,
+                                              q0), "Hq": hq, "Hkv": hkv}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2}
+
+
+def phase_circuits(torch, Q, per_tensor_scale) -> dict:
+    """25m: the DCIM circuit models (core.mpu, core.fiau, core.mac_array)
+    on the card.  A seeded (512, 4,096) input, its group shifts from
+    core.dsbp on the card: mpu_predict on the card equal to the CPU's,
+    integer for integer, and within one level of B3's predicted bits on
+    the same input under "precise", agreeing on >= CIRCUIT_AGREE of the
+    groups; the FIAU's barrel_align of every mantissa at the MPU's widths
+    equal to the CPU's and to align_group('trunc'); mac_array_matmul over
+    those aligned mantissas at each weight width equal to the CPU's and to
+    an integer matmul."""
+    print("== phase 25m: the circuit models (MPU, FIAU, MAC array) on the card")
+    from repro_torch.core import dsbp as D
+    from repro_torch.core import fiau as FI
+    from repro_torch.core import mac_array as MA
+    from repro_torch.core import mpu as MPU
+    from repro_torch.core.formats import decompose, get_format
+    from repro_torch.kernels import fp8_quant_align as QA
+
+    icfg = Q.PRESETS["precise"].input_cfg
+    f = get_format(icfg.fmt)
+    gen = torch.Generator(device="cuda").manual_seed(252)
+    x = torch.randn(CIRCUIT_M, CIRCUIT_K, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-4, 4, (CIRCUIT_M, CIRCUIT_K), generator=gen, device="cuda").float())
+    xs = x * per_tensor_scale(x, f)
+    k_fixed = int(icfg.k * (1 << MPU.MPU_KF))
+
+    def path(t):  # the input path's fields, the MPU's widths, the FIAU's read
+        d = decompose(t, f)
+        sign, e, m = (D.group_reshape(d[key], 64) for key in ("sign", "e_unb", "m_int"))
+        shift, e_max, nz = D.group_shifts(e, m)
+        b = MPU.mpu_predict(shift, nz, k_fixed, icfg.b_fix)
+        bw = b.clamp(*D.INPUT_WIDTH_RANGE)
+        fiau = FI.barrel_align(sign * m, shift, f.mbits + 2, bw[..., None] + 1)
+        a, _ = D.align_group(sign, m, f.mbits, shift, e_max, bw, "trunc")
+        return shift, nz, b, fiau, a
+
+    card, cpu = path(xs), path(xs.cpu())
+    for name, got, want in zip(("shifts", "nonzeros", "MPU widths", "FIAU reads",
+                                "align_group('trunc')"), card, cpu):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"25m: {name} on the card differ from the CPU's")
+    shift, nz, b, fiau, a = card
+    if not torch.equal(fiau, a.long()):
+        raise AssertionError("25m: the FIAU's reads differ from align_group('trunc')")
+    mpu_ms = cuda_ms(lambda: MPU.mpu_predict(shift, nz, k_fixed, icfg.b_fix), [()], iters=10,
+                     sleep=0)
+    _, _, bits = QA.fp8_quant_align(xs, icfg)
+    bw = b.clamp(*D.INPUT_WIDTH_RANGE)
+    agree = float((bw == bits).float().mean())
+    worst = int((bw - bits).abs().max())
+    if worst > 1 or agree < CIRCUIT_AGREE:
+        raise AssertionError(f"25m: the MPU's widths against B3's: {agree:.4f} agree (want >= "
+                             f"{CIRCUIT_AGREE}), worst {worst} levels (want <= 1)")
+    # the MAC array over the aligned input groups, one weight width each
+    rows = {}
+    for g, width in zip(range(0, 64, 16), (2, 4, 6, 8)):
+        lim = 1 << (width - 1)
+        w = torch.randint(-lim, lim, (64, 96), generator=gen, device="cuda", dtype=torch.int32)
+        xg = a[:, g]
+        got = MA.mac_array_matmul(xg, w, width)
+        want = MA.mac_array_matmul(xg.cpu(), w.cpu(), width)
+        exact = xg.cpu().long() @ w.cpu().long()
+        if not (torch.equal(got.cpu(), want) and torch.equal(want.long(), exact)):
+            raise AssertionError(f"25m: mac_array_matmul at width {width} differs from the CPU's "
+                                 f"or from an integer matmul")
+        rows[width] = cuda_ms(MA.mac_array_matmul, [(xg, w, width)], iters=10, sleep=0)
+    print(f"  {CIRCUIT_M} x {CIRCUIT_K} input ({CIRCUIT_M * CIRCUIT_K // 64} groups): the MPU's "
+          f"widths, the FIAU's reads and the MAC array's sums on the card equal the CPU's; "
+          f"FIAU = align_group('trunc'); MPU vs B3's bits: {agree:.4f} agree, worst {worst} "
+          f"level; mpu_predict {mpu_ms:.3f} ms, mac_array_matmul (512 x 64 x 96) by width "
+          f"{ {w: round(ms, 4) for w, ms in rows.items()} } ms")
+    return {"groups": CIRCUIT_M * CIRCUIT_K // 64, "mpu_vs_b3_agree": agree,
+            "mpu_vs_b3_worst": worst, "mpu_ms": mpu_ms, "mac_array_ms_by_width": rows}
+
+
+def phase_config_cross_device(torch, TM, Engine, ServeConfig, get_config) -> dict:
+    """25a: phi3-medium-14b at full width and one layer, packed "precise"
+    by init(pack=): a ragged generate on the CPU (plain versions) and the
+    card (kernels), its sampled logits and tokens under phase 9's rule."""
+    cfg = get_config(CONFIG_CROSS_ARCH).replace(quant="precise", n_layers=1)
+    print(f"== phase 25a: {cfg.name} at full width, 1 layer, packed 'precise': CPU (plain) vs "
+          f"card (kernels)")
+    model = TM.init(cfg, seed=25, device="cuda", pack="precise")
+    toks, lens = _prompts(cfg.vocab_size, CONFIG_CROSS_LENS, seed=25)
+    scfg = ServeConfig(max_len=max(lens) + CONFIG_CROSS_NEW + 8, batch_size=len(lens))
+    gpu = Engine(model, scfg, device="cuda")
+    cpu = Engine(copy.deepcopy(gpu.model).to("cpu"), scfg, device="cpu")
+    tapes, secs = [], []
+    for eng in (cpu, gpu):
+        tape = SampleTape(eng, cfg.vocab_size)
+        t0 = time.perf_counter()
+        out = eng.generate(toks, CONFIG_CROSS_NEW, lengths=lens)
+        secs.append(time.perf_counter() - t0)
+        tapes.append(tape.close())
+    at, equal, worst = check_calls(torch, *tapes)
+    if out.shape != (len(lens), CONFIG_CROSS_NEW):
+        raise AssertionError(f"25a: generate gave {out.shape}")
+    print(f"  generate (lens {lens.tolist()}, {CONFIG_CROSS_NEW} new; CPU {secs[0]:.1f} s, card "
+          f"{secs[1]:.1f} s): logits within {worst:.2e} of max|logit| (limit {KV_TIE}), "
+          f"{equal} of {len(tapes[0])} batches bit-equal, "
+          + ("every token equal" if at is None else f"near tie at batch {at}")
+          + f": {out.tolist()}")
+    del cpu, gpu, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": 1, "max_rel_logit_diff": worst,
+            "equal_batches": equal, "near_tie_batch": at, "cpu_s": secs[0], "card_s": secs[1]}
+
+
+def phase_config(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfg) -> dict:
+    """25: one config at full width (full depth, or grok's GROK_LAYERS),
+    drawn and packed one layer at a time ("precise"), f32, max_len 512:
+    phase 5's traffic through generate and a dense serve, each kernel's
+    launches counted in every decode step (B1 by (K, N) against the
+    containers), the init's and the runs' peaks gated; an MoE config's FFN
+    of one decode step and its expert dequantizes timed."""
+    print(f"== phase 25: {cfg.name} at full width, {cfg.n_layers} layers (~"
+          f"{cfg.param_count() / 1e9:.2f}e9 parameters), init(pack=): generate + dense serve "
+          f"of phase 5's traffic")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):  # seconds per part of the phase, for its time budget
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    model, init = packed_init(torch, TM, cfg, lap)
+    max_len, n = 512, cfg.n_layers
+    eng = Engine(model, ServeConfig(max_len=max_len, batch_size=4), device="cuda")
+    if eng.pack_report is not None or eng.cfg.quant_method != "dsbp_fused":
+        raise AssertionError("the engine repacked a packed model")
+    toks, lens, reqs = _serve_traffic(Request, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- this config's path: counts from 0 over exactly these two runs ----
+    _reset_launches(kernels)
+    counter = StepCounter(eng, kernels, TO)
+    try:
+        out = eng.generate(toks, 16, lengths=lens)
+        gst = dict(eng.last_stats)
+        served = eng.serve(reqs, max_new_tokens=16)
+        sst = dict(eng.last_stats)
+    finally:
+        steps, _, _ = counter.close()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lap("generate + serve")
+    if out.shape != (4, 16) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name}: generate output {out.shape} out of range")
+    if sorted(served) != list(range(8)) or any(len(t) != 16 for t in served.values()):
+        raise AssertionError(f"{cfg.name}: serve did not return 16 tokens for each of 8 requests")
+    with torch.inference_mode():
+        lg, _, _ = eng.model.prefill(torch.as_tensor(toks, device="cuda"), max_len,
+                                     lengths=lens, quant=eng.quant)
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{cfg.name}: prefill logits are not finite")
+    del lg
+    for name in ("dsbp_fused", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {cfg.name} path")
+    want_b1 = {(k, nn): n * len(proj.split()) for k, nn, proj in config_b1(cfg)}
+    if len(steps) != gst["decode_steps"] + sst["decode_steps"]:
+        raise AssertionError(f"{cfg.name}: {len(steps)} decode steps counted, the runs took "
+                             f"{gst['decode_steps']} + {sst['decode_steps']}")
+    step = _per_step([c for c, _ in steps], cfg.name)
+    shapes = _per_step([sh for _, sh in steps], f"{cfg.name} B1 by (K, N)")
+    want = {"dsbp_fused": sum(want_b1.values()), "flash_attention": n}
+    if step != want or shapes != want_b1 or _b1_shapes(model) != want_b1:
+        raise AssertionError(f"{cfg.name}: a decode step launched {step}, B1 by (K, N) {shapes}; "
+                             f"want {want}, {want_b1} (the containers give "
+                             f"{_b1_shapes(model)})")
+    limit, _ = runs_peak_limit(cfg, init, 4, max_len, int(max(lens)))
+    if peak > limit:
+        raise AssertionError(f"{cfg.name}: peak {peak / 1e9:.2f} GB above packed + two f32 "
+                             f"layers + the cache + the prefill's K/V and activations "
+                             f"({limit / 1e9:.2f} GB)")
+    lap("gates")
+    res = {"n_layers": n, "params": cfg.param_count(), "init_s": laps["init(pack=)"], **init,
+           "launches": launches, "step_launches": step,
+           "b1_by_shape": {f"K={k} N={nn}": c for (k, nn), c in shapes.items()},
+           "decode_steps_counted": len(steps), "peak": peak, "peak_limit": limit,
+           "prefill_s": gst["prefill_s"], "decode_ms": 1e3 * gst["decode_s"] / gst["decode_steps"],
+           "decode_tps": gst["decode_tokens"] / gst["decode_s"],
+           "serve_prefill_s": sst["prefill_time_s"],
+           "serve_ms": 1e3 * sst["decode_time_s"] / sst["decode_steps"],
+           "serve_tps": sst["decode_tps"], "serve_steps": sst["decode_steps"]}
+    print(f"  generate: 4 prompts (lens {lens.tolist()}), 16 new: prefill "
+          f"{res['prefill_s']:.3f} s, {res['decode_ms']:.2f} ms per decode step, "
+          f"{res['decode_tps']:.1f} tok/s; serve: 8 requests through 4 slots: "
+          f"{sst['decode_steps']} steps, prefill {res['serve_prefill_s']:.3f} s, "
+          f"{res['serve_ms']:.2f} ms/step, {res['serve_tps']:.1f} tok/s")
+    print(f"  every one of {len(steps)} decode steps launched {step}, B1 by (K, N) "
+          f"{res['b1_by_shape']}; launches over both runs {launches}; peak "
+          f"{peak / 2**30:.2f} GiB (limit {limit / 2**30:.2f} GiB)")
+    if cfg.n_experts:  # the MoE FFN of one decode step (4 rows), as phase 20
+        res.update(moe_step_times(torch, model, cfg))
+        lap("MoE FFN timed")
+        print(f"  the MoE FFN of one decode step ({n} layers, 4 rows, top-{cfg.top_k} of "
+              f"{cfg.n_experts}): {res['moe_ffn_ms_step']:.2f} ms on the device, of it the "
+              f"{3 * n} expert-stack dequantizes {res['dequantize_ms_step']:.2f} ms "
+              f"({res['dequantize_bytes_step'] / 1e9:.1f} GB read + written: bound "
+              f"{1e3 * res['dequantize_bytes_step'] / HBM_BPS:.2f} ms)")
+    res["seconds_by_part"] = laps
+    print(f"  seconds by part: {laps}")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO, get_config,
+                  archs) -> dict:
+    """Phase 25 for each of ``archs`` in turn, each model freed before the next."""
+    kernels = {"dsbp_fused": DF.dsbp_fused, "flash_attention": FA.flash_attention}
+    cfgs = config_cfgs(get_config)
+    return {a: phase_config(torch, TM, Engine, ServeConfig, Request, TO, kernels, cfgs[a])
+            for a in archs}
+
+
+def config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config) -> dict:
+    """25k and 25m: the phase's kernel and circuit timings, alone on the card."""
+    return {"25k": phase_config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config),
+            "25m": phase_circuits(torch, Q, per_tensor_scale)}
+
+
+def config_record(card: str, kern: dict, cross: dict, serves: dict, get_config) -> dict:
+    """Phase 25's record: every B1 shape a served config launched was timed
+    (here, or by phases 2 and 22), 25k's rows carry their launches per
+    decode step; prints one ``configs (phase 25):`` JSON line."""
+    timed = {f"K={k} N={n}" for k, n in b1_timed_elsewhere(get_config)}
+    for x in kern["25k"]["b1"]:
+        timed.add(f"K={x['K']} N={x['N']}")
+        if x["M"] == 4:
+            x["launches_per_step"] = serves[x["arch"]]["b1_by_shape"][f"K={x['K']} N={x['N']}"]
+            x["launches_of"] = f"one decode step, phase 25, {x['arch']}"
+    for arch, r in serves.items():
+        missing = set(r["b1_by_shape"]) - timed
+        if missing:
+            raise AssertionError(f"{arch}: B1 launched at {sorted(missing)}, timed nowhere")
+    for key, x in kern["25k"]["b2"].items():
+        x["launches_per_step"] = serves[key.split()[0]]["step_launches"]["flash_attention"]
+    rec = {"card": card, "kernels": kern["25k"], "25m": kern["25m"], "25a": cross, **serves}
+    print("configs (phase 25): " + json.dumps(rec, default=_jsonable))
+    return rec
+
+
 def family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config) -> dict:
-    """The kernel phases of 19-23, timed before anything else shares the card."""
+    """The kernel phases of 19-23 and 25 (25k, 25m), timed before anything
+    else shares the card."""
     return {"19": phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale),
             "20": moe_kernels(torch, Q, DF, per_tensor_scale),
             "21": ssd_kernels(torch, Q, DF, per_tensor_scale),
             "22": phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale,
                                          frontend_configs(get_config)),
-            "23": phase_bf16_kernels(torch, FA, KVQ)}
+            "23": phase_bf16_kernels(torch, FA, KVQ),
+            "25": config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config)}
 
 
 def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO, blocks,
                     per_tensor_scale, get_config, kernels, run_dir: Path) -> int:
-    """The second process of a whole run: the kernels of 19-23 alone on the
-    card (the first process waits), then 20 and 22 (holding the lock of the
-    memory-heavy phases), 21, 19, 23 and 24; hands their records over in
-    ``run_dir/families.json``."""
+    """The second process of a whole run: the kernels of 19-23 and 25 alone
+    on the card (the first process waits), then 20, 22 and 25's grok-1-314b
+    (holding the lock of the memory-heavy phases), 25's yi-9b, 21, 19, 23
+    and 24; hands their records over in ``run_dir/families.json``."""
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the host is shared
     card = smi()
     t_run = time.perf_counter()
@@ -6451,7 +6860,7 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     kern = family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config)
     torch.cuda.synchronize()
     (run_dir / "kernels.done").write_text("")
-    stamp("phases 19-23 (kernels)")
+    stamp("phases 19-23 and 25 (kernels)")
     with heavy_phase(run_dir):
         moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO,
                          per_tensor_scale, get_config, card, b1=kern["20"])
@@ -6459,6 +6868,12 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
         fro = frontend_phases(torch, TM, Engine, ServeConfig, Q, DF, FA, KVQ, TO,
                               per_tensor_scale, get_config, card, rows=kern["22"])
         stamp("phase 22")
+        cfg25 = config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO, get_config,
+                              ("grok-1-314b",))
+        stamp("phase 25 (grok-1-314b)")
+    cfg25.update(config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO, get_config,
+                               [a for a in CONFIG_DENSE if a not in CONFIG_FIRST]))
+    stamp("phase 25 (yi-9b)")
     ssd = ssd_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO, per_tensor_scale,
                      get_config, card, b1=kern["21"])
     stamp("phase 21")
@@ -6474,7 +6889,8 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     stamp("phase 24")
     bf = {**bf, "kernels": {f"{k}|{c}": v for (k, c), v in bf["kernels"].items()}}
     (run_dir / "families.json").write_text(json.dumps(
-        {"hyb": hyb, "moe": moe, "ssd": ssd, "fro": fro, "bf": bf, "train": train},
+        {"hyb": hyb, "moe": moe, "ssd": ssd, "fro": fro, "bf": bf, "train": train,
+         "cfg": {"kern": kern["25"], "serves": cfg25}},
         default=_jsonable))
     return 0
 
@@ -6608,6 +7024,14 @@ def main() -> int:
         train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--configs"]:  # phases 1, 25k, 25m, 25a and 25: the copied configs
+        kern = config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config)
+        cross = phase_config_cross_device(torch, TM, Engine, ServeConfig, get_config)
+        serves = config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO, get_config,
+                               (*CONFIG_DENSE, "grok-1-314b"))
+        config_record(card, kern, cross, serves, get_config)
+        print(smi())
+        return 0
     if sys.argv[1:2] == ["--families-worker"]:  # the second process of a whole run
         return families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
                                blocks, per_tensor_scale, get_config, all_kernels,
@@ -6650,7 +7074,7 @@ def main() -> int:
     fam = Families(run_dir)
     try:
         fam.wait_kernels()
-        stamp("phases 19-23 (kernels), in the second process")
+        stamp("phases 19-23 and 25 (kernels), in the second process")
         torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the host is shared
         cfg = get_config("llama-7b-paper")
         model, launches, float_bpt, ref5 = phase_serve(torch, TM, Engine, ServeConfig, Request,
@@ -6698,6 +7122,9 @@ def main() -> int:
             stamp("phase 17")
             b8, mesh15 = mesh_phases(torch, TM, Engine, ServeConfig, Request, DF, FA, cfg, ref5)
             stamp("phase 14-15b")
+            first25 = config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO,
+                                    get_config, CONFIG_FIRST)
+            stamp("phase 25 (phi3-medium-14b, deepseek-coder-33b)")
         # llama-7b's one-layer CPU-vs-card checks, mostly the CPU's plain
         # versions, last: the second process's phase 24 binds the run
         models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
@@ -6707,6 +7134,8 @@ def main() -> int:
         spec16a = phase_spec_cross_device(torch, Engine, ServeConfig, Request, models, cfg)
         stamp("phase 16a")
         del models
+        cross25 = phase_config_cross_device(torch, TM, Engine, ServeConfig, get_config)
+        stamp("phase 25a")
         mixed = pol["served"]["mixed + kv4"]
         rec = fam.finish()
         stamp("the second process")
@@ -6715,6 +7144,8 @@ def main() -> int:
         shutil.rmtree(run_dir, ignore_errors=True)
     hyb, moe, ssd, fro, bf, train = (rec[k] for k in ("hyb", "moe", "ssd", "fro", "bf",
                                                       "train"))
+    cfg25 = config_record(card, rec["cfg"]["kern"], cross25,
+                          {**first25, **rec["cfg"]["serves"]}, get_config)
     # phase 23's bf16 llama holds half of phase 5's float-KV bytes per token
     half = bf["serve"]["float"]["kv_bytes_per_token"] / float_bpt
     print(f"  phase 23: bf16 float-KV bytes per token {half:.3f} of phase 5's")
@@ -6912,6 +7343,16 @@ def main() -> int:
         k["train_launches_per_step"] = train["24"]["launches_per_step"].get(k["name"], 0)
         k["train_path"] = (f"phase 24 (llama-7b-paper, {TRAIN_LAYERS} layers, full width, "
                            f"dsbp_fused QAT with remat)")
+    # each kernel's launches on phase 25's path (generate + serve of each
+    # config: yi-9b, phi3-medium-14b and deepseek-coder-33b at full depth,
+    # grok-1-314b at GROK_LAYERS): B1 and B2
+    for k in kernels:
+        k["configs_launches"] = sum(cfg25[a]["launches"].get(k["name"], 0)
+                                    for a in (*CONFIG_DENSE, "grok-1-314b"))
+        k["configs_path"] = (f"phase 25 (yi-9b 48, phi3-medium-14b 40, deepseek-coder-33b 62, "
+                             f"grok-1-314b {GROK_LAYERS} layers, full width: generate + serve)")
+    by_name["dsbp_fused"]["configs_rows"] = cfg25["kernels"]["b1"]
+    by_name["flash_attention"]["configs_rows"] = cfg25["kernels"]["b2"]
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

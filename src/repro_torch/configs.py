@@ -6,11 +6,15 @@ for field (tests/test_torch_engine.py compares them), so one config value
 means the same model in both packages.  The configs copied are the ones
 the ported layer families serve: the dense ``attn_full`` decoders, the
 Griffin hybrid (RG-LRU + ``attn_local`` rings, tied embeddings),
-gemma3's 5:1 local:global pattern, the MoE decoder mixtral-8x7b, the
-attention-free Mamba-2 SSD stack mamba2-370m, and the two modality
-frontends over the dense stack: musicgen-large (K codebook embeddings
-summed, K heads) and llava-next-34b (precomputed patch embeddings
-prepended); grok-1-314b joins with the expert axis (ROADMAP A13).
+gemma3's 5:1 local:global pattern, the MoE decoders mixtral-8x7b
+(sliding-window) and grok-1-314b (full attention), the attention-free
+Mamba-2 SSD stack mamba2-370m, and the two modality frontends over the
+dense stack: musicgen-large (K codebook embeddings summed, K heads) and
+llava-next-34b (precomputed patch embeddings prepended).  That is all
+eleven of the JAX package's configs, and ``ARCH_IDS`` lists them in its
+order.  Full-depth grok-1-314b (~346 GB packed) does not fit one card:
+the launcher refuses it until the expert axis spreads it over ranks
+(ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -247,6 +251,24 @@ _CONFIGS = {
         top_k=2,
         source="arXiv:2401.04088; hf",
     ),
+    # Grok-1 (314B): sparse MoE decoder, 8 experts top-2, full attention;
+    # 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072
+    # [hf:xai-org/grok-1; unverified]
+    "grok-1-314b": ArchConfig(
+        name="grok-1-314b",
+        family="moe",
+        n_layers=64,
+        d_model=6144,
+        n_heads=48,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=32768,
+        vocab_size=131_072,
+        pattern=("attn_full",),
+        n_experts=8,
+        top_k=2,
+        source="hf:xai-org/grok-1; unverified",
+    ),
     # Mamba2-370M: attention-free SSM via SSD (state-space duality); 48L
     # d_model=1024, vocab=50280 (padded to 50432), ssm_state=128,
     # headdim=64, expand=2 (d_inner=2048, 32 SSD heads), tied
@@ -311,7 +333,11 @@ _CONFIGS = {
     ),
 }
 
-ARCH_IDS = list(_CONFIGS)
+# the JAX package's order (``repro.configs.ARCH_IDS``)
+ARCH_IDS = ["musicgen-large", "gemma3-12b", "yi-9b", "deepseek-coder-33b", "phi3-medium-14b",
+            "mixtral-8x7b", "grok-1-314b", "llava-next-34b", "recurrentgemma-2b",
+            "mamba2-370m", "llama-7b-paper"]
+assert sorted(ARCH_IDS) == sorted(_CONFIGS)
 
 
 def get_config(name: str) -> ArchConfig:

@@ -103,21 +103,24 @@ def pack_weights(w: torch.Tensor, cfg: QuantizedMatmulConfig | str) -> PackedDSB
     k, n = w.shape[-2:]
     lead = w.shape[:-2]
     # one matrix at a time: a per-tensor weight scale is per matrix; each
-    # matrix's mantissas narrow to int8 as they come, so a stack of E
-    # experts never holds E wide copies
-    qs = []
-    for m in w.to(torch.float32).reshape(-1, k, n):
+    # matrix's fields narrow and take the kernel layout as they come, into
+    # outputs allocated once, so a stack of E experts holds one matrix's
+    # temporaries beside its packed result, never E wide copies
+    mats = w.to(torch.float32).reshape(-1, k, n)
+    out = None
+    for i, m in enumerate(mats):
         q = quantize_weights(m, wcfg)
-        qs.append({**q, "a": q["a"].to(torch.int8)})
-    q = {key: torch.stack([qq[key] for qq in qs]).reshape(*lead, *qs[0][key].shape)
-         for key in ("a", "scale", "tscale", "bits")}
-    del qs
-    ka, kscale = to_kernel_layout(q["a"], q["scale"])
-    return PackedDSBPWeight(
-        ka=ka, kscale=kscale, tscale=q["tscale"].contiguous(),
-        bits=q["bits"].to(torch.int8), k=k, n=n,
-        group_size=wcfg.group_size, cfg=cfg,
-    )
+        ka, kscale = to_kernel_layout(q["a"].to(torch.int8), q["scale"])
+        fields = (ka, kscale, q["tscale"], q["bits"].to(torch.int8))
+        del q
+        if out is None:
+            out = [f.new_empty((len(mats), *f.shape)) for f in fields]
+        for o, f in zip(out, fields):
+            o[i] = f
+        del fields, ka, kscale
+    ka, kscale, tscale, bits = (o.reshape(*lead, *o.shape[1:]) for o in out)
+    return PackedDSBPWeight(ka=ka, kscale=kscale, tscale=tscale, bits=bits, k=k, n=n,
+                            group_size=wcfg.group_size, cfg=cfg)
 
 
 def packed_matmul(x: torch.Tensor, pw: PackedDSBPWeight,

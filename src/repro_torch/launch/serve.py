@@ -66,6 +66,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
@@ -155,6 +156,8 @@ def main():
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
     args = ap.parse_args()
+    if not args.smoke:  # before anything is drawn
+        _refuse_past_one_card(get_config(args.arch))
     if args.metrics_json or args.trace:
         args.observe = True
     frontend = get_config(args.arch).frontend
@@ -184,6 +187,35 @@ def main():
     from repro_torch.launch.mesh import spawn
 
     spawn(_run, shape, args, device=str(device))
+
+
+# one H100's memory: what a full-size config is held against where no card
+# is visible
+H100_BYTES = 80 * 10**9
+
+
+def packed_nbytes(cfg) -> int:
+    """Bytes of ``cfg`` at full depth packed by ``init(pack=)``, from its
+    parameter count: each projection weight an int8 mantissa, 1/16 of an
+    f32 group scale and 1/64 of an int8 group width (64-groups), the
+    embedding and head f32 (norms and routers, a few MB, left out)."""
+    emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2) * max(
+        1, cfg.n_codebooks)
+    return int((cfg.param_count() - emb) * (1 + 5 / 64) + 4 * emb)
+
+
+def _refuse_past_one_card(cfg) -> None:
+    """Raises, naming ROADMAP A13, for a full-size config whose packed
+    weights alone outgrow the card (grok-1-314b: ~346 GB)."""
+    have = (torch.cuda.get_device_properties(0).total_memory if torch.cuda.is_available()
+            else H100_BYTES)
+    need = packed_nbytes(cfg)
+    if need > have:
+        raise NotImplementedError(
+            f"{cfg.name} at full depth is {need / 1e9:.1f} GB packed against the card's "
+            f"{have / 1e9:.1f} GB: one card cannot hold it, and spreading its experts "
+            f"over ranks (the expert axis) is not ported yet (ROADMAP A13); serve it "
+            f"with --smoke, or cut its depth through models.model.init")
 
 
 def _run(mesh, args):

@@ -1168,3 +1168,77 @@ def test_ste_products_on_the_card(cuda, method, m, k, n):
     assert torch.equal(y, yc), float((y - yc).abs().max())
     for got, want in ((gx, gxc), (gw, gwc)):
         assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+# ---- the copied configs and the eleventh: yi-9b (GQA 32 : 4), phi3-medium-14b
+# (40 : 10, d 5,120), deepseek-coder-33b (d_ff 19,200), grok-1-314b (48 : 8) ----
+
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("k,n", [(4096, 512), (5120, 5120), (5120, 1280), (5120, 17920),
+                                 (17920, 5120), (7168, 19200), (19200, 7168), (6144, 6144),
+                                 (6144, 1024)],
+                         ids=["yi_wk", "phi3_wq", "phi3_wk", "phi3_w1", "phi3_w2",
+                              "deepseek_w1", "deepseek_w2", "grok_wq", "grok_wk"])
+def test_dsbp_fused_bit_equal_plain_at_config_shapes(cuda, m, k, n):
+    """B1 at every (K, N) of the copied configs and grok that no other case
+    holds, at the decode M 4 and the prefill tile's M 512: bit-equal to
+    plain."""
+    cfg = _cfg("precise")
+    x, ts, ka, kscale, tw = _device_operands(m, k, n, cfg, cuda, seed=m + k + n)
+    y = DF.dsbp_fused(x, ts, ka, kscale, tw, cfg.input_cfg)
+    ref = DF.dsbp_fused_plain(x, ts, ka, kscale, tw, cfg.input_cfg)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n)
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+
+
+@pytest.mark.parametrize("hq,hkv", [(48, 8), (32, 4), (40, 10)],
+                         ids=["grok-48:8", "yi-32:4", "phi3-40:10"])
+@pytest.mark.parametrize("sq,lens", [(1, [300, 129, 17]), (300, [300, 131, 64])],
+                         ids=["decode", "prefill"])
+def test_attention_at_config_head_layouts(cuda, hq, hkv, sq, lens):
+    """B2 at the new GQA ratios (6, 8 and 4, with 10 KV heads) and D 128:
+    within 1e-5 of its plain version, and a head slice bit-equal to the
+    whole call."""
+    g = torch.Generator().manual_seed(hq + hkv + sq)
+    b, s, d = len(lens), 300, 128
+    q = torch.randn(b, hq, sq, d, generator=g).to(cuda)
+    k = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    v = torch.randn(b, hkv, s, d, generator=g).to(cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q0 = (kv_len - 1) if sq == 1 else torch.zeros_like(kv_len)
+    o = FA.flash_attention(q, k, v, kv_len, q0)
+    ref = FA.flash_attention_plain(q, k, v, kv_len, q0)
+    kh = hkv // 2
+    heads = FA.flash_attention(q[:, :kh * hq // hkv], k[:, :kh], v[:, :kh], kv_len, q0)
+    torch.cuda.synchronize()
+    vis = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0).any(-1)
+    vis = vis[:, None].expand(-1, hq, -1)  # rows with a visible key (pad queries have none)
+    torch.testing.assert_close(o[vis], ref[vis], rtol=1e-5, atol=1e-5)
+    assert torch.equal(heads, o[:, :kh * hq // hkv])
+
+
+def test_circuit_models_card_equal_cpu(cuda):
+    """The MPU, the FIAU's barrel reference and the MAC array on CUDA
+    tensors equal the CPU's, integer for integer."""
+    from repro_torch.core import dsbp as D
+    from repro_torch.core import fiau as FI
+    from repro_torch.core import mac_array as MA
+    from repro_torch.core import mpu as MPU
+    from repro_torch.core.formats import decompose
+
+    x = torch.from_numpy(_data((64, 1024), 7))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        d = decompose(x.to(dev), "e4m3")
+        sign, e, m = (D.group_reshape(d[key], 64) for key in ("sign", "e_unb", "m_int"))
+        shift, _, nz = D.group_shifts(e, m)
+        b = MPU.mpu_predict(shift, nz, 32, 4)
+        fiau = FI.barrel_align(sign * m, shift, 5, b[..., None].clamp(1, 11) + 1)
+        w = torch.from_numpy(np.random.default_rng(3).integers(-32, 32, (64, 40))).to(dev)
+        mac = MA.mac_array_matmul(fiau[:, 0], w, 6)
+        res[dev.type] = [t.cpu() for t in (b, fiau, mac)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(got, want)
+    assert torch.equal(res["cpu"][2].long(), res["cpu"][1][:, 0] @ torch.from_numpy(
+        np.random.default_rng(3).integers(-32, 32, (64, 40))))

@@ -353,7 +353,7 @@ def _assert_models_equal(a, b):
     assert pa == pb and pa
 
 
-@pytest.mark.parametrize("arch", [ARCH, "recurrentgemma-2b", "llama-7b-paper"])
+@pytest.mark.parametrize("arch", [ARCH, "grok-1-314b", "recurrentgemma-2b", "llama-7b-paper"])
 def test_streamed_packed_init_equals_init_then_pack(arch):
     cfg = smoke_config(arch)
     drawn = TM.init(cfg, seed=3, device="cpu")
