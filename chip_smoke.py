@@ -336,18 +336,45 @@ Phases (each raises on failure; nothing falls back to the CPU):
      cache, the prefill's K/V and activations, prefill s, ms per step,
      tokens/s; grok's MoE FFN of one decode step and its expert
      dequantizes timed; a `configs (phase 25):` JSON line.
+  26. training beyond the dense family, at full width, f32, "precise"
+     through dsbp_fused with remat, on the synthetic stream: 26k, B2's
+     autograd function at the families' head layouts (recurrentgemma-2b's
+     MQA 10 : 1 at D 256 past its 2,048-key window, mixtral-8x7b's GQA 32
+     : 8 under its window, musicgen-large's MHA at D 64, llava-next-34b's
+     GQA 56 : 8 over 2,880 image + 128 text positions; output and q / k /
+     v gradients within 1e-5 of the plain version's autograd, the forward
+     timed cold beside plain and SDPA, forward + backward beside SDPA's)
+     and 'dsbp_fused''s straight-through product at one new (K, N) per
+     family at the phase's rows (forward bit-equal to plain, gx / gw to
+     the f32 products; B1 timed there); 26a, each family at one layer
+     (recurrentgemma-2b one pattern unit, llava's image prefix cut to 64)
+     CPU (plain) vs card (kernels), one step of 2 x 64 tokens, float and
+     "precise" under 24a's rule (the QAT limit read against the card one
+     ulp away and three planted faults on the family's own product), MoE
+     choices that differ between the sides counted; 26, a Trainer of 5
+     steps per config at FAMILY_TRAIN's depth (recurrentgemma-2b 3 layers,
+     mixtral-8x7b 1, mamba2-370m all 48, musicgen-large 4, llava-next-34b
+     1 at batch 1): losses finite and a held-out batch's loss lower after
+     the last step than before the first, B1 and B2 launches counted in
+     every step, ms per step, tokens/s, peak memory gated (mixtral and
+     llava under the lock); mamba2-370m saving at step 3 and a run
+     restored from it bit-equal to the unbroken run; 2 bf16 steps of
+     mamba2-370m (finite, peak); a `train-families (phase 26):` JSON line.
   The ranks of 14-15 time-slice the one card: their step times are not
   multi-card numbers.  16, 18, 17a and 17 run after 13, before 14-15b,
   for which the models are freed; 4, 9 and 16a run last.
 Run order: 1, then every kernel-timing phase alone on the card (2, 3, 6,
-7, 8, 11, then the kernels of 19-23 and 25k / 25m in a second process of
-this script while the first waits); then the two processes share the
-card, the first running 5, 10, 12, 13, 16, 18, 17a, 17, 14-15b, 25's
-phi3-medium-14b and deepseek-coder-33b, then 4, 9, 16a and 25a (the
-one-layer checks, mostly on the CPU), the second 20, 22, 25's grok-1-314b
-and yi-9b, 21, 19, 23 and 24.  A phase
-whose peak passes ~25 GiB (17a-17, 14-15b, 25, 20, 22) holds a lock file, so at most one of them runs at a time and the two fit in the
-card's 80 GB.  Step times, traces and idle shares of the
+7, 8, 11, then the kernels of 19-23, 25k / 25m and 26k in a second
+process of this script while the first waits); then the two processes
+share the card, the first running 5, 10, 12, 13, 16, 18, 17a, 17,
+14-15b, 25's phi3-medium-14b and deepseek-coder-33b, 26's mixtral-8x7b
+and llava-next-34b (FAMILY_FIRST), then 4, 9, 16a, 25a and llava's 26a
+(the one-layer checks, mostly on the CPU), the second 20, 22, 25's
+grok-1-314b, 26's recurrentgemma-2b, 25's yi-9b, 21, 19, 23, 24, 26's
+mamba2-370m and musicgen-large, and 26a of the other four.  A phase whose peak
+passes ~25 GiB (17a-17, 14-15b, 25, 20, 22, 26's recurrentgemma-2b,
+mixtral-8x7b and llava-next-34b) holds a lock file, so at most one of
+them runs at a time and the two fit in the card's 80 GB.  Step times, traces and idle shares of the
 shared part are taken with the other process on the card and its host;
 kernel times never are.  The second process's output is printed when it
 ends, before the kernels' record; a failure of either process fails the
@@ -382,6 +409,10 @@ runs phases 1 and 24 alone.
     python3 chip_smoke.py --configs
 
 runs phases 1, 25k, 25m, 25a and 25 alone.
+
+    python3 chip_smoke.py --train-families
+
+runs phases 1, 26k, 26 and 26a alone.
 
     python3 chip_smoke.py --cross
 
@@ -420,6 +451,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -568,7 +600,7 @@ def _jsonable(o):
 
 
 class Families:
-    """The second process of a whole run: phases 19-25,
+    """The second process of a whole run: phases 19-26,
     started with ``--families-worker``; its output goes to a log, printed
     when it ends."""
 
@@ -584,7 +616,7 @@ class Families:
     def print_log(self) -> None:
         if not self.printed:
             self.printed = True
-            print("== the second process (phases 19-25), its output:")
+            print("== the second process (phases 19-26), its output:")
             print(self.log_path.read_text().rstrip())
             print("== the second process's output ends")
 
@@ -593,7 +625,7 @@ class Families:
         rc = self.proc.poll()
         if rc not in (None, 0):
             self.print_log()
-            raise RuntimeError(f"the second process (phases 19-25) failed with "
+            raise RuntimeError(f"the second process (phases 19-26) failed with "
                                f"exit code {rc}")
 
     def wait_kernels(self) -> None:
@@ -754,21 +786,23 @@ def phase_b2(torch, FA):
     return out
 
 
-def b2_case(torch, FA, label: str, q, k, v, kv_len, q0) -> dict:
-    """B2 against its plain version (1e-5) at one shape, with a head slice
-    and a row slice bit-equal to the whole call, timed cold beside its
-    plain version, torch's SDPA and its bound."""
+def b2_case(torch, FA, label: str, q, k, v, kv_len, q0, window: int = 0) -> dict:
+    """B2 against its plain version (1e-5) at one shape (causal, under
+    ``window``), with a head slice and a row slice bit-equal to the whole
+    call, timed cold beside its plain version, torch's SDPA and its bound."""
     b, hq, sq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     q0 = torch.tensor(q0, dtype=torch.int32, device="cuda")
-    o = FA.flash_attention(q, k, v, kv_len, q0)
-    ref = FA.flash_attention_plain(q, k, v, kv_len, q0)
+    fa, plain = (functools.partial(f, window=window)
+                 for f in (FA.flash_attention, FA.flash_attention_plain))
+    o = fa(q, k, v, kv_len, q0)
+    ref = plain(q, k, v, kv_len, q0)
     # a row's bits depend on its own keys only: half the KV heads (with
     # their query heads) and the last batch rows give the matching slices
-    kh, qh, r0 = hkv // 2, hq // 2, b // 2
-    heads = FA.flash_attention(q[:, :qh], k[:, :kh], v[:, :kh], kv_len, q0)
-    rows = FA.flash_attention(q[r0:], k[r0:], v[r0:], kv_len[r0:], q0[r0:])
+    kh, qh, r0 = max(hkv // 2, 1), hq // 2, b // 2  # MQA: half the query heads
+    heads = fa(q[:, :qh], k[:, :kh], v[:, :kh], kv_len, q0)
+    rows = fa(q[r0:], k[r0:], v[r0:], kv_len[r0:], q0[r0:])
     torch.cuda.synchronize()
     err = float((o - ref).abs().max())
     close = torch.allclose(o, ref, rtol=1e-5, atol=1e-5)
@@ -779,14 +813,14 @@ def b2_case(torch, FA, label: str, q, k, v, kv_len, q0) -> dict:
     if not (torch.equal(heads, o[:, :qh]) and torch.equal(rows, o[r0:])):
         raise AssertionError(f"B2 {label.strip()}: a head or row slice differs from the "
                              f"whole call")
-    mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=0)
+    mask = FA.attention_mask(kv_len, q0, sq, s, causal=True, window=window)
     visible = float(mask.sum())  # (b, query, key) pairs this run attends
     nbytes = 2 * q.numel() * 4 + 2 * float(kv_len.sum()) * hkv * d * 4 + 8 * b
     b_ms, b_by = bound(nbytes, visible * hq * 4 * d, F32_OPS)
     # cold: every call reads K/V from device memory, as on the main path
     args = cold_copies(torch, (q, k, v, kv_len, q0), nbytes)
-    ms = cuda_ms(FA.flash_attention, args, iters=20)
-    plain_ms = cuda_ms(FA.flash_attention_plain, args[:1], iters=5)
+    ms = cuda_ms(fa, args, iters=20)
+    plain_ms = cuda_ms(plain, args[:1], iters=5)
     lib_ms = cuda_ms(_sdpa, [(a[0], a[1], a[2], mask[:, None]) for a in args], iters=20)
     del args
     print(f"  B2 {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} S={s} D={d}: max |diff| {err:.3g}, "
@@ -5912,6 +5946,110 @@ def _train_cfg(get_config, n_layers: int, dtype: str = "float32"):
                                                quant_method="dsbp_fused", dtype=dtype)
 
 
+def _plain_rows(torch, fn, *xs):
+    """``fn`` over row blocks of PLAIN_ROWS: the plain versions' float64
+    group dots take n_groups * rows * N * 8 bytes (11.5 GB at M 2,048, K
+    11,008), and every output row depends on its own input row only, so
+    the blocks give the whole product's bits."""
+    return torch.cat([fn(*(t[i:i + PLAIN_ROWS] for t in xs))
+                      for i in range(0, xs[0].shape[0], PLAIN_ROWS)])
+
+
+def fused_plain(x, w, c):
+    """B1's straight-through forward with its plain version, on x's device."""
+    import torch
+
+    from repro_torch.core import quantized as Q
+    from repro_torch.core.formats import per_tensor_scale
+    from repro_torch.kernels import dsbp_fused as DF
+
+    pw = Q.pack_weights(w, c)
+    ts = per_tensor_scale(x, c.input_cfg.fmt).reshape(1)
+    return _plain_rows(torch, lambda xb: DF.dsbp_fused_plain(
+        xb, ts, pw.ka, pw.kscale, pw.tscale.reshape(-1), c.input_cfg), x)
+
+
+def kernel_plain(x, w, c):
+    """B3 + B4's straight-through forward with their plain versions."""
+    import torch
+
+    from repro_torch.core import quantized as Q
+    from repro_torch.core.formats import per_tensor_scale
+    from repro_torch.kernels import dsbp_matmul as DM
+    from repro_torch.kernels import fp8_quant_align as QA
+
+    pw = Q.pack_weights(w, c)
+    ts = per_tensor_scale(x, c.input_cfg.fmt)
+    a, sx, _ = QA.fp8_quant_align_plain(x * ts, c.input_cfg)
+    return _plain_rows(torch, lambda ab, sb: DM.dsbp_matmul_plain(ab, sb, pw.ka, pw.kscale),
+                       a, sx) / (ts * pw.tscale.reshape(1, -1))
+
+
+def ste_case(torch, name: str, fn, plain, kernels, gen, cfg, m: int, kk: int, n: int) -> dict:
+    """One straight-through product ``fn`` (x (m, kk) @ w (kk, n), seeded)
+    on the card: its forward launches each of ``kernels`` once and is
+    bit-equal to ``plain``; gx / gw bit-equal to the formula's f32
+    products gy wᵀ / xᵀ gy and within f32_dot_rel of float64 in norm."""
+    w = torch.randn(kk, n, generator=gen, device="cuda") * kk ** -0.5
+    x = torch.randn(m, kk, generator=gen, device="cuda")
+    gy = torch.randn(m, n, generator=gen, device="cuda")
+    counts = _launch_counts(kernels)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = fn(xs, ws, cfg)
+    launched = {kn: c - counts[kn] for kn, c in _launch_counts(kernels).items()}
+    if any(c != 1 for c in launched.values()):
+        raise AssertionError(f"{name} STE forward launched {launched}")
+    gx, gw = torch.autograd.grad(y, (xs, ws), gy)
+    ref = plain(x, w, cfg)
+    if not torch.equal(y.detach(), ref):
+        raise AssertionError(f"{name} STE forward != its plain version at M={m} K={kk} N={n}: "
+                             f"{float((y.detach() - ref).abs().max())}")
+    # the straight-through backward is JAX's _ste_bwd, two f32 products:
+    # bit-equal to the same products taken outside the Function, and each
+    # within f32_dot_rel of float64 on the card
+    if not (torch.equal(gx, gy @ w.T) and torch.equal(gw, x.T @ gy)):
+        raise AssertionError(f"{name} gx / gw != the f32 products gy wᵀ / xᵀ gy")
+    xd, wd, gd = x.double(), w.double(), gy.double()
+    exact = (gd @ wd.T, xd.T @ gd)
+    del xd, wd, gd
+    rx, rw = (float(torch.linalg.vector_norm(a.double() - b_) / torch.linalg.vector_norm(b_))
+              for a, b_ in zip((gx, gw), exact))
+    mx, mw = (float((a.double() - b_).abs().max() / b_.abs().max())
+              for a, b_ in zip((gx, gw), exact))
+    del exact
+    lx, lw = f32_dot_rel(n), f32_dot_rel(m)  # gx sums over N, gw over M
+    if not (rx <= lx and rw <= lw):
+        raise AssertionError(f"{name} gx / gw vs float64 {rx} / {rw} > {lx} / {lw}")
+    print(f"  {name} STE M={m} K={kk:5d} N={n:5d}: forward bit-equal to its plain "
+          f"version; gx, gw bit-equal to the f32 products and within {rx:.2e}, "
+          f"{rw:.2e} of float64's norm (limits {lx:.2e}, {lw:.2e}; largest element "
+          f"{mx:.2e}, {mw:.2e} of max|.|); launched {launched}")
+    return {"gx_rel_norm": rx, "gw_rel_norm": rw, "gx_rel_max": mx, "gw_rel_max": mw}
+
+
+def b2_grad_case(torch, FA, q, k, v, kv_len, q0, g, window: int = 0) -> list:
+    """B2's autograd function (``flash_attention_grad``: the kernel's
+    forward, the plain version's backward) against the plain version's
+    autograd under the cotangent ``g``: [output, dq, dk, dv] relative to
+    max|.|, each within 1e-5, or it raises; the forward launches B2 once."""
+    grads = {}
+    for name in ("kernel", "plain"):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = FA.flash_attention.launches
+        fn = FA.flash_attention_grad if name == "kernel" else FA.flash_attention_plain
+        o = fn(*qkv, kv_len, q0, causal=True, window=window)
+        launched = FA.flash_attention.launches - before
+        if launched != (name == "kernel"):
+            raise AssertionError(f"B2 launched {launched} times in the {name} forward")
+        grads[name] = (o.detach(), *torch.autograd.grad(o, qkv, g))
+        del qkv, o
+    rel = [float((a - b_).abs().max() / b_.abs().max())
+           for a, b_ in zip(grads["kernel"], grads["plain"])]
+    if not max(rel) <= 1e-5:
+        raise AssertionError(f"B2's output / dq / dk / dv vs plain {rel} > 1e-5")
+    return rel
+
+
 def phase_train_kernels(torch, Q, DF, FA, TO) -> dict:
     """24k: the kernel Functions' gradients on the card against the plain
     versions' autograd gradients: B2 (``flash_attention_grad``) at
@@ -5933,91 +6071,19 @@ def phase_train_kernels(torch, Q, DF, FA, TO) -> dict:
     q0 = torch.zeros(b, dtype=torch.int32, device="cuda")
     g = torch.randn(b, h, s, d, generator=gen, device="cuda")
     g = g * (torch.arange(s, device="cuda")[None, None, :, None] < kv_len[:, None, None, None])
-    grads = {}
-    for name in ("kernel", "plain"):
-        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        before = FA.flash_attention.launches
-        fn = FA.flash_attention_grad if name == "kernel" else FA.flash_attention_plain
-        o = fn(*qkv, kv_len, q0, causal=True)
-        launched = FA.flash_attention.launches - before
-        if (name == "kernel") != bool(launched):
-            raise AssertionError(f"24k: B2 launched {launched} times in the {name} forward")
-        grads[name] = (o.detach(), *torch.autograd.grad(o, qkv, g))
-    rel = [float((a - b_).abs().max() / b_.abs().max())
-           for a, b_ in zip(grads["kernel"], grads["plain"])]
-    if not max(rel) <= 1e-5:
-        raise AssertionError(f"24k: B2's output / dq / dk / dv vs plain {rel} > 1e-5")
+    rel = b2_grad_case(torch, FA, q, k, v, kv_len, q0, g)
     print(f"  B2 B={b} H={h} S={s} D={d} ragged {kv_len.tolist()}: output, dq, dk, dv within "
           f"{['%.2e' % r for r in rel]} of the plain version's autograd (limit 1e-5)")
     out["B2"] = {"rel_out_dq_dk_dv": rel}
-    del q, k, v, g, grads
+    del q, k, v, g
     cfg = Q.PRESETS["precise"]
-    from repro_torch.core.formats import per_tensor_scale
-    from repro_torch.kernels import dsbp_matmul as DM
-    from repro_torch.kernels import fp8_quant_align as QA
-
-    # the plain versions' float64 group dots take n_groups * rows * N * 8
-    # bytes (11.5 GB at M 2,048, K 11,008): every output row depends on its
-    # own input row only, so row blocks give the whole product's bits
-    def rows(fn, *xs):
-        return torch.cat([fn(*(t[i:i + PLAIN_ROWS] for t in xs))
-                          for i in range(0, xs[0].shape[0], PLAIN_ROWS)])
-
-    def fused_plain(x, w, c):  # B1's product with its plain version, on x's device
-        pw = Q.pack_weights(w, c)
-        ts = per_tensor_scale(x, c.input_cfg.fmt).reshape(1)
-        return rows(lambda xb: DF.dsbp_fused_plain(xb, ts, pw.ka, pw.kscale,
-                                                   pw.tscale.reshape(-1), c.input_cfg), x)
-
-    def kernel_plain(x, w, c):  # B3 + B4's product with their plain versions
-        pw = Q.pack_weights(w, c)
-        ts = per_tensor_scale(x, c.input_cfg.fmt)
-        a, sx, _ = QA.fp8_quant_align_plain(x * ts, c.input_cfg)
-        return rows(lambda ab, sb: DM.dsbp_matmul_plain(ab, sb, pw.ka, pw.kscale), a, sx) / (
-            ts * pw.tscale.reshape(1, -1))
-
     for name, fn, plain, kernels in (
             ("dsbp_fused", TO.dsbp_matmul_fused_ste, fused_plain, ("dsbp_fused",)),
             ("dsbp_kernel", TO.dsbp_matmul_ste, kernel_plain, ("fp8_quant_align",
                                                               "dsbp_matmul"))):
         for kk, n in LLAMA_SHAPES:
-            w = torch.randn(kk, n, generator=gen, device="cuda") * kk ** -0.5
-            x = torch.randn(STE_M, kk, generator=gen, device="cuda")
-            gy = torch.randn(STE_M, n, generator=gen, device="cuda")
-            counts = _launch_counts(kernels)
-            xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-            y = fn(xs, ws, cfg)
-            launched = {kn: c - counts[kn] for kn, c in _launch_counts(kernels).items()}
-            if any(c != 1 for c in launched.values()):
-                raise AssertionError(f"24k: {name} forward launched {launched}")
-            gx, gw = torch.autograd.grad(y, (xs, ws), gy)
-            ref = plain(x, w, cfg)
-            if not torch.equal(y.detach(), ref):
-                raise AssertionError(f"24k: {name} STE forward != its plain version at K={kk} "
-                                     f"N={n}: {float((y.detach() - ref).abs().max())}")
-            # the straight-through backward is JAX's _ste_bwd, two f32
-            # products: bit-equal to the same products taken outside the
-            # Function, and each within f32_dot_rel of float64 on the card
-            if not (torch.equal(gx, gy @ w.T) and torch.equal(gw, x.T @ gy)):
-                raise AssertionError(f"24k: {name} gx / gw != the f32 products gy wᵀ / xᵀ gy")
-            xd, wd, gd = x.double(), w.double(), gy.double()
-            exact = (gd @ wd.T, xd.T @ gd)
-            del xd, wd, gd
-            rx, rw = (float(torch.linalg.vector_norm(a.double() - b_) / torch.linalg.vector_norm(b_))
-                      for a, b_ in zip((gx, gw), exact))
-            mx, mw = (float((a.double() - b_).abs().max() / b_.abs().max())
-                      for a, b_ in zip((gx, gw), exact))
-            del exact
-            lx, lw = f32_dot_rel(n), f32_dot_rel(STE_M)  # gx sums over N, gw over M
-            if not (rx <= lx and rw <= lw):
-                raise AssertionError(f"24k: {name} gx / gw vs float64 {rx} / {rw} > {lx} / {lw}")
-            print(f"  {name} STE M={STE_M} K={kk:5d} N={n:5d}: forward bit-equal to its plain "
-                  f"version; gx, gw bit-equal to the f32 products and within {rx:.2e}, "
-                  f"{rw:.2e} of float64's norm (limits {lx:.2e}, {lw:.2e}; largest element "
-                  f"{mx:.2e}, {mw:.2e} of max|.|); launched {launched}")
-            out[f"{name} K={kk} N={n}"] = {"gx_rel_norm": rx, "gw_rel_norm": rw,
-                                           "gx_rel_max": mx, "gw_rel_max": mw}
-            del w, x, gy, xs, ws, y, gx, gw, ref
+            out[f"{name} K={kk} N={n}"] = ste_case(torch, name, fn, plain, kernels, gen, cfg,
+                                                   STE_M, kk, n)
     torch.cuda.empty_cache()
     return out
 
@@ -6053,39 +6119,46 @@ def _fused_ste_as(TO, fn):
         TO.dsbp_matmul_fused_ste = orig
 
 
-def _train_faults(torch, TO, STEProduct, d_ff: int):
+def _train_faults(torch, TO, STEProduct, target: str, k: int, n: int):
     """Planted faults of the QAT product, each a kernel or backward bug
-    that 24a's gradient limit must catch: B1's K loop one 64-group short
-    (every product), w2's output scale off by one power of two (the
-    product of K = d_ff), and w2's weight gradient lost."""
+    that a CPU-vs-card gradient limit must catch: B1's K loop one 64-group
+    short (every product), the output scale of the products of weight
+    shape (k, n) (``target``: w2, or a family's own) off by one power of
+    two, and their weight gradient lost."""
     def short_k(orig, x, w, c):
         def fwd(x_, w_, c_):
             return TO._fused_forward(torch.cat([x_[..., :-64], torch.zeros_like(x_[..., -64:])],
                                                -1), w_, c_)
         return STEProduct.apply(x, w, c, fwd)
 
-    def w2_scale(orig, x, w, c):
-        if w.shape[0] != d_ff:
+    def out_scale(orig, x, w, c):
+        if tuple(w.shape) != (k, n):
             return orig(x, w, c)
         return STEProduct.apply(x, w, c, lambda *a: 2 * TO._fused_forward(*a))
 
-    def w2_no_grad(orig, x, w, c):
-        if w.shape[0] != d_ff:
+    def no_grad(orig, x, w, c):
+        if tuple(w.shape) != (k, n):
             return orig(x, w, c)
         return orig(x, w.detach(), c) + 0 * w.sum()
 
-    return {"B1 one group short": short_k, "w2 output x2": w2_scale,
-            "w2 gradient lost": w2_no_grad}
+    return {"B1 one group short": short_k, f"{target} output x2": out_scale,
+            f"{target} gradient lost": no_grad}
 
 
 def _grad_rels(torch, got: dict, ref: dict) -> list:
-    """[(relative norm of got[k] - ref[k], k)], largest first, in float64
-    on ref's device."""
+    """[(relative norm of got[k] - ref[k], k)], largest first, on ref's
+    device, the sums of squares in float64 over chunks of 2^26 elements
+    (an expert stack's float64 copy would be 3.8 GB)."""
+    step = 1 << 26
     rels = []
     for k, g in ref.items():
-        g = g.double()
-        rels.append((float(torch.linalg.vector_norm(got[k].to(g.device, torch.float64) - g)
-                           / torch.linalg.vector_norm(g)), k))
+        a, g = got[k].to(g.device).reshape(-1), g.reshape(-1)
+        num = den = 0.0
+        for i in range(0, g.numel(), step):
+            gd = g[i:i + step].double()
+            num += float(torch.sum((a[i:i + step].double() - gd) ** 2))
+            den += float(torch.sum(gd * gd))
+        rels.append((math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf), k))
     return sorted(rels, reverse=True)
 
 
@@ -6167,7 +6240,8 @@ def phase_train_cross_device(torch, TM, adamw, get_config, SyntheticLM, DataConf
             del nudged
             rec["one ulp"] = (abs(nl - gl) / abs(gl), _grad_rels(torch, ng_, gg)[:2])
             del ng_
-            for name, fault in _train_faults(torch, TO, STEProduct, cfg.d_ff).items():
+            for name, fault in _train_faults(torch, TO, STEProduct, "w2", cfg.d_ff,
+                                             cfg.d_model).items():
                 with _fused_ste_as(TO, fault):
                     fl, fg = _loss_and_grads(torch, TM, adamw, gpu_model, batch, quant)
                 rec[name] = (abs(fl - gl) / abs(gl), _grad_rels(torch, fg, gg)[:2])
@@ -6309,7 +6383,6 @@ def _train_run(torch, TM, Engine, ServeConfig, adamw, store, get_config, Synthet
                DataConfig, Trainer, TrainConfig, root: Path) -> dict:
     """The body of phase 24, its checkpoints under ``root``."""
     import numpy as np
-    import warnings
 
     cfg = _train_cfg(get_config, TRAIN_LAYERS)
     ocfg = adamw.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
@@ -6332,77 +6405,68 @@ def _train_run(torch, TM, Engine, ServeConfig, adamw, store, get_config, Synthet
     # the table with atomics (index_put_ with accumulate=True), in no fixed
     # order where a token repeats: deterministic algorithms make the
     # restarted run's sums, and so its losses, equal the first run's
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
-        with warnings.catch_warnings(record=True) as caught, _timed_store(store, ckpt):
-            warnings.simplefilter("always")
-            steps, per_step = [], []
+    with _deterministic(torch) as nondet, _timed_store(store, ckpt):
+        steps, per_step = [], []
 
-            def log(step, m):
-                now = _launch_counts(want)
-                per_step.append({k: now[k] - log.last[k] for k in want})
-                log.last = now
-                steps.append(m["step_time_s"])
+        def log(step, m):
+            now = _launch_counts(want)
+            per_step.append({k: now[k] - log.last[k] for k in want})
+            log.last = now
+            steps.append(m["step_time_s"])
 
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            one = trainer(TRAIN_STEPS)
-            log.last = _launch_counts(want)
-            m1, s1, h1 = one.run(on_metrics=log)
-            run_s = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            for i, got in enumerate(per_step):
-                if got != want:
-                    raise AssertionError(f"24: step {i} launched {got}, want {want}")
-            if not (np.isfinite(h1).all() and h1[-1] < h1[0]):
-                raise AssertionError(f"24: losses {h1} (finite, the last below the first)")
-            if peak > TRAIN_PEAK_GIB:
-                raise AssertionError(f"24: peak {peak:.2f} GiB above {TRAIN_PEAK_GIB} GiB: the "
-                                     f"phase must take the lock")
-            ms = 1e3 * float(np.median(steps))
-            print(f"  {TRAIN_STEPS} steps, no checkpoint: losses {[round(x, 4) for x in h1]}; "
-                  f"{ms:.1f} ms per step (median, the host's clock around each synchronized "
-                  f"step), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; launches per step "
-                  f"{want} (remat: each layer's forward runs again in the backward); peak "
-                  f"{peak:.2f} GiB; {run_s:.1f} s with the model's init")
-            final = {k: p.detach().to("cpu", copy=True) for k, p in m1.named_parameters()}
-            del m1, s1, one
-            gc.collect()
-            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one = trainer(TRAIN_STEPS)
+        log.last = _launch_counts(want)
+        m1, s1, h1 = one.run(on_metrics=log)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, got in enumerate(per_step):
+            if got != want:
+                raise AssertionError(f"24: step {i} launched {got}, want {want}")
+        if not (np.isfinite(h1).all() and h1[-1] < h1[0]):
+            raise AssertionError(f"24: losses {h1} (finite, the last below the first)")
+        if peak > TRAIN_PEAK_GIB:
+            raise AssertionError(f"24: peak {peak:.2f} GiB above {TRAIN_PEAK_GIB} GiB: the "
+                                 f"phase must take the lock")
+        ms = 1e3 * float(np.median(steps))
+        print(f"  {TRAIN_STEPS} steps, no checkpoint: losses {[round(x, 4) for x in h1]}; "
+              f"{ms:.1f} ms per step (median, the host's clock around each synchronized "
+              f"step), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; launches per step "
+              f"{want} (remat: each layer's forward runs again in the backward); peak "
+              f"{peak:.2f} GiB; {run_s:.1f} s with the model's init")
+        final = {k: p.detach().to("cpu", copy=True) for k, p in m1.named_parameters()}
+        del m1, s1, one
+        gc.collect()
+        torch.cuda.empty_cache()
 
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            m2, s2, h2 = trainer(TRAIN_CKPT_EVERY, ckpt_dir).run()
-            del m2, s2
-            gc.collect()
-            torch.cuda.empty_cache()
-            m3, s3, h3 = trainer(TRAIN_STEPS, ckpt_dir).run()
-            restart_s = time.perf_counter() - t0
-            if h2 + h3 != h1:
-                raise AssertionError(f"24: the saving run's {h2} and the restored run's {h3} "
-                                     f"losses != the uninterrupted run's {h1}")
-            if not all(torch.equal(final[k], p.detach().cpu()) for k, p in m3.named_parameters()):
-                raise AssertionError("24: the restarted run's parameters differ")
-            print(f"  a run of {TRAIN_CKPT_EVERY} steps saving its last, and one restored from it "
-                  f"to step {TRAIN_STEPS}: losses {[round(x, 4) for x in h2]} + "
-                  f"{[round(x, 4) for x in h3]} equal the uninterrupted run's bit for bit, and "
-                  f"so are the final parameters; saves {[round(x, 1) for x in ckpt['save']]} s, "
-                  f"restore {[round(x, 1) for x in ckpt['restore']]} s of "
-                  f"{_dir_gib(ckpt_dir / f'step_{TRAIN_STEPS:08d}'):.2f} GiB each; "
-                  f"{restart_s:.1f} s for both runs")
-            batch = {k: torch.as_tensor(v, device="cuda")
-                     for k, v in SyntheticLM(dcfg, cfg).batch(TRAIN_STEPS).items()}
-            t0 = time.perf_counter()
-            trace, s3 = trace_train_step(torch, m3, s3, batch, ocfg)
-            trace_s = time.perf_counter() - t0
-            del m3, s3
-            peak_restart = torch.cuda.max_memory_allocated() / 2**30
-        nondet = sorted({str(w.message).split(".")[0] for w in caught
-                         if "deterministic" in str(w.message)})
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.utils.deterministic.fill_uninitialized_memory = True
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m2, s2, h2 = trainer(TRAIN_CKPT_EVERY, ckpt_dir).run()
+        del m2, s2
+        gc.collect()
+        torch.cuda.empty_cache()
+        m3, s3, h3 = trainer(TRAIN_STEPS, ckpt_dir).run()
+        restart_s = time.perf_counter() - t0
+        if h2 + h3 != h1:
+            raise AssertionError(f"24: the saving run's {h2} and the restored run's {h3} "
+                                 f"losses != the uninterrupted run's {h1}")
+        if not all(torch.equal(final[k], p.detach().cpu()) for k, p in m3.named_parameters()):
+            raise AssertionError("24: the restarted run's parameters differ")
+        print(f"  a run of {TRAIN_CKPT_EVERY} steps saving its last, and one restored from it "
+              f"to step {TRAIN_STEPS}: losses {[round(x, 4) for x in h2]} + "
+              f"{[round(x, 4) for x in h3]} equal the uninterrupted run's bit for bit, and "
+              f"so are the final parameters; saves {[round(x, 1) for x in ckpt['save']]} s, "
+              f"restore {[round(x, 1) for x in ckpt['restore']]} s of "
+              f"{_dir_gib(ckpt_dir / f'step_{TRAIN_STEPS:08d}'):.2f} GiB each; "
+              f"{restart_s:.1f} s for both runs")
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in SyntheticLM(dcfg, cfg).batch(TRAIN_STEPS).items()}
+        t0 = time.perf_counter()
+        trace, s3 = trace_train_step(torch, m3, s3, batch, ocfg)
+        trace_s = time.perf_counter() - t0
+        del m3, s3
+        peak_restart = torch.cuda.max_memory_allocated() / 2**30
     print(f"  deterministic algorithms were on for the embedding gather's backward "
           f"(index_put_ with accumulate=True); ops with no deterministic form: "
           f"{nondet or 'none'}")
@@ -6831,24 +6895,508 @@ def config_record(card: str, kern: dict, cross: dict, serves: dict, get_config) 
     return rec
 
 
-def family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config) -> dict:
-    """The kernel phases of 19-23 and 25 (25k, 25m), timed before anything
-    else shares the card."""
+# ---------------------------------------------------------------------------
+# phase 26: training beyond the dense family (the hybrid, MoE, SSD and the
+# two frontends) at full width
+# ---------------------------------------------------------------------------
+
+# (depth, batch, text positions per row) of phase 26's Trainers: full
+# width, f32, "precise" through dsbp_fused, remat, the synthetic stream.
+# The depth is cut to what a train state of 16 bytes per parameter
+# (weights, gradients, m, v) leaves beside the other process:
+# recurrentgemma-2b one (rglru, rglru, attn_local) unit beside its tied
+# 0.66e9-parameter embedding (~15 GB, and (4 x 512) x 256,000 f32 logits);
+# mixtral-8x7b one layer (~1.67e9 parameters, ~27 GB); mamba2-370m whole;
+# musicgen-large 4 layers; llava-next-34b one layer (~1.48e9, ~24 GB) at
+# batch 1, whose row is 2,880 image positions + 128 text: the attention
+# backward (the plain version's) holds (B, 56, 3,008, 3,008) f32 scores,
+# 2.0 GB a row, three or four times
+FAMILY_TRAIN = {"recurrentgemma-2b": (3, 4, 512), "mixtral-8x7b": (1, 4, 512),
+                "mamba2-370m": (48, 4, 512), "musicgen-large": (4, 4, 512),
+                "llava-next-34b": (1, 1, 128)}
+# above ~25 GiB, they take the lock: recurrentgemma-2b's 4 x 512 x 256,000
+# f32 logits and their softmax's backward beside its train state peaked at
+# 34.17 GiB on an H100
+FAMILY_HEAVY = ("recurrentgemma-2b", "mixtral-8x7b", "llava-next-34b")
+# a whole run's split of phase 26 between its two processes, so their
+# chains stay even (861 s / 801 s on an H100 with musicgen-large's Trainer
+# and mixtral's and musicgen's 26a in the first): the first trains these
+# (under the lock) and runs 26a of FAMILY_CROSS_FIRST (llava's takes ~65 s
+# of the CPU), the second the others (its heavy Trainers under the lock)
+FAMILY_FIRST = ("mixtral-8x7b", "llava-next-34b")
+FAMILY_CROSS_FIRST = ("llava-next-34b",)
+# a heavy Trainer's peak: the card's 74.5 GiB less the other process's
+# phases (at most TRAIN_PEAK_GIB while this one holds the lock) and room
+FAMILY_HEAVY_GIB = 48.0
+FAMILY_STEPS, FAMILY_LR = 5, 3e-4
+# the restarted run (saving at this step, restored from it to the end)
+# and the bf16 steps
+FAMILY_RESTART = ("mamba2-370m", 3)
+FAMILY_BF16 = ("mamba2-370m", 2)
+# each family's product that only it has (the projection of that weight
+# shape), by (name, K, N): 26k holds B1's straight-through product there
+# at the phase's rows, 26a plants its faults there
+FAMILY_SHAPE = {"recurrentgemma-2b": ("w2", 7680, 2560), "mixtral-8x7b": ("wk/wv", 4096, 1024),
+                "mamba2-370m": ("w_out", 2048, 1024), "musicgen-large": ("w2", 8192, 2048),
+                "llava-next-34b": ("w2", 20480, 7168)}
+# 26k: B2's autograd function at the families' head layouts (arch, B, Hq,
+# Hkv, S, D, window): recurrentgemma-2b's MQA past its 2,048-key window,
+# mixtral-8x7b's GQA 32 : 8 under its 4,096 window, musicgen-large's MHA at
+# D 64, llava-next-34b's GQA 56 : 8 over one row of 2,880 image + 128 text
+# positions
+FAMILY_B2 = (("recurrentgemma-2b", 2, 10, 1, 2560, 256, 2048),
+             ("mixtral-8x7b", 4, 32, 8, 512, 128, 4096),
+             ("musicgen-large", 4, 32, 32, 512, 64, 0),
+             ("llava-next-34b", 1, 56, 8, 3008, 128, 0))
+# 26a: CPU vs card, one step of TRAIN_CROSS_BATCH x TRAIN_CROSS_SEQ tokens
+# at one layer (the hybrid one unit), llava-next-34b's image prefix cut
+# to FAMILY_CROSS_IMAGE positions (the CPU's plain versions set the pace)
+FAMILY_CROSS_IMAGE = 64
+# 26a's "precise" gradient limit (card vs CPU, relative norm), 24a's
+# TRAIN_GRAD_REL but for recurrentgemma-2b, whose random-weight layers are
+# FP8-sensitive (ROADMAP C): at full width and one (rglru, rglru,
+# attn_local) unit the card's own step from weights one ulp away moved a
+# gradient by 0.101 of its norm (wq), the planted faults by 0.78-1.1 (an
+# H100, PERF.md, PR 27), so its limit is HYBRID_TIE, as phase 19's is
+FAMILY_GRAD_REL = {"recurrentgemma-2b": HYBRID_TIE}
+# 26a's float gradient limit, 24a's TRAIN_FLOAT_REL but for mamba2-370m:
+# the gradient of an SSD layer's a_log (H values) sums the decay's chain
+# over every row, position, head dim and state (~2^20 f32 terms a head
+# at 2 x 64 tokens, 2^-24 * sqrt(n) ~ 6e-5), which the card and the CPU
+# sum in other orders: 1.54e-5 of its norm on an H100 (PERF.md, PR 27)
+FAMILY_FLOAT_REL = {"mamba2-370m": 1e-4}
+
+
+def family_cfg(get_config, arch: str, n_layers: int, dtype: str = "float32"):
+    return get_config(arch).replace(n_layers=n_layers, quant="precise",
+                                    quant_method="dsbp_fused", dtype=dtype)
+
+
+def family_launches(model, remat: int) -> dict:
+    """B1 and B2 launches of one train step of ``model`` (each layer's
+    forward ``remat`` times): every quantized projection of a layer (an
+    attention layer's wq wk wv wo and, without experts, w1 w3 w2; an
+    rglru layer's w_in w_gate w_out and its FFN; an ssd layer's w_in
+    w_out), one attention per attention layer."""
+    per_kind = {"rglru": 6, "ssd": 2}
+    b1 = sum(per_kind.get(layer.kind, 4 if model.cfg.n_experts else 7)
+             for layer in model.layers)
+    b2 = sum(layer.has_kv for layer in model.layers)
+    return {"dsbp_fused": remat * b1, "flash_attention": remat * b2}
+
+
+def phase_family_kernels(torch, Q, DF, FA, TO, per_tensor_scale, get_config) -> dict:
+    """26k: B2's autograd function at FAMILY_B2's head layouts (output and
+    q / k / v gradients within 1e-5 of the plain version's autograd; the
+    forward timed cold beside plain and SDPA, forward + backward beside
+    SDPA's) and 'dsbp_fused''s straight-through product at each family's
+    FAMILY_SHAPE at phase 26's rows (forward bit-equal to its plain
+    version, gx / gw to the f32 products; B1 timed cold there)."""
+    print("== phase 26k: the training Functions at the families' shapes: B2's gradient, "
+          "dsbp_fused's straight-through product")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out = {"b2": {}, "b1": []}
+    for arch, b, hq, hkv, s, d, window in FAMILY_B2:
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda") for _ in range(2))
+        g = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+        kv_len = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        q0 = torch.zeros(b, dtype=torch.int32, device="cuda")
+        rel = b2_grad_case(torch, FA, q, k, v, kv_len, q0, g, window=window)
+        row = b2_case(torch, FA, f"{arch} training", q, k, v, kv_len.tolist(), q0.tolist(),
+                      window=window)
+        mask = FA.attention_mask(kv_len, q0, s, s, causal=True, window=window)[:, None]
+
+        def step(fn, *a):
+            qkv = [t.requires_grad_(True) for t in a[:3]]
+            torch.autograd.grad(fn(*qkv, *a[3:]), qkv, g)
+
+        kern = functools.partial(FA.flash_attention_grad, causal=True, window=window)
+        grad_ms = cuda_ms(lambda *a: step(kern, *a), [(q, k, v, kv_len, q0)], iters=3, warmup=1)
+        lib_grad_ms = cuda_ms(lambda *a: step(_sdpa, *a), [(q, k, v, mask)], iters=3, warmup=1)
+        row.update(arch=arch, shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window}",
+                   rel_out_dq_dk_dv=rel, grad_ms=grad_ms, library_grad_ms=lib_grad_ms)
+        print(f"  B2 {arch}: output, dq, dk, dv within {['%.2e' % r for r in rel]} of the "
+              f"plain version's autograd (limit 1e-5); forward + backward {grad_ms:.3f} ms "
+              f"(the backward the plain version's), SDPA's {lib_grad_ms:.3f} ms")
+        out["b2"][arch] = row
+        del q, k, v, g, mask
+        torch.cuda.empty_cache()
+    cfg = Q.PRESETS["precise"]
+    for arch, (_, kk, n) in FAMILY_SHAPE.items():
+        _, b, s = FAMILY_TRAIN[arch]
+        m = b * (s + get_config(arch).n_image_tokens)
+        ste = ste_case(torch, "dsbp_fused", TO.dsbp_matmul_fused_ste, fused_plain,
+                       ("dsbp_fused",), gen, cfg, m, kk, n)
+        row = b1_case(torch, Q, DF, per_tensor_scale, gen, m, kk, n, plain_rows=PLAIN_ROWS)
+        out["b1"].append({**row, "arch": arch, "ste": ste})
+        torch.cuda.empty_cache()
+    return out
+
+
+def _route_log(torch):
+    """Records each MoE layer's chosen experts (``moe.route``'s idx) while
+    the block runs: (context manager, the list it fills)."""
+    from repro_torch.models import moe as MOE
+
+    seen = []
+
+    @contextlib.contextmanager
+    def recording():
+        orig = MOE.route
+
+        def route(*a, **kw):
+            out = orig(*a, **kw)
+            seen.append(out[0].detach().to("cpu"))
+            return out
+
+        MOE.route = route
+        try:
+            yield
+        finally:
+            MOE.route = orig
+
+    return recording, seen
+
+
+def phase_family_cross_device(torch, TM, adamw, get_config, SyntheticLM, DataConfig,
+                              archs) -> dict:
+    """26a: each family at full width and one layer (recurrentgemma-2b
+    one pattern unit; llava-next-34b with FAMILY_CROSS_IMAGE image
+    positions), one train step of TRAIN_CROSS_BATCH x TRAIN_CROSS_SEQ
+    tokens on the CPU (plain versions) and the card (kernels) from the
+    same weights and batch, float then "precise" through 'dsbp_fused', by
+    24a's rule (norms relative to the card's gradients): float gradients
+    within FAMILY_FLOAT_REL (TRAIN_FLOAT_REL but for the SSD);
+    "precise" losses within phase 9's bound and gradients within
+    FAMILY_GRAD_REL (TRAIN_GRAD_REL but for the hybrid), which must lie
+    above the card's own step from weights one ulp away and below three
+    planted faults (B1's K loop one group
+    short, and on the family's own FAMILY_SHAPE product its output x2 and
+    its weight gradient lost), read in every run.  MoE routes that differ
+    between the two sides are counted."""
+    print(f"== phase 26a: the families at full width, one layer (unit), one train step: "
+          f"CPU (plain) vs card (kernels)")
+    from repro_torch.core.quantized import STEProduct
+    from repro_torch.kernels import ops as TO
+    from repro_torch.models.layers import Quant
+
+    out, failed = {}, []
+    for arch in archs:
+        target = FAMILY_SHAPE[arch]
+        t_arch = time.perf_counter()
+        layers = 3 if arch == "recurrentgemma-2b" else 1
+        cfg = family_cfg(get_config, arch, layers).replace(remat=False)
+        if cfg.frontend == "vlm_patches":
+            cfg = cfg.replace(n_image_tokens=FAMILY_CROSS_IMAGE)
+        batch = SyntheticLM(DataConfig(seed=26, batch_size=TRAIN_CROSS_BATCH,
+                                       seq_len=TRAIN_CROSS_SEQ), cfg).batch(0)
+        gpu_model = TM.init(cfg, seed=26, device="cuda")
+        cpu_model = TM.Model(cfg, torch.device("cpu"))
+        with torch.no_grad():
+            for p, c in zip(gpu_model.parameters(), cpu_model.parameters()):
+                c.copy_(p)
+        want = family_launches(gpu_model, 1)
+        out[arch] = {}
+        for label, quant, limit in (("float", Quant(None),
+                                     FAMILY_FLOAT_REL.get(arch, TRAIN_FLOAT_REL)),
+                                    ("precise", Quant("precise", "dsbp_fused"),
+                                     FAMILY_GRAD_REL.get(arch, TRAIN_GRAD_REL))):
+            recording, routes = _route_log(torch)
+            counts = _launch_counts(want)
+            with recording():
+                gl, gg = _loss_and_grads(torch, TM, adamw, gpu_model, batch, quant)
+            launched = {k: c - counts[k] for k, c in _launch_counts(want).items()}
+            if launched != (want if quant else {**want, "dsbp_fused": 0}):
+                raise AssertionError(f"26a {arch} {label}: launches {launched}, want {want}")
+            rec = {}
+            if quant:
+                # both sides of the limit, on the card: weights one ulp
+                # away (put back from the CPU's copy), planted faults
+                with torch.no_grad():
+                    for p in gpu_model.parameters():
+                        p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+                nl, ng_ = _loss_and_grads(torch, TM, adamw, gpu_model, batch, quant)
+                with torch.no_grad():
+                    for p, c in zip(gpu_model.parameters(), cpu_model.parameters()):
+                        p.copy_(c)
+                rec["one ulp"] = (abs(nl - gl) / abs(gl), _grad_rels(torch, ng_, gg)[:2])
+                del ng_
+                for name, fault in _train_faults(torch, TO, STEProduct, *target).items():
+                    with _fused_ste_as(TO, fault):
+                        fl, fg = _loss_and_grads(torch, TM, adamw, gpu_model, batch, quant)
+                    rec[name] = (abs(fl - gl) / abs(gl), _grad_rels(torch, fg, gg)[:2])
+                    del fg
+            card_routes = list(routes)
+            routes.clear()
+            with recording():
+                cl, cg = _loss_and_grads(torch, TM, adamw, cpu_model, batch, quant)
+            flips = sum(int((a != b).sum()) for a, b in zip(card_routes, routes))
+            rel_loss = abs(gl - cl) / abs(cl)
+            rels = _grad_rels(torch, cg, gg)  # on the card: float64 sums of 1.5e9 terms
+            print(f"  {arch} ({layers} layer(s)) {label}: loss card {gl:.6f}, CPU {cl:.6f} "
+                  f"(relative {rel_loss:.2e}, limit {KV_TIE}); gradients within "
+                  f"{rels[0][0]:.2e} of the card's norm (limit {limit}; largest "
+                  f"{[(k, float('%.2e' % r)) for r, k in rels[:3]]}); launched {launched}"
+                  + (f"; MoE choices that differ between the sides: {flips} of "
+                     f"{sum(r.numel() for r in routes)}" if cfg.n_experts else ""))
+            # every family's readings first, then the verdict
+            if not (math.isfinite(gl) and rel_loss <= KV_TIE):
+                failed.append(f"26a {arch} {label}: loss card {gl} vs CPU {cl}")
+            if not rels[0][0] <= limit:
+                failed.append(f"26a {arch} {label}: gradient of {rels[0][1]} card vs CPU "
+                              f"{rels[0][0]} > {limit}")
+            out[arch][label] = {"loss_card": gl, "loss_cpu": cl, "rel_loss": rel_loss,
+                                "worst_grads": rels[:3], "launches": launched,
+                                "route_flips": flips}
+            if quant:
+                for name, (lr, worst) in rec.items():
+                    print(f"    card vs card, {name}: loss {lr:.2e} apart, gradients "
+                          f"{[(k, float('%.2e' % r)) for r, k in worst]}")
+                noise = max(rels[0][0], rec["one ulp"][1][0][0])
+                caught = min(r[1][0][0] for n, r in rec.items() if n != "one ulp")
+                if not noise <= limit < caught:
+                    failed.append(f"26a {arch}: the QAT limit {limit} does not separate "
+                                  f"last-bit noise ({noise:.2e}) from the planted faults "
+                                  f"({caught:.2e})")
+                out[arch][label]["readings"] = rec
+            del gg, cg
+        out[arch]["seconds"] = time.perf_counter() - t_arch
+        print(f"    {arch}: {out[arch]['seconds']:.1f} s")
+        del cpu_model, gpu_model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Deterministic algorithms for the block (the embedding gather's
+    backward adds rows with atomics, in no fixed order where a token
+    repeats); yields the list of ops warned about as having no
+    deterministic form."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    nondet = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield nondet
+        nondet.extend(sorted({str(w.message).split(".")[0] for w in caught
+                              if "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+
+
+def family_train(torch, TM, adamw, store, get_config, SyntheticLM, DataConfig, Trainer,
+                 TrainConfig, arch: str) -> dict:
+    """26 for one config: a Trainer of FAMILY_STEPS steps at
+    FAMILY_TRAIN's depth and batch (the losses finite, B1 and B2
+    launches per step as ``family_launches`` counts them under remat, ms
+    per step, tokens/s, a held-out batch's loss lower after the last step
+    than before the first, peak memory gated below TRAIN_PEAK_GIB, or
+    FAMILY_HEAVY_GIB under the lock); for FAMILY_RESTART's config the run
+    saves at its step and the end, and a second run restored from that
+    step reaches the same losses and parameters bit for bit (deterministic
+    algorithms on for both); for FAMILY_BF16's, its bf16 steps (finite,
+    peak)."""
+    import numpy as np
+
+    layers, b, s = FAMILY_TRAIN[arch]
+    cfg = family_cfg(get_config, arch, layers)
+    ocfg = adamw.AdamWConfig(lr_peak=FAMILY_LR, warmup_steps=2, total_steps=FAMILY_STEPS)
+    dcfg = DataConfig(seed=26, batch_size=b, seq_len=s)
+    restart_at = FAMILY_RESTART[1] if arch == FAMILY_RESTART[0] else None
+    gate = FAMILY_HEAVY_GIB if arch in FAMILY_HEAVY else TRAIN_PEAK_GIB
+    positions = b * (s + cfg.n_image_tokens)
+    print(f"  {arch}: {layers} of {get_config(arch).n_layers} layers, {b} x {s} tokens"
+          + (f" after {cfg.n_image_tokens} image positions" if cfg.n_image_tokens else "")
+          + f" per step, {FAMILY_STEPS} steps")
+    root = Path(tempfile.mkdtemp(dir=RUN_ROOT.parent, prefix="family_ckpt_"))
+    rec = {"layers": layers, "batch": b, "seq": s, "positions_per_step": positions,
+           "params": sum(p.numel() for p in TM.Model(cfg, "meta").parameters())}
+    try:
+        def trainer(ckpt="", model=None):
+            return Trainer(cfg, TrainConfig(steps=FAMILY_STEPS, ckpt_dir=str(ckpt),
+                                            ckpt_every=restart_at or FAMILY_STEPS, log_every=1,
+                                            seed=26), ocfg, dcfg, model=model, device="cuda")
+
+        def held_out_loss(model):  # a batch no step trains on
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in SyntheticLM(dcfg, cfg).batch(FAMILY_STEPS).items()}
+            with torch.no_grad():
+                return float(TM.loss_fn(model, batch)[0])
+
+        steps, per_step, want = [], [], {}
+
+        def log(step, m):
+            now = _launch_counts(("dsbp_fused", "flash_attention"))
+            per_step.append({k: now[k] - log.last[k] for k in now})
+            log.last = now
+            steps.append(m["step_time_s"])
+
+        det = _deterministic(torch) if restart_at else contextlib.nullcontext([])
+        ckpt = root / "ckpt" if restart_at else ""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with det as nondet:
+            model = TM.init(cfg, seed=26, device="cuda")
+            before = held_out_loss(model)
+            tr = trainer(ckpt, model)
+            log.last = _launch_counts(("dsbp_fused", "flash_attention"))
+            model, opt, hist = tr.run(on_metrics=log)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = family_launches(model, 2 if cfg.remat else 1)
+            after = held_out_loss(model)
+            if restart_at:
+                final = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+                del model, opt, tr
+                gc.collect()
+                shutil.rmtree(ckpt / f"step_{FAMILY_STEPS:08d}")
+                t1 = time.perf_counter()
+                m2, _, h2 = trainer(ckpt).run()
+                rec["restart_s"] = time.perf_counter() - t1
+                if h2 != hist[restart_at:]:
+                    raise AssertionError(f"26 {arch}: the restored run's losses {h2} != "
+                                         f"{hist[restart_at:]}")
+                if not all(torch.equal(final[k], p.detach().cpu())
+                           for k, p in m2.named_parameters()):
+                    raise AssertionError(f"26 {arch}: the restored run's parameters differ")
+                del m2, final
+                rec["restored_losses"] = h2
+            else:
+                del model, opt, tr
+        if restart_at:
+            print(f"    saved at step {restart_at}, a run restored from it reaches the same "
+                  f"losses {[round(x, 4) for x in rec['restored_losses']]} and parameters bit "
+                  f"for bit ({rec['restart_s']:.1f} s, restore included; deterministic "
+                  f"algorithms on, no deterministic form for {nondet or 'no op'})")
+        for i, got in enumerate(per_step):
+            if got != want:
+                raise AssertionError(f"26 {arch}: step {i} launched {got}, want {want}")
+        # each step draws another batch, whose loss moves by about as much
+        # as a few steps of learning: the gate reads one held-out batch
+        # before the first step and after the last
+        if not (np.isfinite(hist).all() and after < before):
+            raise AssertionError(f"26 {arch}: losses {hist}; a held-out batch's {before} before "
+                                 f"and {after} after (finite, falling)")
+        if peak > gate:
+            raise AssertionError(f"26 {arch}: peak {peak:.2f} GiB above its gate {gate} GiB")
+        ms = 1e3 * float(np.median(steps))
+        print(f"    losses {[round(x, 4) for x in hist]}; a held-out batch's {before:.4f} "
+              f"before, {after:.4f} after; {ms:.1f} ms per step (median, the "
+              f"host's clock around each synchronized step), {b * s / ms * 1e3:.0f} tokens/s "
+              f"({positions / ms * 1e3:.0f} positions/s); launches per step {want} (remat); "
+              f"peak {peak:.2f} GiB (gate {gate}); {run_s:.1f} s with the model's init")
+        rec.update(losses=hist, held_out=(before, after), ms_per_step=ms,
+                   tokens_per_s=b * s / ms * 1e3,
+                   positions_per_s=positions / ms * 1e3, launches_per_step=want,
+                   peak_gib=peak, peak_gate_gib=gate, run_s=run_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch == FAMILY_BF16[0]:
+        cfg16 = family_cfg(get_config, arch, layers, dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m16, s16, h16 = Trainer(cfg16, TrainConfig(steps=FAMILY_BF16[1], log_every=1000,
+                                                   seed=26),
+                                adamw.AdamWConfig(lr_peak=FAMILY_LR, warmup_steps=1,
+                                                  total_steps=FAMILY_BF16[1]),
+                                dcfg, device="cuda").run()
+        del m16, s16
+        peak16 = torch.cuda.max_memory_allocated() / 2**30
+        if not np.isfinite(h16).all() or peak16 > gate:
+            raise AssertionError(f"26 {arch} bf16: losses {h16}, peak {peak16:.2f} GiB")
+        print(f"    bf16, {FAMILY_BF16[1]} steps: losses {[round(x, 4) for x in h16]}; peak "
+              f"{peak16:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+        rec.update(bf16_losses=h16, bf16_peak_gib=peak16)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def family_trains(torch, TM, get_config, archs) -> dict:
+    """26 for ``archs``, in order: {arch: record}."""
+    if not archs:
+        return {}
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    print(f"== phase 26: training {', '.join(archs)} at full width, \"precise\" through "
+          f"dsbp_fused, remat")
+    out, failed = {}, []
+    for arch in archs:  # every config's readings first, then the verdict
+        t0 = time.perf_counter()
+        try:
+            out[arch] = family_train(torch, TM, adamw, store, get_config, SyntheticLM,
+                                     DataConfig, Trainer, TrainConfig, arch)
+        except AssertionError as e:
+            print(f"    FAILED: {e}")
+            failed.append(str(e))
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        out[arch]["seconds"] = time.perf_counter() - t0
+        print(f"    {arch}: {out[arch]['seconds']:.1f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def family_cross(torch, TM, get_config, archs) -> dict:
+    """26a for ``archs``, in order: {arch: record}."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+
+    return phase_family_cross_device(torch, TM, adamw, get_config, SyntheticLM, DataConfig,
+                                     archs)
+
+
+def family_record(card: str, kern: dict, cross: dict, trains: dict) -> dict:
+    """Phase 26's record, its kernel rows with the launches per step of
+    the Trainer of their config; prints one ``train-families (phase 26):``
+    JSON line."""
+    for row in kern["b1"]:
+        row["launches_per_step"] = trains[row["arch"]]["launches_per_step"]["dsbp_fused"]
+    for arch, row in kern["b2"].items():
+        row["launches_per_step"] = trains[arch]["launches_per_step"]["flash_attention"]
+    rec = {"card": card, "26k": kern, "26a": cross, "26": trains}
+    print("train-families (phase 26): " + json.dumps(rec, default=_jsonable))
+    return rec
+
+
+def family_kernels(torch, Q, DF, FA, KVQ, TO, per_tensor_scale, get_config) -> dict:
+    """The kernel phases of 19-23, 25 (25k, 25m) and 26k, timed before
+    anything else shares the card."""
     return {"19": phase_hybrid_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale),
             "20": moe_kernels(torch, Q, DF, per_tensor_scale),
             "21": ssd_kernels(torch, Q, DF, per_tensor_scale),
             "22": phase_frontend_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale,
                                          frontend_configs(get_config)),
             "23": phase_bf16_kernels(torch, FA, KVQ),
-            "25": config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config)}
+            "25": config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config),
+            "26": phase_family_kernels(torch, Q, DF, FA, TO, per_tensor_scale, get_config)}
 
 
 def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO, blocks,
                     per_tensor_scale, get_config, kernels, run_dir: Path) -> int:
-    """The second process of a whole run: the kernels of 19-23 and 25 alone
-    on the card (the first process waits), then 20, 22 and 25's grok-1-314b
-    (holding the lock of the memory-heavy phases), 25's yi-9b, 21, 19, 23
-    and 24; hands their records over in ``run_dir/families.json``."""
+    """The second process of a whole run: the kernels of 19-23, 25 and 26
+    alone on the card (the first process waits), then 20, 22, 25's
+    grok-1-314b and 26's heavy Trainers not in FAMILY_FIRST (holding the
+    lock of the memory-heavy phases), 25's yi-9b, 21, 19, 23, 24, and 26's
+    other Trainers not in FAMILY_FIRST and 26a of the configs not in
+    FAMILY_CROSS_FIRST; hands their records over in
+    ``run_dir/families.json``."""
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the host is shared
     card = smi()
     t_run = time.perf_counter()
@@ -6857,10 +7405,11 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
         print(f"  [{done} done at {time.perf_counter() - t_run:.0f} s of the second process; "
               f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved]")
 
-    kern = family_kernels(torch, Q, DF, FA, KVQ, per_tensor_scale, get_config)
+    kern = family_kernels(torch, Q, DF, FA, KVQ, TO, per_tensor_scale, get_config)
     torch.cuda.synchronize()
     (run_dir / "kernels.done").write_text("")
-    stamp("phases 19-23 and 25 (kernels)")
+    stamp("phases 19-23, 25 and 26 (kernels)")
+    ours = [a for a in FAMILY_TRAIN if a not in FAMILY_FIRST]
     with heavy_phase(run_dir):
         moe = moe_phases(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, TO,
                          per_tensor_scale, get_config, card, b1=kern["20"])
@@ -6871,6 +7420,8 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
         cfg25 = config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO, get_config,
                               ("grok-1-314b",))
         stamp("phase 25 (grok-1-314b)")
+        trains = family_trains(torch, TM, get_config, [a for a in ours if a in FAMILY_HEAVY])
+        stamp("phase 26 (the heavy Trainers of this process)")
     cfg25.update(config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO, get_config,
                                [a for a in CONFIG_DENSE if a not in CONFIG_FIRST]))
     stamp("phase 25 (yi-9b)")
@@ -6887,10 +7438,17 @@ def families_worker(torch, TM, Engine, ServeConfig, Request, Q, DF, FA, KVQ, TO,
     stamp("phase 23")
     train = train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config)
     stamp("phase 24")
+    trains.update(family_trains(torch, TM, get_config, [a for a in ours
+                                                        if a not in FAMILY_HEAVY]))
+    stamp("phase 26 (" + ", ".join(a for a in ours if a not in FAMILY_HEAVY) + ")")
+    cross_ours = [a for a in FAMILY_TRAIN if a not in FAMILY_CROSS_FIRST]
+    cross = family_cross(torch, TM, get_config, cross_ours)
+    stamp("phase 26a (" + ", ".join(cross_ours) + ")")
     bf = {**bf, "kernels": {f"{k}|{c}": v for (k, c), v in bf["kernels"].items()}}
     (run_dir / "families.json").write_text(json.dumps(
         {"hyb": hyb, "moe": moe, "ssd": ssd, "fro": fro, "bf": bf, "train": train,
-         "cfg": {"kern": kern["25"], "serves": cfg25}},
+         "cfg": {"kern": kern["25"], "serves": cfg25},
+         "fam": {"kern": kern["26"], "trains": trains, "cross": cross}},
         default=_jsonable))
     return 0
 
@@ -7024,6 +7582,13 @@ def main() -> int:
         train_phases(torch, Q, DF, FA, TO, TM, Engine, ServeConfig, get_config)
         print(smi())
         return 0
+    if sys.argv[1:] == ["--train-families"]:  # phases 1, 26k, 26 and 26a: training families
+        kern = phase_family_kernels(torch, Q, DF, FA, TO, per_tensor_scale, get_config)
+        trains = family_trains(torch, TM, get_config, list(FAMILY_TRAIN))
+        cross = family_cross(torch, TM, get_config, list(FAMILY_TRAIN))
+        family_record(card, kern, cross, trains)
+        print(smi())
+        return 0
     if sys.argv[1:] == ["--configs"]:  # phases 1, 25k, 25m, 25a and 25: the copied configs
         kern = config_kernels(torch, Q, DF, FA, per_tensor_scale, get_config)
         cross = phase_config_cross_device(torch, TM, Engine, ServeConfig, get_config)
@@ -7125,6 +7690,9 @@ def main() -> int:
             first25 = config_serves(torch, TM, Engine, ServeConfig, Request, DF, FA, TO,
                                     get_config, CONFIG_FIRST)
             stamp("phase 25 (phi3-medium-14b, deepseek-coder-33b)")
+            trains26 = family_trains(torch, TM, get_config,
+                                     [a for a in FAMILY_FIRST if a in FAMILY_HEAVY])
+            stamp("phase 26 (the heavy Trainers of this process)")
         # llama-7b's one-layer CPU-vs-card checks, mostly the CPU's plain
         # versions, last: the second process's phase 24 binds the run
         models = phase_cross_device(torch, TM, Engine, ServeConfig, cfg)
@@ -7136,6 +7704,12 @@ def main() -> int:
         del models
         cross25 = phase_config_cross_device(torch, TM, Engine, ServeConfig, get_config)
         stamp("phase 25a")
+        light = [a for a in FAMILY_FIRST if a not in FAMILY_HEAVY]
+        if light:
+            trains26.update(family_trains(torch, TM, get_config, light))
+            stamp(f"phase 26 ({', '.join(light)})")
+        cross26 = family_cross(torch, TM, get_config, FAMILY_CROSS_FIRST)
+        stamp("phase 26a (" + ", ".join(FAMILY_CROSS_FIRST) + ")")
         mixed = pol["served"]["mixed + kv4"]
         rec = fam.finish()
         stamp("the second process")
@@ -7353,6 +7927,18 @@ def main() -> int:
                              f"grok-1-314b {GROK_LAYERS} layers, full width: generate + serve)")
     by_name["dsbp_fused"]["configs_rows"] = cfg25["kernels"]["b1"]
     by_name["flash_attention"]["configs_rows"] = cfg25["kernels"]["b2"]
+    # each kernel's launches per step on phase 26's Trainers (full width,
+    # the depths of FAMILY_TRAIN, dsbp_fused QAT with remat): B1 and B2
+    fam26 = family_record(card, rec["fam"]["kern"], {**cross26, **rec["fam"]["cross"]},
+                          {**trains26, **rec["fam"]["trains"]})
+    for k in kernels:
+        k["train_families_launches_per_step"] = {
+            a: r["launches_per_step"].get(k["name"], 0) for a, r in fam26["26"].items()}
+        k["train_families_path"] = ("phase 26 (" + ", ".join(
+            f"{a} {FAMILY_TRAIN[a][0]} layers" for a in FAMILY_TRAIN)
+            + ", full width: a Trainer's step, dsbp_fused QAT with remat)")
+    by_name["dsbp_fused"]["train_families_rows"] = fam26["26k"]["b1"]
+    by_name["flash_attention"]["train_families_rows"] = fam26["26k"]["b2"]
     print("speculation (phase 16): " + json.dumps(spec_record(spec, spec16a)))
     print(json.dumps({"kernels": kernels}))
     print(smi())

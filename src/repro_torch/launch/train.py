@@ -3,17 +3,21 @@ checkpoints and restart.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-7b-paper \\
       [--smoke] [--layers N] --steps 20 --batch 8 --seq 128 --lr 1e-3 \\
-      [--ckpt DIR] [--quant precise] [--method dsbp_fused] [--device cpu]
+      [--ckpt DIR [--ckpt-every N]] [--quant precise] [--method dsbp_fused] \\
+      [--device cpu]
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead (use it with ``--smoke``).  A full-size config trains in
-bfloat16, as the JAX launcher's does; ``--smoke`` in f32.  ``--layers N``
-cuts the depth (the first line says so); ``--quant`` / ``--method`` set
-the projections' DSBP preset and method (a raw weight trains through the
-method's kernel forward with a straight-through backward).  ``--ckpt``
-saves ``(params, opt_state)`` every 50 steps and at the end, and resumes
-from its newest step.  Dense attention configs only (ROADMAP A14); a
-mesh other than 1x1 waits for ROADMAP A13.
+bfloat16, as the JAX launcher's does; ``--smoke`` in f32.  Every arch
+trains: an audio config on (B, S, K) codebook ids, a vlm config with its
+image embeddings in front of the text.  ``--layers N`` cuts the depth of
+any config: the first line says so and, where the pattern has more than
+one kind, which pattern units and tail layers the cut keeps;
+``--quant`` / ``--method`` set the projections' DSBP preset and method (a
+raw weight trains through the method's kernel forward with a
+straight-through backward).  ``--ckpt`` saves ``(params, opt_state)``
+every ``--ckpt-every`` steps (50, as JAX's) and at the end, and resumes
+from its newest step.  A mesh other than 1x1 waits for ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--quant", default=None, help="a DSBP preset (default: the config's)")
     ap.add_argument("--method", default=None, help="dsbp_fused, dsbp_kernel or dsbp_ref")
     ap.add_argument("--mesh", default="1x1")
@@ -57,12 +62,19 @@ def main(argv=None):
         kw["quant_method"] = args.method
     cfg = cfg.replace(**kw)
     device = resolve_device(args.device)
-    cut = f" (cut from {full_layers})" if cfg.n_layers != full_layers else ""
+    cut = ""
+    if cfg.n_layers != full_layers:
+        cut = f" (cut from {full_layers}"
+        if len(cfg.pattern) > 1:  # which kinds the cut keeps
+            cut += f": {cfg.n_units} x {'/'.join(cfg.pattern)}"
+            cut += f" + {'/'.join(cfg.tail)}" if cfg.tail else ""
+        cut += ")"
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M layers={cfg.n_layers}{cut} "
           f"dtype={cfg.dtype} quant={cfg.quant} method={cfg.quant_method} device={device}")
     ocfg = adamw.AdamWConfig(lr_peak=args.lr, warmup_steps=max(args.steps // 10, 1),
                              total_steps=args.steps)
-    tcfg = TrainConfig(steps=args.steps, ckpt_dir=args.ckpt, log_every=1)
+    tcfg = TrainConfig(steps=args.steps, ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
+                       log_every=1)
     tr = Trainer(cfg, tcfg, ocfg, DataConfig(seed=0, batch_size=args.batch, seq_len=args.seq),
                  device=device)
 

@@ -528,14 +528,19 @@ class Model(nn.Module):
 
 # ---------------- training ----------------
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Training covers the dense attention family: a hybrid, MoE or SSD
-    config, or a frontend, raises."""
-    if cfg.family != "dense" or cfg.frontend != "none" or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains dense attention configs only (family "
-            f"{cfg.family!r}, frontend {cfg.frontend!r}); the other families wait for "
-            f"ROADMAP A14")
+def check_trainable(model: Model) -> None:
+    """What neither package trains: a packed projection (its int8
+    mantissas take no gradient; JAX's ``value_and_grad`` refuses integer
+    leaves), and a model under a rank mesh (ROADMAP A13).  Every family
+    and frontend trains."""
+    from repro_torch.parallel.context import active_ctx
+
+    if active_ctx() is not None:
+        raise NotImplementedError("training under a rank mesh waits for ROADMAP A13")
+    packed = [n for n, m in model.named_modules() if isinstance(m, PackedDSBPWeight)]
+    if packed:
+        raise ValueError(f"{model.cfg.name}: a packed projection does not train "
+                         f"({packed[0]}, ...): train the raw model, pack after")
 
 
 def _layer_out(layer, x, cfg, quant, positions):
@@ -556,22 +561,28 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
 
 
 def loss_fn(model: Model, batch: dict, quant: Quant | None = None):
-    """Next-token cross entropy of a dense model in sequence mode, with
-    gradients through every layer (JAX ``loss_fn``, :165); returns (loss,
-    {"loss": loss}).  ``batch`` holds ``tokens`` and ``labels`` (B, S)
-    and an optional ``loss_mask``, numpy arrays or tensors.  Projections
-    run the model's quant method; a raw weight under a DSBP method takes
-    its straight-through product (QAT).  ``cfg.remat`` recomputes each
-    layer's forward in the backward (``torch.utils.checkpoint``), so under
-    remat every projection's forward kernel runs twice per step."""
+    """Next-token cross entropy in sequence mode, with gradients through
+    every layer (JAX ``loss_fn``, :164-177); returns (loss, {"loss":
+    loss}).  ``batch`` holds ``tokens`` and ``labels`` (B, S) and an
+    optional ``loss_mask``, numpy arrays or tensors; an audio model's are
+    (B, S, K) codebook ids, its logits read as K heads of Vp columns and
+    no mask; a vlm model's ``image_embeds`` (B, S_img, d) go in front of
+    the text, and the loss (and mask) cover the text positions only.  MoE
+    layers drop past their capacity, as JAX's ``forward`` does.
+    Projections run the model's quant method; a raw weight under a DSBP
+    method takes its straight-through product (QAT).  ``cfg.remat``
+    recomputes each layer's forward in the backward
+    (``torch.utils.checkpoint``), so under remat every projection's
+    forward kernel runs twice per step."""
     cfg = model.cfg
-    check_trainable(cfg)
+    check_trainable(model)
     quant = model.default_quant() if quant is None else quant
     dev = model.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     labels = torch.as_tensor(batch["labels"], device=dev)
     mask = batch.get("loss_mask")
-    x, positions = model.embed_tokens(tokens)
+    mask = None if mask is None else torch.as_tensor(mask, device=dev)
+    x, positions = model.embed_tokens(tokens, batch.get("image_embeds"))
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in model.layers:
         if remat:
@@ -580,7 +591,13 @@ def loss_fn(model: Model, batch: dict, quant: Quant | None = None):
         else:
             x = _layer_out(layer, x, cfg, quant, positions)
     logits = model.head(rms_norm(model.final_norm, x, cfg.norm_eps))
-    loss = _ce(logits, labels, None if mask is None else torch.as_tensor(mask, device=dev))
+    if cfg.frontend == "audio_codebooks":
+        b, s, _ = logits.shape
+        loss = _ce(logits.reshape(b, s, cfg.n_codebooks, cfg.padded_vocab_size), labels)
+    else:
+        if cfg.frontend == "vlm_patches":  # the loss past the image prefix
+            logits = logits[:, batch["image_embeds"].shape[1]:]
+        loss = _ce(logits, labels, mask)
     return loss, {"loss": loss}
 
 

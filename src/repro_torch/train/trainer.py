@@ -6,6 +6,9 @@ A13).  :func:`train_step` takes the gradient of ``models.model.loss_fn``
 with autograd: projections run the model's quant method, so a DSBP
 method trains through its kernels' forward with a straight-through
 backward, and attention through B2 with the plain version's backward.
+Every family and frontend trains: the recurrent, SSD and MoE leaves (the
+expert stacks raw) are parameters like the projections, and an audio or
+vlm batch carries its codebook ids or image embeddings.
 :class:`Trainer` drives it from the synthetic stream, saving ``(params,
 opt_state)`` through ``checkpoint.store`` every ``ckpt_every`` steps and
 at the end, and restarting from the newest checkpoint.  Runs on the card
@@ -52,7 +55,9 @@ def train_step(model, opt_state: dict, batch: dict, opt_cfg: adamw.AdamWConfig):
     (:func:`adamw.trainable`) update in place; returns
     (opt_state, {loss, lr, grad_norm}).  ``tokens`` with a leading axis
     beyond (B, S) are microbatches: their f32 gradients are summed and
-    averaged, as JAX's scan (:44-58)."""
+    averaged, as JAX's scan (:44-58); every other leaf of the batch
+    (labels, a mask, a vlm model's ``image_embeds``) carries the same
+    leading axis and is split with them."""
     params = adamw.trainable(model)
     extra = 3 if model.cfg.frontend == "audio_codebooks" else 2
     if torch.as_tensor(batch["tokens"]).ndim > extra:
@@ -82,7 +87,6 @@ class Trainer:
     def __init__(self, cfg: ArchConfig, tcfg: TrainConfig,
                  opt_cfg: adamw.AdamWConfig | None = None,
                  data_cfg: DataConfig | None = None, *, model=None, device=None):
-        M.check_trainable(cfg)
         self.cfg = cfg
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=tcfg.steps)

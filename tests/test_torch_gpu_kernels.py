@@ -1114,6 +1114,9 @@ def test_bf16_smoke_generate_card_equals_cpu(cuda, arch):
     (3, 4, 4, 70, 128, (70, 33, 1), 0),     # MHA, a one-key row
     (2, 8, 2, 64, 64, (64, 50), 16),        # GQA with a window
     (1, 2, 1, 129, 256, (129,), 0),         # d_head 256
+    (1, 10, 1, 80, 256, (80,), 32),         # recurrentgemma-2b's MQA past a window
+    (1, 14, 2, 96, 128, (96,), 0),          # llava-next-34b's GQA 7
+    (2, 4, 4, 64, 64, (64, 40), 0),         # musicgen-large's MHA at d_head 64
 ])
 def test_flash_attention_grad_on_the_card(cuda, b, hq, hkv, s, d, lens, window):
     """B2's autograd function on the card: its forward is one B2 launch
@@ -1168,6 +1171,34 @@ def test_ste_products_on_the_card(cuda, method, m, k, n):
     assert torch.equal(y, yc), float((y - yc).abs().max())
     for got, want in ((gx, gxc), (gw, gwc)):
         assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mixtral-8x7b", "mamba2-370m",
+                                  "musicgen-large", "llava-next-34b"])
+def test_family_train_step_card_equals_cpu(cuda, arch):
+    """One float train step of each non-dense family's smoke config on the
+    card (B2's autograd function, no quantization) and on the CPU (plain
+    versions) from the same weights and batch: the loss within 1e-6 and
+    every gradient within 1e-5 of its norm (f32 products and reductions in
+    another order)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_batch_np
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw
+
+    cfg = smoke_config(arch)
+    batch = make_batch_np(cfg, 2, 32, seed=3)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = TM.init(cfg, seed=3, device="cpu").to(dev)
+        p = adamw.trainable(model)
+        loss, _ = TM.loss_fn(model, batch)
+        out[str(dev)] = (float(loss), [g.cpu() for g in torch.autograd.grad(loss, list(
+            p.values()))])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-6 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert float(torch.linalg.vector_norm(a - b)) <= 1e-5 * float(torch.linalg.vector_norm(b))
 
 
 # ---- the copied configs and the eleventh: yi-9b (GQA 32 : 4), phi3-medium-14b

@@ -8,10 +8,9 @@ unchanged with ``observe=True``, a deterministic trace under a seeded
 ``FaultPlan``, guard-trip telemetry), quantization health
 (``attribute_trip`` per cache entry, ``quant_sat_stats`` and
 ``sample_cache`` equal to JAX's on the same arrays and caches, float and
-kv8), ``reprice_from_telemetry`` (the same policy JSON as JAX's) and the
-recorder alone.  ``test_repriced_policy_loads_through_checkpoint_path``
-waits for the checkpoint store (ROADMAP A1): its reprice half is held
-against JAX through the policy's JSON here."""
+kv8), ``reprice_from_telemetry`` (the same policy JSON as JAX's, also
+after a save and load through the port's checkpoint store) and the
+recorder alone."""
 import dataclasses
 import json
 
@@ -432,6 +431,28 @@ def test_reprice_json_equals_jax():
             pols.append(pmod.reprice_from_telemetry(pol, qh, calibration=calib, **case["kw"]))
         assert pols[1].to_json() == pols[0].to_json(), case
         assert DSBPPolicy.from_json(pols[0].to_json()).to_json() == pols[1].to_json()
+
+
+def test_repriced_policy_loads_through_checkpoint_path(tmp_path):
+    """The port's case of JAX's test of the same name (tests/test_obs.py
+    :365): a repriced policy saved by ``DSBPPolicy.save`` through the
+    port's checkpoint store and loaded back widens the tripping layer, its
+    KV entry and its decision trail; its JSON equals JAX's repriced
+    policy's after JAX's own save and load, and the port loads JAX's
+    checkpoint to the same JSON."""
+    pol = DSBPPolicy.uniform("efficient", _KEYS).with_kv({"units.0": "kv4"})
+    new = reprice_from_telemetry(pol, {"units.0": 1})
+    path = new.save(str(tmp_path / "port"), step=3)
+    back = DSBPPolicy.load(str(tmp_path / "port"))
+    assert path and back.layers["units/0/attn/wq"] == PRESETS["precise"]
+    assert back.kv_spec_for("units.0").bits == 6
+    assert back.meta["reprice"]["flagged"] == {"units.0": "guard_trips=1"}
+    jnew = JP.reprice_from_telemetry(
+        JP.DSBPPolicy.uniform("efficient", _KEYS).with_kv({"units.0": "kv4"}), {"units.0": 1})
+    jnew.save(str(tmp_path / "jax"), step=3)
+    want = JP.DSBPPolicy.load(str(tmp_path / "jax")).to_json()
+    assert back.to_json() == new.to_json() == want
+    assert DSBPPolicy.load(str(tmp_path / "jax")).to_json() == want
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's training substrate against the JAX package, on the CPU:
 the synthetic stream, AdamW, the straight-through QAT products, B2's
 gradient, FP8 gradient compression (and its all-reduce on two gloo
-ranks), the launcher and the refusals.
+ranks), the launcher on every family (and its restart) and the refusals.
 
 Tolerances.  Batches and compressed gradients: equal (numpy / the same
 rounding).  AdamW: one update within 8 f32 ulps of JAX's per element
@@ -379,17 +379,77 @@ def test_train_launcher_smoke_on_cpu(tmp_path, capsys):
     assert np.isfinite(first + second).all()
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mixtral-8x7b", "mamba2-370m",
-                                  "musicgen-large", "llava-next-34b"])
-def test_non_dense_configs_refuse_training(arch):
-    from repro_torch.models import model as TM
-    from repro_torch.train.trainer import TrainConfig, Trainer
+NON_DENSE = ["recurrentgemma-2b", "mixtral-8x7b", "grok-1-314b", "mamba2-370m",
+             "musicgen-large", "llava-next-34b"]
 
-    cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        Trainer(cfg, TrainConfig(steps=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        TM.check_trainable(cfg)
+
+def _launch(arch, *extra):
+    from repro_torch.launch import train as LT
+
+    return LT.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
+                    "--quant", "precise", "--method", "dsbp_fused", *extra])
+
+
+@pytest.mark.parametrize("arch", NON_DENSE)
+def test_train_launcher_trains_every_family(arch, capsys):
+    """Two QAT steps of each non-dense arch's smoke config through the
+    launcher on the CPU: finite losses, one line per step; a cut of the
+    hybrid names the pattern units and tail layers it keeps."""
+    extra = ("--layers", "4") if arch == "recurrentgemma-2b" else ()
+    hist = _launch(arch, "--steps", "2", *extra)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"arch={arch} ")
+    if extra:
+        assert "layers=4 (cut from 8: 1 x rglru/rglru/attn_local + rglru)" in lines[0]
+    assert len([ln for ln in lines if ln.startswith("step")]) == 2 == len(hist)
+    assert np.isfinite(hist).all()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mixtral-8x7b", "mamba2-370m"])
+def test_train_launcher_restarts_bit_for_bit(arch, tmp_path, capsys):
+    """Four launcher steps checkpointing every two; a second launch
+    resumed from the step-2 checkpoint alone runs steps 3-4 with the same
+    losses and saves the same step-4 checkpoint, every leaf bit for bit:
+    the recurrent leaves (``lam``, ``ba``, ``bx``, ``conv_w``), the expert
+    stacks, the SSD leaves (``a_log``, ``dt_bias``, ``d_skip``) and their
+    AdamW moments."""
+    import shutil
+
+    from repro_torch.checkpoint import store
+
+    a, b = tmp_path / "a", tmp_path / "b"
+    first = _launch(arch, "--steps", "4", "--ckpt", str(a), "--ckpt-every", "2")
+    shutil.copytree(a / "step_00000002", b / "step_00000002")
+    second = _launch(arch, "--steps", "4", "--ckpt", str(b), "--ckpt-every", "2")
+    capsys.readouterr()
+    assert len(first) == 4 and second == first[2:]
+    (want, _), (got, _) = (store.restore_flat_tensors(str(d), step=4) for d in (a, b))
+    leaves = {"recurrentgemma-2b": ("lam", "ba", "bx", "conv_w"),
+              "mixtral-8x7b": ("router", "w1", "w3", "w2"),
+              "mamba2-370m": ("a_log", "dt_bias", "d_skip", "conv_w")}[arch]
+    for leaf in leaves:
+        assert any(k.startswith("0/layers.") and k.endswith("." + leaf) for k in want), leaf
+    assert sorted(want) == sorted(got)
+    assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+def test_check_trainable_refuses_packed_and_mesh():
+    """What neither package trains: a packed projection (JAX's
+    ``value_and_grad`` refuses its integer leaves), and a model under a
+    rank mesh (ROADMAP A13); a raw model of every family passes."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.packing import pack_weights_int8
+    from repro_torch.parallel.context import sharding_ctx
+
+    for arch in NON_DENSE:
+        TM.check_trainable(TM.init(smoke_config(arch), device="cpu"))
+    model = TM.init(smoke_config("mamba2-370m"), device="cpu")
+    with sharding_ctx(object()):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            TM.check_trainable(model)
+    pack_weights_int8(model, "precise")
+    with pytest.raises(ValueError, match="packed projection"):
+        TM.loss_fn(model, make_batch_np(smoke_config("mamba2-370m"), 2, 8))
 
 
 def test_launcher_mesh_refuses():
